@@ -10,18 +10,26 @@ Phases, each printing one JSON line per step:
            the nvcc version and ptxas's register/shared-memory report;
   kernels  each kernel against its plain PyTorch version on the card, on the
            same inputs, at the main path's shapes (T in {64, 1}, B = 4, width
-           1024, bf16) plus fp32 and ragged-edge cases; max |error| against a
-           stated tolerance, and kernel / plain times from CUDA events;
-  serve    ``repro_torch.launch.serve.main`` in batch mode for the four slice
-           configs at full width (``--batch 4 --prompt-len 64 --gen-len 32``),
-           with each kernel's launch count over the run;
+           1024, bf16; for the linear scan F = B * H = 4096) plus fp32,
+           ragged-edge and long-sequence cases and one backward of the linear
+           scan; max |error| against a stated tolerance, and kernel / plain
+           times from CUDA events;
+  serve    ``repro_torch.launch.serve.main`` in batch mode at full width
+           (``--batch 4 --prompt-len 64 --gen-len 32``) for the stacked and
+           fused configs, the base SRU/QRNN configs under ``--engine pallas``,
+           ``sru-paper-large`` on its own chunked engine and
+           ``lstm-paper-large``; each run's launches of each kernel
+           (counts set to 0 just before the run, read just after);
   profile  per config, a decode step's host time and torch.profiler's device
            time by kernel, hence the device's idle share;
-  parity   the stacked SRU and QRNN LMs at full width in fp32 compute, same
-           params, on the card versus the plain path on the CPU: teacher-forced
-           prefill logits and 8 decode steps.
+  parity   the stacked SRU and QRNN LMs, the base SRU and QRNN LMs under
+           pallas, and the LSTM LM at full width in fp32 compute, same
+           params, on the card versus the plain path on the CPU:
+           teacher-forced prefill logits and 8 decode steps.
 
-Then one ``{"kernels": [...]}`` line (launches from the serve phase), the
+Then one ``{"phase_seconds": {...}}`` line (each phase's wall time, the
+serve phase's warm-ups included), one ``{"kernels": [...]}`` line (launches
+from the serve phase), the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the last
 line. Without a CUDA device, or without the repository beside this file, it
@@ -42,10 +50,21 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("build", "kernels", "serve", "profile", "parity")
-SERVE_ARCHS = (
-    "sru-paper-large-stacked", "qrnn-paper-large-stacked",
-    "sru-paper-large-fused", "qrnn-paper-large-fused",
+# (arch, --engine override): the runs of the serve phase.
+SERVE_RUNS = (
+    ("sru-paper-large-stacked", None), ("qrnn-paper-large-stacked", None),
+    ("sru-paper-large-fused", None), ("qrnn-paper-large-fused", None),
+    ("sru-paper-large", "pallas"), ("qrnn-paper-large", "pallas"),
+    ("sru-paper-large", None), ("lstm-paper-large", None),
 )
+PROFILE_RUNS = SERVE_RUNS[:6]
+PARITY_RUNS = (
+    ("sru-paper-large-stacked", None), ("qrnn-paper-large-stacked", None),
+    ("sru-paper-large", "pallas"), ("qrnn-paper-large", "pallas"),
+    ("lstm-paper-large", None),
+)
+KERNELS = ("fused_rnn_layer", "fused_rnn_stack", "linear_scan")
+OUR_KERNEL_SYMBOLS = ("fused_rnn_layer_kernel", "linear_scan_kernel")  # device symbol names
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 SIMT
 # Tolerances, kernel vs plain version on the same card and inputs. Both sides
@@ -139,10 +158,11 @@ def phase_build():
     t0 = time.perf_counter()
     reports = build.build_all()
     dt = time.perf_counter() - t0
-    ptxas = [
-        line.strip() for log in reports.values() for line in log.splitlines()
-        if "registers" in line or "spill" in line
-    ]
+    ptxas = {
+        name: [line.strip() for line in log.splitlines()
+               if "registers" in line or "spill" in line or "Compiling entry" in line]
+        for name, log in reports.items()
+    }
     emit({"phase": "build", "seconds": dt, "nvcc": build.nvcc_version(), "ptxas": ptxas})
 
 
@@ -199,13 +219,117 @@ def _stack_case(name, cell, T, B, H, L, dtype_name, seed, block_t=32):
     return name, args, {"block_t": min(T, block_t)}, rw, ops
 
 
-def phase_kernels():
-    """Every kernel against its plain version. Returns per-kernel summaries."""
+def _scan_case(name, T, F, dtype_name, seed):
+    """Inputs for one linear-scan case: a = sigmoid(normal), b, c0 normal."""
     import torch
 
-    from repro_torch.kernels.fused_rnn import fused_rnn, stacked
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.sigmoid(torch.randn((T, F), generator=g, device=dev)).to(dt)
+    b = torch.randn((T, F), generator=g, device=dev).to(dt)
+    c0 = torch.randn((F,), generator=g, device=dev).to(dt)
+    rw = nbytes(a, b, c0) + nbytes(b)  # out (T, F) in b's dtype
+    return name, (a, b, c0), {}, rw, 2.0 * T * F
 
-    layer_cases, stack_cases = [], []
+
+def _summary(kname, source, replaces, rows):
+    main = rows[0]  # the main path's prefill shape: T = 64, bf16
+    decode = next(r for r in rows if r["T"] == 1)
+    return {
+        "name": kname, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": 0,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "case": main["case"], "decode_case": decode["case"],
+        "decode_ms": decode["ms"], "decode_plain_ms": decode["plain_ms"],
+        "decode_bound_ms": decode["bound_ms"], "cases_passed": len(rows),
+    }
+
+
+def _run_cases(kname, wrapper, plain, cases):
+    import torch
+
+    rows = []
+    for dtype, T, name, args, kw, rw, ops in cases:
+        out = wrapper(*args, **kw)
+        ref = plain(*args, **kw)
+        torch.cuda.synchronize()
+        out, ref = (x if isinstance(x, tuple) else (x,) for x in (out, ref))
+        err, tol, finite = compare(out, ref, dtype)
+        ms = time_ms(lambda: wrapper(*args, **kw), iters=50)
+        plain_ms = time_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
+        b_ms, b_by = bound(rw, ops, dtype)
+        row = {
+            "phase": "kernels", "kernel": kname, "case": name, "dtype": dtype, "T": T,
+            "max_abs_err": err, "tol": tol, "finite": finite, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        }
+        emit(row)
+        require(finite and err <= tol, f"{kname} [{name}]: err {err} > tol {tol}")
+        rows.append(row)
+    return rows
+
+
+def _scan_backward_row():
+    """One backward through ``ops.linear_scan`` (forward + reverse-time
+    kernel) against autograd through the plain version, fp32, (T, B, H) =
+    (64, 4, 1024). ``ms``, ``plain_ms`` and the bound are those of the
+    backward's two kernel calls (the forward, then the reverse-time call on
+    its prepared time-flipped operands) and of their plain versions;
+    ``op_ms`` is the whole autograd forward + backward, flips, products and
+    dispatch included, and has no bound."""
+    import torch
+
+    from repro_torch.kernels.linear_scan import ops
+    from repro_torch.kernels.linear_scan.linear_scan import linear_scan_kernel
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+
+    T, B, H = 64, 4, 1024
+    _, (a0, b0, c00), _, _, _ = _scan_case("bwd", T, B * H, "float32", 301)
+    w = torch.randn((T, B * H), generator=torch.Generator(device="cuda").manual_seed(302),
+                    device="cuda")
+
+    def fwd_bwd(fn):
+        a, b, c0 = (t.clone().requires_grad_(True) for t in (a0, b0, c00))
+        (fn(a, b, c0) * w).sum().backward()
+        return a.grad, b.grad, c0.grad
+
+    grads, refs = fwd_bwd(ops.linear_scan), fwd_bwd(linear_scan_ref)
+    torch.cuda.synchronize()
+    err, tol, finite = compare(grads, refs, "float32")
+    # The reverse-time call's operands, as _LinearScan.backward prepares them.
+    a_rev = torch.cat([a0[1:], torch.zeros_like(a0[:1])], dim=0).flip(0).contiguous()
+    g_rev, z0 = w.flip(0).contiguous(), torch.zeros_like(c00)
+
+    def two_calls(fn):
+        fn(a0, b0, c00)
+        fn(a_rev, g_rev, z0)
+
+    # Each call reads a, b, c0 once and writes c once; 2 operations per element.
+    rw = 2 * (nbytes(a0, b0, c00) + nbytes(b0))
+    b_ms, b_by = bound(rw, 2 * 2.0 * T * B * H, "float32")
+    row = {
+        "phase": "kernels", "kernel": "linear_scan", "case": "backward T=64 F=4096 fp32",
+        "dtype": "float32", "T": T, "max_abs_err": err, "tol": tol, "finite": finite,
+        "ms": time_ms(lambda: two_calls(linear_scan_kernel), iters=50),
+        "plain_ms": time_ms(lambda: two_calls(linear_scan_ref), iters=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "op_ms": time_ms(lambda: fwd_bwd(ops.linear_scan), iters=20),
+    }
+    emit(row)
+    require(finite and err <= tol, f"linear_scan [backward]: err {err} > tol {tol}")
+    return row
+
+
+def phase_kernels():
+    """Every kernel against its plain version. Returns per-kernel summaries."""
+    from repro_torch.kernels.fused_rnn import fused_rnn, stacked
+    from repro_torch.kernels.linear_scan import linear_scan
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+
+    layer_cases, stack_cases, scan_cases = [], [], []
     seed = 0
     for T in (64, 1):
         for mode, d in (("sru_identity", 1024), ("qrnn", 1024), ("sru_proj", 512)):
@@ -216,6 +340,9 @@ def phase_kernels():
             seed += 1
             stack_cases.append(("bfloat16", T) + _stack_case(
                 f"{cell} L=4 T={T}", cell, T, 4, 1024, 4, "bfloat16", seed))
+        seed += 1
+        scan_cases.append(("bfloat16", T) + _scan_case(
+            f"T={T} F=4096", T, 4096, "bfloat16", seed))
     layer_cases.append(("float32", 64) + _layer_case(
         "sru_identity T=64 d=1024 fp32", "sru_identity", 64, 4, 1024, 1024, "float32", 101))
     layer_cases.append(("float32", 13) + _layer_case(
@@ -224,86 +351,107 @@ def phase_kernels():
         "sru L=4 T=64 fp32", "sru", 64, 4, 1024, 4, "float32", 103))
     stack_cases.append(("float32", 13) + _stack_case(
         "qrnn ragged L=2 T=13 H=1000 fp32", "qrnn", 13, 3, 1000, 2, "float32", 104, 4))
+    for name, T, F, seed in (("T=64 F=4096 fp32", 64, 4096, 201),
+                             ("ragged T=13 F=3000 fp32", 13, 3000, 202),
+                             ("T=64 F=1 fp32", 64, 1, 203),
+                             ("long T=4096 F=128 fp32", 4096, 128, 204)):
+        scan_cases.append(("float32", T) + _scan_case(name, T, F, "float32", seed))
 
+    fused_src = "src/repro_torch/kernels/fused_rnn/csrc/fused_rnn_layer.cu"
     summaries = {}
-    for kname, wrapper, plain, cases, replaces in (
+    for kname, wrapper, plain, cases, source, replaces in (
         ("fused_rnn_layer", fused_rnn.fused_rnn_layer, fused_rnn.fused_rnn_layer_plain,
-         layer_cases, "src/repro/kernels/fused_rnn/fused_rnn.py:113"),
+         layer_cases, fused_src, "src/repro/kernels/fused_rnn/fused_rnn.py:113"),
         ("fused_rnn_stack", stacked.fused_rnn_stack, stacked.fused_rnn_stack_plain,
-         stack_cases, "src/repro/kernels/fused_rnn/stacked.py:144"),
+         stack_cases, fused_src, "src/repro/kernels/fused_rnn/stacked.py:144"),
+        ("linear_scan", linear_scan.linear_scan_kernel, linear_scan_ref, scan_cases,
+         "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
+         "src/repro/kernels/linear_scan/linear_scan.py:76"),
     ):
-        rows = []
-        for dtype, T, name, args, kw, rw, ops in cases:
-            out = wrapper(*args, **kw)
-            ref = plain(*args, **kw)
-            torch.cuda.synchronize()
-            err, tol, finite = compare(out, ref, dtype)
-            ms = time_ms(lambda: wrapper(*args, **kw), iters=50)
-            plain_ms = time_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
-            b_ms, b_by = bound(rw, ops, dtype)
-            row = {
-                "phase": "kernels", "kernel": kname, "case": name, "dtype": dtype, "T": T,
-                "max_abs_err": err, "tol": tol, "finite": finite, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            }
-            emit(row)
-            require(finite and err <= tol, f"{kname} [{name}]: err {err} > tol {tol}")
-            rows.append(row)
-        main = rows[0]  # the main path's prefill shape: SRU, T = 64, bf16
-        decode = next(r for r in rows if r["T"] == 1)
-        summaries[kname] = {
-            "name": kname, "route": "cuda",
-            "source": "src/repro_torch/kernels/fused_rnn/csrc/fused_rnn_layer.cu",
-            "replaces": replaces, "launches": 0,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None,
-            "case": main["case"], "decode_case": decode["case"],
-            "decode_ms": decode["ms"], "decode_plain_ms": decode["plain_ms"],
-            "decode_bound_ms": decode["bound_ms"], "cases_passed": len(rows),
-        }
+        rows = _run_cases(kname, wrapper, plain, cases)
+        if kname == "linear_scan":
+            rows.append(_scan_backward_row())
+        summaries[kname] = _summary(kname, source, replaces, rows)
     return summaries
 
 
-def phase_serve():
-    """The main path: four configs through serve.main. Returns kernel launches."""
-    from repro_torch.configs.registry import get_config
+def _launch_counters():
     from repro_torch.kernels.fused_rnn import fused_rnn, stacked
+    from repro_torch.kernels.linear_scan import linear_scan
+
+    return {"fused_rnn_layer": fused_rnn, "fused_rnn_stack": stacked, "linear_scan": linear_scan}
+
+
+def _run_cfg(arch, engine):
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
+    return cfg.with_(scan_engine=engine) if engine else cfg
+
+
+def _expected_launches(cfg, calls: int) -> dict:
+    """Launches of each kernel over ``calls`` prefill/decode calls: one per
+    layer per call on the kernel the config's engine routes to; none for
+    LSTM and the plain engines."""
+    want = dict.fromkeys(KERNELS, 0)
+    n = cfg.n_layers * calls
+    if cfg.cell == "lstm":
+        return want
+    if cfg.scan_engine == "fused_stack" and cfg.fuse_depth:
+        want["fused_rnn_stack"] = n
+    elif cfg.scan_engine in ("fused", "fused_stack"):
+        want["fused_rnn_layer"] = n
+    elif cfg.scan_engine == "pallas":
+        want["linear_scan"] = n
+    return want
+
+
+def phase_serve():
+    """The main path: each run through serve.main, with every kernel's count
+    set to 0 just before the run and read just after. Returns the launches
+    summed over the runs."""
     from repro_torch.launch import serve
 
     gen_len, prompt_len, batch = 32, 64, 4
-    for arch in SERVE_ARCHS:  # warm-up: CUDA context, cuBLAS handle, allocator
+    counters = _launch_counters()
+    # Warm-up of every run at the measured shapes: CUDA context, allocator,
+    # cuBLAS's first call at each GEMM shape, and the first launch of each
+    # kernel on the run's path (runs that share their cuBLAS shapes still
+    # differ in the elementwise kernels they launch first).
+    for arch, engine in SERVE_RUNS:
+        extra = ["--engine", engine] if engine else []
         with contextlib.redirect_stdout(io.StringIO()):
-            require(serve.main(["--arch", arch, "--gen-len", "2", "--prompt-len", "8"]) == 0,
-                    f"serve warm-up {arch}")
-    fused_rnn.LAUNCHES = stacked.LAUNCHES = 0
-    for arch in SERVE_ARCHS:
-        before = (fused_rnn.LAUNCHES, stacked.LAUNCHES)
+            require(serve.main(["--arch", arch, "--gen-len", "2", "--prompt-len", str(prompt_len)]
+                               + extra) == 0, f"serve warm-up {arch} {engine}")
+    totals = dict.fromkeys(KERNELS, 0)
+    for arch, engine in SERVE_RUNS:
+        extra = ["--engine", engine] if engine else []
         buf = io.StringIO()
+        for mod in counters.values():
+            mod.LAUNCHES = 0
         with contextlib.redirect_stdout(buf):
             rc = serve.main([
                 "--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt_len),
                 "--gen-len", str(gen_len),
-            ])
-        require(rc == 0, f"serve {arch} returned {rc}")
+            ] + extra)
+        launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+        require(rc == 0, f"serve {arch} {engine} returned {rc}")
         line = next(x for x in buf.getvalue().splitlines() if x.startswith("serve-stats "))
         stats = json.loads(line[len("serve-stats "):])
-        layer_n = fused_rnn.LAUNCHES - before[0]
-        stack_n = stacked.LAUNCHES - before[1]
-        cfg = get_config(arch)
+        cfg = _run_cfg(arch, engine)
         calls = 1 + (gen_len - 1)  # one prefill, gen_len - 1 decode steps
-        want = (0, cfg.n_layers * calls) if cfg.fuse_depth else (cfg.n_layers * calls, 0)
+        want = _expected_launches(cfg, calls)
         tokens = stats.pop("tokens")
         ok_tokens = all(0 <= t < cfg.vocab for row in tokens for t in row)
-        emit({"phase": "serve", **stats, "launches": {
-            "fused_rnn_layer": layer_n, "fused_rnn_stack": stack_n},
-            "launches_per_step": (layer_n + stack_n) / calls,
-            "sample_tokens": tokens[0][:8]})
-        require((layer_n, stack_n) == want,
-                f"serve {arch}: launches {(layer_n, stack_n)} != {want}")
+        emit({"phase": "serve", **stats, "engine": cfg.scan_engine, "launches": launches,
+              "launches_per_step": sum(launches.values()) / calls,
+              "sample_tokens": tokens[0][:8]})
+        require(launches == want, f"serve {arch} {engine}: launches {launches} != {want}")
         require(ok_tokens and len(tokens) == batch and len(tokens[0]) == gen_len,
-                f"serve {arch}: bad tokens")
-    return {"fused_rnn_layer": fused_rnn.LAUNCHES, "fused_rnn_stack": stacked.LAUNCHES}
+                f"serve {arch} {engine}: bad tokens")
+        for k, n in launches.items():
+            totals[k] += n
+    return totals
 
 
 def phase_profile():
@@ -314,14 +462,13 @@ def phase_profile():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.models import lm
     from repro_torch.models.layers import _dtype
     from repro_torch.training.steps import build_decode_step, build_prefill_step
 
     steps = 8
-    for arch in SERVE_ARCHS:
-        cfg = get_config(arch)
+    for arch, engine in PROFILE_RUNS:
+        cfg = _run_cfg(arch, engine)
         params = lm._cast_params(
             lm.lm_init(torch.Generator().manual_seed(0), cfg, device="cuda"),
             _dtype(cfg.compute_dtype),
@@ -348,23 +495,25 @@ def phase_profile():
         for e in prof.key_averages():
             dev_us = getattr(e, "self_device_time_total", 0.0) or 0.0
             if e.device_type == DeviceType.CUDA and dev_us > 0:
-                kernels.append((dev_us / steps, e.count / steps, e.key[:70]))
+                kernels.append((dev_us / steps, e.count / steps, e.key))
         kernels.sort(reverse=True)
         device_ms = sum(k[0] for k in kernels) / 1e3 if kernels else None
-        emit({"phase": "profile", "arch": arch, "step_ms": wall_ms, "device_ms": device_ms,
+        ours_us = sum(k[0] for k in kernels if any(n in k[2] for n in OUR_KERNEL_SYMBOLS))
+        emit({"phase": "profile", "arch": arch, "engine": cfg.scan_engine,
+              "step_ms": wall_ms, "device_ms": device_ms,
               "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms,
-              "top_kernels_us_per_step": [[round(k[0], 2), k[1], k[2]] for k in kernels[:6]]})
+              "our_kernels_us_per_step": ours_us,
+              "top_kernels_us_per_step": [[round(k[0], 2), k[1], k[2][:70]] for k in kernels[:6]]})
 
 
 def phase_parity():
     import torch
 
     from repro_torch.bridge import params_from_numpy, params_to_numpy
-    from repro_torch.configs.registry import get_config
     from repro_torch.models import lm
 
-    for arch in ("sru-paper-large-stacked", "qrnn-paper-large-stacked"):
-        cfg = get_config(arch).with_(compute_dtype="float32")
+    for arch, engine in PARITY_RUNS:
+        cfg = _run_cfg(arch, engine).with_(compute_dtype="float32")
         params_cpu = lm.lm_init(torch.Generator().manual_seed(7), cfg, device="cpu")
         params_gpu = params_from_numpy(params_to_numpy(params_cpu), device="cuda")
         g = torch.Generator().manual_seed(8)
@@ -385,11 +534,11 @@ def phase_parity():
         cache_err = max((caches["cuda"][k] - caches["cpu"][k]).abs().max().item()
                         for k in caches["cpu"])
         finite = bool(torch.isfinite(logits["cuda"]).all().item())
-        emit({"phase": "parity", "arch": arch, "compute": "float32",
+        emit({"phase": "parity", "arch": arch, "engine": cfg.scan_engine, "compute": "float32",
               "logits_shape": list(logits["cuda"].shape), "max_abs_err": err,
               "cache_max_abs_err": cache_err, "tol": PARITY_TOL, "finite": finite})
         require(finite and err <= PARITY_TOL and cache_err <= PARITY_TOL,
-                f"parity {arch}: logits err {err}, cache err {cache_err} > {PARITY_TOL}")
+                f"parity {arch} {engine}: logits err {err}, cache err {cache_err} > {PARITY_TOL}")
 
 
 def main(argv=None) -> int:
@@ -420,17 +569,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     try:
-        summaries, launches = {}, None
-        if "build" in phases:
-            phase_build()
-        if "kernels" in phases:
-            summaries = phase_kernels()
-        if "serve" in phases:
-            launches = phase_serve()
-        if "profile" in phases:
-            phase_profile()
-        if "parity" in phases:
-            phase_parity()
+        results, seconds = {}, {}
+        for name in PHASES:
+            if name in phases:
+                t0 = time.perf_counter()
+                results[name] = globals()[f"phase_{name}"]()
+                seconds[name] = time.perf_counter() - t0
+        emit({"phase_seconds": seconds})
+        summaries, launches = results.get("kernels"), results.get("serve")
         if summaries and launches is not None:
             for name, s in summaries.items():
                 s["launches"] = launches[name]

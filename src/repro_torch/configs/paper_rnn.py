@@ -3,8 +3,9 @@
 The port's own copy of ``repro/configs/paper_rnn.py`` (the port imports
 nothing of the JAX package). Small: LSTM width 350 / SRU|QRNN width 512.
 Large: LSTM 700 / SRU|QRNN 1024. The comments below describe the JAX
-package's engines; the port serves the ``-fused`` and ``-stacked`` variants
-through its own CUDA kernels (``repro_torch/kernels/fused_rnn``).
+package's engines; the port serves every config here but the ``*-int8``
+ones, through its own CUDA kernels (``repro_torch/kernels``) where the
+engine has one (``pallas``, ``fused``, ``fused_stack``).
 """
 from repro_torch.configs.base import ArchConfig
 

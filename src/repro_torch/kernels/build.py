@@ -35,6 +35,10 @@ SOURCES: Dict[str, tuple] = {
             "fused_rnn_stack_layer_launch": [_I] + [_P] * 10 + [_I] * 4 + [_F, _P],
         },
     ),
+    "linear_scan": (
+        _PKG / "linear_scan" / "csrc" / "linear_scan.cu",
+        {"linear_scan_launch": [_I] + [_P] * 4 + [_I] * 2 + [_P]},
+    ),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -24,38 +24,21 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import check_operand, cuda_dtype_code
 from repro_torch.kernels.fused_rnn import layout
 from repro_torch.kernels.fused_rnn.ref import fused_rnn_ref
 
 LAUNCHES = 0
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BATCH = 128  # the kernel tiles (time, batch) rows in chunks of at most 128
 _SKIP_MODES = {"qrnn": 0, "sru_identity": 1, "sru_proj": 2}
-
-
-def check_operand(t: torch.Tensor, name: str, shape, like: torch.Tensor) -> None:
-    """Raise unless ``t`` has ``shape`` and ``like``'s device and dtype and
-    is contiguous: the kernels take exactly that."""
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.device != like.device or t.dtype != like.dtype:
-        raise ValueError(
-            f"{name}: {t.dtype} on {t.device}, expected {like.dtype} on {like.device}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
 
 
 def kernel_dtype(u: torch.Tensor, batch: int) -> int:
     """The kernel's dtype code for ``u``; raises on what the kernel does not take."""
     if batch > MAX_BATCH:
         raise ValueError(f"the CUDA kernel takes batch <= {MAX_BATCH}, got {batch}")
-    if u.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {u.device}")
-    if u.dtype not in DTYPE_CODES:
-        raise ValueError(f"the CUDA kernel takes float32 or bfloat16, got {u.dtype}")
-    return DTYPE_CODES[u.dtype]
+    return cuda_dtype_code(u)
 
 
 def fused_rnn_layer_plain(u, taps, b3, c0, *, mode, tail=None, wskip=None, block_t=128):

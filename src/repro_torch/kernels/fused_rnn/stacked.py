@@ -27,9 +27,9 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import largest_divisor_leq
+from repro_torch.kernels.common import check_operand, largest_divisor_leq
 from repro_torch.kernels.fused_rnn import layout
-from repro_torch.kernels.fused_rnn.fused_rnn import check_operand, kernel_dtype
+from repro_torch.kernels.fused_rnn.fused_rnn import kernel_dtype
 from repro_torch.kernels.fused_rnn.ref import fused_rnn_stack_ref
 
 LAUNCHES = 0

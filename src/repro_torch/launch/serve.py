@@ -9,10 +9,13 @@ lockstep. Runs on the card unless ``--device cpu`` is given:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-large-stacked \\
         --reduced --device cpu
 
-``--engine`` overrides ``cfg.scan_engine`` with ``fused`` (one whole-layer
-kernel per layer) or ``fused_stack`` (the depth-fused stack). Continuous mode
-and the other flags of the JAX driver wait for later slices. Besides the
-two human-readable lines, the run prints one ``serve-stats {json}`` line with
+``--engine`` overrides ``cfg.scan_engine`` with any of the six engines of
+the JAX ``launch/serve.py`` (``ENGINE_MATRIX``); an unknown one exits with
+the list (``validate_engine``, the engine check of the JAX
+``validate_engine_mesh`` without its mesh parts). LSTM ignores the engine.
+Continuous mode and the other flags of the JAX ``launch/serve.py`` wait for
+later slices. Besides the two
+human-readable lines, the run prints one ``serve-stats {json}`` line with
 its timings and tokens.
 """
 from __future__ import annotations
@@ -25,25 +28,39 @@ import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.models import lm
-from repro_torch.models.layers import _dtype
+from repro_torch.models.layers import _dtype, resolve_device
 from repro_torch.training.steps import build_decode_step, build_prefill_step
 
-ENGINES = ("fused", "fused_stack")
+# How each engine runs an SRU/QRNN layer on the card; its keys are the engines.
+ENGINE_MATRIX = {
+    "sequential": "plain PyTorch; gate GEMM, then a step-by-step recurrence",
+    "chunked": "plain PyTorch; gate GEMM, then the MTS schedule (associative "
+               "inside blocks of mts_block_size)",
+    "associative": "plain PyTorch; gate GEMM, then a log-depth prefix scan",
+    "pallas": "gate GEMM, then the linear-scan CUDA kernel (B3)",
+    "fused": "the whole-layer CUDA kernel (B1), one launch per layer",
+    "fused_stack": "the depth-fused stack (B2; d_model == hidden)",
+}
+ENGINES = tuple(ENGINE_MATRIX)
+
+
+def _matrix_lines() -> str:
+    rows = "\n".join(f"  {e:<12} {d}" for e, d in ENGINE_MATRIX.items())
+    return f"supported engines:\n{rows}"
+
+
+def validate_engine(cfg) -> None:
+    """Fail fast on an engine the port does not serve, naming the engines."""
+    if cfg.scan_engine not in ENGINES:
+        raise SystemExit(
+            f"serve: unknown engine {cfg.scan_engine!r} (from --engine or the "
+            f"{cfg.name!r} config)\n{_matrix_lines()}"
+        )
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def resolve_device(name: str) -> torch.device:
-    """``cuda`` unless asked otherwise; no silent fall back to the CPU."""
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "serve: --device cuda (the default) but no CUDA device is available; "
-            "pass --device cpu to run the plain PyTorch path on the CPU"
-        )
-    return torch.device(name)
 
 
 def run_batch(cfg, params, args, device: torch.device) -> dict:
@@ -94,9 +111,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
-        "--engine", default=None, choices=ENGINES,
-        help="override cfg.scan_engine: fused (one kernel per layer) or "
-             "fused_stack (the depth-fused stack)",
+        "--engine", default=None,
+        help=f"override cfg.scan_engine: one of {', '.join(ENGINES)}",
     )
     ap.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
@@ -106,10 +122,11 @@ def main(argv=None) -> int:
     if args.gen_len < 1 or args.prompt_len < 1 or args.batch < 1:
         ap.error("--batch, --prompt-len and --gen-len must be >= 1")
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.engine:
         cfg = cfg.with_(scan_engine=args.engine)
+    validate_engine(cfg)
+    device = resolve_device(args.device)
     if args.reduced:
         cfg = cfg.reduced()
     params = lm.lm_init(torch.Generator().manual_seed(args.seed), cfg, device=device)

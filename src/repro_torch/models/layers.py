@@ -1,5 +1,5 @@
 """Common layers, from ``repro/models/layers.py``: the dtype map, RMSNorm,
-and the embedding table and LM head."""
+and the embedding table and LM head; and the port's device rule."""
 from __future__ import annotations
 
 import torch
@@ -7,6 +7,18 @@ import torch
 
 def _dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def resolve_device(device) -> torch.device:
+    """The port's entry points run on the card unless the caller asks for
+    the CPU: ``cuda`` without a CUDA device raises, never falls back."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (--device cpu) to run "
+            "the plain PyTorch path on the CPU"
+        )
+    return device
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype, device, scale: float | None = None):

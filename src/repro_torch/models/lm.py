@@ -22,6 +22,7 @@ from repro_torch.models.layers import (
     embed_apply,
     embed_init,
     logits_apply,
+    resolve_device,
     rmsnorm,
     rmsnorm_init,
 )
@@ -52,9 +53,10 @@ def _cast_params(tree, compute):
     return tree.to(compute)
 
 
-def lm_init(gen: torch.Generator, cfg, device="cpu") -> Dict:
+def lm_init(gen: torch.Generator, cfg, device="cuda") -> Dict:
     """Params from ``gen`` (a CPU ``torch.Generator``), made on ``device``."""
     _require_rnn(cfg)
+    device = resolve_device(device)
     if cfg.weight_quant != "none":
         raise NotImplementedError(
             "weight_quant='int8' is not ported yet (ROADMAP.md: the int8 forms of B1/B2)"
@@ -76,11 +78,13 @@ def _stack_trees(trees):
     return None if first is None else torch.stack(trees)
 
 
-def lm_init_caches(cfg, batch: int, max_len: int, device="cpu"):
+def lm_init_caches(cfg, batch: int, max_len: int, device="cuda"):
     """Zero caches ``{"layers": {leaf: (L, B, ...)}}`` in the compute dtype
-    (so the fp32 carry is rounded to it at every call boundary, as in JAX).
-    ``max_len`` is unused by RNN caches; it is kept for the JAX signature."""
+    (so the fp32 carry is rounded to it at every call boundary, as in JAX):
+    ``c``, plus ``x_tail`` for QRNN and ``h`` for LSTM. ``max_len`` is unused
+    by RNN caches; it is kept for the JAX signature."""
     _require_rnn(cfg)
+    device = resolve_device(device)
     one = rnn.rnn_init_cache(cfg, batch, _dtype(cfg.compute_dtype), device)
     return {"layers": {k: torch.stack([v] * cfg.n_layers) for k, v in one.items()}}
 

@@ -1,16 +1,18 @@
 """LM blocks of the paper's own models, from ``repro/models/rnn.py``:
-stacked SRU / QRNN layers. Block = pre-norm + cell + residual
+stacked SRU / QRNN / LSTM layers. Block = pre-norm + cell + residual
 (d_in == hidden == d_model).
 
-Two granularities, as in the JAX package:
+``cfg.scan_engine`` selects the recurrence schedule of SRU/QRNN blocks
+(``core/scan.py``); LSTM ignores it and runs ``core/mts.py::lstm_forward``,
+as in the JAX package. Two granularities:
 
   * per-layer — ``rnn_block_init/prefill/decode`` + ``rnn_init_cache``: one
     block at a time; ``models/lm.py`` loops them over the layers
     (``engine="fused"``: one whole-layer kernel per block).
   * stack-level — ``rnn_stack_prefill/decode``: the whole stack in one call,
     with stacked params ``(L, ...)`` and a stacked cache ``(L, B, H)``. With
-    ``cfg.scan_engine == "fused_stack"`` (d_model == hidden) it runs the
-    depth-fused stack (``kernels/fused_rnn/stacked.py``).
+    ``cfg.scan_engine == "fused_stack"`` (SRU/QRNN, d_model == hidden) it
+    runs the depth-fused stack (``kernels/fused_rnn/stacked.py``).
 
 The sharded branches of the JAX package wait for the multi-GPU slice.
 """
@@ -24,19 +26,10 @@ from repro_torch.core import cells, mts
 from repro_torch.kernels.fused_rnn import stacked
 from repro_torch.models.layers import rmsnorm, rmsnorm_init
 
-_INITS = {"sru": cells.sru_init, "qrnn": cells.qrnn_init}
-
-
-def _require_cell(cfg) -> None:
-    if cfg.cell not in _INITS:
-        raise NotImplementedError(
-            f"cell {cfg.cell!r} is not ported yet (ROADMAP.md: LSTM comes with the "
-            "core/scan.py engines)"
-        )
+_INITS = {"sru": cells.sru_init, "qrnn": cells.qrnn_init, "lstm": cells.lstm_init}
 
 
 def rnn_block_init(gen, cfg, dtype, device) -> Dict:
-    _require_cell(cfg)
     d, h = cfg.d_model, cfg.rnn_hidden
     return {
         "ln1": rmsnorm_init(d, dtype, device),
@@ -45,17 +38,18 @@ def rnn_block_init(gen, cfg, dtype, device) -> Dict:
 
 
 def rnn_init_cache(cfg, batch: int, dtype, device) -> Dict:
-    _require_cell(cfg)
-    cache = {"c": torch.zeros((batch, cfg.rnn_hidden), dtype=dtype, device=device)}
+    h = cfg.rnn_hidden
+    cache = {"c": torch.zeros((batch, h), dtype=dtype, device=device)}
     if cfg.cell == "qrnn":
         cache["x_tail"] = torch.zeros((batch, 1, cfg.d_model), dtype=dtype, device=device)
+    if cfg.cell == "lstm":
+        cache["h"] = torch.zeros((batch, h), dtype=dtype, device=device)
     return cache
 
 
 def rnn_block_prefill(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """x: (B, T, d). The per-layer path rounds to ``x``'s dtype at every
-    layer: the norm, the kernel's ``h`` and the residual add, as in JAX."""
-    _require_cell(cfg)
+    layer: the norm, the cell's ``h`` and the residual add, as in JAX."""
     h = rmsnorm(params["ln1"], x)
     if cfg.cell == "sru":
         out, c_last = mts.mts_sru(
@@ -63,12 +57,15 @@ def rnn_block_prefill(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.
             engine=cfg.scan_engine, block_size=cfg.mts_block_size,
         )
         cache = {"c": c_last}
-    else:
+    elif cfg.cell == "qrnn":
         out, c_last = mts.mts_qrnn(
             params["cell"], h, cache["c"], cache["x_tail"],
             engine=cfg.scan_engine, block_size=cfg.mts_block_size,
         )
         cache = {"c": c_last, "x_tail": h[:, -1:]}
+    else:
+        out, c_last = mts.lstm_forward(params["cell"], h, cache["h"], cache["c"])
+        cache = {"c": c_last, "h": out[:, -1]}
     return x + out, cache
 
 
@@ -84,8 +81,8 @@ def rnn_block_decode(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.T
 
 def _depth_fusible(cfg) -> bool:
     """The depth-fused stack covers SRU/QRNN stacks with d_model == hidden
-    (the residual stream feeds each layer at full width). Other stacks fall
-    back to the per-layer loop."""
+    (the residual stream feeds each layer at full width). LSTM and other
+    stacks fall back to the per-layer loop."""
     return (
         cfg.scan_engine == "fused_stack"
         and cfg.cell in ("sru", "qrnn")

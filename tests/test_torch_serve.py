@@ -1,6 +1,9 @@
-"""The port's serving path (``repro_torch``: bridge, LM, step builders, serve
-driver) against the JAX package's, on the ``.reduced()`` forms of the four
-slice configs, with the JAX package's own params bridged across.
+"""The port's serving path (``repro_torch``: bridge, LM, step builders,
+``launch/serve.py``) against the JAX package's, on the ``.reduced()`` forms of the fused
+and stacked configs and of the paper's seven base SRU/QRNN/LSTM configs
+(under their own ``chunked`` engine, under ``pallas``, and under the
+sequential and associative engines), with the JAX package's own params
+bridged across.
 
 Prefill and 8 greedy decode steps: logits and every cache leaf within 3e-5
 (``tests/test_rnn_stack.py``'s tolerance for a stack or logits), greedy
@@ -9,6 +12,7 @@ tokens identical (fp32 compute, where argmax ties do not occur).
 from __future__ import annotations
 
 import dataclasses
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +32,7 @@ from repro_torch import bridge
 from repro_torch.configs import paper_rnn
 from repro_torch.configs.registry import get_config
 from repro_torch.launch import serve
+from repro_torch.models import lm
 from repro_torch.training.steps import build_decode_step, build_prefill_step
 
 REPO = Path(__file__).resolve().parents[1]
@@ -35,6 +40,19 @@ SLICE_ARCHS = [
     "sru-paper-large-stacked", "qrnn-paper-large-stacked",
     "sru-paper-large-fused", "qrnn-paper-large-fused",
 ]
+BASE_ARCHS = [
+    "sru-paper-small", "sru-paper-large", "qrnn-paper-small", "qrnn-paper-large",
+    "lstm-paper-small", "lstm-paper-large", "sru-paper-draft",
+]
+# (arch, engine override): each base config on its own engine; the SRU/QRNN
+# ones under pallas too; one config of each cell under sequential and
+# associative (LSTM ignores the engine, as in JAX).
+BASE_CASES = (
+    [(a, None) for a in BASE_ARCHS]
+    + [(a, "pallas") for a in BASE_ARCHS if not a.startswith("lstm")]
+    + [(a, e) for a in ("sru-paper-small", "qrnn-paper-small", "lstm-paper-small")
+       for e in ("sequential", "associative")]
+)
 LOGIT_TOL = 3e-5
 B, PROMPT, STEPS = 3, 20, 8
 
@@ -87,10 +105,50 @@ def _compare_caches(port, ref):
         np.testing.assert_allclose(got, np.asarray(v), atol=LOGIT_TOL, rtol=0, err_msg=k)
 
 
+def test_bridge_round_trip_lstm_is_bitwise():
+    """The LSTM leaves (flat ``wx``, ``uh``, ``b``) and its ``h`` cache."""
+    jcfg = jax_get_config("lstm-paper-small").reduced()
+    params = _np_tree(jlm.lm_init(jax.random.PRNGKey(2), jcfg))
+    assert sorted(params["layers"]["cell"]) == ["b", "uh", "wx"]
+    _assert_same_tree(bridge.params_to_numpy(bridge.params_from_numpy(params, device="cpu")),
+                      params)
+    caches = _np_tree(jlm.lm_init_caches(jcfg, 2, 8))
+    caches["layers"]["h"] = np.random.default_rng(0).normal(
+        size=caches["layers"]["h"].shape).astype(np.float32)
+    _assert_same_tree(bridge.caches_to_numpy(bridge.caches_from_numpy(caches, device="cpu")),
+                      caches)
+    mine = lm.lm_init_caches(get_config("lstm-paper-small").reduced(), 2, 8, device="cpu")
+    assert sorted(mine["layers"]) == sorted(caches["layers"]) == ["c", "h"]
+    for k, v in mine["layers"].items():
+        assert tuple(v.shape) == caches["layers"][k].shape
+
+
+def test_lm_init_defaults_to_the_card():
+    """The port's entry points build on the card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    cfg = get_config("sru-paper-small").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.lm_init(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.lm_init_caches(cfg, 2, 8)
+
+
 @pytest.mark.parametrize("arch", SLICE_ARCHS)
 def test_prefill_and_decode_match_jax(arch):
+    _check_prefill_and_decode(arch, None)
+
+
+@pytest.mark.parametrize("arch,engine", BASE_CASES)
+def test_base_configs_match_jax(arch, engine):
+    _check_prefill_and_decode(arch, engine)
+
+
+def _check_prefill_and_decode(arch, engine):
     jcfg = jax_get_config(arch).reduced()
     cfg = get_config(arch).reduced()
+    if engine is not None:
+        jcfg, cfg = jcfg.with_(scan_engine=engine), cfg.with_(scan_engine=engine)
     jparams = jlm.lm_init(jax.random.PRNGKey(3), jcfg)
     params = bridge.params_from_numpy(_np_tree(jparams), device="cpu")
     prompt = np.random.default_rng(4).integers(0, cfg.vocab, (B, PROMPT)).astype(np.int32)
@@ -123,6 +181,15 @@ def test_serve_main_runs_on_cpu(arch, capsys):
     assert "serve-stats " in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("engine", serve.ENGINES)
+def test_serve_main_runs_every_engine_on_cpu(engine, capsys):
+    for arch in ("qrnn-paper-small", "lstm-paper-small"):
+        rc = serve.main(["--arch", arch, "--engine", engine, "--reduced", "--device", "cpu",
+                         "--batch", "2", "--prompt-len", "8", "--gen-len", "4"])
+        assert rc == 0
+        assert "serve-stats " in capsys.readouterr().out
+
+
 def test_serve_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("checks the refusal on a machine without a CUDA device")
@@ -130,11 +197,25 @@ def test_serve_defaults_to_the_card():
         serve.main(["--arch", "sru-paper-large-stacked", "--reduced"])
 
 
-def test_serve_rejects_unknown_flags_and_engines():
+def test_serve_base_config_on_pallas_runs_as_a_module():
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "sru-paper-large",
+           "--engine", "pallas", "--reduced", "--device", "cpu",
+           "--batch", "2", "--prompt-len", "8", "--gen-len", "4"]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=120, cwd=REPO,
+                         env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    stats = json.loads(out.stdout.split("serve-stats ", 1)[1])
+    assert stats["arch"] == "sru-paper-large-smoke" and len(stats["tokens"][0]) == 4
+
+
+def test_serve_rejects_unknown_flags_and_engines(capsys):
     with pytest.raises(SystemExit):
         serve.main(["--arch", "sru-paper-large-stacked", "--mode", "continuous"])
-    with pytest.raises(SystemExit):
-        serve.main(["--arch", "sru-paper-large-stacked", "--engine", "chunked"])
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--arch", "sru-paper-large", "--engine", "bogus", "--device", "cpu"])
+    msg = str(exc.value)
+    assert "unknown engine 'bogus'" in msg
+    assert all(e in msg for e in serve.ENGINES)
 
 
 def test_port_imports_neither_jax_nor_repro():
