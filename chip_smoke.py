@@ -6,26 +6,32 @@
 
 Phases, each printing one JSON line per step:
 
-  build    compile every CUDA source with nvcc (all at once), report the time,
+  build    compile every CUDA source with nvcc (all at once; the fused-RNN
+           source twice, fp and int8 instances apart), report the time,
            the nvcc version and ptxas's register/shared-memory report;
   kernels  each kernel against its plain PyTorch version on the card, on the
            same inputs, at the main path's shapes (T in {64, 1}, B = 4, width
            1024, bf16; for the linear scan F = B * H = 4096) plus fp32,
            ragged-edge and long-sequence cases and one backward of the linear
-           scan; max |error| against a stated tolerance, and kernel / plain
-           times from CUDA events;
+           scan; the int8 forms of the layer and the stack (int8 gate slabs,
+           fp32 scales) at the same shapes; max |error| against a stated
+           tolerance, and kernel / plain times from CUDA events (decode cases
+           also cold: the L2 flushed before each call);
   serve    ``repro_torch.launch.serve.main`` in batch mode at full width
            (``--batch 4 --prompt-len 64 --gen-len 32``) for the stacked and
            fused configs, the base SRU/QRNN configs under ``--engine pallas``,
-           ``sru-paper-large`` on its own chunked engine and
-           ``lstm-paper-large``; each run's launches of each kernel
-           (counts set to 0 just before the run, read just after);
-  profile  per config, a decode step's host time and torch.profiler's device
-           time by kernel, hence the device's idle share;
+           ``sru-paper-large`` on its own chunked engine,
+           ``lstm-paper-large`` and the four ``*-int8`` configs; each run's
+           launches of each kernel instance, fp and int8 apart (counts set to
+           0 just before the run, read just after);
+  profile  per config (the fp fused, stacked and pallas runs and the two
+           stacked int8 runs), a decode step's host time and torch.profiler's
+           device time by kernel, hence the device's idle share;
   parity   the stacked SRU and QRNN LMs, the base SRU and QRNN LMs under
-           pallas, and the LSTM LM at full width in fp32 compute, same
-           params, on the card versus the plain path on the CPU:
-           teacher-forced prefill logits and 8 decode steps.
+           pallas, the LSTM LM and two int8 LMs (stacked SRU, fused QRNN) at
+           full width in fp32 compute, same params, on the card versus the
+           plain path on the CPU: teacher-forced prefill logits and 8 decode
+           steps.
 
 Then one ``{"phase_seconds": {...}}`` line (each phase's wall time, the
 serve phase's warm-ups included), one ``{"kernels": [...]}`` line (launches
@@ -56,16 +62,23 @@ SERVE_RUNS = (
     ("sru-paper-large-fused", None), ("qrnn-paper-large-fused", None),
     ("sru-paper-large", "pallas"), ("qrnn-paper-large", "pallas"),
     ("sru-paper-large", None), ("lstm-paper-large", None),
+    ("sru-paper-large-stacked-int8", None), ("qrnn-paper-large-stacked-int8", None),
+    ("sru-paper-large-int8", None), ("qrnn-paper-large-int8", None),
 )
-PROFILE_RUNS = SERVE_RUNS[:6]
+# The fused int8 runs are not profiled: their kernels take the bf16 twins' time.
+PROFILE_RUNS = SERVE_RUNS[:6] + SERVE_RUNS[8:10]
 PARITY_RUNS = (
     ("sru-paper-large-stacked", None), ("qrnn-paper-large-stacked", None),
     ("sru-paper-large", "pallas"), ("qrnn-paper-large", "pallas"),
     ("lstm-paper-large", None),
+    ("sru-paper-large-stacked-int8", None), ("qrnn-paper-large-int8", None),
 )
-KERNELS = ("fused_rnn_layer", "fused_rnn_stack", "linear_scan")
+# Each kernel instance family with its launch counter (module attribute).
+KERNELS = ("fused_rnn_layer", "fused_rnn_stack", "linear_scan",
+           "fused_rnn_layer_int8", "fused_rnn_stack_int8")
 OUR_KERNEL_SYMBOLS = ("fused_rnn_layer_kernel", "linear_scan_kernel")  # device symbol names
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+L2_FLUSH_BYTES = 128 << 20         # written between cold calls; the H100's L2 is 50 MB
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 SIMT
 # Tolerances, kernel vs plain version on the same card and inputs. Both sides
 # compute in fp32; they differ by the GEMM's summation order over K <= 2048
@@ -96,12 +109,15 @@ def require(ok: bool, what: str) -> None:
 # timing and bounds
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
+def time_ms(fn, iters: int, warmup: int = 2, flush=None) -> float:
     """Device time per call, from CUDA events around ``iters`` calls.
 
     The stream is first held by a sleep kernel longer than the host needs to
     enqueue all the calls, so the calls then run back to back and the events
-    time the device, not the Python wrapper's issue rate.
+    time the device, not the Python wrapper's issue rate. Back to back, a
+    call finds in the L2 whatever of its operands the last call left there.
+    With ``flush`` (a write larger than the L2) before each call, every call
+    is timed alone between its own pair of events and finds nothing there.
     """
     import torch
 
@@ -109,17 +125,28 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    if flush is not None:
+        flush()
     fn()
     torch.cuda.synchronize()
     per_call_s = time.perf_counter() - t0  # host + device: an upper bound on enqueue
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    n_pairs = 1 if flush is None else iters
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(n_pairs)]
     torch.cuda._sleep(int(min(2.0 * iters * per_call_s, 5.0) * 2e9))  # cycles at <= 2 GHz
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    if flush is None:
+        events[0][0].record()
+        for _ in range(iters):
+            fn()
+        events[0][1].record()
+    else:
+        for start, end in events:
+            flush()
+            start.record()
+            fn()
+            end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return sum(start.elapsed_time(end) for start, end in events) / iters
 
 
 def nbytes(*tensors) -> int:
@@ -166,8 +193,21 @@ def phase_build():
     emit({"phase": "build", "seconds": dt, "nvcc": build.nvcc_version(), "ptxas": ptxas})
 
 
-def _layer_case(name, mode, T, B, d, H, dtype_name, seed, block_t=32):
-    """Inputs for one whole-layer kernel case, made on the card from a seed."""
+def _quantized(taps):
+    """fp gate slabs -> (int8 taps, compact fp32 scales), QRNN's taps sharing
+    one scale set, as ``layout.quantize_cell`` makes them."""
+    from repro_torch.kernels.fused_rnn import layout
+
+    if len(taps) == 2:
+        w0q, w1q, scale = layout.quantize_qrnn_slabs(*taps)
+        return (w0q, w1q), scale
+    wq, scale = layout.quantize_slabs(taps[0])
+    return (wq,), scale
+
+
+def _layer_case(name, mode, T, B, d, H, dtype_name, seed, block_t=32, quant=False):
+    """Inputs for one whole-layer kernel case, made on the card from a seed;
+    ``quant``: int8 gate slabs with their fp32 scales."""
     import torch
 
     dev = torch.device("cuda")
@@ -183,6 +223,8 @@ def _layer_case(name, mode, T, B, d, H, dtype_name, seed, block_t=32):
     b3 = uni(3, H, scale=0.5)
     c0 = uni(B, H, scale=0.5)
     kw = {"mode": mode, "block_t": min(T, block_t)}
+    if quant:
+        taps, kw["scale"] = _quantized(taps)
     if mode == "qrnn":
         kw["tail"] = torch.randn((1, B, d), generator=g, device=dev).to(dt)
     if mode == "sru_proj":
@@ -191,11 +233,11 @@ def _layer_case(name, mode, T, B, d, H, dtype_name, seed, block_t=32):
     K = d * n_taps
     ops = 2.0 * T * B * K * 3 * H + (2.0 * T * B * d * H if mode == "sru_proj" else 0.0)
     out_bytes = (T * B * H + B * H) * u.element_size()  # h, c_last
-    rw = nbytes(u, *taps, b3, c0, kw.get("tail"), kw.get("wskip")) + out_bytes
+    rw = nbytes(u, *taps, b3, c0, kw.get("tail"), kw.get("wskip"), kw.get("scale")) + out_bytes
     return name, args, kw, rw, ops
 
 
-def _stack_case(name, cell, T, B, H, L, dtype_name, seed, block_t=32):
+def _stack_case(name, cell, T, B, H, L, dtype_name, seed, block_t=32, quant=False):
     import torch
 
     dev = torch.device("cuda")
@@ -212,11 +254,14 @@ def _stack_case(name, cell, T, B, H, L, dtype_name, seed, block_t=32):
     lnL = (1.0 + uni(L, H, scale=0.2).float()).to(dt)
     c0L = uni(L, B, H, scale=0.5)
     tailsL = uni(L, B, H) if cell == "qrnn" else None
+    kw = {"block_t": min(T, block_t)}
+    if quant:
+        taps, kw["sL"] = _quantized(taps)
     args = (x, taps, b3L, lnL, c0L, tailsL)
     ops = 2.0 * L * T * B * n_taps * H * 3 * H
     out_bytes = nbytes(x) + nbytes(c0L) + nbytes(tailsL)
-    rw = nbytes(x, *taps, b3L, lnL, c0L, tailsL) + out_bytes
-    return name, args, {"block_t": min(T, block_t)}, rw, ops
+    rw = nbytes(x, *taps, b3L, lnL, c0L, tailsL, kw.get("sL")) + out_bytes
+    return name, args, kw, rw, ops
 
 
 def _scan_case(name, T, F, dtype_name, seed):
@@ -243,14 +288,18 @@ def _summary(kname, source, replaces, rows):
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None,
         "case": main["case"], "decode_case": decode["case"],
-        "decode_ms": decode["ms"], "decode_plain_ms": decode["plain_ms"],
+        "decode_ms": decode["ms"], "decode_cold_ms": decode["cold_ms"],
+        "decode_plain_ms": decode["plain_ms"],
         "decode_bound_ms": decode["bound_ms"], "cases_passed": len(rows),
     }
 
 
 def _run_cases(kname, wrapper, plain, cases):
+    """Each case against its plain version; decode cases (T = 1) are also
+    timed cold, with the L2 flushed before each call (``cold_ms``)."""
     import torch
 
+    l2 = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rows = []
     for dtype, T, name, args, kw, rw, ops in cases:
         out = wrapper(*args, **kw)
@@ -259,11 +308,14 @@ def _run_cases(kname, wrapper, plain, cases):
         out, ref = (x if isinstance(x, tuple) else (x,) for x in (out, ref))
         err, tol, finite = compare(out, ref, dtype)
         ms = time_ms(lambda: wrapper(*args, **kw), iters=50)
+        cold_ms = None
+        if T == 1:
+            cold_ms = time_ms(lambda: wrapper(*args, **kw), iters=50, flush=l2.zero_)
         plain_ms = time_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
         b_ms, b_by = bound(rw, ops, dtype)
         row = {
             "phase": "kernels", "kernel": kname, "case": name, "dtype": dtype, "T": T,
-            "max_abs_err": err, "tol": tol, "finite": finite, "ms": ms,
+            "max_abs_err": err, "tol": tol, "finite": finite, "ms": ms, "cold_ms": cold_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         }
         emit(row)
@@ -330,19 +382,29 @@ def phase_kernels():
     from repro_torch.kernels.linear_scan.ref import linear_scan_ref
 
     layer_cases, stack_cases, scan_cases = [], [], []
+    layer_q_cases, stack_q_cases = [], []
     seed = 0
     for T in (64, 1):
         for mode, d in (("sru_identity", 1024), ("qrnn", 1024), ("sru_proj", 512)):
             seed += 1
             layer_cases.append(("bfloat16", T) + _layer_case(
                 f"{mode} T={T} d={d}", mode, T, 4, d, 1024, "bfloat16", seed))
+            layer_q_cases.append(("bfloat16", T) + _layer_case(
+                f"int8 {mode} T={T} d={d}", mode, T, 4, d, 1024, "bfloat16", seed, quant=True))
         for cell in ("sru", "qrnn"):
             seed += 1
             stack_cases.append(("bfloat16", T) + _stack_case(
                 f"{cell} L=4 T={T}", cell, T, 4, 1024, 4, "bfloat16", seed))
+            stack_q_cases.append(("bfloat16", T) + _stack_case(
+                f"int8 {cell} L=4 T={T}", cell, T, 4, 1024, 4, "bfloat16", seed, quant=True))
         seed += 1
         scan_cases.append(("bfloat16", T) + _scan_case(
             f"T={T} F=4096", T, 4096, "bfloat16", seed))
+    # Ragged: the last CTA has 4 lanes (per-element int8 loads) and the last
+    # scale block 100 lanes.
+    layer_q_cases.append(("float32", 13) + _layer_case(
+        "int8 qrnn ragged T=13 d=H=996 fp32", "qrnn", 13, 3, 996, 996, "float32", 105, 4,
+        quant=True))
     layer_cases.append(("float32", 64) + _layer_case(
         "sru_identity T=64 d=1024 fp32", "sru_identity", 64, 4, 1024, 1024, "float32", 101))
     layer_cases.append(("float32", 13) + _layer_case(
@@ -367,6 +429,10 @@ def phase_kernels():
         ("linear_scan", linear_scan.linear_scan_kernel, linear_scan_ref, scan_cases,
          "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
          "src/repro/kernels/linear_scan/linear_scan.py:76"),
+        ("fused_rnn_layer_int8", fused_rnn.fused_rnn_layer, fused_rnn.fused_rnn_layer_plain,
+         layer_q_cases, fused_src, "src/repro/kernels/fused_rnn/fused_rnn.py:113"),
+        ("fused_rnn_stack_int8", stacked.fused_rnn_stack, stacked.fused_rnn_stack_plain,
+         stack_q_cases, fused_src, "src/repro/kernels/fused_rnn/stacked.py:144"),
     ):
         rows = _run_cases(kname, wrapper, plain, cases)
         if kname == "linear_scan":
@@ -376,10 +442,16 @@ def phase_kernels():
 
 
 def _launch_counters():
+    """Kernel -> (module, name of its launch counter); the wrappers count fp
+    and int8 instance launches apart."""
     from repro_torch.kernels.fused_rnn import fused_rnn, stacked
     from repro_torch.kernels.linear_scan import linear_scan
 
-    return {"fused_rnn_layer": fused_rnn, "fused_rnn_stack": stacked, "linear_scan": linear_scan}
+    return {"fused_rnn_layer": (fused_rnn, "LAUNCHES"),
+            "fused_rnn_stack": (stacked, "LAUNCHES"),
+            "linear_scan": (linear_scan, "LAUNCHES"),
+            "fused_rnn_layer_int8": (fused_rnn, "LAUNCHES_INT8"),
+            "fused_rnn_stack_int8": (stacked, "LAUNCHES_INT8")}
 
 
 def _run_cfg(arch, engine):
@@ -391,16 +463,18 @@ def _run_cfg(arch, engine):
 
 def _expected_launches(cfg, calls: int) -> dict:
     """Launches of each kernel over ``calls`` prefill/decode calls: one per
-    layer per call on the kernel the config's engine routes to; none for
-    LSTM and the plain engines."""
+    layer per call on the kernel the config's engine routes to (its int8
+    instance under ``weight_quant == "int8"``); none for LSTM and the plain
+    engines."""
     want = dict.fromkeys(KERNELS, 0)
     n = cfg.n_layers * calls
+    q = "_int8" if cfg.weight_quant == "int8" else ""
     if cfg.cell == "lstm":
         return want
     if cfg.scan_engine == "fused_stack" and cfg.fuse_depth:
-        want["fused_rnn_stack"] = n
+        want["fused_rnn_stack" + q] = n
     elif cfg.scan_engine in ("fused", "fused_stack"):
-        want["fused_rnn_layer"] = n
+        want["fused_rnn_layer" + q] = n
     elif cfg.scan_engine == "pallas":
         want["linear_scan"] = n
     return want
@@ -427,14 +501,14 @@ def phase_serve():
     for arch, engine in SERVE_RUNS:
         extra = ["--engine", engine] if engine else []
         buf = io.StringIO()
-        for mod in counters.values():
-            mod.LAUNCHES = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
         with contextlib.redirect_stdout(buf):
             rc = serve.main([
                 "--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt_len),
                 "--gen-len", str(gen_len),
             ] + extra)
-        launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+        launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
         require(rc == 0, f"serve {arch} {engine} returned {rc}")
         line = next(x for x in buf.getvalue().splitlines() if x.startswith("serve-stats "))
         stats = json.loads(line[len("serve-stats "):])
@@ -462,6 +536,7 @@ def phase_profile():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.fused_rnn import layout
     from repro_torch.models import lm
     from repro_torch.models.layers import _dtype
     from repro_torch.training.steps import build_decode_step, build_prefill_step
@@ -469,7 +544,7 @@ def phase_profile():
     steps = 8
     for arch, engine in PROFILE_RUNS:
         cfg = _run_cfg(arch, engine)
-        params = lm._cast_params(
+        params = layout.cast_params(
             lm.lm_init(torch.Generator().manual_seed(0), cfg, device="cuda"),
             _dtype(cfg.compute_dtype),
         )
@@ -528,6 +603,8 @@ def phase_parity():
                 for i in range(forced.shape[1]):
                     out, c = lm.lm_decode_step(params, cfg, c, forced[:, i:i + 1].to(dev))
                     steps.append(out)
+                on = {t.device.type for t in steps + list(c["layers"].values())}
+                require(on == {dev}, f"parity {arch}: the {dev} run's outputs lie on {on}")
                 logits[dev] = torch.cat(steps, dim=1).cpu()
                 caches[dev] = {k: v.cpu() for k, v in c["layers"].items()}
         err = (logits["cuda"] - logits["cpu"]).abs().max().item()

@@ -3,9 +3,10 @@
 The port's own copy of ``repro/configs/paper_rnn.py`` (the port imports
 nothing of the JAX package). Small: LSTM width 350 / SRU|QRNN width 512.
 Large: LSTM 700 / SRU|QRNN 1024. The comments below describe the JAX
-package's engines; the port serves every config here but the ``*-int8``
-ones, through its own CUDA kernels (``repro_torch/kernels``) where the
-engine has one (``pallas``, ``fused``, ``fused_stack``).
+package's engines; the port serves every config here, through its own CUDA
+kernels (``repro_torch/kernels``) where the engine has one (``pallas``,
+``fused``, ``fused_stack``; the ``*-int8`` ones through the int8 forms of
+the fused kernels).
 """
 from repro_torch.configs.base import ArchConfig
 

@@ -59,7 +59,8 @@ def mts_sru(
     if engine in FUSED_ENGINES:
         xt = xt.contiguous()
         if c0 is None:
-            c0 = torch.zeros((xt.shape[1], params["w"].shape[-1]), dtype=xt.dtype, device=xt.device)
+            H = params["wq" if layout.is_quantized(params) else "w"].shape[-1]
+            c0 = torch.zeros((xt.shape[1], H), dtype=xt.dtype, device=xt.device)
         h, c_last = ops.fused_sru(params, xt, c0, block_t=block_size)
         return _tm(h), c_last
     _require_fp(params, engine)
@@ -88,7 +89,8 @@ def mts_qrnn(
         xt = xt.contiguous()
         tail = None if tail is None else tail.contiguous()
         if c0 is None:
-            c0 = torch.zeros((xt.shape[1], params["w0"].shape[-1]), dtype=xt.dtype, device=xt.device)
+            H = params["w0q" if layout.is_quantized(params) else "w0"].shape[-1]
+            c0 = torch.zeros((xt.shape[1], H), dtype=xt.dtype, device=xt.device)
         h, c_last = ops.fused_qrnn(params, xt, tail, c0, block_t=block_size)
         return _tm(h), c_last
     _require_fp(params, engine)

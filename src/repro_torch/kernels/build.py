@@ -1,14 +1,15 @@
 """Build and load the port's CUDA kernels: ``nvcc`` into a shared library
 with a plain C interface, loaded with ``ctypes``.
 
-Each source under ``kernels/*/csrc/`` compiles on first use into
+Each source under ``kernels/*/csrc/`` compiles on first use (the fused-RNN
+source twice: fp and int8 weight instances) into
 ``build/kernels/`` at the repository root, named by a hash of its content, so
 an edited source rebuilds and an unchanged one loads what is there. Nothing
 happens at import: this module imports on a machine with no ``nvcc`` and no
 card, and a failed build raises.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so <source>.cu
+         -Xcompiler -fPIC [-DFUSED_RNN_INT8] -o build/kernels/<name>-<hash>.so <source>.cu
 """
 from __future__ import annotations
 
@@ -25,19 +26,23 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-#: name -> (source, {C function: argtypes}). Pointers and the stream are
-#: ``c_void_p`` (a plain ``int`` would be cut to 32 bits).
+_FUSED_RNN_SRC = _PKG / "fused_rnn" / "csrc" / "fused_rnn_layer.cu"
+_FUSED_RNN_FNS = {
+    "fused_rnn_layer_launch": [_I, _I] + [_P] * 11 + [_I] * 7 + [_P],
+    "fused_rnn_stack_layer_launch": [_I, _I] + [_P] * 11 + [_I] * 4 + [_F, _P],
+}
+
+#: name -> (source, {C function: argtypes}, nvcc defines). Pointers and the
+#: stream are ``c_void_p`` (a plain ``int`` would be cut to 32 bits). The
+#: fused-RNN source builds twice, its fp and its int8 weight instances apart,
+#: so that the two halves compile in parallel.
 SOURCES: Dict[str, tuple] = {
-    "fused_rnn_layer": (
-        _PKG / "fused_rnn" / "csrc" / "fused_rnn_layer.cu",
-        {
-            "fused_rnn_layer_launch": [_I] + [_P] * 10 + [_I] * 7 + [_P],
-            "fused_rnn_stack_layer_launch": [_I] + [_P] * 10 + [_I] * 4 + [_F, _P],
-        },
-    ),
+    "fused_rnn_layer": (_FUSED_RNN_SRC, _FUSED_RNN_FNS, ()),
+    "fused_rnn_layer_int8": (_FUSED_RNN_SRC, _FUSED_RNN_FNS, ("-DFUSED_RNN_INT8",)),
     "linear_scan": (
         _PKG / "linear_scan" / "csrc" / "linear_scan.cu",
         {"linear_scan_launch": [_I] + [_P] * 4 + [_I] * 2 + [_P]},
+        (),
     ),
 }
 
@@ -60,15 +65,15 @@ def nvcc_version() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    src = SOURCES[name][0]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    src, _, defines = SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(defines).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
 def _command(name: str, out: pathlib.Path) -> List[str]:
     return [
         nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out),
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *SOURCES[name][2], "-o", str(out),
         str(SOURCES[name][0]),
     ]
 

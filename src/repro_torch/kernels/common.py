@@ -13,14 +13,15 @@ import torch
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def check_operand(t: torch.Tensor, name: str, shape, like: torch.Tensor) -> None:
-    """Raise unless ``t`` has ``shape`` and ``like``'s device and dtype and
-    is contiguous: the kernels take exactly that."""
+def check_operand(t: torch.Tensor, name: str, shape, like: torch.Tensor, dtype=None) -> None:
+    """Raise unless ``t`` has ``shape``, ``like``'s device, ``dtype`` (by
+    default ``like``'s) and is contiguous: the kernels take exactly that."""
+    dtype = like.dtype if dtype is None else dtype
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.device != like.device or t.dtype != like.dtype:
+    if t.device != like.device or t.dtype != dtype:
         raise ValueError(
-            f"{name}: {t.dtype} on {t.device}, expected {like.dtype} on {like.device}"
+            f"{name}: {t.dtype} on {t.device}, expected {dtype} on {like.device}"
         )
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")

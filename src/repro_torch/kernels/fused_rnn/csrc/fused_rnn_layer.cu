@@ -16,6 +16,16 @@
 // Stack mode: u = rmsnorm(x) * g computed in-kernel from the fp32 residual
 // stream x, and the kernel writes x_out = x + h in fp32.
 //
+// Int8 gate slabs (the TPU kernels' s3 / sL operands). The weight type TW is
+// a template parameter apart from the IO type TIO: (fp32, fp32), (bf16,
+// bf16), (fp32, int8) and (bf16, int8). An int8 slab is read 8 bytes per
+// 8-lane run and each value is widened to fp32, exactly, as it is stored into
+// the shared weight tile, so the FMA loop is the same for every instance.
+// The fp32 scales (compact: one per gate and block of kScaleBlock lanes,
+// (3, nb)) multiply each gate's sum AFTER the k-split partial sums are
+// reduced, before the bias: z = (u . wq) * s + b. The skip projection of
+// sru_proj (fourth column) comes from the fp w_skip and is not scaled.
+//
 // Design. On the TPU the time-chunk grid axis ran in order with the carry in
 // VMEM scratch. Here blocks run in no order, so each CTA owns kLanes hidden
 // lanes for all B rows and walks every time chunk in an in-block loop, with
@@ -34,7 +44,7 @@
 // Gate activations never reach device memory.
 //
 // Bound. Decode (T = 1) streams the (K, 3, H) slab once: bytes-bound
-// (6 MiB bf16 at H = 1024, ~1.9 us at 3.35 TB/s). The kernel keeps 16-byte
+// (6 MiB bf16 at H = 1024, ~1.9 us at 3.35 TB/s; 3 MiB int8, ~0.95 us). The kernel keeps 16-byte
 // loads in flight (kInFlight per thread) and splits K over the warps so every
 // thread streams weights, but with one CTA per SM it holds ~16 KB in flight
 // per SM, so decode is latency-bound, not bytes-bound. Prefill at T*B = 256
@@ -50,6 +60,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace {
@@ -61,6 +72,7 @@ constexpr int kRowsPerThread = 4;  // consecutive (time, batch) rows per GEMM th
 constexpr int kMaxGates = 4;   // x_hat, f, r (+ skip projection)
 constexpr int kWStride = kLanes * kMaxGates + 4;  // weight tile floats per k: [lane][gate] + pad
 constexpr int kInFlight = 4;   // 8-element loads each thread issues before using any
+constexpr int kScaleBlock = 128;  // lanes per int8 scale (layout.py's SCALE_BLOCK)
 static_assert(kLanes == 8, "the weight loader reads one 8-lane run per (k, gate)");
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -119,6 +131,35 @@ __device__ __forceinline__ Raw8 load8(const __nv_bfloat16* p, int n) {
   return r;
 }
 
+// Eight consecutive int8 weights, 8 bytes in r.lo.x (elements 0-3) and
+// r.lo.y (4-7): one 8-byte load when the run is full and aligned.
+__device__ __forceinline__ Raw8 load8(const int8_t* p, int n) {
+  Raw8 r;
+  r.lo = make_uint4(0u, 0u, 0u, 0u);
+  r.hi = r.lo;
+  if (n == 8 && (reinterpret_cast<unsigned long long>(p) & 7ull) == 0) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    r.lo.x = v.x;
+    r.lo.y = v.y;
+  } else {
+    unsigned v[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (i < n) v[i / 4] |= static_cast<unsigned>(static_cast<uint8_t>(p[i])) << (8 * (i % 4));
+    r.lo.x = v[0];
+    r.lo.y = v[1];
+  }
+  return r;
+}
+
+// Widen eight int8 values (load8 above) to fp32: exact.
+__device__ __forceinline__ void unpack8_i8(const Raw8& r, float* o) {
+  const unsigned w[2] = {r.lo.x, r.lo.y};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    o[i] = static_cast<float>(static_cast<int>(w[i / 4] << (24 - 8 * (i % 4))) >> 24);
+}
+
 __device__ __forceinline__ void unpack8(const Raw8& r, bool f32, float* o) {
   const unsigned w[8] = {r.lo.x, r.lo.y, r.lo.z, r.lo.w, r.hi.x, r.hi.y, r.hi.z, r.hi.w};
   if (f32) {
@@ -135,8 +176,9 @@ __device__ __forceinline__ void unpack8(const Raw8& r, bool f32, float* o) {
 
 struct Args {
   const void* u;        // (T, B, d): io dtype; fp32 residual stream in stack mode
-  const void* w3;       // (d, 3, H) slab against u_t
+  const void* w3;       // (d, 3, H) slab against u_t: io dtype or int8
   const void* w3_prev;  // (d, 3, H) slab against u_{t-1} (QRNN) or null
+  const float* wscale;  // (3, nb) fp32 scales of an int8 slab, shared by both taps
   const void* b3;       // (3, H)
   const void* c0;       // (B, H)
   const void* tail0;    // (B, d) u_{-1} for QRNN (stack: already normed)
@@ -153,6 +195,7 @@ struct Args {
   int ng;               // gate columns per lane: 3, or 4 with the skip projection
   int rg, ks, bk;       // GEMM thread split: row groups x k-splits (rg * ks = 32), k tile
   int xhat_tanh, skip_mode, prenorm;
+  int nb;               // scale blocks, ceil(H / kScaleBlock) (int8 slabs)
   float eps;
 };
 
@@ -236,8 +279,10 @@ __device__ __forceinline__ Seg u_segment(const Args& a, const float* rs, int t0,
 }
 
 // NG: gate columns per lane, 3 (x_hat, f, r) or 4 (+ the skip projection).
-template <typename TIO, int NG>
+// TW: the gate slabs' type, TIO or int8_t (then a.wscale holds the scales).
+template <typename TIO, typename TW, int NG>
 __global__ void __launch_bounds__(kThreads) fused_rnn_layer_kernel(Args a) {
+  constexpr bool kInt8 = std::is_same<TW, int8_t>::value;
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int j0 = blockIdx.x * kLanes;
@@ -261,8 +306,8 @@ __global__ void __launch_bounds__(kThreads) fused_rnn_layer_kernel(Args a) {
   float* carry = rs + (a.bt + 1) * B;        // B x kLanes
   float* g_s = carry + B * kLanes;           // d: pre-norm gain (stack mode)
 
-  const TIO* w3 = static_cast<const TIO*>(a.w3);
-  const TIO* w3p = static_cast<const TIO*>(a.w3_prev);
+  const TW* w3 = static_cast<const TW*>(a.w3);
+  const TW* w3p = static_cast<const TW*>(a.w3_prev);
   const TIO* b3 = static_cast<const TIO*>(a.b3);
   const size_t H3 = static_cast<size_t>(3) * H;
 
@@ -345,22 +390,27 @@ __global__ void __launch_bounds__(kThreads) fused_rnn_layer_kernel(Args a) {
 #pragma unroll
         for (int q = 0; q < kInFlight; ++q) {
           const int seg = s0 + q * kThreads, kk = seg / NG, g = seg % NG, k = k0 + kk;
-          const TIO* src = nullptr;
-          if (seg < bk * NG && k < K) {
-            if (g == 3) {
-              src = static_cast<const TIO*>(a.wskip) + static_cast<size_t>(k) * H + j0;
-            } else {
-              src = k < d ? w3 + k * H3 + g * H + j0 : w3p + (k - d) * H3 + g * H + j0;
-            }
+          const bool live = seg < bk * NG && k < K;
+          if (g == 3) {  // the fp skip projection, in the IO dtype
+            const TIO* src = nullptr;
+            if (live) src = static_cast<const TIO*>(a.wskip) + static_cast<size_t>(k) * H + j0;
+            rw[q] = load8(src, live ? nl : 0);
+          } else {
+            const TW* src = nullptr;
+            if (live) src = k < d ? w3 + k * H3 + g * H + j0 : w3p + (k - d) * H3 + g * H + j0;
+            rw[q] = load8(src, live ? nl : 0);
           }
-          rw[q] = load8(src, src != nullptr ? nl : 0);
         }
 #pragma unroll
         for (int q = 0; q < kInFlight; ++q) {
           const int seg = s0 + q * kThreads;
           if (seg >= bk * NG) break;
           float v[8];
-          unpack8(rw[q], std::is_same<TIO, float>::value, v);
+          if (kInt8 && seg % NG != 3) {
+            unpack8_i8(rw[q], v);
+          } else {
+            unpack8(rw[q], std::is_same<TIO, float>::value, v);
+          }
           float* dst = w_s + (seg / NG) * kWStride + seg % NG;
 #pragma unroll
           for (int i = 0; i < 8; ++i) dst[i * kMaxGates] = v[i];
@@ -396,6 +446,11 @@ __global__ void __launch_bounds__(kThreads) fused_rnn_layer_kernel(Args a) {
       for (int sp = 0; sp < a.ks; ++sp) {
 #pragma unroll
         for (int g = 0; g < NG; ++g) z[g] += red[(sp * rows_p + row) * NC + g * kLanes + q];
+      }
+      if (kInt8) {  // dequantize the whole sum, then the bias
+        const float* sc = a.wscale + lane / kScaleBlock;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) z[g] *= __ldg(sc + g * a.nb);
       }
       const float zx = z[0] + to_f(b3[lane]);
       const float f = sigmoid_f(z[1] + to_f(b3[H + lane]));
@@ -482,25 +537,43 @@ size_t smem_bytes(const Args& a) {
   return floats * sizeof(float);
 }
 
-template <typename TIO, int NG>
+template <typename TIO, typename TW, int NG>
 int launch(Args a, cudaStream_t stream) {
   plan(a);
   const size_t bytes = smem_bytes(a);
-  cudaError_t err = cudaFuncSetAttribute(fused_rnn_layer_kernel<TIO, NG>,
+  cudaError_t err = cudaFuncSetAttribute(fused_rnn_layer_kernel<TIO, TW, NG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.H + kLanes - 1) / kLanes);
-  fused_rnn_layer_kernel<TIO, NG><<<grid, kThreads, bytes, stream>>>(a);
+  fused_rnn_layer_kernel<TIO, TW, NG><<<grid, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(int dtype, const Args& a, void* stream) {
+template <typename TIO, typename TW>
+int launch_ng(const Args& a, cudaStream_t s) {
+  return a.ng == 4 ? launch<TIO, TW, 4>(a, s) : launch<TIO, TW, 3>(a, s);
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (activations, biases, carries, w_skip);
+// wdtype: the gate slabs', the same code, or 2 = int8 with fp32 scales.
+// The source is built twice (kernels/build.py), so that the two nvcc runs go
+// in parallel: plain for the fp weight instances, with -DFUSED_RNN_INT8 for
+// the int8 ones. Each library refuses the other's pairs with -2.
+int dispatch(int dtype, int wdtype, Args a, void* stream) {
   if (a.B < 1 || a.B > kMaxRows || a.T < 1 || a.H < 1 || a.d < 1) return -1;
   auto s = static_cast<cudaStream_t>(stream);
-  const bool proj = a.ng == 4;
-  if (dtype == 0) return proj ? launch<float, 4>(a, s) : launch<float, 3>(a, s);
-  if (dtype == 1) return proj ? launch<__nv_bfloat16, 4>(a, s) : launch<__nv_bfloat16, 3>(a, s);
+#ifdef FUSED_RNN_INT8
+  if (wdtype == 2) {
+    if (a.wscale == nullptr) return -1;
+    a.nb = (a.H + kScaleBlock - 1) / kScaleBlock;
+    if (dtype == 0) return launch_ng<float, int8_t>(a, s);
+    if (dtype == 1) return launch_ng<__nv_bfloat16, int8_t>(a, s);
+  }
+#else
+  if (dtype == 0 && wdtype == 0) return launch_ng<float, float>(a, s);
+  if (dtype == 1 && wdtype == 1) return launch_ng<__nv_bfloat16, __nv_bfloat16>(a, s);
+#endif
   return -2;
 }
 
@@ -509,41 +582,47 @@ int dispatch(int dtype, const Args& a, void* stream) {
 extern "C" {
 
 // One SRU/QRNN layer (fused_rnn_pallas). dtype: 0 = float32, 1 = bfloat16
-// for every tensor. skip_mode: 0 none (QRNN), 1 input, 2 projection.
+// for every tensor but the gate slabs; wdtype: the slabs' (dtype, or 2 =
+// int8 with the (3, nb) fp32 wscale, kScaleBlock lanes per scale).
+// skip_mode: 0 none (QRNN), 1 input, 2 projection.
 // w3_prev / tail0 non-null selects the QRNN shifted-input contraction.
-int fused_rnn_layer_launch(int dtype, const void* u, const void* w3, const void* w3_prev,
-                           const void* b3, const void* c0, const void* tail0,
-                           const void* skip, const void* wskip, void* h_out, void* c_last,
-                           int T, int B, int d, int H, int block_t, int xhat_tanh,
-                           int skip_mode, void* stream) {
+// An unknown (dtype, wdtype) pair returns -2 and launches nothing.
+int fused_rnn_layer_launch(int dtype, int wdtype, const void* u, const void* w3,
+                           const void* w3_prev, const float* wscale, const void* b3,
+                           const void* c0, const void* tail0, const void* skip,
+                           const void* wskip, void* h_out, void* c_last, int T, int B, int d,
+                           int H, int block_t, int xhat_tanh, int skip_mode,
+                           void* stream) {
   Args a{};
-  a.u = u; a.w3 = w3; a.w3_prev = w3_prev; a.b3 = b3; a.c0 = c0; a.tail0 = tail0;
+  a.u = u; a.w3 = w3; a.w3_prev = w3_prev; a.wscale = wscale; a.b3 = b3; a.c0 = c0;
+  a.tail0 = tail0;
   a.skip = skip; a.wskip = wskip; a.h_out = h_out; a.c_last = c_last;
   a.T = T; a.B = B; a.d = d; a.H = H; a.bt = block_t;
   a.K = w3_prev != nullptr ? 2 * d : d;
   a.ng = skip_mode == 2 ? 4 : 3;
   a.xhat_tanh = xhat_tanh; a.skip_mode = skip_mode; a.prenorm = 0; a.eps = 0.0f;
-  return dispatch(dtype, a, stream);
+  return dispatch(dtype, wdtype, a, stream);
 }
 
 // One layer of the depth-fused stack (fused_rnn_stack_pallas): pre-norm of
 // the fp32 residual stream x (d == H), gates, recurrence, highway with the
 // normed input as skip (SRU) or none (QRNN), x_out = x + h in fp32.
 // QRNN (w3_prev non-null) reads the normed tail and writes the normed u[T-1].
-int fused_rnn_stack_layer_launch(int dtype, const float* x, const void* w3, const void* w3_prev,
-                                 const void* b3, const void* ln_g, const void* c0,
-                                 const void* tail0, float* x_out, void* c_last,
-                                 void* tail_last, int T, int B, int H, int block_t,
-                                 float eps, void* stream) {
+// dtype / wdtype / wscale as for fused_rnn_layer_launch.
+int fused_rnn_stack_layer_launch(int dtype, int wdtype, const float* x, const void* w3,
+                                 const void* w3_prev, const float* wscale, const void* b3,
+                                 const void* ln_g, const void* c0, const void* tail0,
+                                 float* x_out, void* c_last, void* tail_last, int T, int B,
+                                 int H, int block_t, float eps, void* stream) {
   Args a{};
-  a.u = x; a.w3 = w3; a.w3_prev = w3_prev; a.b3 = b3; a.ln_g = ln_g; a.c0 = c0;
-  a.tail0 = tail0; a.x_out = x_out; a.c_last = c_last; a.tail_last = tail_last;
+  a.u = x; a.w3 = w3; a.w3_prev = w3_prev; a.wscale = wscale; a.b3 = b3; a.ln_g = ln_g;
+  a.c0 = c0; a.tail0 = tail0; a.x_out = x_out; a.c_last = c_last; a.tail_last = tail_last;
   a.T = T; a.B = B; a.d = H; a.H = H; a.bt = block_t;
   const bool qrnn = w3_prev != nullptr;
   a.K = qrnn ? 2 * H : H;
   a.ng = 3;
   a.xhat_tanh = qrnn ? 1 : 0; a.skip_mode = qrnn ? 0 : 1; a.prenorm = 1; a.eps = eps;
-  return dispatch(dtype, a, stream);
+  return dispatch(dtype, wdtype, a, stream);
 }
 
 }  // extern "C"

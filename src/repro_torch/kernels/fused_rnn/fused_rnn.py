@@ -14,8 +14,15 @@ select the highway term as in the JAX kernel:
                        kernel builds the shifted rows itself from ``u`` and
                        ``tail`` and reads the taps in place.
 
+Int8 gate slabs (``scale`` given): the taps are int8 and ``scale`` is the
+compact fp32 ``(3, nb)`` ``wq_scale`` of ``layout.quantize_slabs``, shared by
+QRNN's two taps. The kernel widens each int8 weight to fp32 as it stores the
+tile, and multiplies the scale in after the gate GEMM's fp32 accumulate,
+before the bias. ``wskip`` stays fp and unscaled.
+
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version (``ref.py``). ``LAUNCHES`` counts kernel launches.
+version (``ref.py``). ``LAUNCHES`` counts launches of the fp instances,
+``LAUNCHES_INT8`` those of the int8 ones.
 """
 from __future__ import annotations
 
@@ -26,12 +33,14 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.common import check_operand, cuda_dtype_code
 from repro_torch.kernels.fused_rnn import layout
-from repro_torch.kernels.fused_rnn.ref import fused_rnn_ref
+from repro_torch.kernels.fused_rnn.ref import fused_rnn_ref, fused_rnn_ref_q
 
 LAUNCHES = 0
+LAUNCHES_INT8 = 0
 
 MAX_BATCH = 128  # the kernel tiles (time, batch) rows in chunks of at most 128
 _SKIP_MODES = {"qrnn": 0, "sru_identity": 1, "sru_proj": 2}
+INT8_CODE = 2  # the kernels' ``wdtype`` code of int8 gate slabs
 
 
 def kernel_dtype(u: torch.Tensor, batch: int) -> int:
@@ -41,13 +50,23 @@ def kernel_dtype(u: torch.Tensor, batch: int) -> int:
     return cuda_dtype_code(u)
 
 
-def fused_rnn_layer_plain(u, taps, b3, c0, *, mode, tail=None, wskip=None, block_t=128):
+def weight_dtype(scale, io_code: int) -> int:
+    """The kernels' ``wdtype`` code: int8 slabs when scales come with them,
+    else the slabs have the IO dtype."""
+    return io_code if scale is None else INT8_CODE
+
+
+def fused_rnn_layer_plain(u, taps, b3, c0, *, mode, tail=None, wskip=None, block_t=128,
+                          scale=None):
     """The plain version of :func:`fused_rnn_layer` (same arguments)."""
     if mode == "qrnn":
         u, w3, b3 = layout.qrnn_operands({"w0": taps[0], "w1": taps[1], "b": b3}, u, tail)
     else:
         w3 = taps[0]
-    return fused_rnn_ref(u, w3, b3, wskip, c0, mode=mode)
+    if scale is None:
+        return fused_rnn_ref(u, w3, b3, wskip, c0, mode=mode)
+    s3 = layout.expand_scales(scale, w3.shape[-1])
+    return fused_rnn_ref_q(u, w3, s3, b3, wskip, c0, mode=mode)
 
 
 def fused_rnn_layer(
@@ -60,13 +79,14 @@ def fused_rnn_layer(
     tail: Optional[torch.Tensor] = None,   # (1, B, d) QRNN u_{-1} (None: zeros)
     wskip: Optional[torch.Tensor] = None,  # (d, H) highway projection (sru_proj)
     block_t: int = 128,            # time steps per kernel chunk
+    scale: Optional[torch.Tensor] = None,  # (3, nb) fp32: the taps are int8
 ):
     """Returns ``(h, c_last)``: (T, B, H), (B, H) in ``u``'s dtype."""
     if u.device.type == "cpu":
         return fused_rnn_layer_plain(
-            u, taps, b3, c0, mode=mode, tail=tail, wskip=wskip, block_t=block_t
+            u, taps, b3, c0, mode=mode, tail=tail, wskip=wskip, block_t=block_t, scale=scale
         )
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_INT8
     T, B, d = u.shape
     code = kernel_dtype(u, B)
     H = taps[0].shape[-1]
@@ -75,8 +95,11 @@ def fused_rnn_layer(
     if len(taps) != (2 if mode == "qrnn" else 1):
         raise ValueError(f"mode {mode!r} takes {2 if mode == 'qrnn' else 1} slab(s)")
     check_operand(u, "u", (T, B, d), u)
+    w_dtype = u.dtype if scale is None else torch.int8
     for i, w in enumerate(taps):
-        check_operand(w, f"taps[{i}]", (d, 3, H), u)
+        check_operand(w, f"taps[{i}]", (d, 3, H), u, dtype=w_dtype)
+    if scale is not None:
+        check_operand(scale, "scale", (3, layout.n_scale_blocks(H)), u, dtype=torch.float32)
     check_operand(b3, "b3", (3, H), u)
     check_operand(c0, "c0", (B, H), u)
     if mode == "sru_identity" and d != H:
@@ -89,11 +112,12 @@ def fused_rnn_layer(
 
     h = torch.empty((T, B, H), dtype=u.dtype, device=u.device)
     c_last = torch.empty((B, H), dtype=u.dtype, device=u.device)
-    lib = build.library("fused_rnn_layer")
+    lib = build.library("fused_rnn_layer" if scale is None else "fused_rnn_layer_int8")
     with torch.cuda.device(u.device):
         rc = lib.fused_rnn_layer_launch(
-            code, u.data_ptr(), taps[0].data_ptr(),
+            code, weight_dtype(scale, code), u.data_ptr(), taps[0].data_ptr(),
             taps[1].data_ptr() if mode == "qrnn" else None,
+            None if scale is None else scale.data_ptr(),
             b3.data_ptr(), c0.data_ptr(),
             tail.data_ptr() if mode == "qrnn" else None,
             u.data_ptr() if mode == "sru_identity" else None,
@@ -103,5 +127,8 @@ def fused_rnn_layer(
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     build.check(rc, "fused_rnn_layer")
-    LAUNCHES += 1
+    if scale is None:
+        LAUNCHES += 1
+    else:
+        LAUNCHES_INT8 += 1
     return h, c_last

@@ -3,8 +3,9 @@
 ``fused_qrnn``).
 
 ``fused_sru`` / ``fused_qrnn`` take the cell param dicts of
-``core/cells.py`` in the lane-major layout, normalize them to kernel
-operands (``layout.py``), pick the time block, and dispatch. Serving only:
+``core/cells.py`` in the lane-major layout, fp or int8-quantized
+(``layout.quantize_cell``), normalize them to kernel operands
+(``layout.py``), pick the time block, and dispatch. Serving only:
 the ``custom_vjp`` training backward of the JAX package comes with the
 training slice.
 """
@@ -19,12 +20,15 @@ from repro_torch.kernels.fused_rnn import layout
 from repro_torch.kernels.fused_rnn.fused_rnn import fused_rnn_layer
 
 
-def run_layer(u, taps, b3, c0, *, mode, tail=None, wskip=None, block_t=128):
-    """Dispatch one layer (the port of ``run_padded_layer``). The kernel masks
-    the ragged lane edge, so nothing is padded or sliced here; the time block
-    is the largest divisor of T that is at most ``block_t``, as on the TPU."""
+def run_layer(u, taps, b3, c0, *, mode, tail=None, wskip=None, block_t=128, scale=None):
+    """Dispatch one layer (the port of ``run_padded_layer`` and
+    ``run_padded_layer_q``). The kernel masks the ragged lane edge, so
+    nothing is padded or sliced here; the time block is the largest divisor
+    of T that is at most ``block_t``, as on the TPU."""
     bt = largest_divisor_leq(u.shape[0], block_t)
-    return fused_rnn_layer(u, taps, b3, c0, mode=mode, tail=tail, wskip=wskip, block_t=bt)
+    return fused_rnn_layer(
+        u, taps, b3, c0, mode=mode, tail=tail, wskip=wskip, block_t=bt, scale=scale
+    )
 
 
 def fused_sru(
@@ -34,10 +38,13 @@ def fused_sru(
     *,
     block_t: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Whole SRU layer, fused. Returns (h, c_last): (T, B, H), (B, H)."""
-    layout.require_fp(params)
-    taps, b3, mode, wskip = layout.sru_slabs(params)
-    return run_layer(x, taps, b3, c0, mode=mode, wskip=wskip, block_t=block_t)
+    """Whole SRU layer, fused. Returns (h, c_last): (T, B, H), (B, H).
+    Takes fp (``w``) or int8 (``wq`` + ``wq_scale``) cell params."""
+    if layout.is_quantized(params):
+        taps, scale, b3, mode, wskip = layout.sru_slabs_q(params)
+    else:
+        (taps, b3, mode, wskip), scale = layout.sru_slabs(params), None
+    return run_layer(x, taps, b3, c0, mode=mode, wskip=wskip, block_t=block_t, scale=scale)
 
 
 def fused_qrnn(
@@ -48,7 +55,13 @@ def fused_qrnn(
     *,
     block_t: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Whole QRNN layer, fused (shifted-input GEMM). Returns (h, c_last)."""
-    layout.require_fp(params)
-    taps, b3 = layout.qrnn_slabs(params)
-    return run_layer(x, taps, b3, c0, mode="qrnn", tail=x_prev_tail, block_t=block_t)
+    """Whole QRNN layer, fused (shifted-input GEMM). Returns (h, c_last).
+    Takes fp (``w0``/``w1``) or int8 (``w0q``/``w1q`` + shared ``wq_scale``)
+    cell params."""
+    if layout.is_quantized(params):
+        taps, scale, b3 = layout.qrnn_slabs_q(params)
+    else:
+        (taps, b3), scale = layout.qrnn_slabs(params), None
+    return run_layer(
+        x, taps, b3, c0, mode="qrnn", tail=x_prev_tail, block_t=block_t, scale=scale
+    )

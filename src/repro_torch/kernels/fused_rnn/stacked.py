@@ -16,9 +16,15 @@ layer over all T, with a pre-norm prologue and a residual epilogue (L
 launches per call). That is exact: the stack is causal per layer. The
 residual stream between launches lives in two fp32 buffers used in turn.
 
+Int8 gate slabs (``sL`` given): the taps are int8 ``(L, H, 3, H)`` and
+``sL`` the compact fp32 ``(L, 3, nb)`` scales; layer l's launch takes
+``taps[.][l]`` and ``sL[l]`` and scales after the accumulate, as
+``fused_rnn.py`` describes.
+
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version (``ref.py::fused_rnn_stack_ref``). ``LAUNCHES`` counts kernel
-launches, one per layer.
+version (``ref.py::fused_rnn_stack_ref`` / ``fused_rnn_stack_ref_q``).
+``LAUNCHES`` counts launches of the fp instances, one per layer,
+``LAUNCHES_INT8`` those of the int8 ones.
 """
 from __future__ import annotations
 
@@ -29,20 +35,23 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.common import check_operand, largest_divisor_leq
 from repro_torch.kernels.fused_rnn import layout
-from repro_torch.kernels.fused_rnn.fused_rnn import kernel_dtype
-from repro_torch.kernels.fused_rnn.ref import fused_rnn_stack_ref
+from repro_torch.kernels.fused_rnn.fused_rnn import kernel_dtype, weight_dtype
+from repro_torch.kernels.fused_rnn.ref import fused_rnn_stack_ref, fused_rnn_stack_ref_q
 
 LAUNCHES = 0
+LAUNCHES_INT8 = 0
 
 _EPS = 1e-6  # matches models/layers.py rmsnorm
 
 
-def fused_rnn_stack_plain(x, taps, b3L, lnL, c0L, tailsL=None, *, block_t=128):
+def fused_rnn_stack_plain(x, taps, b3L, lnL, c0L, tailsL=None, *, block_t=128, sL=None):
     """The plain version of :func:`fused_rnn_stack` (same arguments)."""
     cell = "qrnn" if len(taps) == 2 else "sru"
-    return fused_rnn_stack_ref(
-        x, layout.stack_taps(taps), b3L, lnL, c0L, tailsL, cell=cell, eps=_EPS
-    )
+    w3L = layout.stack_taps(taps)
+    if sL is None:
+        return fused_rnn_stack_ref(x, w3L, b3L, lnL, c0L, tailsL, cell=cell, eps=_EPS)
+    sL = layout.expand_scales(sL, w3L.shape[-1])
+    return fused_rnn_stack_ref_q(x, w3L, sL, b3L, lnL, c0L, tailsL, cell=cell, eps=_EPS)
 
 
 def fused_rnn_stack(
@@ -54,18 +63,22 @@ def fused_rnn_stack(
     tailsL: Optional[torch.Tensor] = None,  # (L, B, H) QRNN conv tails (normed)
     *,
     block_t: int = 128,            # time steps per kernel chunk
+    sL: Optional[torch.Tensor] = None,  # (L, 3, nb) fp32: the taps are int8
 ):
     """Returns ``(y, c_last, tails_last)``; tails_last is None for SRU."""
     if x.device.type == "cpu":
-        return fused_rnn_stack_plain(x, taps, b3L, lnL, c0L, tailsL, block_t=block_t)
-    global LAUNCHES
+        return fused_rnn_stack_plain(x, taps, b3L, lnL, c0L, tailsL, block_t=block_t, sL=sL)
+    global LAUNCHES, LAUNCHES_INT8
     T, B, H = x.shape
     code = kernel_dtype(x, B)
     L = taps[0].shape[0]
     qrnn = len(taps) == 2
     check_operand(x, "x", (T, B, H), x)
+    w_dtype = x.dtype if sL is None else torch.int8
     for i, w in enumerate(taps):
-        check_operand(w, f"taps[{i}]", (L, H, 3, H), x)
+        check_operand(w, f"taps[{i}]", (L, H, 3, H), x, dtype=w_dtype)
+    if sL is not None:
+        check_operand(sL, "sL", (L, 3, layout.n_scale_blocks(H)), x, dtype=torch.float32)
     check_operand(b3L, "b3L", (L, 3, H), x)
     check_operand(lnL, "lnL", (L, H), x)
     check_operand(c0L, "c0L", (L, B, H), x)
@@ -76,13 +89,14 @@ def fused_rnn_stack(
     xb = torch.empty_like(xa)
     c_last = torch.empty((L, B, H), dtype=x.dtype, device=x.device)
     tails_last = torch.empty((L, B, H), dtype=x.dtype, device=x.device) if qrnn else None
-    lib = build.library("fused_rnn_layer")
+    lib = build.library("fused_rnn_layer" if sL is None else "fused_rnn_layer_int8")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         for l in range(L):
             rc = lib.fused_rnn_stack_layer_launch(
-                code, xa.data_ptr(), taps[0][l].data_ptr(),
+                code, weight_dtype(sL, code), xa.data_ptr(), taps[0][l].data_ptr(),
                 taps[1][l].data_ptr() if qrnn else None,
+                None if sL is None else sL[l].data_ptr(),
                 b3L[l].data_ptr(), lnL[l].data_ptr(), c0L[l].data_ptr(),
                 tailsL[l].data_ptr() if qrnn else None,
                 xb.data_ptr(), c_last[l].data_ptr(),
@@ -90,35 +104,41 @@ def fused_rnn_stack(
                 T, B, H, block_t, _EPS, stream,
             )
             build.check(rc, f"fused_rnn_stack layer {l}")
-            LAUNCHES += 1
+            if sL is None:
+                LAUNCHES += 1
+            else:
+                LAUNCHES_INT8 += 1
             xa, xb = xb, xa
     return xa.to(x.dtype), c_last, tails_last
 
 
-def _stack_fwd_impl(x, taps, b3L, lnL, c0L, tailsL, block_t):
+def _stack_fwd_impl(x, taps, b3L, lnL, c0L, tailsL, block_t, sL=None):
     """Pick the time block as the TPU did and run the stack. ``x``: (T, B, d)
     with d == H (the residual stream feeds each layer's highway)."""
     d, H = x.shape[-1], taps[0].shape[-1]
     if d != H:
         raise ValueError(f"the depth-fused stack needs d_model == hidden, got {d} != {H}")
     bt = largest_divisor_leq(x.shape[0], block_t)
-    return fused_rnn_stack(x, taps, b3L, lnL, c0L, tailsL, block_t=bt)
+    return fused_rnn_stack(x, taps, b3L, lnL, c0L, tailsL, block_t=bt, sL=sL)
 
 
 def fused_sru_stack(
-    params,                # {"w": (L, d, 3, H), "b": (L, 2, H), "w_skip": None}
+    params,                # {"w" | "wq" (+ "wq_scale"): (L, d, 3, H), "b": (L, 2, H), "w_skip": None}
     ln_g: torch.Tensor,    # (L, d)
     x: torch.Tensor,       # (T, B, d) time-major residual stream
     c0: torch.Tensor,      # (L, B, H)
     *,
     block_t: int = 128,
 ):
-    """Depth-fused SRU stack. Returns (y, c_last): (T, B, d), (L, B, H)."""
-    layout.require_fp(params)
+    """Depth-fused SRU stack. Returns (y, c_last): (T, B, d), (L, B, H).
+    Takes fp (``w``) or int8 (``wq`` + ``wq_scale``) stacked cell params."""
     if params.get("w_skip") is not None:
         raise ValueError("stack residual requires d_model == hidden")
-    taps, b3L, _, _ = layout.sru_slabs(params)
-    y, c_last, _ = _stack_fwd_impl(x, taps, b3L, ln_g, c0, None, block_t)
+    if layout.is_quantized(params):
+        taps, sL, b3L, _, _ = layout.sru_slabs_q(params)
+    else:
+        (taps, b3L, _, _), sL = layout.sru_slabs(params), None
+    y, c_last, _ = _stack_fwd_impl(x, taps, b3L, ln_g, c0, None, block_t, sL)
     return y, c_last
 
 
@@ -131,7 +151,10 @@ def fused_qrnn_stack(
     *,
     block_t: int = 128,
 ):
-    """Depth-fused QRNN stack. Returns (y, c_last, tails_last)."""
-    layout.require_fp(params)
-    taps, b3L = layout.qrnn_slabs(params)
-    return _stack_fwd_impl(x, taps, b3L, ln_g, c0, tails, block_t)
+    """Depth-fused QRNN stack. Returns (y, c_last, tails_last). Takes fp
+    (``w0``/``w1``) or int8 (``w0q``/``w1q`` + shared ``wq_scale``) params."""
+    if layout.is_quantized(params):
+        taps, sL, b3L = layout.qrnn_slabs_q(params)
+    else:
+        (taps, b3L), sL = layout.qrnn_slabs(params), None
+    return _stack_fwd_impl(x, taps, b3L, ln_g, c0, tails, block_t, sL)

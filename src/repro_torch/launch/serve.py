@@ -11,8 +11,12 @@ lockstep. Runs on the card unless ``--device cpu`` is given:
 
 ``--engine`` overrides ``cfg.scan_engine`` with any of the six engines of
 the JAX ``launch/serve.py`` (``ENGINE_MATRIX``); an unknown one exits with
-the list (``validate_engine``, the engine check of the JAX
+the list (``validate_engine``, the engine and int8 checks of the JAX
 ``validate_engine_mesh`` without its mesh parts). LSTM ignores the engine.
+``--weight-quant int8`` overrides ``cfg.weight_quant`` (the ``*-int8``
+configs carry it): the SRU/QRNN gate slabs are quantized at init and served
+through the int8 forms of the fused kernels, on ``fused``/``fused_stack``
+only. A config's ``ring_overlap`` changes nothing on one device.
 Continuous mode and the other flags of the JAX ``launch/serve.py`` wait for
 later slices. Besides the two
 human-readable lines, the run prints one ``serve-stats {json}`` line with
@@ -27,6 +31,7 @@ import time
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.kernels.fused_rnn import layout
 from repro_torch.models import lm
 from repro_torch.models.layers import _dtype, resolve_device
 from repro_torch.training.steps import build_decode_step, build_prefill_step
@@ -50,12 +55,30 @@ def _matrix_lines() -> str:
 
 
 def validate_engine(cfg) -> None:
-    """Fail fast on an engine the port does not serve, naming the engines."""
-    if cfg.scan_engine not in ENGINES:
+    """Fail fast on an engine the port does not serve, naming the engines,
+    and on int8 gate slabs where no kernel dequantizes them (LSTM, and every
+    engine but ``fused``/``fused_stack``)."""
+    engine = cfg.scan_engine
+    if engine not in ENGINES:
         raise SystemExit(
-            f"serve: unknown engine {cfg.scan_engine!r} (from --engine or the "
+            f"serve: unknown engine {engine!r} (from --engine or the "
             f"{cfg.name!r} config)\n{_matrix_lines()}"
         )
+    if cfg.weight_quant == "int8":
+        if cfg.cell == "lstm":
+            raise SystemExit(
+                "serve: --weight-quant int8 does not apply to LSTM: only the "
+                "SRU/QRNN lane-major gate slabs quantize "
+                "(kernels/fused_rnn/layout.py); the LSTM recurrent GEMM "
+                "stays fp."
+            )
+        if cfg.cell in ("sru", "qrnn") and engine not in ("fused", "fused_stack"):
+            raise SystemExit(
+                f"serve: --weight-quant int8 requires engine 'fused' or "
+                f"'fused_stack' for cell {cfg.cell!r}: dequantization happens "
+                f"INSIDE the fused kernels (after the gate GEMM accumulate); "
+                f"the XLA engines would need fp slabs.\n{_matrix_lines()}"
+            )
 
 
 def _sync(device: torch.device) -> None:
@@ -115,6 +138,12 @@ def main(argv=None) -> int:
         help=f"override cfg.scan_engine: one of {', '.join(ENGINES)}",
     )
     ap.add_argument(
+        "--weight-quant", choices=("none", "int8"), default=None,
+        help="override cfg.weight_quant: int8 stores the SRU/QRNN gate slabs "
+             "as int8 with per-gate x per-lane-block scales, dequantized "
+             "inside the fused kernels (engines fused/fused_stack only)",
+    )
+    ap.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
         help="cuda (default) runs the CUDA kernels; cpu runs their plain versions",
     )
@@ -125,6 +154,9 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.engine:
         cfg = cfg.with_(scan_engine=args.engine)
+    if args.weight_quant is not None:
+        # Quantize on load: lm_init below quantizes the fresh gate slabs.
+        cfg = cfg.with_(weight_quant=args.weight_quant)
     validate_engine(cfg)
     device = resolve_device(args.device)
     if args.reduced:
@@ -133,7 +165,7 @@ def main(argv=None) -> int:
     # Cast the fp32 params to the compute dtype once. The JAX package casts
     # inside every step (models/lm.py::_run_layers); the values are the same,
     # and the per-step casts in the port's lm.py are then no-ops.
-    params = lm._cast_params(params, _dtype(cfg.compute_dtype))
+    params = layout.cast_params(params, _dtype(cfg.compute_dtype))
 
     stats = run_batch(cfg, params, args, device)
     print(f"prefill: {args.batch}x{args.prompt_len} in {stats['prefill_ms']:.1f}ms "

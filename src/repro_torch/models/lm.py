@@ -1,7 +1,8 @@
 """Decoder LM for block kind ``rnn``, from ``repro/models/lm.py``.
 
 Entry points:
-  * ``lm_init(gen, cfg, device)``                     params tree
+  * ``lm_init(gen, cfg, device)``                     params tree (int8 gate
+                                                      slabs when ``cfg.weight_quant == "int8"``)
   * ``lm_init_caches(cfg, batch, max_len, device)``   stacked decode caches
   * ``lm_prefill(params, cfg, batch, caches)``        logits of last pos + caches
   * ``lm_decode_step(params, cfg, caches, tok)``      one-token serve step
@@ -16,6 +17,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels.fused_rnn import layout
 from repro_torch.models import rnn
 from repro_torch.models.layers import (
     _dtype,
@@ -42,31 +44,19 @@ def _require_rnn(cfg) -> None:
         )
 
 
-def _cast_params(tree, compute):
-    """Cast the floating leaves to the compute dtype (``None`` stays).
-    ``.to`` returns the tensor itself when it already has that dtype, so
-    params cast once up front (``launch/serve.py``) cost nothing here."""
-    if isinstance(tree, dict):
-        return {k: _cast_params(v, compute) for k, v in tree.items()}
-    if tree is None or not tree.is_floating_point():
-        return tree
-    return tree.to(compute)
-
-
 def lm_init(gen: torch.Generator, cfg, device="cuda") -> Dict:
     """Params from ``gen`` (a CPU ``torch.Generator``), made on ``device``."""
     _require_rnn(cfg)
     device = resolve_device(device)
-    if cfg.weight_quant != "none":
-        raise NotImplementedError(
-            "weight_quant='int8' is not ported yet (ROADMAP.md: the int8 forms of B1/B2)"
-        )
     dtype = _dtype(cfg.param_dtype)
     params: Dict = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, cfg.tie_embeddings, device)
     }
     layers = [rnn.rnn_block_init(gen, cfg, dtype, device) for _ in range(cfg.n_layers)]
     params["layers"] = _stack_trees(layers)
+    if cfg.weight_quant == "int8":
+        # Weight-only int8 of the SRU/QRNN gate slabs; LSTM passes through.
+        params["layers"] = layout.quantize_tree(params["layers"])
     params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, device)
     return params
 
@@ -94,7 +84,7 @@ def _run_layers(params, cfg, h, caches, fn):
     ``rnn_block_prefill`` or ``rnn_block_decode``; with ``cfg.fuse_depth``
     the stack-level API runs instead (the depth-fused stack under
     ``scan_engine="fused_stack"``)."""
-    layers = _cast_params(params["layers"], h.dtype)
+    layers = layout.cast_params(params["layers"], h.dtype)
     if cfg.fuse_depth:
         stack_fn = rnn.rnn_stack_prefill if fn is rnn.rnn_block_prefill else rnn.rnn_stack_decode
         h, new = stack_fn(layers, cfg, h, caches["layers"])
@@ -106,7 +96,7 @@ def _run_layers(params, cfg, h, caches, fn):
 def _head(params, cfg, h):
     compute = h.dtype
     h = rmsnorm(params["final_norm"].to(compute), h)
-    return logits_apply(_cast_params(params["embed"], compute), h)
+    return logits_apply(layout.cast_params(params["embed"], compute), h)
 
 
 def lm_prefill(params, cfg, batch, caches):

@@ -1,8 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 at edge shapes the main path does not reach: one lane block, a width that is
 not a multiple of 8 (the kernels' per-element load path), ragged lane and
-time edges, the largest batch the kernel takes, and both dtypes; for the
-linear scan (B3) widths that are and are not a multiple of the vector
+time edges, the largest batch the kernel takes, and both dtypes; the int8
+forms of both (a width that is not a multiple of 8, two scale blocks with a
+ragged second one, an int8 slab at an unaligned offset, the largest batch,
+``sru_proj`` and QRNN, the stack at L = 4) and an unknown weight type; for
+the linear scan (B3) widths that are and are not a multiple of the vector
 width, one time step to a long sequence, an operand at an unaligned
 offset, and the reverse-time backward.
 
@@ -16,7 +19,8 @@ from __future__ import annotations
 import pytest
 import torch
 
-from repro_torch.kernels.fused_rnn import fused_rnn, stacked
+from repro_torch.kernels import build
+from repro_torch.kernels.fused_rnn import fused_rnn, layout, stacked
 from repro_torch.kernels.linear_scan import linear_scan as ls_kernel
 from repro_torch.kernels.linear_scan import ops as ls_ops
 from repro_torch.kernels.linear_scan.ref import linear_scan_ref
@@ -108,6 +112,108 @@ def test_stack_kernel_matches_plain(device, case, dtype):
     ref = stacked.fused_rnn_stack_plain(*args, block_t=block_t)
     torch.cuda.synchronize()
     _close(out, ref, dtype)
+
+
+INT8_LAYER_CASES = {
+    # name: (mode, T, B, d, H, block_t, slab at an odd address)
+    "width_not_multiple_of_8": ("sru_identity", 9, 3, 61, 61, 4, False),
+    "two_scale_blocks_qrnn": ("qrnn", 11, 4, 64, 200, 4, False),
+    "offset_slab": ("sru_identity", 7, 2, 64, 64, 4, True),
+    "max_batch": ("sru_identity", 3, 128, 64, 64, 32, False),
+    "sru_proj": ("sru_proj", 9, 2, 20, 136, 4, False),
+    "qrnn": ("qrnn", 37, 3, 64, 64, 8, False),
+}
+
+
+def _odd_address_copy(t):
+    """``t`` copied into a buffer one byte past an aligned address: the
+    kernel's per-element load path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 8 != 0
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(INT8_LAYER_CASES))
+def test_int8_layer_kernel_matches_plain(device, case, dtype):
+    mode, T, B, d, H, block_t, odd = INT8_LAYER_CASES[case]
+    g = torch.Generator(device=device).manual_seed(200 + sorted(INT8_LAYER_CASES).index(case))
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    if mode == "qrnn":
+        *taps, scale = layout.quantize_qrnn_slabs(rnd(d, 3, H), rnd(d, 3, H))
+    else:
+        wq, scale = layout.quantize_slabs(rnd(d, 3, H, scale=d ** -0.5))
+        taps = [_odd_address_copy(wq) if odd else wq]
+    kw = {"mode": mode, "block_t": block_t, "scale": scale}
+    if mode == "qrnn":
+        kw["tail"] = rnd(1, B, d).to(dtype)
+    if mode == "sru_proj":
+        kw["wskip"] = rnd(d, H, scale=d ** -0.5).to(dtype)
+    args = (rnd(T, B, d).to(dtype), tuple(taps), rnd(3, H, scale=0.5).to(dtype),
+            rnd(B, H, scale=0.5).to(dtype))
+    before, before_fp = fused_rnn.LAUNCHES_INT8, fused_rnn.LAUNCHES
+    out = fused_rnn.fused_rnn_layer(*args, **kw)
+    assert (fused_rnn.LAUNCHES_INT8, fused_rnn.LAUNCHES) == (before + 1, before_fp)
+    ref = fused_rnn.fused_rnn_layer_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("cell,T,H", [("sru", 9, 64), ("qrnn", 1, 200)])
+def test_int8_stack_kernel_matches_plain(device, cell, T, H, dtype):
+    L, B = 4, 4
+    g = torch.Generator(device=device).manual_seed(300 + T)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=g, device=device) * scale + shift
+
+    if cell == "qrnn":
+        *taps, sL = layout.quantize_qrnn_slabs(rnd(L, H, 3, H), rnd(L, H, 3, H))
+    else:
+        wq, sL = layout.quantize_slabs(rnd(L, H, 3, H))
+        taps = [wq]
+    args = (rnd(T, B, H).to(dtype), tuple(taps), rnd(L, 3, H, scale=0.5).to(dtype),
+            rnd(L, H, scale=0.1, shift=1.0).to(dtype), rnd(L, B, H, scale=0.5).to(dtype),
+            rnd(L, B, H).to(dtype) if cell == "qrnn" else None)
+    before = stacked.LAUNCHES_INT8
+    out = stacked.fused_rnn_stack(*args, block_t=4, sL=sL)
+    assert stacked.LAUNCHES_INT8 == before + L
+    ref = stacked.fused_rnn_stack_plain(*args, block_t=4, sL=sL)
+    torch.cuda.synchronize()
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("lib_name,own_pairs", [
+    ("fused_rnn_layer", ((0, 2), (1, 2))),
+    ("fused_rnn_layer_int8", ((0, 0), (1, 1))),
+])
+def test_kernel_refuses_an_unknown_weight_type(device, lib_name, own_pairs):
+    """A (dtype, wdtype) pair the library has no instance for returns -2 and
+    launches nothing: the output keeps its sentinel. The fp build has no int8
+    instance and the int8 build no fp one."""
+    T, B, d, H = 2, 1, 8, 8
+    u = torch.zeros((T, B, d), device=device)
+    w = torch.zeros((d, 3, H), device=device)
+    b3, c0 = torch.zeros((3, H), device=device), torch.zeros((B, H), device=device)
+    scale = torch.ones((3, 1), device=device)
+    h, c_last = torch.full((T, B, H), 7.0, device=device), torch.empty((B, H), device=device)
+    lib = build.library(lib_name)
+    for dtype, wdtype in ((0, 1), (1, 0), (2, 2), (0, 5)) + own_pairs:
+        rc = lib.fused_rnn_layer_launch(
+            dtype, wdtype, u.data_ptr(), w.data_ptr(), None, scale.data_ptr(), b3.data_ptr(),
+            c0.data_ptr(), None, u.data_ptr(), None, h.data_ptr(), c_last.data_ptr(),
+            T, B, d, H, 2, 0, 1,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+        assert rc == -2, (dtype, wdtype, rc)
+    torch.cuda.synchronize()
+    assert torch.all(h == 7.0)
 
 
 def _scan_operands(device, T, F, dtype, seed):

@@ -131,10 +131,3 @@ def test_layout_cell_kind_matches_jax():
         cell = dict.fromkeys(keys)
         assert layout.cell_kind(cell) == jlayout.cell_kind(cell), keys
         assert layout.is_quantized(cell) == jlayout.is_quantized(cell), keys
-
-
-def test_int8_params_are_refused():
-    params = {"wq": torch.zeros((8, 3, 8), dtype=torch.int8), "b": torch.zeros((2, 8)),
-              "wq_scale": torch.ones((3, 1)), "w_skip": None}
-    with pytest.raises(NotImplementedError, match="int8"):
-        tops.fused_sru(params, torch.zeros((2, 1, 8)), torch.zeros((1, 8)))

@@ -1,6 +1,6 @@
 """The port's serving path (``repro_torch``: bridge, LM, step builders,
-``launch/serve.py``) against the JAX package's, on the ``.reduced()`` forms of the fused
-and stacked configs and of the paper's seven base SRU/QRNN/LSTM configs
+``launch/serve.py``) against the JAX package's, on the ``.reduced()`` forms of the fused,
+stacked and ``*-int8`` configs and of the paper's seven base SRU/QRNN/LSTM configs
 (under their own ``chunked`` engine, under ``pallas``, and under the
 sequential and associative engines), with the JAX package's own params
 bridged across.
@@ -39,6 +39,8 @@ REPO = Path(__file__).resolve().parents[1]
 SLICE_ARCHS = [
     "sru-paper-large-stacked", "qrnn-paper-large-stacked",
     "sru-paper-large-fused", "qrnn-paper-large-fused",
+    "sru-paper-large-int8", "qrnn-paper-large-int8",
+    "sru-paper-large-stacked-int8", "qrnn-paper-large-stacked-int8",
 ]
 BASE_ARCHS = [
     "sru-paper-small", "sru-paper-large", "qrnn-paper-small", "qrnn-paper-large",
@@ -195,6 +197,47 @@ def test_serve_defaults_to_the_card():
         pytest.skip("checks the refusal on a machine without a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "sru-paper-large-stacked", "--reduced"])
+
+
+def test_serve_int8_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qrnn-paper-large-stacked-int8", "--reduced"])
+
+
+@pytest.mark.parametrize("arch,quant", [("sru-paper-large-fused", "int8"),
+                                        ("qrnn-paper-large-stacked", "int8"),
+                                        ("sru-paper-large-int8", "none")])
+def test_serve_weight_quant_flag(arch, quant, capsys, monkeypatch):
+    """``--weight-quant`` overrides the config's knob; ``lm_init`` then
+    quantizes (or not) the gate slabs the run serves."""
+    inits = []
+    real_init = lm.lm_init
+
+    def recording_init(gen, cfg, device):
+        inits.append(cfg)
+        return real_init(gen, cfg, device=device)
+
+    monkeypatch.setattr(lm, "lm_init", recording_init)
+    rc = serve.main(["--arch", arch, "--weight-quant", quant, "--reduced", "--device", "cpu",
+                     "--batch", "2", "--prompt-len", "8", "--gen-len", "4"])
+    assert rc == 0 and "serve-stats " in capsys.readouterr().out
+    assert [c.weight_quant for c in inits] == [quant]
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--arch", "lstm-paper-small", "--weight-quant", "int8"], "does not apply to LSTM"),
+    (["--arch", "sru-paper-large-int8", "--engine", "chunked"], "requires engine 'fused'"),
+    (["--arch", "qrnn-paper-large-stacked-int8", "--engine", "pallas"],
+     "requires engine 'fused'"),
+    (["--arch", "sru-paper-large", "--weight-quant", "int8"], "requires engine 'fused'"),
+])
+def test_serve_refuses_int8_where_no_kernel_dequantizes(argv, match):
+    """JAX's int8 checks (``validate_engine_mesh``), with its messages."""
+    with pytest.raises(SystemExit) as exc:
+        serve.main(argv + ["--reduced", "--device", "cpu"])
+    assert match in str(exc.value)
 
 
 def test_serve_base_config_on_pallas_runs_as_a_module():
