@@ -14,24 +14,32 @@ Phases, each printing one JSON line per step:
            1024, bf16; for the linear scan F = B * H = 4096) plus fp32,
            ragged-edge and long-sequence cases and one backward of the linear
            scan; the int8 forms of the layer and the stack (int8 gate slabs,
-           fp32 scales) at the same shapes; max |error| against a stated
-           tolerance, and kernel / plain times from CUDA events (decode cases
-           also cold: the L2 flushed before each call);
+           fp32 scales) at the same shapes; the decode attention (B5) at the
+           llama3-8b and smollm-360m serve shapes (caches of 1056 and 8192
+           rows, ragged lengths down to 1, bf16) and one fp32 case with 32
+           query heads per KV head, beside PyTorch's
+           ``scaled_dot_product_attention`` on the same data; max |error|
+           against a stated tolerance, and kernel / plain times from CUDA
+           events (decode cases also cold: the L2 flushed before each call);
   serve    ``repro_torch.launch.serve.main`` in batch mode at full width
            (``--batch 4 --prompt-len 64 --gen-len 32``) for the stacked and
            fused configs, the base SRU/QRNN configs under ``--engine pallas``,
            ``sru-paper-large`` on its own chunked engine,
-           ``lstm-paper-large`` and the four ``*-int8`` configs; each run's
-           launches of each kernel instance, fp and int8 apart (counts set to
-           0 just before the run, read just after);
-  profile  per config (the fp fused, stacked and pallas runs and the two
-           stacked int8 runs), a decode step's host time and torch.profiler's
-           device time by kernel, hence the device's idle share;
+           ``lstm-paper-large``, the four ``*-int8`` configs, ``llama3-8b``
+           (prompt 64 and 1024) and ``smollm-360m``; each run's launches of
+           each kernel instance, fp and int8 apart (counts set to 0 just
+           before the run, read just after), its init time and peak memory;
+  profile  per config (the fp fused, stacked and pallas runs, the two
+           stacked int8 runs, llama3-8b and smollm-360m), a decode step's
+           host time and torch.profiler's device time by kernel, hence the
+           device's idle share, against the step's bytes bound; the attention
+           LMs' KV cache must keep its storage (written in place);
   parity   the stacked SRU and QRNN LMs, the base SRU and QRNN LMs under
-           pallas, the LSTM LM and two int8 LMs (stacked SRU, fused QRNN) at
-           full width in fp32 compute, same params, on the card versus the
-           plain path on the CPU: teacher-forced prefill logits and 8 decode
-           steps.
+           pallas, the LSTM LM, two int8 LMs (stacked SRU, fused QRNN),
+           smollm-360m (full depth) and llama3-8b (cut to 2 layers so the CPU
+           side fits in time and host memory) at full width in fp32 compute,
+           same params, on the card versus the plain path on the CPU:
+           teacher-forced prefill logits, 8 decode steps and their argmax.
 
 Then one ``{"phase_seconds": {...}}`` line (each phase's wall time, the
 serve phase's warm-ups included), one ``{"kernels": [...]}`` line (launches
@@ -56,27 +64,33 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("build", "kernels", "serve", "profile", "parity")
-# (arch, --engine override): the runs of the serve phase.
+# (arch, --engine override, --prompt-len): the runs of the serve phase.
 SERVE_RUNS = (
-    ("sru-paper-large-stacked", None), ("qrnn-paper-large-stacked", None),
-    ("sru-paper-large-fused", None), ("qrnn-paper-large-fused", None),
-    ("sru-paper-large", "pallas"), ("qrnn-paper-large", "pallas"),
-    ("sru-paper-large", None), ("lstm-paper-large", None),
-    ("sru-paper-large-stacked-int8", None), ("qrnn-paper-large-stacked-int8", None),
-    ("sru-paper-large-int8", None), ("qrnn-paper-large-int8", None),
+    ("sru-paper-large-stacked", None, 64), ("qrnn-paper-large-stacked", None, 64),
+    ("sru-paper-large-fused", None, 64), ("qrnn-paper-large-fused", None, 64),
+    ("sru-paper-large", "pallas", 64), ("qrnn-paper-large", "pallas", 64),
+    ("sru-paper-large", None, 64), ("lstm-paper-large", None, 64),
+    ("sru-paper-large-stacked-int8", None, 64), ("qrnn-paper-large-stacked-int8", None, 64),
+    ("sru-paper-large-int8", None, 64), ("qrnn-paper-large-int8", None, 64),
+    ("llama3-8b", None, 64), ("llama3-8b", None, 1024), ("smollm-360m", None, 64),
 )
-# The fused int8 runs are not profiled: their kernels take the bf16 twins' time.
-PROFILE_RUNS = SERVE_RUNS[:6] + SERVE_RUNS[8:10]
+# (arch, --engine override): the fused int8 runs are not profiled (their
+# kernels take the bf16 twins' time), nor llama3-8b's long prompt.
+PROFILE_RUNS = tuple(r[:2] for r in SERVE_RUNS[:6] + SERVE_RUNS[8:10] + SERVE_RUNS[12:13]
+                     + SERVE_RUNS[14:])
+# (arch, --engine override, config overrides).
 PARITY_RUNS = (
-    ("sru-paper-large-stacked", None), ("qrnn-paper-large-stacked", None),
-    ("sru-paper-large", "pallas"), ("qrnn-paper-large", "pallas"),
-    ("lstm-paper-large", None),
-    ("sru-paper-large-stacked-int8", None), ("qrnn-paper-large-int8", None),
+    ("sru-paper-large-stacked", None, {}), ("qrnn-paper-large-stacked", None, {}),
+    ("sru-paper-large", "pallas", {}), ("qrnn-paper-large", "pallas", {}),
+    ("lstm-paper-large", None, {}),
+    ("sru-paper-large-stacked-int8", None, {}), ("qrnn-paper-large-int8", None, {}),
+    ("smollm-360m", None, {}), ("llama3-8b", None, {"n_layers": 2}),
 )
 # Each kernel instance family with its launch counter (module attribute).
 KERNELS = ("fused_rnn_layer", "fused_rnn_stack", "linear_scan",
-           "fused_rnn_layer_int8", "fused_rnn_stack_int8")
-OUR_KERNEL_SYMBOLS = ("fused_rnn_layer_kernel", "linear_scan_kernel")  # device symbol names
+           "fused_rnn_layer_int8", "fused_rnn_stack_int8", "gqa_decode")
+OUR_KERNEL_SYMBOLS = ("fused_rnn_layer_kernel", "linear_scan_kernel",  # device symbol names
+                      "gqa_decode_split_kernel", "gqa_decode_combine_kernel")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 L2_FLUSH_BYTES = 128 << 20         # written between cold calls; the H100's L2 is 50 MB
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 SIMT
@@ -87,8 +101,14 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 SI
 # times the largest output magnitude.
 ATOL = 5e-4
 RTOL_BF16 = 2.0 ** -7
-# Parity (phase 4): fp32 LM on the card vs the CPU, through 4 layers and the
-# 8192-wide head; logits are O(1). The same sources of difference as ATOL.
+# Decode attention (B5): both sides compute in fp32 and differ by the order of
+# the softmax sums (online, split, combined) and a few ulp of expf: fp32
+# within B5_ATOL; a bf16 output within one bf16 ulp of the largest output
+# more (RTOL_BF16).
+B5_ATOL = 2e-5
+# Parity (phase 4): fp32 LM on the card vs the CPU, through up to 32 layers
+# and a head of up to 128256 columns; logits are O(1). The same sources of
+# difference as ATOL.
 PARITY_TOL = 1e-3
 
 
@@ -159,16 +179,16 @@ def bound(read_write_bytes: int, ops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(outs, refs, dtype: str):
+def compare(outs, refs, dtype: str, atol: float = ATOL):
     """Worst output: (max |err|, its tolerance, finite?)."""
     import torch
 
-    worst = (0.0, ATOL, True)
+    worst = (0.0, atol, True)
     for o, r in zip(outs, refs):
         if o is None:
             continue
         err = (o.float() - r.float()).abs().max().item()
-        tol = ATOL + (RTOL_BF16 * r.float().abs().max().item() if dtype == "bfloat16" else 0.0)
+        tol = atol + (RTOL_BF16 * r.float().abs().max().item() if dtype == "bfloat16" else 0.0)
         finite = bool(torch.isfinite(o.float()).all().item())
         if not finite or err / tol > worst[0] / worst[1]:
             worst = (err, tol, finite and worst[2])
@@ -278,15 +298,51 @@ def _scan_case(name, T, F, dtype_name, seed):
     return name, (a, b, c0), {}, rw, 2.0 * T * F
 
 
+def _gqa_case(name, B, Hq, Hkv, Dh, S, lengths, dtype_name, seed):
+    """Inputs for one decode-attention case, made on the card from a seed,
+    and its bound: the valid K/V rows, q and out, each moved once."""
+    import torch
+
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Hq, Dh), generator=g, device=dev).to(dt)
+    k, v = (torch.randn((B, S, Hkv, Dh), generator=g, device=dev).to(dt) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    rows = sum(min(n, S) for n in lengths)
+    rw = 2 * rows * Hkv * Dh * k.element_size() + 2 * nbytes(q) + nbytes(lens)
+    ops = 2.0 * 2.0 * rows * (Hq // Hkv) * Hkv * Dh  # q.k and p.v
+    return name, (q, k, v, lens), {}, rw, ops
+
+
+def _sdpa(q, k, v, lens):
+    """The library yardstick of B5: one ``scaled_dot_product_attention``
+    call on the same data, never on the port's path. It takes the cache as
+    (B, Hkv, S, Dh): the transposed views are free (no copy is timed), and
+    the length mask is built outside the timed call."""
+    import torch
+
+    S = k.shape[1]
+    mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    q4 = q[:, :, None, :]
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask, enable_gqa=True)[:, :, 0, :]
+
+    return call
+
+
 def _summary(kname, source, replaces, rows):
-    main = rows[0]  # the main path's prefill shape: T = 64, bf16
+    main = rows[0]  # the main path's prefill shape (T = 64, bf16), or B5's serve shape
     decode = next(r for r in rows if r["T"] == 1)
     return {
         "name": kname, "route": "cuda", "source": source,
         "replaces": replaces, "launches": 0,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": None,
+        "bound_by": main["bound_by"], "library_ms": main.get("library_ms"),
         "case": main["case"], "decode_case": decode["case"],
         "decode_ms": decode["ms"], "decode_cold_ms": decode["cold_ms"],
         "decode_plain_ms": decode["plain_ms"],
@@ -294,9 +350,12 @@ def _summary(kname, source, replaces, rows):
     }
 
 
-def _run_cases(kname, wrapper, plain, cases):
+def _run_cases(kname, wrapper, plain, cases, atol=ATOL, library=None):
     """Each case against its plain version; decode cases (T = 1) are also
-    timed cold, with the L2 flushed before each call (``cold_ms``)."""
+    timed cold, with the L2 flushed before each call (``cold_ms``).
+    ``library(*args)`` gives the one PyTorch call that computes the same
+    function, timed as ``library_ms`` (with its max |error| against the
+    plain version, not checked)."""
     import torch
 
     l2 = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -306,7 +365,7 @@ def _run_cases(kname, wrapper, plain, cases):
         ref = plain(*args, **kw)
         torch.cuda.synchronize()
         out, ref = (x if isinstance(x, tuple) else (x,) for x in (out, ref))
-        err, tol, finite = compare(out, ref, dtype)
+        err, tol, finite = compare(out, ref, dtype, atol)
         ms = time_ms(lambda: wrapper(*args, **kw), iters=50)
         cold_ms = None
         if T == 1:
@@ -318,6 +377,10 @@ def _run_cases(kname, wrapper, plain, cases):
             "max_abs_err": err, "tol": tol, "finite": finite, "ms": ms, "cold_ms": cold_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         }
+        if library is not None:
+            call = library(*args)
+            row["library_ms"] = time_ms(call, iters=50)
+            row["library_max_abs_err"] = (call().float() - ref[0].float()).abs().max().item()
         emit(row)
         require(finite and err <= tol, f"{kname} [{name}]: err {err} > tol {tol}")
         rows.append(row)
@@ -378,6 +441,9 @@ def _scan_backward_row():
 def phase_kernels():
     """Every kernel against its plain version. Returns per-kernel summaries."""
     from repro_torch.kernels.fused_rnn import fused_rnn, stacked
+    from repro_torch.kernels.gqa_decode import gqa_decode as gqa_kernel
+    from repro_torch.kernels.gqa_decode.ops import gqa_decode
+    from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref
     from repro_torch.kernels.linear_scan import linear_scan
     from repro_torch.kernels.linear_scan.ref import linear_scan_ref
 
@@ -418,6 +484,20 @@ def phase_kernels():
                              ("T=64 F=1 fp32", 64, 1, 203),
                              ("long T=4096 F=128 fp32", 4096, 128, 204)):
         scan_cases.append(("float32", T) + _scan_case(name, T, F, "float32", seed))
+    # Decode attention: the llama3-8b serve shape (prompt 1024 + 32, first
+    # step), a long cache with ragged lengths down to 1, smollm's shape, and
+    # an fp32 case with 32 query heads per KV head.
+    gqa_cases = [(dtype, 1) + _gqa_case(name, *shape, dtype, 400 + i) for i, (name, shape, dtype)
+                 in enumerate((
+                     ("llama3 B=4 Hq=32 Hkv=8 Dh=128 S=1056 len=1025",
+                      (4, 32, 8, 128, 1056, (1025,) * 4), "bfloat16"),
+                     ("llama3 S=8192 len=(8192,5000,1,777)",
+                      (4, 32, 8, 128, 8192, (8192, 5000, 1, 777)), "bfloat16"),
+                     ("smollm B=4 Hq=15 Hkv=5 Dh=64 S=8192 len=8192",
+                      (4, 15, 5, 64, 8192, (8192,) * 4), "bfloat16"),
+                     ("G=32 B=2 Hq=32 Hkv=1 Dh=128 S=4096 len=(4096,2049) fp32",
+                      (2, 32, 1, 128, 4096, (4096, 2049)), "float32"),
+                 ))]
 
     fused_src = "src/repro_torch/kernels/fused_rnn/csrc/fused_rnn_layer.cu"
     summaries = {}
@@ -438,6 +518,17 @@ def phase_kernels():
         if kname == "linear_scan":
             rows.append(_scan_backward_row())
         summaries[kname] = _summary(kname, source, replaces, rows)
+    rows = _run_cases("gqa_decode", gqa_decode, gqa_decode_ref, gqa_cases, atol=B5_ATOL,
+                      library=_sdpa)
+    for _, _, name, (q, k, _, _), *_ in gqa_cases:  # the instance each case runs
+        (B, Hq, Dh), (S, Hkv) = q.shape, k.shape[1:3]
+        smem, ctas = gqa_kernel.instance_info(q.dtype, Dh, Hq // Hkv)
+        emit({"phase": "kernels", "kernel": "gqa_decode", "case": name,
+              "dynamic_smem_bytes": smem, "ctas_per_sm": ctas,
+              "splits_rows": gqa_kernel.split_plan(B, Hkv, S, gqa_kernel._sm_count(0))})
+    summaries["gqa_decode"] = _summary(
+        "gqa_decode", "src/repro_torch/kernels/gqa_decode/csrc/gqa_decode.cu",
+        "src/repro/kernels/gqa_decode/gqa_decode.py:66", rows)
     return summaries
 
 
@@ -445,13 +536,15 @@ def _launch_counters():
     """Kernel -> (module, name of its launch counter); the wrappers count fp
     and int8 instance launches apart."""
     from repro_torch.kernels.fused_rnn import fused_rnn, stacked
+    from repro_torch.kernels.gqa_decode import gqa_decode
     from repro_torch.kernels.linear_scan import linear_scan
 
     return {"fused_rnn_layer": (fused_rnn, "LAUNCHES"),
             "fused_rnn_stack": (stacked, "LAUNCHES"),
             "linear_scan": (linear_scan, "LAUNCHES"),
             "fused_rnn_layer_int8": (fused_rnn, "LAUNCHES_INT8"),
-            "fused_rnn_stack_int8": (stacked, "LAUNCHES_INT8")}
+            "fused_rnn_stack_int8": (stacked, "LAUNCHES_INT8"),
+            "gqa_decode": (gqa_decode, "LAUNCHES")}
 
 
 def _run_cfg(arch, engine):
@@ -461,13 +554,17 @@ def _run_cfg(arch, engine):
     return cfg.with_(scan_engine=engine) if engine else cfg
 
 
-def _expected_launches(cfg, calls: int) -> dict:
-    """Launches of each kernel over ``calls`` prefill/decode calls: one per
-    layer per call on the kernel the config's engine routes to (its int8
-    instance under ``weight_quant == "int8"``); none for LSTM and the plain
-    engines."""
+def _expected_launches(cfg, decode_steps: int) -> dict:
+    """Launches of each kernel over one prefill and ``decode_steps`` decode
+    steps: for an RNN, one per layer per call on the kernel the config's
+    engine routes to (its int8 instance under ``weight_quant == "int8"``),
+    none for LSTM and the plain engines; for attention, one decode attention
+    per layer per decode step (prefill attention is plain PyTorch)."""
     want = dict.fromkeys(KERNELS, 0)
-    n = cfg.n_layers * calls
+    if cfg.cell is None:
+        want["gqa_decode"] = cfg.n_layers * decode_steps
+        return want
+    n = cfg.n_layers * (1 + decode_steps)
     q = "_int8" if cfg.weight_quant == "int8" else ""
     if cfg.cell == "lstm":
         return want
@@ -486,19 +583,19 @@ def phase_serve():
     summed over the runs."""
     from repro_torch.launch import serve
 
-    gen_len, prompt_len, batch = 32, 64, 4
+    gen_len, batch = 32, 4
     counters = _launch_counters()
     # Warm-up of every run at the measured shapes: CUDA context, allocator,
     # cuBLAS's first call at each GEMM shape, and the first launch of each
     # kernel on the run's path (runs that share their cuBLAS shapes still
     # differ in the elementwise kernels they launch first).
-    for arch, engine in SERVE_RUNS:
+    for arch, engine, prompt_len in SERVE_RUNS:
         extra = ["--engine", engine] if engine else []
         with contextlib.redirect_stdout(io.StringIO()):
             require(serve.main(["--arch", arch, "--gen-len", "2", "--prompt-len", str(prompt_len)]
                                + extra) == 0, f"serve warm-up {arch} {engine}")
     totals = dict.fromkeys(KERNELS, 0)
-    for arch, engine in SERVE_RUNS:
+    for arch, engine, prompt_len in SERVE_RUNS:
         extra = ["--engine", engine] if engine else []
         buf = io.StringIO()
         for mod, attr in counters.values():
@@ -514,11 +611,12 @@ def phase_serve():
         stats = json.loads(line[len("serve-stats "):])
         cfg = _run_cfg(arch, engine)
         calls = 1 + (gen_len - 1)  # one prefill, gen_len - 1 decode steps
-        want = _expected_launches(cfg, calls)
+        want = _expected_launches(cfg, gen_len - 1)
         tokens = stats.pop("tokens")
         ok_tokens = all(0 <= t < cfg.vocab for row in tokens for t in row)
-        emit({"phase": "serve", **stats, "engine": cfg.scan_engine, "launches": launches,
-              "launches_per_step": sum(launches.values()) / calls,
+        engine_used = cfg.scan_engine if cfg.cell in ("sru", "qrnn") else None
+        emit({"phase": "serve", **stats, "prompt_len": prompt_len, "engine": engine_used,
+              "launches": launches, "launches_per_step": sum(launches.values()) / calls,
               "sample_tokens": tokens[0][:8]})
         require(launches == want, f"serve {arch} {engine}: launches {launches} != {want}")
         require(ok_tokens and len(tokens) == batch and len(tokens[0]) == gen_len,
@@ -528,30 +626,42 @@ def phase_serve():
     return totals
 
 
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return 0 if tree is None else tree.numel() * tree.element_size()
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return None if tree is None else tree.to(device)
+
+
 def phase_profile():
     """Where a decode step's time goes (B = 4, after a 64-token prefill): host
     clock per step without the profiler, then torch.profiler's device time
-    per step by kernel. Idle share = 1 - device time / step time."""
+    per step by kernel. Idle share = 1 - device time / step time. The step's
+    bound is the bytes it must read once over the HBM rate: every layer
+    weight, the final norm, the logits matrix and the valid KV rows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.fused_rnn import layout
     from repro_torch.models import lm
     from repro_torch.models.layers import _dtype
     from repro_torch.training.steps import build_decode_step, build_prefill_step
 
-    steps = 8
+    steps, prompt_len = 8, 64
     for arch, engine in PROFILE_RUNS:
         cfg = _run_cfg(arch, engine)
-        params = layout.cast_params(
-            lm.lm_init(torch.Generator().manual_seed(0), cfg, device="cuda"),
-            _dtype(cfg.compute_dtype),
-        )
-        prefill = build_prefill_step(cfg, batch=4, max_len=64 + 3 * steps, device="cuda")
+        params = lm.lm_init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda",
+                            dtype=_dtype(cfg.compute_dtype))
+        prefill = build_prefill_step(cfg, batch=4, max_len=prompt_len + 3 * steps, device="cuda")
         decode = build_decode_step(cfg)
-        prompt = torch.zeros((4, 64), dtype=torch.long, device="cuda")
+        prompt = torch.zeros((4, prompt_len), dtype=torch.long, device="cuda")
         logits, caches = prefill(params, {"inputs": prompt})
+        ptrs = {k: v.data_ptr() for k, v in caches["layers"].items()}
 
         def run():
             nonlocal logits, caches
@@ -566,6 +676,7 @@ def phase_profile():
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
+        in_place = {k: v.data_ptr() for k, v in caches["layers"].items()} == ptrs
         kernels = []  # device-side events only (kernels, copies): no double count
         for e in prof.key_averages():
             dev_us = getattr(e, "self_device_time_total", 0.0) or 0.0
@@ -574,23 +685,38 @@ def phase_profile():
         kernels.sort(reverse=True)
         device_ms = sum(k[0] for k in kernels) / 1e3 if kernels else None
         ours_us = sum(k[0] for k in kernels if any(n in k[2] for n in OUR_KERNEL_SYMBOLS))
-        emit({"phase": "profile", "arch": arch, "engine": cfg.scan_engine,
+        head = params["embed"].get("unembed", params["embed"]["embed"])
+        kv_bytes = 0
+        if cfg.cell is None:  # mean valid rows over the profiled steps
+            rows = prompt_len + 2 * steps + (steps + 1) / 2
+            kv = caches["layers"]["k"]
+            kv_bytes = 2 * cfg.n_layers * 4 * rows * cfg.n_kv_heads * cfg.d_head * kv.element_size()
+        step_bytes = (_tree_bytes(params["layers"]) + _tree_bytes(params["final_norm"])
+                      + _tree_bytes(head) + kv_bytes)
+        emit({"phase": "profile", "arch": arch,
+              "engine": cfg.scan_engine if cfg.cell in ("sru", "qrnn") else None,
               "step_ms": wall_ms, "device_ms": device_ms,
+              "device_ops_per_step": sum(k[1] for k in kernels),
               "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms,
-              "our_kernels_us_per_step": ours_us,
-              "top_kernels_us_per_step": [[round(k[0], 2), k[1], k[2][:70]] for k in kernels[:6]]})
+              "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3, "step_bytes": step_bytes,
+              "kv_cache_in_place": in_place, "our_kernels_us_per_step": ours_us,
+              "top_kernels_us_per_step": [[round(k[0], 2), k[1], k[2][:70]] for k in kernels[:8]]})
+        require(in_place, f"profile {arch}: the decode step moved the cache")
+        del params, caches, logits
 
 
 def phase_parity():
+    """fp32 compute, the same params (drawn on the card, copied to the host),
+    card against CPU: teacher-forced prefill logits, 8 decode steps, their
+    greedy tokens and the caches."""
     import torch
 
-    from repro_torch.bridge import params_from_numpy, params_to_numpy
     from repro_torch.models import lm
 
-    for arch, engine in PARITY_RUNS:
-        cfg = _run_cfg(arch, engine).with_(compute_dtype="float32")
-        params_cpu = lm.lm_init(torch.Generator().manual_seed(7), cfg, device="cpu")
-        params_gpu = params_from_numpy(params_to_numpy(params_cpu), device="cuda")
+    for arch, engine, overrides in PARITY_RUNS:
+        cfg = _run_cfg(arch, engine).with_(compute_dtype="float32", **overrides)
+        params_gpu = lm.lm_init(torch.Generator(device="cuda").manual_seed(7), cfg, device="cuda")
+        params_cpu = _tree_to(params_gpu, "cpu")
         g = torch.Generator().manual_seed(8)
         prompt = torch.randint(0, cfg.vocab, (4, 64), generator=g)
         forced = torch.randint(0, cfg.vocab, (4, 8), generator=g)
@@ -610,12 +736,21 @@ def phase_parity():
         err = (logits["cuda"] - logits["cpu"]).abs().max().item()
         cache_err = max((caches["cuda"][k] - caches["cpu"][k]).abs().max().item()
                         for k in caches["cpu"])
+        same_tokens = torch.equal(logits["cuda"][..., : cfg.vocab].argmax(-1),
+                                  logits["cpu"][..., : cfg.vocab].argmax(-1))
         finite = bool(torch.isfinite(logits["cuda"]).all().item())
-        emit({"phase": "parity", "arch": arch, "engine": cfg.scan_engine, "compute": "float32",
+        emit({"phase": "parity", "arch": arch,
+              "engine": cfg.scan_engine if cfg.cell in ("sru", "qrnn") else None,
+              "compute": "float32",
+              "n_layers": cfg.n_layers, "depth_cut_from": _run_cfg(arch, engine).n_layers
+              if overrides else None,
               "logits_shape": list(logits["cuda"].shape), "max_abs_err": err,
-              "cache_max_abs_err": cache_err, "tol": PARITY_TOL, "finite": finite})
-        require(finite and err <= PARITY_TOL and cache_err <= PARITY_TOL,
-                f"parity {arch} {engine}: logits err {err}, cache err {cache_err} > {PARITY_TOL}")
+              "cache_max_abs_err": cache_err, "same_greedy_tokens": same_tokens,
+              "tol": PARITY_TOL, "finite": finite})
+        require(finite and err <= PARITY_TOL and cache_err <= PARITY_TOL and same_tokens,
+                f"parity {arch} {engine}: logits err {err}, cache err {cache_err} > "
+                f"{PARITY_TOL} or greedy tokens differ ({same_tokens})")
+        del params_gpu, params_cpu
 
 
 def main(argv=None) -> int:

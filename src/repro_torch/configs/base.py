@@ -3,8 +3,9 @@
 One ``ArchConfig`` fully determines a model. The port keeps its own copy
 because it imports nothing of the JAX package; the fields, defaults,
 ``padded_vocab`` and ``reduced()`` are the same, so a config names the same
-model on both sides. The port serves the SRU/QRNN fields; the others wait for
-the slices that port their models.
+model on both sides. The port serves the RNN and the dense attention fields;
+the MoE, SSM, hybrid and frontend ones wait for the slices that port their
+models.
 """
 from __future__ import annotations
 

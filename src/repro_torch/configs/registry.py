@@ -1,14 +1,17 @@
 """Architecture registry of the port: ``get_config(name)`` for every arch it
-can name. This slice registers the paper's RNN configs
-(``configs/paper_rnn.py``); the ten assigned archs wait for later slices."""
+serves: the paper's RNN configs (``configs/paper_rnn.py``) and the two GQA
+attention LMs (``llama3-8b``, ``smollm-360m``). The MoE, Mamba-2, hybrid and
+frontend archs wait for their slices (ROADMAP.md)."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import paper_rnn
+from repro_torch.configs import llama3_8b, paper_rnn, smollm_360m
 from repro_torch.configs.base import ArchConfig
 
-REGISTRY: Dict[str, ArchConfig] = {c.name: c for c in paper_rnn.CONFIGS}
+REGISTRY: Dict[str, ArchConfig] = {
+    c.name: c for c in (*paper_rnn.CONFIGS, llama3_8b.CONFIG, smollm_360m.CONFIG)
+}
 
 
 def get_config(name: str) -> ArchConfig:

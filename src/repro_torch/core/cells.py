@@ -13,8 +13,9 @@ product is one GEMM on the free ``(d_in, n_gates * hidden)`` view; LSTM the
 flat ``(d_in, 4 * hidden)`` layout with gate order ``[f | i | o | c_hat]``.
 The gate products are plain ``torch.matmul``: the JAX package computes them
 outside any Pallas kernel. Random numbers come from an explicit
-``torch.Generator`` on the CPU, so a seed gives the same weights on any
-device; they differ from ``jax.random``'s (the tests bridge JAX's weights in).
+``torch.Generator`` and are drawn on its device (a CPU generator gives the
+same weights whatever ``device`` they are moved to); they differ from
+``jax.random``'s (the tests bridge JAX's weights in).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ Params = Dict[str, torch.Tensor]
 
 def _dense_init(gen, d_in: int, d_out: int, dtype, device) -> torch.Tensor:
     """``uniform(-1, 1) / sqrt(d_in)``, as the JAX package."""
-    w = torch.rand((d_in, d_out), generator=gen, dtype=torch.float32) * 2.0 - 1.0
+    w = torch.rand((d_in, d_out), generator=gen, dtype=torch.float32, device=gen.device) * 2.0 - 1.0
     return (w / math.sqrt(d_in)).to(device=device, dtype=dtype)
 
 

@@ -44,6 +44,12 @@ SOURCES: Dict[str, tuple] = {
         {"linear_scan_launch": [_I] + [_P] * 4 + [_I] * 2 + [_P]},
         (),
     ),
+    "gqa_decode": (
+        _PKG / "gqa_decode" / "csrc" / "gqa_decode.cu",
+        {"gqa_decode_launch": [_I] + [_P] * 7 + [_I] * 7 + [_P],
+         "gqa_decode_info": [_I] * 3 + [_P]},
+        (),
+    ),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

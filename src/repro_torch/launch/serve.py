@@ -6,21 +6,27 @@ lockstep. Runs on the card unless ``--device cpu`` is given:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-large-stacked \\
         --batch 4 --prompt-len 64 --gen-len 32
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-large-stacked \\
-        --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --reduced --device cpu
+
+The port serves every ``paper_rnn`` config (SRU/QRNN/LSTM, the ``*-int8``
+ones included) and the dense GQA attention LMs ``llama3-8b`` and
+``smollm-360m``, whose decode attention runs on the CUDA port of the
+``gqa_decode`` kernel (B5). Other archs are refused by ``lm_init``.
 
 ``--engine`` overrides ``cfg.scan_engine`` with any of the six engines of
 the JAX ``launch/serve.py`` (``ENGINE_MATRIX``); an unknown one exits with
 the list (``validate_engine``, the engine and int8 checks of the JAX
-``validate_engine_mesh`` without its mesh parts). LSTM ignores the engine.
-``--weight-quant int8`` overrides ``cfg.weight_quant`` (the ``*-int8``
-configs carry it): the SRU/QRNN gate slabs are quantized at init and served
-through the int8 forms of the fused kernels, on ``fused``/``fused_stack``
-only. A config's ``ring_overlap`` changes nothing on one device.
+``validate_engine_mesh`` without its mesh parts). LSTM and the attention
+LMs do not consult the engine. ``--weight-quant int8`` overrides
+``cfg.weight_quant`` (the ``*-int8`` configs carry it): the SRU/QRNN gate
+slabs are quantized at init and served through the int8 forms of the fused
+kernels, on ``fused``/``fused_stack`` only; it leaves every other leaf (all
+of an attention LM) as it is, as in JAX. A config's ``ring_overlap`` changes
+nothing on one device.
 Continuous mode and the other flags of the JAX ``launch/serve.py`` wait for
-later slices. Besides the two
-human-readable lines, the run prints one ``serve-stats {json}`` line with
-its timings and tokens.
+later slices. Besides the two human-readable lines, the run prints one
+``serve-stats {json}`` line with its timings, the card's peak memory
+(``peak_mem_gb``, null on the CPU) and its tokens.
 """
 from __future__ import annotations
 
@@ -31,7 +37,6 @@ import time
 import torch
 
 from repro_torch.configs.registry import get_config
-from repro_torch.kernels.fused_rnn import layout
 from repro_torch.models import lm
 from repro_torch.models.layers import _dtype, resolve_device
 from repro_torch.training.steps import build_decode_step, build_prefill_step
@@ -161,13 +166,23 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     if args.reduced:
         cfg = cfg.reduced()
-    params = lm.lm_init(torch.Generator().manual_seed(args.seed), cfg, device=device)
-    # Cast the fp32 params to the compute dtype once. The JAX package casts
-    # inside every step (models/lm.py::_run_layers); the values are the same,
-    # and the per-step casts in the port's lm.py are then no-ops.
-    params = layout.cast_params(params, _dtype(cfg.compute_dtype))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    # The params are made in the compute dtype, leaf by leaf from a generator
+    # on the device. The JAX package casts the fp32 params inside every step
+    # (models/lm.py::_run_layers); the values are the same, and the per-step
+    # casts in the port's lm.py are then no-ops.
+    params = lm.lm_init(torch.Generator(device=device).manual_seed(args.seed), cfg,
+                        device=device, dtype=_dtype(cfg.compute_dtype))
+    _sync(device)
+    init_ms = (time.perf_counter() - t0) * 1e3
 
     stats = run_batch(cfg, params, args, device)
+    stats["init_ms"] = init_ms
+    stats["peak_mem_gb"] = (torch.cuda.max_memory_allocated(device) / 1e9
+                            if device.type == "cuda" else None)
     print(f"prefill: {args.batch}x{args.prompt_len} in {stats['prefill_ms']:.1f}ms "
           f"({stats['prefill_tok_s']:.0f} tok/s)")
     print(f"decode:  {stats['decode_steps']} steps in {stats['decode_ms']:.1f}ms "

@@ -1,15 +1,18 @@
-"""Decoder LM for block kind ``rnn``, from ``repro/models/lm.py``.
+"""Decoder LM for block kinds ``rnn`` and ``attn``, from ``repro/models/lm.py``.
 
 Entry points:
-  * ``lm_init(gen, cfg, device)``                     params tree (int8 gate
+  * ``lm_init(gen, cfg, device, dtype)``              params tree (int8 gate
                                                       slabs when ``cfg.weight_quant == "int8"``)
   * ``lm_init_caches(cfg, batch, max_len, device)``   stacked decode caches
   * ``lm_prefill(params, cfg, batch, caches)``        logits of last pos + caches
   * ``lm_decode_step(params, cfg, caches, tok)``      one-token serve step
 
 The params tree has the JAX package's keys and layout (``bridge.py``
-converts between the two). The other block kinds (attention, Mamba) and the
-training forward wait for later slices.
+converts between the two). The port serves the paper's SRU/QRNN/LSTM LMs and
+the dense GQA attention LMs (``llama3-8b``, ``smollm-360m``). Attention
+caches are written in place (``models/attention.py``); RNN caches are
+returned anew, as in JAX. MoE, Mamba-2, the hybrids, the frontends and the
+training forward wait for later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -18,12 +21,14 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels.fused_rnn import layout
-from repro_torch.models import rnn
+from repro_torch.models import attention, rnn
 from repro_torch.models.layers import (
     _dtype,
     embed_apply,
     embed_init,
     logits_apply,
+    mlp_apply,
+    mlp_init,
     resolve_device,
     rmsnorm,
     rmsnorm_init,
@@ -36,59 +41,135 @@ def block_kind(cfg) -> str:
     return "mamba" if cfg.ssm else "attn"
 
 
-def _require_rnn(cfg) -> None:
-    if block_kind(cfg) != "rnn" or cfg.frontend or cfg.attn_every:
+def _require_served(cfg) -> None:
+    """Refuse the families the port does not serve yet, naming the queue."""
+    unserved = [name for name, on in (("moe", cfg.moe), ("ssm", cfg.ssm),
+                                      ("attn_every", cfg.attn_every),
+                                      ("frontend", cfg.frontend)) if on]
+    if unserved:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves block kind 'rnn' only so far (ROADMAP.md, "
-            "open item (e): the non-RNN families)"
+            f"{cfg.name}: the port does not serve {'/'.join(unserved)} configs yet "
+            "(ROADMAP.md, open item (e): Mamba-2 with B4 next, then the MoE, hybrid "
+            "and frontend archs)"
         )
 
 
-def lm_init(gen: torch.Generator, cfg, device="cuda") -> Dict:
-    """Params from ``gen`` (a CPU ``torch.Generator``), made on ``device``."""
-    _require_rnn(cfg)
+# ---------------------------------------------------------------------------
+# Attention blocks: pre-norm attention + residual, pre-norm MLP + residual
+# ---------------------------------------------------------------------------
+
+def _attn_block_init(gen, cfg, dtype, device) -> Dict:
+    return {
+        "ln1": rmsnorm_init(cfg.d_model, dtype, device),
+        "attn": attention.attn_init(gen, cfg, dtype, device),
+        "ln2": rmsnorm_init(cfg.d_model, dtype, device),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, device),
+    }
+
+
+def _attn_block_prefill(params, cfg, x, cache):
+    a, cache = attention.attn_prefill(params["attn"], cfg, rmsnorm(params["ln1"], x), cache)
+    h = x + a
+    return h + mlp_apply(params["mlp"], rmsnorm(params["ln2"], h), cfg.mlp_type), cache
+
+
+def _attn_block_decode(params, cfg, x, cache):
+    a, cache = attention.attn_decode(params["attn"], cfg, rmsnorm(params["ln1"], x), cache)
+    h = x + a
+    return h + mlp_apply(params["mlp"], rmsnorm(params["ln2"], h), cfg.mlp_type), cache
+
+
+def _block_init(gen, cfg, dtype, device) -> Dict:
+    if block_kind(cfg) == "attn":
+        return _attn_block_init(gen, cfg, dtype, device)
+    return rnn.rnn_block_init(gen, cfg, dtype, device)
+
+
+def _block_cache(cfg, batch: int, max_len: int, dtype, device) -> Dict:
+    if block_kind(cfg) == "attn":
+        return attention.init_cache(cfg, batch, max_len, dtype, device)
+    return rnn.rnn_init_cache(cfg, batch, dtype, device)
+
+
+def _tree_map(fn, *trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return None if first is None else fn(*trees)
+
+
+def _stacked_init(make, n: int):
+    """``n`` layers of ``make()`` written one at a time into stacked
+    ``(n, ...)`` leaves: only one layer exists outside the stack."""
+    one = make()
+    out = _tree_map(lambda t: t.new_empty((n, *t.shape)), one)
+    for l in range(n):
+        one = one if l == 0 else make()
+        _tree_map(lambda o, t: o[l].copy_(t), out, one)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Model init and caches
+# ---------------------------------------------------------------------------
+
+def lm_init(gen: torch.Generator, cfg, device="cuda", dtype=None) -> Dict:
+    """Params from ``gen`` (drawn on its device), made on ``device`` in
+    ``dtype`` (default ``cfg.param_dtype``; every config's is fp32). Each
+    leaf is drawn in fp32 and cast as it is made, and layers are written
+    into the stacked leaves one at a time, so a bf16 llama3-8b never has its
+    fp32 tree on the card: the peak is the bf16 tree plus one fp32 leaf.
+    int8 gate slabs are quantized from the fp32 slabs, then the rest cast."""
+    _require_served(cfg)
     device = resolve_device(device)
-    dtype = _dtype(cfg.param_dtype)
+    dtype = _dtype(cfg.param_dtype) if dtype is None else dtype
+    quant = cfg.weight_quant == "int8"
+    draw = _dtype(cfg.param_dtype) if quant else dtype
     params: Dict = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, cfg.tie_embeddings, device)
     }
-    layers = [rnn.rnn_block_init(gen, cfg, dtype, device) for _ in range(cfg.n_layers)]
-    params["layers"] = _stack_trees(layers)
-    if cfg.weight_quant == "int8":
-        # Weight-only int8 of the SRU/QRNN gate slabs; LSTM passes through.
-        params["layers"] = layout.quantize_tree(params["layers"])
+    params["layers"] = _stacked_init(lambda: _block_init(gen, cfg, draw, device), cfg.n_layers)
+    if quant:
+        # Weight-only int8 of the SRU/QRNN gate slabs; LSTM and every
+        # non-cell leaf pass through.
+        params["layers"] = layout.cast_params(layout.quantize_tree(params["layers"]), dtype)
     params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, device)
     return params
 
 
-def _stack_trees(trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack_trees([t[k] for t in trees]) for k in first}
-    return None if first is None else torch.stack(trees)
-
-
 def lm_init_caches(cfg, batch: int, max_len: int, device="cuda"):
-    """Zero caches ``{"layers": {leaf: (L, B, ...)}}`` in the compute dtype
-    (so the fp32 carry is rounded to it at every call boundary, as in JAX):
-    ``c``, plus ``x_tail`` for QRNN and ``h`` for LSTM. ``max_len`` is unused
-    by RNN caches; it is kept for the JAX signature."""
-    _require_rnn(cfg)
+    """Zero caches ``{"layers": {leaf: (L, ...)}}`` in the compute dtype
+    (``pos`` int32). RNN: ``c``, plus ``x_tail`` for QRNN and ``h`` for
+    LSTM; ``max_len`` is unused by them (kept for the JAX signature).
+    Attention: ``k``, ``v`` (L, B, size, Hkv, Dh) and ``pos`` (L,)."""
+    _require_served(cfg)
     device = resolve_device(device)
-    one = rnn.rnn_init_cache(cfg, batch, _dtype(cfg.compute_dtype), device)
-    return {"layers": {k: torch.stack([v] * cfg.n_layers) for k, v in one.items()}}
+    one = _block_cache(cfg, batch, max_len, _dtype(cfg.compute_dtype), device)
+    return {"layers": {k: v.new_zeros((cfg.n_layers, *v.shape)) for k, v in one.items()}}
 
 
-def _run_layers(params, cfg, h, caches, fn):
-    """All layers, threading the stacked caches. ``fn`` is the per-layer
-    ``rnn_block_prefill`` or ``rnn_block_decode``; with ``cfg.fuse_depth``
-    the stack-level API runs instead (the depth-fused stack under
-    ``scan_engine="fused_stack"``)."""
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def _run_layers(params, cfg, h, caches, decode: bool):
+    """All layers, threading the stacked caches. Attention layers write
+    their slice of the stacked cache in place and the same ``caches`` is
+    returned. RNN layers run ``rnn_block_prefill``/``rnn_block_decode`` per
+    layer (``scan_layers``), or with ``cfg.fuse_depth`` the stack-level API
+    (the depth-fused stack under ``scan_engine="fused_stack"``), and return
+    new caches."""
     layers = layout.cast_params(params["layers"], h.dtype)
+    if block_kind(cfg) == "attn":
+        fn = _attn_block_decode if decode else _attn_block_prefill
+        for l in range(cfg.n_layers):
+            h, _ = fn(rnn.layer_slice(layers, l), cfg, h, rnn.layer_slice(caches["layers"], l))
+        return h, caches
     if cfg.fuse_depth:
-        stack_fn = rnn.rnn_stack_prefill if fn is rnn.rnn_block_prefill else rnn.rnn_stack_decode
+        stack_fn = rnn.rnn_stack_decode if decode else rnn.rnn_stack_prefill
         h, new = stack_fn(layers, cfg, h, caches["layers"])
     else:
+        fn = rnn.rnn_block_decode if decode else rnn.rnn_block_prefill
         h, new = rnn.scan_layers(fn, layers, cfg, h, caches["layers"])
     return h, {"layers": new}
 
@@ -104,13 +185,13 @@ def lm_prefill(params, cfg, batch, caches):
     logits (B, 1, V_padded) and the new caches."""
     compute = _dtype(cfg.compute_dtype)
     h = embed_apply(params["embed"], batch["inputs"]).to(compute)
-    h, caches = _run_layers(params, cfg, h, caches, rnn.rnn_block_prefill)
+    h, caches = _run_layers(params, cfg, h, caches, decode=False)
     return _head(params, cfg, h[:, -1:]), caches
 
 
 def lm_decode_step(params, cfg, caches, token):
-    """One serve step: ``token`` (B, 1) ids. Returns (logits, new caches)."""
+    """One serve step: ``token`` (B, 1) ids. Returns (logits, caches)."""
     compute = _dtype(cfg.compute_dtype)
     h = embed_apply(params["embed"], token).to(compute)
-    h, caches = _run_layers(params, cfg, h, caches, rnn.rnn_block_decode)
+    h, caches = _run_layers(params, cfg, h, caches, decode=True)
     return _head(params, cfg, h), caches

@@ -99,7 +99,11 @@ def layer_slice(tree, l: int):
 
 def scan_layers(fn, params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """Run the per-layer ``fn`` over the stack (JAX's ``lax.scan`` over the
-    layer dim), threading each layer's cache; returns the stacked new cache."""
+    layer dim), threading each layer's cache. Nothing is written in place:
+    the new per-layer caches come back stacked, and the decode step copies
+    them into its buffers (``training/steps.py``). The RNN caches are small
+    ``(L, B, H)``; the large attention KV caches do not come here but are
+    written in place by ``models/lm.py::_run_layers``."""
     new = []
     for l in range(cfg.n_layers):
         x, cache_l = fn(layer_slice(params, l), cfg, x, layer_slice(cache, l))

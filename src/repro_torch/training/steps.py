@@ -37,12 +37,15 @@ def _copy_into(dst, src):
 def build_decode_step(cfg):
     """``decode_step(params, caches, token) -> (logits, caches)``. The caches
     are updated in place and returned: the port's form of the JAX package's
-    ``donate_argnums``, which keeps every cache buffer where it is."""
+    ``donate_argnums``, which keeps every cache buffer where it is. Attention
+    layers write their new K/V row in place (``models/attention.py``); the
+    small RNN caches come back new and are copied into the old buffers."""
 
     def decode_step(params, caches, token):
         with torch.inference_mode():
             logits, new = lm.lm_decode_step(params, cfg, caches, token)
-            _copy_into(caches, new)
+            if new is not caches:
+                _copy_into(caches, new)
             return logits, caches
 
     return decode_step

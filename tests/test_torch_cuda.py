@@ -7,7 +7,10 @@ ragged second one, an int8 slab at an unaligned offset, the largest batch,
 ``sru_proj`` and QRNN, the stack at L = 4) and an unknown weight type; for
 the linear scan (B3) widths that are and are not a multiple of the vector
 width, one time step to a long sequence, an operand at an unaligned
-offset, and the reverse-time backward.
+offset, and the reverse-time backward; for the decode attention (B5) the
+shapes of ``tests/test_kernels.py``, groups of 1, 3, 4 and 32, every head
+dim it takes, ragged lengths down to 1 on a long cache (splits with no
+valid row), one split and many, and the operands it refuses.
 
 They skip, with that reason, on a machine without a CUDA device (decided in
 the ``device`` fixture, not at import) and run on the card with
@@ -21,6 +24,9 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_rnn import fused_rnn, layout, stacked
+from repro_torch.kernels.gqa_decode import gqa_decode as gqa_kernel
+from repro_torch.kernels.gqa_decode.ops import gqa_decode
+from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref
 from repro_torch.kernels.linear_scan import linear_scan as ls_kernel
 from repro_torch.kernels.linear_scan import ops as ls_ops
 from repro_torch.kernels.linear_scan.ref import linear_scan_ref
@@ -279,3 +285,122 @@ def test_linear_scan_backward_matches_plain_autograd(device):
     for mine, ref in zip(*grads):
         err = (mine - ref).abs().max().item()
         assert err <= FP32_TOL * max(1.0, ref.abs().max().item()), err
+
+
+# Decode attention (B5): name -> (B, Hq, Hkv, Dh, S, lengths or None for random).
+GQA_CASES = {
+    "kernels_2x8x2x64": (2, 8, 2, 64, 256, None),
+    "kernels_mqa_g32": (1, 32, 1, 64, 512, None),
+    "kernels_g1_dh32": (3, 16, 16, 32, 128, None),
+    "kernels_dh128": (2, 12, 4, 128, 64, None),
+    "smollm_g3_ragged": (4, 15, 5, 64, 300, (300, 1, 33, 257)),
+    "reduced_dh16": (3, 4, 2, 16, 40, (40, 17, 1)),
+    "llama3_len1_long_cache": (4, 32, 8, 128, 8192, (1, 1, 8192, 2)),
+    "g32_dh128_full": (1, 32, 1, 128, 1000, (1000,)),
+}
+
+
+def _gqa_operands(device, case, dtype):
+    B, Hq, Hkv, Dh, S, lengths = GQA_CASES[case]
+    g = torch.Generator(device=device).manual_seed(sorted(GQA_CASES).index(case))
+    q = torch.randn((B, Hq, Dh), generator=g, device=device).to(dtype)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=device).to(dtype)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=device).to(dtype)
+    if lengths is None:
+        lens = torch.randint(1, S + 1, (B,), generator=g, device=device, dtype=torch.int32)
+    else:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return q, k, v, lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(GQA_CASES))
+def test_gqa_decode_kernel_matches_plain(device, case, dtype):
+    q, k, v, lens = _gqa_operands(device, case, dtype)
+    before = gqa_kernel.LAUNCHES
+    out = gqa_decode(q, k, v, lens)
+    assert gqa_kernel.LAUNCHES == before + 1
+    ref = gqa_decode_ref(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    _close((out,), (ref,), dtype)
+
+
+def test_gqa_decode_kernel_truncated_prefix(device):
+    """Rows past the length do not leak: the result equals attention over
+    the prefix alone (``tests/test_kernels.py``'s check), fp32."""
+    q, k, v, _ = _gqa_operands(device, "kernels_2x8x2x64", torch.float32)
+    L = 37
+    lens = torch.full((2,), L, dtype=torch.int32, device=device)
+    out = gqa_decode(q, k, v, lens)
+    ref = gqa_decode_ref(q, k[:, :L].contiguous(), v[:, :L].contiguous(), lens)
+    torch.cuda.synchronize()
+    _close((out,), (ref,), torch.float32)
+
+
+@pytest.mark.parametrize("S", [32, 96, 4096])
+def test_gqa_decode_kernel_one_split_and_many(device, S):
+    """A cache of one split (the direct store) and of many (the combine)."""
+    n_split, _ = gqa_kernel.split_plan(8, 8, S, gqa_kernel._sm_count(0))
+    assert (n_split == 1) == (S == 32)
+    g = torch.Generator(device=device).manual_seed(S)
+    q = torch.randn((8, 32, 128), generator=g, device=device)
+    k, v = (torch.randn((8, S, 8, 128), generator=g, device=device) for _ in range(2))
+    lens = torch.randint(1, S + 1, (8,), generator=g, device=device, dtype=torch.int32)
+    out = gqa_decode(q, k, v, lens)
+    ref = gqa_decode_ref(q, k, v, lens)
+    torch.cuda.synchronize()
+    _close((out,), (ref,), torch.float32)
+
+
+def test_gqa_decode_refuses_what_the_kernel_does_not_take(device):
+    q, k, v, lens = _gqa_operands(device, "kernels_2x8x2x64", torch.float32)
+    with pytest.raises(ValueError, match="lengths: .* on cpu, expected torch.int32 on cuda"):
+        gqa_decode(q, k, v, lens.cpu())
+    with pytest.raises(ValueError, match="expected torch.int32"):
+        gqa_decode(q, k, v, lens.long())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        buf = torch.empty(k.numel() + 1, device=device)
+        k_odd = buf[1:].view(k.shape)
+        gqa_decode(q, k_odd, v, lens)
+    with pytest.raises(ValueError, match="head dim 48"):
+        gqa_decode(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                   v[..., :48].contiguous(), lens)
+    with pytest.raises(ValueError, match="at most 32"):
+        q64 = torch.zeros((2, 64, 64), device=device)
+        gqa_decode(q64, k[:, :, :1].contiguous(), v[:, :, :1].contiguous(), lens)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gqa_kernel.gqa_decode_cuda(q.cpu(), k.cpu(), v.cpu(), lens.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 5, 32])
+def test_gqa_decode_instances_fit_the_card(device, dtype, head_dim, group):
+    """Every instance (per dtype, head dim and group bucket) takes its
+    shared memory and keeps at least one CTA resident per SM."""
+    smem, ctas = gqa_kernel.instance_info(dtype, head_dim, group)
+    assert 0 < smem <= 227 * 1024 and ctas >= 1
+
+
+def test_gqa_decode_launcher_refuses_bad_arguments(device):
+    """The C entry point refuses what it does not take, without a launch:
+    an unknown dtype (-2), a head dim without an instance (-3), a group
+    above 32 or splits that do not cover the cache (-1)."""
+    lib = build.library("gqa_decode")
+    q, k, v, lens = _gqa_operands(device, "kernels_dh128", torch.float32)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def rc(dtype=0, n_g=3, n_dh=128, n_split=1, rows=64):
+        return lib.gqa_decode_launch(dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     lens.data_ptr(), out.data_ptr(), 0, 0, 2, 64, 4, n_g,
+                                     n_dh, n_split, rows, stream)
+
+    assert rc() == 0
+    assert rc(dtype=2) == -2
+    assert rc(n_dh=48) == -3
+    assert rc(n_g=33) == -1
+    assert rc(rows=32) == -1
+    torch.cuda.synchronize()

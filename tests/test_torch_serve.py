@@ -2,8 +2,9 @@
 ``launch/serve.py``) against the JAX package's, on the ``.reduced()`` forms of the fused,
 stacked and ``*-int8`` configs and of the paper's seven base SRU/QRNN/LSTM configs
 (under their own ``chunked`` engine, under ``pallas``, and under the
-sequential and associative engines), with the JAX package's own params
-bridged across.
+sequential and associative engines), and of the GQA attention LMs
+(``llama3-8b``, ``smollm-360m`` and a padded-head variant), with the JAX
+package's own params bridged across.
 
 Prefill and 8 greedy decode steps: logits and every cache leaf within 3e-5
 (``tests/test_rnn_stack.py``'s tolerance for a stack or logits), greedy
@@ -23,13 +24,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import llama3_8b as jax_llama3_8b
 from repro.configs import paper_rnn as jax_paper_rnn
+from repro.configs import smollm_360m as jax_smollm_360m
+from repro.configs.registry import REGISTRY as JAX_REGISTRY
 from repro.configs.registry import get_config as jax_get_config
 from repro.models import lm as jlm
 from repro.training.steps import build_decode_step as jax_decode_builder
 from repro.training.steps import build_prefill_step as jax_prefill_builder
 from repro_torch import bridge
-from repro_torch.configs import paper_rnn
+from repro_torch.configs import llama3_8b, paper_rnn, smollm_360m
+from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.launch import serve
 from repro_torch.models import lm
@@ -55,6 +60,13 @@ BASE_CASES = (
     + [(a, e) for a in ("sru-paper-small", "qrnn-paper-small", "lstm-paper-small")
        for e in ("sequential", "associative")]
 )
+# (arch, config overrides): the attention LMs; the padded-head variant keeps
+# the head padding that ``reduced()`` drops (smollm's 15 -> 16 at full size).
+ATTN_CASES = {
+    "llama3-8b": ("llama3-8b", {}),
+    "smollm-360m": ("smollm-360m", {}),
+    "padded_heads": ("smollm-360m", dict(n_heads=3, n_kv_heads=1, pad_heads_to=4)),
+}
 LOGIT_TOL = 3e-5
 B, PROMPT, STEPS = 3, 20, 8
 
@@ -82,6 +94,43 @@ def test_configs_are_faithful_copies():
         for cfg, jcfg in ((mine, ref), (mine.reduced(), ref.reduced())):
             assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
             assert cfg.padded_vocab == jcfg.padded_vocab
+
+
+@pytest.mark.parametrize("mine,ref", [(llama3_8b.CONFIG, jax_llama3_8b.CONFIG),
+                                      (smollm_360m.CONFIG, jax_smollm_360m.CONFIG)],
+                         ids=["llama3-8b", "smollm-360m"])
+def test_attention_configs_are_faithful_copies(mine, ref):
+    for cfg, jcfg in ((mine, ref), (mine.reduced(), ref.reduced())):
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        assert cfg.padded_vocab == jcfg.padded_vocab
+        assert cfg.num_params() == jcfg.num_params()
+    assert get_config(mine.name) is mine
+
+
+def test_bridge_round_trip_attention_is_bitwise():
+    """The attention params (``w_q``, ``w_kv``, ``w_o``, norms, MLP, tied and
+    untied embeddings) and the ``{"k", "v", "pos"}`` caches; int32 ``pos``
+    bitwise, bf16 through fp32."""
+    for arch in ("llama3-8b", "smollm-360m"):
+        jcfg = jax_get_config(arch).reduced()
+        params = _np_tree(jlm.lm_init(jax.random.PRNGKey(5), jcfg))
+        assert sorted(params["layers"]["attn"]) == ["w_kv", "w_o", "w_q"]
+        _assert_same_tree(bridge.params_to_numpy(bridge.params_from_numpy(params, device="cpu")),
+                          params)
+        caches = _np_tree(jlm.lm_init_caches(jcfg, 2, 8))
+        rng = np.random.default_rng(0)
+        caches["layers"]["pos"] = rng.integers(0, 1 << 30, jcfg.n_layers).astype(np.int32)
+        caches["layers"]["k"] = np.asarray(
+            jnp.asarray(rng.standard_normal(caches["layers"]["k"].shape), jnp.bfloat16))
+        back = bridge.caches_to_numpy(bridge.caches_from_numpy(caches, device="cpu"))
+        assert back["layers"]["pos"].dtype == np.int32
+        assert np.array_equal(back["layers"]["pos"], caches["layers"]["pos"])
+        assert np.array_equal(back["layers"]["k"], caches["layers"]["k"].astype(np.float32))
+        mine = lm.lm_init_caches(get_config(arch).reduced(), 2, 8, device="cpu")
+        assert sorted(mine["layers"]) == sorted(caches["layers"]) == ["k", "pos", "v"]
+        for k, v in mine["layers"].items():
+            assert tuple(v.shape) == caches["layers"][k].shape
+        assert mine["layers"]["pos"].dtype == torch.int32
 
 
 def test_bridge_round_trip_is_bitwise():
@@ -146,9 +195,15 @@ def test_base_configs_match_jax(arch, engine):
     _check_prefill_and_decode(arch, engine)
 
 
-def _check_prefill_and_decode(arch, engine):
-    jcfg = jax_get_config(arch).reduced()
-    cfg = get_config(arch).reduced()
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_lms_match_jax(case):
+    arch, overrides = ATTN_CASES[case]
+    _check_prefill_and_decode(arch, None, overrides)
+
+
+def _check_prefill_and_decode(arch, engine, overrides=None):
+    jcfg = jax_get_config(arch).reduced().with_(**(overrides or {}))
+    cfg = get_config(arch).reduced().with_(**(overrides or {}))
     if engine is not None:
         jcfg, cfg = jcfg.with_(scan_engine=engine), cfg.with_(scan_engine=engine)
     jparams = jlm.lm_init(jax.random.PRNGKey(3), jcfg)
@@ -175,7 +230,7 @@ def _check_prefill_and_decode(arch, engine):
             logits, caches = decode(params, caches, tok)
 
 
-@pytest.mark.parametrize("arch", SLICE_ARCHS)
+@pytest.mark.parametrize("arch", SLICE_ARCHS + ["llama3-8b", "smollm-360m"])
 def test_serve_main_runs_on_cpu(arch, capsys):
     rc = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                      "--batch", "2", "--prompt-len", "8", "--gen-len", "4"])
@@ -215,9 +270,9 @@ def test_serve_weight_quant_flag(arch, quant, capsys, monkeypatch):
     inits = []
     real_init = lm.lm_init
 
-    def recording_init(gen, cfg, device):
+    def recording_init(gen, cfg, device, **kw):
         inits.append(cfg)
-        return real_init(gen, cfg, device=device)
+        return real_init(gen, cfg, device=device, **kw)
 
     monkeypatch.setattr(lm, "lm_init", recording_init)
     rc = serve.main(["--arch", arch, "--weight-quant", quant, "--reduced", "--device", "cpu",
@@ -238,6 +293,54 @@ def test_serve_refuses_int8_where_no_kernel_dequantizes(argv, match):
     with pytest.raises(SystemExit) as exc:
         serve.main(argv + ["--reduced", "--device", "cpu"])
     assert match in str(exc.value)
+
+
+def _serve_tokens(argv, capsys):
+    assert serve.main(argv + ["--reduced", "--device", "cpu", "--batch", "2",
+                              "--prompt-len", "8", "--gen-len", "4"]) == 0
+    out = capsys.readouterr().out
+    return json.loads(out.split("serve-stats ", 1)[1])["tokens"]
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "smollm-360m"])
+def test_serve_attention_does_not_consult_the_engine(arch, capsys):
+    """As in JAX, ``--engine`` is validated but an attention LM does not
+    consult it: every engine gives the same tokens; an unknown one exits."""
+    tokens = _serve_tokens(["--arch", arch], capsys)
+    for engine in ("pallas", "fused_stack", "sequential"):
+        assert _serve_tokens(["--arch", arch, "--engine", engine], capsys) == tokens
+    with pytest.raises(SystemExit, match="unknown engine 'bogus'"):
+        serve.main(["--arch", arch, "--engine", "bogus", "--reduced", "--device", "cpu"])
+
+
+def test_serve_attention_weight_quant_leaves_every_leaf(capsys, monkeypatch):
+    """``--weight-quant int8`` on an attention LM: ``quantize_tree`` has no
+    cell to quantize, so the params (and the tokens) are those of fp."""
+    made = []
+    real_init = lm.lm_init
+
+    def recording_init(gen, cfg, device, **kw):
+        made.append(real_init(gen, cfg, device=device, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(lm, "lm_init", recording_init)
+    tokens = _serve_tokens(["--arch", "llama3-8b"], capsys)
+    assert _serve_tokens(["--arch", "llama3-8b", "--weight-quant", "int8"], capsys) == tokens
+    fp, q = (bridge.params_to_numpy(p) for p in made)
+    _assert_same_tree(q, fp)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b", "mamba2-2.7b",
+                                  "zamba2-7b", "musicgen-large", "internvl2-2b"])
+def test_unserved_families_are_refused_naming_the_queue(arch):
+    """The MoE, Mamba-2, hybrid and frontend configs (the JAX package's,
+    rebuilt as the port's ``ArchConfig``) are refused by ``lm_init`` and
+    ``lm_init_caches`` with the ROADMAP queue in the message."""
+    cfg = ArchConfig(**dataclasses.asdict(JAX_REGISTRY[arch])).reduced()
+    for make in (lambda: lm.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu"),
+                 lambda: lm.lm_init_caches(cfg, 2, 8, device="cpu")):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, open item \(e\)"):
+            make()
 
 
 def test_serve_base_config_on_pallas_runs_as_a_module():
