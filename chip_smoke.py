@@ -18,28 +18,37 @@ Phases, each printing one JSON line per step:
            llama3-8b and smollm-360m serve shapes (caches of 1056 and 8192
            rows, ragged lengths down to 1, bf16) and one fp32 case with 32
            query heads per KV head, beside PyTorch's
-           ``scaled_dot_product_attention`` on the same data; max |error|
-           against a stated tolerance, and kernel / plain times from CUDA
-           events (decode cases also cold: the L2 flushed before each call);
+           ``scaled_dot_product_attention`` on the same data; the chunked
+           SSD (B4) at the mamba2-2.7b serve shapes (B = 4, 80 heads, P = 64,
+           N = 128, bf16: prompts 1024 and 64 from a zero state, one decode
+           step written in place over a random state, a ragged S = 100) and
+           at two grouped fp32 shapes of ``tests/test_kernels.py`` (G = 2,
+           4); max |error| against a stated tolerance, and kernel / plain
+           times from CUDA events (decode cases also cold: the L2 flushed
+           before each call);
   serve    ``repro_torch.launch.serve.main`` in batch mode at full width
            (``--batch 4 --prompt-len 64 --gen-len 32``) for the stacked and
            fused configs, the base SRU/QRNN configs under ``--engine pallas``,
            ``sru-paper-large`` on its own chunked engine,
            ``lstm-paper-large``, the four ``*-int8`` configs, ``llama3-8b``
-           (prompt 64 and 1024) and ``smollm-360m``; each run's launches of
+           (prompt 64 and 1024), ``smollm-360m`` and ``mamba2-2.7b`` (prompt
+           64 and 1024); each run's launches of
            each kernel instance, fp and int8 apart (counts set to 0 just
            before the run, read just after), its init time and peak memory;
   profile  per config (the fp fused, stacked and pallas runs, the two
-           stacked int8 runs, llama3-8b and smollm-360m), a decode step's
-           host time and torch.profiler's device time by kernel, hence the
-           device's idle share, against the step's bytes bound; the attention
-           LMs' KV cache must keep its storage (written in place);
+           stacked int8 runs, llama3-8b, smollm-360m and mamba2-2.7b), a
+           decode step's host time and torch.profiler's device time by
+           kernel, hence the device's idle share, against the step's bytes
+           bound (mamba2: its SSM state read and written too); the attention
+           LMs' KV cache and mamba2's state and conv tails must keep their
+           storage (written in place);
   parity   the stacked SRU and QRNN LMs, the base SRU and QRNN LMs under
            pallas, the LSTM LM, two int8 LMs (stacked SRU, fused QRNN),
-           smollm-360m (full depth) and llama3-8b (cut to 2 layers so the CPU
-           side fits in time and host memory) at full width in fp32 compute,
-           same params, on the card versus the plain path on the CPU:
-           teacher-forced prefill logits, 8 decode steps and their argmax.
+           smollm-360m (full depth), llama3-8b and mamba2-2.7b (each cut to 2
+           layers so the CPU side fits in time and host memory) at full width
+           in fp32 compute, same params, on the card versus the plain path on
+           the CPU: teacher-forced prefill logits, 8 decode steps and their
+           argmax; the attention and Mamba caches keep their storage.
 
 Then one ``{"phase_seconds": {...}}`` line (each phase's wall time, the
 serve phase's warm-ups included), one ``{"kernels": [...]}`` line (launches
@@ -73,11 +82,12 @@ SERVE_RUNS = (
     ("sru-paper-large-stacked-int8", None, 64), ("qrnn-paper-large-stacked-int8", None, 64),
     ("sru-paper-large-int8", None, 64), ("qrnn-paper-large-int8", None, 64),
     ("llama3-8b", None, 64), ("llama3-8b", None, 1024), ("smollm-360m", None, 64),
+    ("mamba2-2.7b", None, 64), ("mamba2-2.7b", None, 1024),
 )
 # (arch, --engine override): the fused int8 runs are not profiled (their
-# kernels take the bf16 twins' time), nor llama3-8b's long prompt.
+# kernels take the bf16 twins' time), nor the long prompts.
 PROFILE_RUNS = tuple(r[:2] for r in SERVE_RUNS[:6] + SERVE_RUNS[8:10] + SERVE_RUNS[12:13]
-                     + SERVE_RUNS[14:])
+                     + SERVE_RUNS[14:16])
 # (arch, --engine override, config overrides).
 PARITY_RUNS = (
     ("sru-paper-large-stacked", None, {}), ("qrnn-paper-large-stacked", None, {}),
@@ -85,12 +95,14 @@ PARITY_RUNS = (
     ("lstm-paper-large", None, {}),
     ("sru-paper-large-stacked-int8", None, {}), ("qrnn-paper-large-int8", None, {}),
     ("smollm-360m", None, {}), ("llama3-8b", None, {"n_layers": 2}),
+    ("mamba2-2.7b", None, {"n_layers": 2}),
 )
 # Each kernel instance family with its launch counter (module attribute).
 KERNELS = ("fused_rnn_layer", "fused_rnn_stack", "linear_scan",
-           "fused_rnn_layer_int8", "fused_rnn_stack_int8", "gqa_decode")
+           "fused_rnn_layer_int8", "fused_rnn_stack_int8", "gqa_decode", "ssd")
 OUR_KERNEL_SYMBOLS = ("fused_rnn_layer_kernel", "linear_scan_kernel",  # device symbol names
-                      "gqa_decode_split_kernel", "gqa_decode_combine_kernel")
+                      "gqa_decode_split_kernel", "gqa_decode_combine_kernel",
+                      "ssd_chunk_kernel", "ssd_step_kernel")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 L2_FLUSH_BYTES = 128 << 20         # written between cold calls; the H100's L2 is 50 MB
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 SIMT
@@ -106,6 +118,12 @@ RTOL_BF16 = 2.0 ** -7
 # within B5_ATOL; a bf16 output within one bf16 ulp of the largest output
 # more (RTOL_BF16).
 B5_ATOL = 2e-5
+# Chunked SSD (B4): both sides compute in fp32 and differ by the order of the
+# sums over N, over a chunk (the kernel's 64 steps, the plain version's own
+# chunk) and along the chunk chain of up to 1024 steps, whose slow decays let
+# the state grow: B4_RTOL of the largest output magnitude, y and state each;
+# a bf16 y within one bf16 ulp of its largest value more (RTOL_BF16).
+B4_RTOL = 2e-5
 # Parity (phase 4): fp32 LM on the card vs the CPU, through up to 32 layers
 # and a head of up to 128256 columns; logits are O(1). The same sources of
 # difference as ATOL.
@@ -179,20 +197,29 @@ def bound(read_write_bytes: int, ops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(outs, refs, dtype: str, atol: float = ATOL):
-    """Worst output: (max |err|, its tolerance, finite?)."""
+def errors(outs, refs, atol: float = ATOL, rtol: float = 0.0):
+    """Per output: (max |err|, its tolerance, finite?). Each output's
+    tolerance is ``atol`` plus ``rtol`` of its largest reference magnitude,
+    plus RTOL_BF16 of it for a bf16 output."""
     import torch
 
-    worst = (0.0, atol, True)
+    each = []
     for o, r in zip(outs, refs):
         if o is None:
             continue
         err = (o.float() - r.float()).abs().max().item()
-        tol = atol + (RTOL_BF16 * r.float().abs().max().item() if dtype == "bfloat16" else 0.0)
-        finite = bool(torch.isfinite(o.float()).all().item())
-        if not finite or err / tol > worst[0] / worst[1]:
-            worst = (err, tol, finite and worst[2])
-    return worst
+        r_max = r.float().abs().max().item()
+        tol = atol + rtol * r_max + (RTOL_BF16 * r_max if o.dtype == torch.bfloat16 else 0.0)
+        each.append((err, tol, bool(torch.isfinite(o.float()).all().item())))
+    return each
+
+
+def compare(outs, refs, atol: float = ATOL, rtol: float = 0.0):
+    """Worst output: (max |err|, its tolerance, all outputs finite?)."""
+    each = errors(outs, refs, atol, rtol)
+    err, tol, _ = max(each, key=lambda e: e[0] / e[1] if e[1] > 0 else
+                      (float("inf") if e[0] > 0 else 0.0))
+    return err, tol, all(e[2] for e in each)
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +361,61 @@ def _sdpa(q, k, v, lens):
     return call
 
 
+def _ssd_case(name, B, S, H, P, N, G, dtype_name, seed, *, s0=False, in_place=False,
+              model_like=True):
+    """Inputs for one chunked-SSD case, made on the card from a seed, and its
+    bound. ``model_like``: mamba2's decays (A = -1..-16 over the heads, as
+    ``mamba_init`` makes them, dt about 0.01 as its ``dt_bias`` gives), so
+    the state carries over the whole prompt; else ``tests/test_kernels.py``'s
+    draws. Bytes: every operand read once and y and the state written once.
+    Operations: the chunked algorithm at the kernel's 64-step chunks, the
+    lower triangles of C B^T and of the scores times xdt, C S and B^T xdt
+    (multiply-adds count 2); one step is 4 N P."""
+    import torch
+
+    from repro_torch.kernels.ssd.ssd import CHUNK
+
+    dev = torch.device("cuda")
+    dt_ = getattr(torch, dtype_name)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = rnd(B, S, H, P).to(dt_)
+    if model_like:
+        dt = torch.nn.functional.softplus(rnd(B, S, H) * 0.5 - 4.6)
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+    else:
+        dt = torch.nn.functional.softplus(rnd(B, S, H))
+        A = -torch.exp(rnd(H))
+    Bm, Cm = (rnd(B, S, G, N) * 0.3).to(dt_), (rnd(B, S, G, N) * 0.3).to(dt_)
+    D = torch.ones(H, device=dev)
+    state0 = rnd(B, H, N, P) * 0.1 if s0 else None
+    ops = 0.0
+    for t0 in range(0, S, CHUNK):
+        L = min(CHUNK, S - t0)
+        tri = L * (L + 1) / 2
+        ops += 2.0 * (tri * N + tri * P + 2 * L * N * P) if S > 1 else 4.0 * N * P
+    ops *= B * H
+    rw = nbytes(x, dt, A, Bm, Cm, D, state0) + nbytes(x) + B * H * N * P * 4
+    kw = {"chunk": 128, "in_place": in_place}
+    return name, (x, dt, A, Bm, Cm, D, state0), kw, rw, ops
+
+
+def _ssd_kernel_call(x, dt, A, B_, C_, D, s0, *, chunk, in_place):
+    from repro_torch.kernels.ssd.ops import ssd
+
+    return ssd(x, dt, A, B_, C_, D, initial_state=s0, chunk=chunk,
+               state_out=s0 if in_place else None)
+
+
+def _ssd_plain_call(x, dt, A, B_, C_, D, s0, *, chunk, in_place):
+    from repro_torch.kernels.ssd.ref import ssd_ref
+
+    return ssd_ref(x, dt, A, B_, C_, D, initial_state=s0, chunk=chunk)
+
+
 def _summary(kname, source, replaces, rows):
     main = rows[0]  # the main path's prefill shape (T = 64, bf16), or B5's serve shape
     decode = next(r for r in rows if r["T"] == 1)
@@ -350,9 +432,10 @@ def _summary(kname, source, replaces, rows):
     }
 
 
-def _run_cases(kname, wrapper, plain, cases, atol=ATOL, library=None):
-    """Each case against its plain version; decode cases (T = 1) are also
-    timed cold, with the L2 flushed before each call (``cold_ms``).
+def _run_cases(kname, wrapper, plain, cases, atol=ATOL, rtol=0.0, library=None):
+    """Each case against its plain version (computed first: a wrapper may
+    write a state operand in place); decode cases (T = 1) are also timed
+    cold, with the L2 flushed before each call (``cold_ms``).
     ``library(*args)`` gives the one PyTorch call that computes the same
     function, timed as ``library_ms`` (with its max |error| against the
     plain version, not checked)."""
@@ -361,11 +444,12 @@ def _run_cases(kname, wrapper, plain, cases, atol=ATOL, library=None):
     l2 = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rows = []
     for dtype, T, name, args, kw, rw, ops in cases:
-        out = wrapper(*args, **kw)
         ref = plain(*args, **kw)
+        out = wrapper(*args, **kw)
         torch.cuda.synchronize()
         out, ref = (x if isinstance(x, tuple) else (x,) for x in (out, ref))
-        err, tol, finite = compare(out, ref, dtype, atol)
+        err, tol, finite = compare(out, ref, atol, rtol)
+        each = errors(out, ref, atol, rtol)  # before the timed calls, which may write out
         ms = time_ms(lambda: wrapper(*args, **kw), iters=50)
         cold_ms = None
         if T == 1:
@@ -374,8 +458,11 @@ def _run_cases(kname, wrapper, plain, cases, atol=ATOL, library=None):
         b_ms, b_by = bound(rw, ops, dtype)
         row = {
             "phase": "kernels", "kernel": kname, "case": name, "dtype": dtype, "T": T,
-            "max_abs_err": err, "tol": tol, "finite": finite, "ms": ms, "cold_ms": cold_ms,
+            "max_abs_err": err, "tol": tol, "finite": finite,
+            "max_abs_err_each": [e[0] for e in each], "tol_each": [e[1] for e in each],
+            "ms": ms, "cold_ms": cold_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_fp32_simt_ms": bound(rw, ops, "float32")[0],
         }
         if library is not None:
             call = library(*args)
@@ -413,7 +500,7 @@ def _scan_backward_row():
 
     grads, refs = fwd_bwd(ops.linear_scan), fwd_bwd(linear_scan_ref)
     torch.cuda.synchronize()
-    err, tol, finite = compare(grads, refs, "float32")
+    err, tol, finite = compare(grads, refs)
     # The reverse-time call's operands, as _LinearScan.backward prepares them.
     a_rev = torch.cat([a0[1:], torch.zeros_like(a0[:1])], dim=0).flip(0).contiguous()
     g_rev, z0 = w.flip(0).contiguous(), torch.zeros_like(c00)
@@ -440,12 +527,15 @@ def _scan_backward_row():
 
 def phase_kernels():
     """Every kernel against its plain version. Returns per-kernel summaries."""
+    import torch
+
     from repro_torch.kernels.fused_rnn import fused_rnn, stacked
     from repro_torch.kernels.gqa_decode import gqa_decode as gqa_kernel
     from repro_torch.kernels.gqa_decode.ops import gqa_decode
     from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref
     from repro_torch.kernels.linear_scan import linear_scan
     from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+    from repro_torch.kernels.ssd import ssd as ssd_kernel
 
     layer_cases, stack_cases, scan_cases = [], [], []
     layer_q_cases, stack_q_cases = [], []
@@ -529,6 +619,33 @@ def phase_kernels():
     summaries["gqa_decode"] = _summary(
         "gqa_decode", "src/repro_torch/kernels/gqa_decode/csrc/gqa_decode.cu",
         "src/repro/kernels/gqa_decode/gqa_decode.py:66", rows)
+
+    # Chunked SSD: the mamba2-2.7b serve shapes (prefill 1024 first: the
+    # summary's main row), then the grouped fp32 shapes of test_kernels.py.
+    ssd_cases = []
+    for case in (
+        _ssd_case("mamba2 prefill B=4 S=1024 bf16", 4, 1024, 80, 64, 128, 1, "bfloat16", 500),
+        _ssd_case("mamba2 prefill B=4 S=64 bf16", 4, 64, 80, 64, 128, 1, "bfloat16", 501),
+        _ssd_case("mamba2 decode B=4 S=1 bf16 in place", 4, 1, 80, 64, 128, 1, "bfloat16",
+                  502, s0=True, in_place=True),
+        _ssd_case("mamba2 ragged B=4 S=100 bf16 s0", 4, 100, 80, 64, 128, 1, "bfloat16", 503,
+                  s0=True),
+        _ssd_case("G=2 B=2 S=64 H=4 P=8 N=16 fp32 s0", 2, 64, 4, 8, 16, 2, "float32", 504,
+                  s0=True, model_like=False),
+        _ssd_case("G=4 B=2 S=32 H=8 P=4 N=4 fp32 s0", 2, 32, 8, 4, 4, 4, "float32", 505,
+                  s0=True, model_like=False),
+    ):
+        x = case[1][0]
+        ssd_cases.append((str(x.dtype).split(".")[-1], x.shape[1]) + case)
+    rows = _run_cases("ssd", _ssd_kernel_call, _ssd_plain_call, ssd_cases, atol=0.0,
+                      rtol=B4_RTOL)
+    smem, ctas = ssd_kernel.instance_info(torch.bfloat16, torch.bfloat16, 128)
+    emit({"phase": "kernels", "kernel": "ssd", "instance": "chunk kernel, bf16, N = 128",
+          "dynamic_smem_bytes": smem, "ctas_per_sm": ctas})
+    summaries["ssd"] = _summary(
+        "ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu", "src/repro/kernels/ssd/ssd.py:73",
+        rows)
+    summaries["ssd"]["bound_fp32_simt_ms"] = rows[0]["bound_fp32_simt_ms"]
     return summaries
 
 
@@ -538,13 +655,15 @@ def _launch_counters():
     from repro_torch.kernels.fused_rnn import fused_rnn, stacked
     from repro_torch.kernels.gqa_decode import gqa_decode
     from repro_torch.kernels.linear_scan import linear_scan
+    from repro_torch.kernels.ssd import ssd
 
     return {"fused_rnn_layer": (fused_rnn, "LAUNCHES"),
             "fused_rnn_stack": (stacked, "LAUNCHES"),
             "linear_scan": (linear_scan, "LAUNCHES"),
             "fused_rnn_layer_int8": (fused_rnn, "LAUNCHES_INT8"),
             "fused_rnn_stack_int8": (stacked, "LAUNCHES_INT8"),
-            "gqa_decode": (gqa_decode, "LAUNCHES")}
+            "gqa_decode": (gqa_decode, "LAUNCHES"),
+            "ssd": (ssd, "LAUNCHES")}
 
 
 def _run_cfg(arch, engine):
@@ -559,8 +678,12 @@ def _expected_launches(cfg, decode_steps: int) -> dict:
     steps: for an RNN, one per layer per call on the kernel the config's
     engine routes to (its int8 instance under ``weight_quant == "int8"``),
     none for LSTM and the plain engines; for attention, one decode attention
-    per layer per decode step (prefill attention is plain PyTorch)."""
+    per layer per decode step (prefill attention is plain PyTorch); for
+    Mamba-2, one SSD per layer per call (the prompt's, then each step's)."""
     want = dict.fromkeys(KERNELS, 0)
+    if cfg.ssm:
+        want["ssd"] = cfg.n_layers * (1 + decode_steps)
+        return want
     if cfg.cell is None:
         want["gqa_decode"] = cfg.n_layers * decode_steps
         return want
@@ -642,8 +765,9 @@ def phase_profile():
     """Where a decode step's time goes (B = 4, after a 64-token prefill): host
     clock per step without the profiler, then torch.profiler's device time
     per step by kernel. Idle share = 1 - device time / step time. The step's
-    bound is the bytes it must read once over the HBM rate: every layer
-    weight, the final norm, the logits matrix and the valid KV rows."""
+    bound is the bytes it must move once over the HBM rate: every layer
+    weight, the final norm, the logits matrix and the valid KV rows read, or
+    for Mamba-2 its SSM state and conv tails read and written."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -687,7 +811,9 @@ def phase_profile():
         ours_us = sum(k[0] for k in kernels if any(n in k[2] for n in OUR_KERNEL_SYMBOLS))
         head = params["embed"].get("unembed", params["embed"]["embed"])
         kv_bytes = 0
-        if cfg.cell is None:  # mean valid rows over the profiled steps
+        if cfg.ssm:  # every cache leaf read and written once per step
+            kv_bytes = 2 * _tree_bytes(caches["layers"])
+        elif cfg.cell is None:  # mean valid rows over the profiled steps
             rows = prompt_len + 2 * steps + (steps + 1) / 2
             kv = caches["layers"]["k"]
             kv_bytes = 2 * cfg.n_layers * 4 * rows * cfg.n_kv_heads * cfg.d_head * kv.element_size()
@@ -699,7 +825,8 @@ def phase_profile():
               "device_ops_per_step": sum(k[1] for k in kernels),
               "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms,
               "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3, "step_bytes": step_bytes,
-              "kv_cache_in_place": in_place, "our_kernels_us_per_step": ours_us,
+              "cache_bytes_per_step": kv_bytes,
+              "cache_in_place": in_place, "our_kernels_us_per_step": ours_us,
               "top_kernels_us_per_step": [[round(k[0], 2), k[1], k[2][:70]] for k in kernels[:8]]})
         require(in_place, f"profile {arch}: the decode step moved the cache")
         del params, caches, logits
@@ -708,7 +835,8 @@ def phase_profile():
 def phase_parity():
     """fp32 compute, the same params (drawn on the card, copied to the host),
     card against CPU: teacher-forced prefill logits, 8 decode steps, their
-    greedy tokens and the caches."""
+    greedy tokens and the caches; on the card the attention and Mamba cache
+    leaves keep their storage from prefill through decode."""
     import torch
 
     from repro_torch.models import lm
@@ -725,10 +853,12 @@ def phase_parity():
             for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
                 c = lm.lm_init_caches(cfg, 4, 72, device=dev)
                 out, c = lm.lm_prefill(params, cfg, {"inputs": prompt.to(dev)}, c)
+                ptrs = {k: v.data_ptr() for k, v in c["layers"].items()}
                 steps = [out]
                 for i in range(forced.shape[1]):
                     out, c = lm.lm_decode_step(params, cfg, c, forced[:, i:i + 1].to(dev))
                     steps.append(out)
+                in_place = {k: v.data_ptr() for k, v in c["layers"].items()} == ptrs
                 on = {t.device.type for t in steps + list(c["layers"].values())}
                 require(on == {dev}, f"parity {arch}: the {dev} run's outputs lie on {on}")
                 logits[dev] = torch.cat(steps, dim=1).cpu()
@@ -746,10 +876,13 @@ def phase_parity():
               if overrides else None,
               "logits_shape": list(logits["cuda"].shape), "max_abs_err": err,
               "cache_max_abs_err": cache_err, "same_greedy_tokens": same_tokens,
-              "tol": PARITY_TOL, "finite": finite})
+              "tol": PARITY_TOL, "finite": finite,
+              "cache_in_place": in_place if cfg.cell is None else None})
         require(finite and err <= PARITY_TOL and cache_err <= PARITY_TOL and same_tokens,
                 f"parity {arch} {engine}: logits err {err}, cache err {cache_err} > "
                 f"{PARITY_TOL} or greedy tokens differ ({same_tokens})")
+        require(cfg.cell is not None or in_place,
+                f"parity {arch}: decode moved the cache's storage")
         del params_gpu, params_cpu
 
 

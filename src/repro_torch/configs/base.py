@@ -3,9 +3,9 @@
 One ``ArchConfig`` fully determines a model. The port keeps its own copy
 because it imports nothing of the JAX package; the fields, defaults,
 ``padded_vocab`` and ``reduced()`` are the same, so a config names the same
-model on both sides. The port serves the RNN and the dense attention fields;
-the MoE, SSM, hybrid and frontend ones wait for the slices that port their
-models.
+model on both sides. The port serves the RNN, the dense attention and the
+SSM (Mamba-2) fields; the MoE, hybrid and frontend ones wait for the slices
+that port their models.
 """
 from __future__ import annotations
 

@@ -19,8 +19,8 @@ with ``a_t = f_t`` and ``b_t = (1 - f_t) * x_hat_t``. The engines:
                       has no layer to fuse and runs the linear-scan kernel.
 
 The three plain engines compute in the input dtype, as the JAX package's XLA
-engines do; only the kernel carries in fp32. ``matrix_linear_scan`` (the
-SSD chunk-state scan) comes with the SSD slice.
+engines do; only the kernel carries in fp32. ``matrix_linear_scan`` is the
+same recurrence on matrix-valued states (the SSD chunk-state scan).
 
 Layout convention: time is axis 0 — ``a, b: (T, ...)``, carry ``c0: (...)``.
 """
@@ -142,3 +142,24 @@ def linear_scan(
         # linear-scan kernel here, as in the JAX package.
         return linear_scan_ops.linear_scan(a, b, c0, block_size=block_size)
     raise ValueError(f"unknown engine {engine!r}")
+
+
+# ---------------------------------------------------------------------------
+# Matrix-state variant (``core/ssd.py``'s algebra): the inter-chunk recurrence
+# of Mamba-2 SSD is S_k = decay_k * S_{k-1} + dS_k with S a (..., N, P) matrix
+# and decay a broadcastable scalar per head. The same engines apply.
+# ---------------------------------------------------------------------------
+
+def matrix_linear_scan(
+    decay: torch.Tensor,  # (K, ...) broadcastable against the state
+    dS: torch.Tensor,     # (K, ..., N, P)
+    S0: Optional[torch.Tensor] = None,
+    *,
+    engine: str = "associative",
+) -> torch.Tensor:
+    """Scan over chunk states; returns the states *after* each chunk, shaped
+    like ``dS``."""
+    if S0 is None:
+        S0 = torch.zeros(dS.shape[1:], dtype=dS.dtype, device=dS.device)
+    decay_b = decay.reshape(decay.shape + (1,) * (dS.dim() - decay.dim()))
+    return linear_scan(decay_b * torch.ones_like(dS), dS, S0, engine=engine)

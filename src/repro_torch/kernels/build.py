@@ -50,6 +50,12 @@ SOURCES: Dict[str, tuple] = {
          "gqa_decode_info": [_I] * 3 + [_P]},
         (),
     ),
+    "ssd": (
+        _PKG / "ssd" / "csrc" / "ssd.cu",
+        {"ssd_launch": [_I, _I] + [_P] * 9 + [_I] * 6 + [_P, _P],
+         "ssd_info": [_I] * 3 + [_P]},
+        (),
+    ),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

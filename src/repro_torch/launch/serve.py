@@ -9,15 +9,17 @@ lockstep. Runs on the card unless ``--device cpu`` is given:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --reduced --device cpu
 
 The port serves every ``paper_rnn`` config (SRU/QRNN/LSTM, the ``*-int8``
-ones included) and the dense GQA attention LMs ``llama3-8b`` and
+ones included), the dense GQA attention LMs ``llama3-8b`` and
 ``smollm-360m``, whose decode attention runs on the CUDA port of the
-``gqa_decode`` kernel (B5). Other archs are refused by ``lm_init``.
+``gqa_decode`` kernel (B5), and the Mamba-2 LM ``mamba2-2.7b``, whose every
+SSD (prefill and each decode step) runs on the CUDA port of the chunked
+``ssd`` kernel (B4). Other archs are refused by ``lm_init``.
 
 ``--engine`` overrides ``cfg.scan_engine`` with any of the six engines of
 the JAX ``launch/serve.py`` (``ENGINE_MATRIX``); an unknown one exits with
 the list (``validate_engine``, the engine and int8 checks of the JAX
-``validate_engine_mesh`` without its mesh parts). LSTM and the attention
-LMs do not consult the engine. ``--weight-quant int8`` overrides
+``validate_engine_mesh`` without its mesh parts). LSTM, the attention LMs
+and Mamba-2 do not consult the engine. ``--weight-quant int8`` overrides
 ``cfg.weight_quant`` (the ``*-int8`` configs carry it): the SRU/QRNN gate
 slabs are quantized at init and served through the int8 forms of the fused
 kernels, on ``fused``/``fused_stack`` only; it leaves every other leaf (all

@@ -1,4 +1,4 @@
-"""Decoder LM for block kinds ``rnn`` and ``attn``, from ``repro/models/lm.py``.
+"""Decoder LM for block kinds ``rnn``, ``attn`` and ``mamba``, from ``repro/models/lm.py``.
 
 Entry points:
   * ``lm_init(gen, cfg, device, dtype)``              params tree (int8 gate
@@ -8,11 +8,12 @@ Entry points:
   * ``lm_decode_step(params, cfg, caches, tok)``      one-token serve step
 
 The params tree has the JAX package's keys and layout (``bridge.py``
-converts between the two). The port serves the paper's SRU/QRNN/LSTM LMs and
-the dense GQA attention LMs (``llama3-8b``, ``smollm-360m``). Attention
-caches are written in place (``models/attention.py``); RNN caches are
-returned anew, as in JAX. MoE, Mamba-2, the hybrids, the frontends and the
-training forward wait for later slices (ROADMAP.md).
+converts between the two). The port serves the paper's SRU/QRNN/LSTM LMs,
+the dense GQA attention LMs (``llama3-8b``, ``smollm-360m``) and the Mamba-2
+LM (``mamba2-2.7b``). Attention and Mamba caches are written in place
+(``models/attention.py``, ``models/mamba.py``); RNN caches are returned
+anew, as in JAX. MoE, the hybrids, the frontends and the training forward
+wait for later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels.fused_rnn import layout
-from repro_torch.models import attention, rnn
+from repro_torch.models import attention, mamba, rnn
 from repro_torch.models.layers import (
     _dtype,
     embed_apply,
@@ -43,14 +44,12 @@ def block_kind(cfg) -> str:
 
 def _require_served(cfg) -> None:
     """Refuse the families the port does not serve yet, naming the queue."""
-    unserved = [name for name, on in (("moe", cfg.moe), ("ssm", cfg.ssm),
-                                      ("attn_every", cfg.attn_every),
+    unserved = [name for name, on in (("moe", cfg.moe), ("attn_every", cfg.attn_every),
                                       ("frontend", cfg.frontend)) if on]
     if unserved:
         raise NotImplementedError(
             f"{cfg.name}: the port does not serve {'/'.join(unserved)} configs yet "
-            "(ROADMAP.md, open item (e): Mamba-2 with B4 next, then the MoE, hybrid "
-            "and frontend archs)"
+            "(ROADMAP.md, open item (e3): the MoE, hybrid and frontend archs)"
         )
 
 
@@ -79,15 +78,36 @@ def _attn_block_decode(params, cfg, x, cache):
     return h + mlp_apply(params["mlp"], rmsnorm(params["ln2"], h), cfg.mlp_type), cache
 
 
+# ---------------------------------------------------------------------------
+# Mamba blocks: pre-norm Mamba-2 mixer + residual
+# ---------------------------------------------------------------------------
+
+def _mamba_block_prefill(params, cfg, x, cache):
+    out, cache = mamba.mamba_prefill(params["mamba"], cfg, rmsnorm(params["ln1"], x), cache)
+    return x + out, cache
+
+
+def _mamba_block_decode(params, cfg, x, cache):
+    out, cache = mamba.mamba_decode(params["mamba"], cfg, rmsnorm(params["ln1"], x), cache)
+    return x + out, cache
+
+
 def _block_init(gen, cfg, dtype, device) -> Dict:
-    if block_kind(cfg) == "attn":
+    kind = block_kind(cfg)
+    if kind == "attn":
         return _attn_block_init(gen, cfg, dtype, device)
+    if kind == "mamba":
+        return {"ln1": rmsnorm_init(cfg.d_model, dtype, device),
+                "mamba": mamba.mamba_init(gen, cfg, dtype, device)}
     return rnn.rnn_block_init(gen, cfg, dtype, device)
 
 
 def _block_cache(cfg, batch: int, max_len: int, dtype, device) -> Dict:
-    if block_kind(cfg) == "attn":
+    kind = block_kind(cfg)
+    if kind == "attn":
         return attention.init_cache(cfg, batch, max_len, dtype, device)
+    if kind == "mamba":
+        return mamba.mamba_init_cache(cfg, batch, dtype, device)
     return rnn.rnn_init_cache(cfg, batch, dtype, device)
 
 
@@ -139,9 +159,11 @@ def lm_init(gen: torch.Generator, cfg, device="cuda", dtype=None) -> Dict:
 
 def lm_init_caches(cfg, batch: int, max_len: int, device="cuda"):
     """Zero caches ``{"layers": {leaf: (L, ...)}}`` in the compute dtype
-    (``pos`` int32). RNN: ``c``, plus ``x_tail`` for QRNN and ``h`` for
-    LSTM; ``max_len`` is unused by them (kept for the JAX signature).
-    Attention: ``k``, ``v`` (L, B, size, Hkv, Dh) and ``pos`` (L,)."""
+    (``pos`` int32, ``ssm`` fp32). RNN: ``c``, plus ``x_tail`` for QRNN and
+    ``h`` for LSTM; ``max_len`` is unused by them and by Mamba (kept for the
+    JAX signature). Attention: ``k``, ``v`` (L, B, size, Hkv, Dh) and ``pos``
+    (L,). Mamba: ``conv_x``, ``conv_b``, ``conv_c`` (L, B, W-1, C) and
+    ``ssm`` (L, B, H, N, P)."""
     _require_served(cfg)
     device = resolve_device(device)
     one = _block_cache(cfg, batch, max_len, _dtype(cfg.compute_dtype), device)
@@ -153,15 +175,18 @@ def lm_init_caches(cfg, batch: int, max_len: int, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def _run_layers(params, cfg, h, caches, decode: bool):
-    """All layers, threading the stacked caches. Attention layers write
-    their slice of the stacked cache in place and the same ``caches`` is
-    returned. RNN layers run ``rnn_block_prefill``/``rnn_block_decode`` per
+    """All layers, threading the stacked caches. Attention and Mamba layers
+    write their slice of the stacked cache in place and the same ``caches``
+    is returned. RNN layers run ``rnn_block_prefill``/``rnn_block_decode`` per
     layer (``scan_layers``), or with ``cfg.fuse_depth`` the stack-level API
     (the depth-fused stack under ``scan_engine="fused_stack"``), and return
     new caches."""
     layers = layout.cast_params(params["layers"], h.dtype)
-    if block_kind(cfg) == "attn":
-        fn = _attn_block_decode if decode else _attn_block_prefill
+    kind = block_kind(cfg)
+    if kind in ("attn", "mamba"):
+        fns = {"attn": (_attn_block_prefill, _attn_block_decode),
+               "mamba": (_mamba_block_prefill, _mamba_block_decode)}
+        fn = fns[kind][decode]
         for l in range(cfg.n_layers):
             h, _ = fn(rnn.layer_slice(layers, l), cfg, h, rnn.layer_slice(caches["layers"], l))
         return h, caches

@@ -38,8 +38,10 @@ def build_decode_step(cfg):
     """``decode_step(params, caches, token) -> (logits, caches)``. The caches
     are updated in place and returned: the port's form of the JAX package's
     ``donate_argnums``, which keeps every cache buffer where it is. Attention
-    layers write their new K/V row in place (``models/attention.py``); the
-    small RNN caches come back new and are copied into the old buffers."""
+    layers write their new K/V row in place (``models/attention.py``) and
+    Mamba layers their conv tails and SSM state (``models/mamba.py``), so
+    nothing is copied for them; the small RNN caches come back new and are
+    copied into the old buffers."""
 
     def decode_step(params, caches, token):
         with torch.inference_mode():

@@ -10,7 +10,11 @@ width, one time step to a long sequence, an operand at an unaligned
 offset, and the reverse-time backward; for the decode attention (B5) the
 shapes of ``tests/test_kernels.py``, groups of 1, 3, 4 and 32, every head
 dim it takes, ragged lengths down to 1 on a long cache (splits with no
-valid row), one split and many, and the operands it refuses.
+valid row), one split and many, and the operands it refuses; for the chunked
+SSD (B4) one step written in place, sequences of 1, 127, 128, 129 and 1000
+steps (ragged chunks), one group and a group per head, state sizes and head
+dims of 16 to 128, both dtypes, an operand at an unaligned offset, one lane
+with one head, decays that underflow to 0, and the launcher's refusals.
 
 They skip, with that reason, on a machine without a CUDA device (decided in
 the ``device`` fixture, not at import) and run on the card with
@@ -30,6 +34,9 @@ from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref
 from repro_torch.kernels.linear_scan import linear_scan as ls_kernel
 from repro_torch.kernels.linear_scan import ops as ls_ops
 from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+from repro_torch.kernels.ssd import ssd as ssd_kernel
+from repro_torch.kernels.ssd.ops import ssd
+from repro_torch.kernels.ssd.ref import ssd_ref
 
 # fp32: both sides compute in fp32 and differ only by summation order and a
 # few ulp of expf/tanhf/rsqrtf. bf16: the same, then one output rounding,
@@ -403,4 +410,171 @@ def test_gqa_decode_launcher_refuses_bad_arguments(device):
     assert rc(n_dh=48) == -3
     assert rc(n_g=33) == -1
     assert rc(rows=32) == -1
+    torch.cuda.synchronize()
+
+
+# B4: both sides compute in fp32 and differ by the order of the sums over N,
+# over a chunk and along the chunk chain (the kernel's 64-step chunks, the
+# plain version's own): SSD_RTOL of the largest output magnitude. A bf16 y
+# may then round one bf16 ulp apart (BF16_RTOL); the state is always fp32.
+SSD_RTOL = 2e-5
+
+# name -> (B, S, H, P, N, G, dtype of x, B and C)
+SSD_CASES = {
+    "step": (4, 1, 8, 64, 128, 1, torch.bfloat16),
+    "S127": (2, 127, 4, 64, 128, 1, torch.float32),
+    "S128": (2, 128, 4, 64, 128, 1, torch.bfloat16),
+    "S129": (2, 129, 4, 64, 128, 1, torch.float32),
+    "S1000": (1, 1000, 4, 64, 128, 1, torch.bfloat16),
+    "group_per_head": (2, 100, 6, 32, 32, 6, torch.float32),
+    "P16_N16": (2, 70, 4, 16, 16, 2, torch.float32),
+    "P32_N64": (3, 65, 4, 32, 64, 4, torch.bfloat16),
+    "P128_N128": (1, 90, 2, 128, 128, 1, torch.float32),
+    "one_lane_one_head": (1, 33, 1, 64, 128, 1, torch.float32),
+}
+
+
+def _ssd_operands(device, B, S, H, P, N, G, dtype, seed, decay_scale=1.0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    x = rnd(B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(B, S, H))
+    A = -torch.exp(rnd(H)) * decay_scale
+    Bm, Cm = rnd(B, S, G, N, scale=0.3).to(dtype), rnd(B, S, G, N, scale=0.3).to(dtype)
+    D = rnd(H, scale=0.1)
+    s0 = rnd(B, H, N, P, scale=0.1)
+    return x, dt, A, Bm, Cm, D, s0
+
+
+def _ssd_close(y, state, ry, rstate):
+    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
+    ymax = ry.float().abs().max().item()
+    tol = SSD_RTOL * ymax + (BF16_RTOL * ymax if y.dtype == torch.bfloat16 else 0.0)
+    err = (y.float() - ry.float()).abs().max().item()
+    assert err <= tol, ("y", err, tol)
+    smax = rstate.abs().max().item()
+    err = (state - rstate).abs().max().item()
+    assert err <= SSD_RTOL * smax, ("state", err, SSD_RTOL * smax)
+
+
+@pytest.mark.parametrize("with_s0", [True, False], ids=["s0", "zero_state"])
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_kernel_matches_plain(device, case, with_s0):
+    B, S, H, P, N, G, dtype = SSD_CASES[case]
+    x, dt, A, Bm, Cm, D, s0 = _ssd_operands(device, B, S, H, P, N, G, dtype,
+                                            sorted(SSD_CASES).index(case))
+    s0 = s0 if with_s0 else None
+    before = ssd_kernel.LAUNCHES
+    y, state = ssd(x, dt, A, Bm, Cm, D, initial_state=s0)
+    assert ssd_kernel.LAUNCHES == before + 1
+    ry, rstate = ssd_ref(x, dt, A, Bm, Cm, D, initial_state=s0)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == x.shape and state.dtype == torch.float32
+    _ssd_close(y, state, ry, rstate)
+
+
+@pytest.mark.parametrize("S", [1, 100])
+def test_ssd_kernel_writes_the_state_in_place(device, S):
+    """The new state overwrites the one it started from (decode's cache)."""
+    x, dt, A, Bm, Cm, D, s0 = _ssd_operands(device, 4, S, 8, 64, 128, 1, torch.bfloat16, 7)
+    ry, rstate = ssd_ref(x, dt, A, Bm, Cm, D, initial_state=s0)
+    ptr = s0.data_ptr()
+    y, state = ssd(x, dt, A, Bm, Cm, D, initial_state=s0, state_out=s0)
+    torch.cuda.synchronize()
+    assert state is s0 and s0.data_ptr() == ptr
+    _ssd_close(y, state, ry, rstate)
+
+
+def test_ssd_kernel_strided_and_unaligned_operands(device):
+    """x, B and C as views of wider rows (the model-side strides) and at an
+    odd element offset; dt as a transposed view."""
+    B, S, H, P, N, G = 2, 77, 4, 32, 64, 2
+    x, dt, A, Bm, Cm, D, s0 = _ssd_operands(device, B, S, H, P, N, G, torch.bfloat16, 8)
+    xw = torch.zeros((B, S, H, P + 3), dtype=x.dtype, device=device)
+    xw[..., 1:P + 1] = x
+    bcw = torch.zeros((B, S, G, 2 * N + 1), dtype=Bm.dtype, device=device)
+    bcw[..., 1:N + 1], bcw[..., N + 1:] = Bm, Cm
+    dtt = dt.transpose(0, 1).contiguous().transpose(0, 1)
+    xo, bo, co = xw[..., 1:P + 1], bcw[..., 1:N + 1], bcw[..., N + 1:]
+    assert xo.data_ptr() % 4 and not xo.is_contiguous() and not dtt.is_contiguous()
+    y, state = ssd(xo, dtt, A, bo, co, D, initial_state=s0)
+    ry, rstate = ssd_ref(x, dt, A, Bm, Cm, D, initial_state=s0)
+    torch.cuda.synchronize()
+    _ssd_close(y, state, ry, rstate)
+
+
+@pytest.mark.parametrize("S", [1, 200])
+def test_ssd_kernel_underflowing_decay_is_finite(device, S):
+    """Decays so strong (A dt <= -500 at every step) that exp(lambda)
+    underflows to 0: the masked exponentials stay finite, the state forgets
+    a huge s0, and y is each step's own C . B x dt + D x."""
+    H = 4
+    x, _, _, Bm, Cm, D, s0 = _ssd_operands(device, 2, S, H, 64, 128, 1, torch.float32, 9)
+    g = torch.Generator(device=device).manual_seed(13)
+    dt = torch.nn.functional.softplus(torch.randn((2, S, H), generator=g, device=device)) + 0.5
+    A = -1000.0 * (1.0 + torch.rand((H,), generator=g, device=device))
+    s0 = s0 * 1e6
+    assert (torch.exp(A * dt) == 0).all()
+    y, state = ssd(x, dt, A, Bm, Cm, D, initial_state=s0)
+    ry, rstate = ssd_ref(x, dt, A, Bm, Cm, D, initial_state=s0)
+    torch.cuda.synchronize()
+    _ssd_close(y, state, ry, rstate)
+    assert state.abs().max().item() < 1e3
+
+
+def test_ssd_kernel_mixed_dtypes(device):
+    """A bf16 x with fp32 B and C (``test_kernels.py``'s bf16 case) and
+    the reverse."""
+    x, dt, A, Bm, Cm, D, s0 = _ssd_operands(device, 2, 90, 4, 64, 64, 1, torch.float32, 10)
+    for xd, bd in ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+        args = (x.to(xd), dt, A, Bm.to(bd), Cm.to(bd), D)
+        y, state = ssd(*args, initial_state=s0)
+        ry, rstate = ssd_ref(*args, initial_state=s0)
+        torch.cuda.synchronize()
+        _ssd_close(y, state, ry, rstate)
+
+
+@pytest.mark.parametrize("N", [16, 64, 128])
+def test_ssd_chunk_kernel_fits_the_card(device, N):
+    smem, ctas = ssd_kernel.instance_info(torch.bfloat16, torch.bfloat16, N)
+    assert 0 < smem <= 227 * 1024 and ctas >= 1
+
+
+def test_ssd_refuses_what_the_kernel_does_not_take_on_the_card(device):
+    x, dt, A, Bm, Cm, D, s0 = _ssd_operands(device, 1, 8, 4, 16, 16, 2, torch.float32, 11)
+    with pytest.raises(ValueError, match="on cpu, expected cuda"):
+        ssd(x, dt.cpu(), A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="unit last stride"):
+        ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_kernel.ssd_cuda(*(t.cpu() for t in (x, dt, A, Bm, Cm, D, s0)), x.cpu(), s0.cpu())
+
+
+def test_ssd_launcher_refuses_bad_arguments(device):
+    """The C entry point refuses what it does not take, without a launch:
+    an unknown dtype (-2), N above 128 or P above 256 (-3), heads that do
+    not group (-1), a missing operand (-4)."""
+    import ctypes
+
+    lib = build.library("ssd")
+    x, dt, A, Bm, Cm, D, s0 = _ssd_operands(device, 1, 8, 4, 16, 16, 2, torch.float32, 12)
+    y, state = torch.empty_like(x), torch.empty_like(s0)
+    strides = (ctypes.c_longlong * 12)(*x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
+                                        *Cm.stride()[:3])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def rc(x_dtype=0, n_h=4, n_p=16, n_n=16, y_ptr=y.data_ptr()):
+        return lib.ssd_launch(x_dtype, 0, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                              Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(), s0.data_ptr(), y_ptr,
+                              state.data_ptr(), 1, 8, n_h, 2, n_p, n_n, strides, stream)
+
+    assert rc() == 0
+    assert rc(x_dtype=2) == -2
+    assert rc(n_n=129) == -3
+    assert rc(n_p=257) == -3
+    assert rc(n_h=3) == -1
+    assert rc(y_ptr=None) == -4
     torch.cuda.synchronize()

@@ -4,7 +4,8 @@ stacked and ``*-int8`` configs and of the paper's seven base SRU/QRNN/LSTM confi
 (under their own ``chunked`` engine, under ``pallas``, and under the
 sequential and associative engines), and of the GQA attention LMs
 (``llama3-8b``, ``smollm-360m`` and a padded-head variant), with the JAX
-package's own params bridged across.
+package's own params bridged across. The Mamba-2 LM has its own file,
+``tests/test_torch_mamba.py``.
 
 Prefill and 8 greedy decode steps: logits and every cache leaf within 3e-5
 (``tests/test_rnn_stack.py``'s tolerance for a stack or logits), greedy
@@ -330,16 +331,17 @@ def test_serve_attention_weight_quant_leaves_every_leaf(capsys, monkeypatch):
     _assert_same_tree(q, fp)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b", "mamba2-2.7b",
-                                  "zamba2-7b", "musicgen-large", "internvl2-2b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b", "zamba2-7b",
+                                  "musicgen-large", "internvl2-2b"])
 def test_unserved_families_are_refused_naming_the_queue(arch):
-    """The MoE, Mamba-2, hybrid and frontend configs (the JAX package's,
-    rebuilt as the port's ``ArchConfig``) are refused by ``lm_init`` and
-    ``lm_init_caches`` with the ROADMAP queue in the message."""
+    """The MoE, hybrid (Mamba-2 plus shared attention) and frontend configs
+    (the JAX package's, rebuilt as the port's ``ArchConfig``) are refused by
+    ``lm_init`` and ``lm_init_caches`` with the ROADMAP queue in the
+    message."""
     cfg = ArchConfig(**dataclasses.asdict(JAX_REGISTRY[arch])).reduced()
     for make in (lambda: lm.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu"),
                  lambda: lm.lm_init_caches(cfg, 2, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, open item \(e\)"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, open item \(e3\)"):
             make()
 
 
