@@ -15,10 +15,14 @@ Phases, each printing one JSON line per step:
            ragged-edge and long-sequence cases and one backward of the linear
            scan; the int8 forms of the layer and the stack (int8 gate slabs,
            fp32 scales) at the same shapes; the decode attention (B5) at the
-           llama3-8b and smollm-360m serve shapes (caches of 1056 and 8192
-           rows, ragged lengths down to 1, bf16) and one fp32 case with 32
-           query heads per KV head, beside PyTorch's
-           ``scaled_dot_product_attention`` on the same data; the chunked
+           llama3-8b and smollm-360m serve shapes (caches of 96, 1056 and
+           8192 rows, ragged lengths down to 1, bf16), the full-width head
+           shapes of granite-20b (a group of 48), zamba2-7b (head dim 112)
+           and nemotron-4-340b (head dim 192) in bf16, and one fp32 case
+           with 32 query heads per KV head, beside PyTorch's
+           ``scaled_dot_product_attention`` on the same data, with each
+           instance's shared memory, registers, CTAs per SM, tiles in
+           flight and split plan; the chunked
            SSD (B4) at the mamba2-2.7b serve shapes (B = 4, 80 heads, P = 64,
            N = 128, bf16: prompts 1024 and 64 from a zero state, one decode
            step written in place over a random state, a ragged S = 100) and
@@ -101,7 +105,7 @@ PARITY_RUNS = (
 KERNELS = ("fused_rnn_layer", "fused_rnn_stack", "linear_scan",
            "fused_rnn_layer_int8", "fused_rnn_stack_int8", "gqa_decode", "ssd")
 OUR_KERNEL_SYMBOLS = ("fused_rnn_layer_kernel", "linear_scan_kernel",  # device symbol names
-                      "gqa_decode_split_kernel", "gqa_decode_combine_kernel",
+                      "gqa_decode_mma_kernel", "gqa_decode_split_kernel",
                       "ssd_chunk_kernel", "ssd_step_kernel")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 L2_FLUSH_BYTES = 128 << 20         # written between cold calls; the H100's L2 is 50 MB
@@ -124,6 +128,29 @@ B5_ATOL = 2e-5
 # the state grow: B4_RTOL of the largest output magnitude, y and state each;
 # a bf16 y within one bf16 ulp of its largest value more (RTOL_BF16).
 B4_RTOL = 2e-5
+# Decode attention (B5) cases, (name, (B, Hq, Hkv, Dh, S, lengths), dtype):
+# the llama3-8b serve shape (prompt 1024 + 32, first step), a long cache
+# with ragged lengths down to 1, smollm's shape, an fp32 case with 32 query
+# heads per KV head; then the llama3-8b serve shape at prompt 64 and the
+# full-width head shapes of granite-20b, zamba2-7b and nemotron-4-340b at a
+# 1056-row cache. ``bench_b5.py`` times the same cases.
+GQA_CASES = (
+    ("llama3 B=4 Hq=32 Hkv=8 Dh=128 S=1056 len=1025",
+     (4, 32, 8, 128, 1056, (1025,) * 4), "bfloat16"),
+    ("llama3 S=8192 len=(8192,5000,1,777)",
+     (4, 32, 8, 128, 8192, (8192, 5000, 1, 777)), "bfloat16"),
+    ("smollm B=4 Hq=15 Hkv=5 Dh=64 S=8192 len=8192",
+     (4, 15, 5, 64, 8192, (8192,) * 4), "bfloat16"),
+    ("G=32 B=2 Hq=32 Hkv=1 Dh=128 S=4096 len=(4096,2049) fp32",
+     (2, 32, 1, 128, 4096, (4096, 2049)), "float32"),
+    ("llama3 prompt 64 S=96 len=65", (4, 32, 8, 128, 96, (65,) * 4), "bfloat16"),
+    ("granite B=4 Hq=48 Hkv=1 Dh=128 S=1056 len=1025",
+     (4, 48, 1, 128, 1056, (1025,) * 4), "bfloat16"),
+    ("zamba2 B=4 Hq=32 Hkv=32 Dh=112 S=1056 len=1025",
+     (4, 32, 32, 112, 1056, (1025,) * 4), "bfloat16"),
+    ("nemotron B=4 Hq=96 Hkv=8 Dh=192 S=1056 len=1025",
+     (4, 96, 8, 192, 1056, (1025,) * 4), "bfloat16"),
+)
 # Parity (phase 4): fp32 LM on the card vs the CPU, through up to 32 layers
 # and a head of up to 128256 columns; logits are O(1). The same sources of
 # difference as ATOL.
@@ -574,20 +601,8 @@ def phase_kernels():
                              ("T=64 F=1 fp32", 64, 1, 203),
                              ("long T=4096 F=128 fp32", 4096, 128, 204)):
         scan_cases.append(("float32", T) + _scan_case(name, T, F, "float32", seed))
-    # Decode attention: the llama3-8b serve shape (prompt 1024 + 32, first
-    # step), a long cache with ragged lengths down to 1, smollm's shape, and
-    # an fp32 case with 32 query heads per KV head.
-    gqa_cases = [(dtype, 1) + _gqa_case(name, *shape, dtype, 400 + i) for i, (name, shape, dtype)
-                 in enumerate((
-                     ("llama3 B=4 Hq=32 Hkv=8 Dh=128 S=1056 len=1025",
-                      (4, 32, 8, 128, 1056, (1025,) * 4), "bfloat16"),
-                     ("llama3 S=8192 len=(8192,5000,1,777)",
-                      (4, 32, 8, 128, 8192, (8192, 5000, 1, 777)), "bfloat16"),
-                     ("smollm B=4 Hq=15 Hkv=5 Dh=64 S=8192 len=8192",
-                      (4, 15, 5, 64, 8192, (8192,) * 4), "bfloat16"),
-                     ("G=32 B=2 Hq=32 Hkv=1 Dh=128 S=4096 len=(4096,2049) fp32",
-                      (2, 32, 1, 128, 4096, (4096, 2049)), "float32"),
-                 ))]
+    gqa_cases = [(dtype, 1) + _gqa_case(name, *shape, dtype, 400 + i)
+                 for i, (name, shape, dtype) in enumerate(GQA_CASES)]
 
     fused_src = "src/repro_torch/kernels/fused_rnn/csrc/fused_rnn_layer.cu"
     summaries = {}
@@ -612,10 +627,10 @@ def phase_kernels():
                       library=_sdpa)
     for _, _, name, (q, k, _, _), *_ in gqa_cases:  # the instance each case runs
         (B, Hq, Dh), (S, Hkv) = q.shape, k.shape[1:3]
-        smem, ctas = gqa_kernel.instance_info(q.dtype, Dh, Hq // Hkv)
+        n_split, per_split, head_blocks = gqa_kernel.plan(q.dtype, B, Hkv, S, Dh, Hq // Hkv)
         emit({"phase": "kernels", "kernel": "gqa_decode", "case": name,
-              "dynamic_smem_bytes": smem, "ctas_per_sm": ctas,
-              "splits_rows": gqa_kernel.split_plan(B, Hkv, S, gqa_kernel._sm_count(0))})
+              **gqa_kernel.instance_info(q.dtype, Dh, Hq // Hkv),
+              "n_split": n_split, "rows_per_split": per_split, "head_blocks": head_blocks})
     summaries["gqa_decode"] = _summary(
         "gqa_decode", "src/repro_torch/kernels/gqa_decode/csrc/gqa_decode.cu",
         "src/repro/kernels/gqa_decode/gqa_decode.py:66", rows)

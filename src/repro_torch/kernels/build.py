@@ -46,7 +46,7 @@ SOURCES: Dict[str, tuple] = {
     ),
     "gqa_decode": (
         _PKG / "gqa_decode" / "csrc" / "gqa_decode.cu",
-        {"gqa_decode_launch": [_I] + [_P] * 7 + [_I] * 7 + [_P],
+        {"gqa_decode_launch": [_I] + [_P] * 8 + [_I] * 7 + [_P],
          "gqa_decode_info": [_I] * 3 + [_P]},
         (),
     ),

@@ -14,8 +14,8 @@ from repro_torch.kernels.common import DTYPE_CODES, check_operand
 from repro_torch.kernels.gqa_decode.gqa_decode import gqa_decode_cuda
 from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instances
-MAX_GROUP = 32                 # query heads per KV head the kernel takes
+HEAD_DIM_STEP = 8   # a head dim is a whole number of 16-byte bf16 row pieces
+MAX_HEAD_DIM = 256  # the kernel's largest head-dim bucket
 
 
 def check_operands(q, k, v, lengths) -> None:
@@ -29,11 +29,9 @@ def check_operands(q, k, v, lengths) -> None:
         raise ValueError(f"q: float32 or bfloat16 expected, got {q.dtype}")
     if Hq % Hkv:
         raise ValueError(f"Hq = {Hq} query heads do not group over Hkv = {Hkv} KV heads")
-    if Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"group of {Hq // Hkv} query heads per KV head; the kernel takes "
-                         f"at most {MAX_GROUP}")
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {Dh} unsupported; the kernel has {HEAD_DIMS}")
+    if Dh % HEAD_DIM_STEP or not 0 < Dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {Dh} unsupported; the kernel takes a multiple of "
+                         f"{HEAD_DIM_STEP} up to {MAX_HEAD_DIM}")
     check_operand(q, "q", (B, Hq, Dh), q)
     check_operand(k, "k", (B, S, Hkv, Dh), q)
     check_operand(v, "v", (B, S, Hkv, Dh), q)

@@ -4,7 +4,9 @@ inputs and the JAX package's own params bridged across: ``rope``, the three
 MLP kinds, ``chunked_attention`` with and without a window, and
 ``attn_prefill`` then 6 ``attn_decode`` steps (outputs and the k / v / pos
 cache) on ``llama3-8b.reduced()`` and its padded-head, group-of-3, SWA-ring
-and ``qk_norm`` variants. fp32 throughout, tolerance 2e-5 (the JAX
+and ``qk_norm`` variants and the head shapes of granite-20b (a group of
+48), zamba2-7b (head dim 112) and nemotron-4-340b (a group of 12 at head
+dim 192). fp32 throughout, tolerance 2e-5 (the JAX
 package's layer tolerance). Decode runs through ``gqa_decode``'s plain
 version here; the kernel is held to it on the card.
 
@@ -80,6 +82,11 @@ VARIANTS = {
     "group_of_3": (dict(n_heads=6, n_kv_heads=2), 9, 16),
     "swa_ring": (dict(sliding_window=8), 10, 16),  # prompt and decode past the window
     "qk_norm": (dict(qk_norm=True), 9, 16),
+    # the head shapes of granite-20b (a group of 48), zamba2-7b (head dim
+    # 112) and nemotron-4-340b (a group of 12 at head dim 192)
+    "granite_g48": (dict(n_heads=48, n_kv_heads=1), 9, 16),
+    "zamba2_dh112": (dict(n_heads=2, n_kv_heads=2, d_head=112), 9, 16),
+    "nemotron_g12_dh192": (dict(n_heads=12, n_kv_heads=1, d_head=192), 9, 16),
 }
 DECODE_STEPS = 6
 

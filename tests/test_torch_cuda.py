@@ -8,9 +8,12 @@ ragged second one, an int8 slab at an unaligned offset, the largest batch,
 the linear scan (B3) widths that are and are not a multiple of the vector
 width, one time step to a long sequence, an operand at an unaligned
 offset, and the reverse-time backward; for the decode attention (B5) the
-shapes of ``tests/test_kernels.py``, groups of 1, 3, 4 and 32, every head
-dim it takes, ragged lengths down to 1 on a long cache (splits with no
-valid row), one split and many, and the operands it refuses; for the chunked
+shapes of ``tests/test_kernels.py``, groups of 1 to 96 (17, and the
+full-width granite-20b, zamba2-7b and nemotron-4-340b shapes), head dims
+16 to 256 (24, 112, 192), ragged lengths down to 1 on a long cache (splits
+with no valid row), one split and many, 100 calls back to back (the
+combine's counters reset), every instance's resources, and the operands it
+refuses; for the chunked
 SSD (B4) one step written in place, sequences of 1, 127, 128, 129 and 1000
 steps (ragged chunks), one group and a group per head, state sizes and head
 dims of 16 to 128, both dtypes, an operand at an unaligned offset, one lane
@@ -304,6 +307,12 @@ GQA_CASES = {
     "reduced_dh16": (3, 4, 2, 16, 40, (40, 17, 1)),
     "llama3_len1_long_cache": (4, 32, 8, 128, 8192, (1, 1, 8192, 2)),
     "g32_dh128_full": (1, 32, 1, 128, 1000, (1000,)),
+    # the full-width head shapes of granite-20b, zamba2-7b, nemotron-4-340b
+    "granite_g48_dh128": (4, 48, 1, 128, 1056, (1025, 1056, 1, 500)),
+    "zamba2_dh112": (4, 32, 32, 112, 1056, (1025, 1, 700, 1056)),
+    "nemotron_g12_dh192": (4, 96, 8, 192, 1056, (1025, 64, 1, 1056)),
+    "g17_dh64": (2, 34, 2, 64, 300, (300, 1)),
+    "dh24_g3": (3, 6, 2, 24, 200, (200, 1, 77)),
 }
 
 
@@ -349,7 +358,7 @@ def test_gqa_decode_kernel_truncated_prefix(device):
 @pytest.mark.parametrize("S", [32, 96, 4096])
 def test_gqa_decode_kernel_one_split_and_many(device, S):
     """A cache of one split (the direct store) and of many (the combine)."""
-    n_split, _ = gqa_kernel.split_plan(8, 8, S, gqa_kernel._sm_count(0))
+    n_split, _, _ = gqa_kernel.plan(torch.float32, 8, 8, S, 128, 4)
     assert (n_split == 1) == (S == 32)
     g = torch.Generator(device=device).manual_seed(S)
     q = torch.randn((8, 32, 128), generator=g, device=device)
@@ -359,6 +368,43 @@ def test_gqa_decode_kernel_one_split_and_many(device, S):
     ref = gqa_decode_ref(q, k, v, lens)
     torch.cuda.synchronize()
     _close((out,), (ref,), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S", [32, 4096])
+def test_gqa_decode_kernel_one_split_and_many_dh192(device, S, dtype):
+    """Head dim 192 (nemotron-4-340b's) with one split and with many."""
+    B, Hkv, G = 8, 8, 12
+    n_split, _, _ = gqa_kernel.plan(dtype, B, Hkv, S, 192, G)
+    assert (n_split == 1) == (S == 32)
+    g = torch.Generator(device=device).manual_seed(S + 192)
+    q = torch.randn((B, Hkv * G, 192), generator=g, device=device).to(dtype)
+    k, v = (torch.randn((B, S, Hkv, 192), generator=g, device=device).to(dtype)
+            for _ in range(2))
+    lens = torch.randint(1, S + 1, (B,), generator=g, device=device, dtype=torch.int32)
+    out = gqa_decode(q, k, v, lens)
+    ref = gqa_decode_ref(q, k, v, lens)
+    torch.cuda.synchronize()
+    _close((out,), (ref,), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_gqa_decode_kernel_back_to_back_calls(device, dtype):
+    """100 calls in a row on one stream, each with other lengths, each held
+    to the plain version: the combine's arrival counters go back to zero
+    after every call, or a later call combines too early or never."""
+    q, k, v, _ = _gqa_operands(device, "llama3_len1_long_cache", dtype)
+    g = torch.Generator(device=device).manual_seed(100)
+    S = k.shape[1]
+    assert gqa_kernel.plan(dtype, 4, 8, S, 128, 4)[0] > 1
+    outs, lens_all = [], []
+    for _ in range(100):
+        lens = torch.randint(1, S + 1, (4,), generator=g, device=device, dtype=torch.int32)
+        outs.append(gqa_decode(q, k, v, lens))
+        lens_all.append(lens)
+    for out, lens in zip(outs, lens_all):
+        _close((out,), (gqa_decode_ref(q, k, v, lens),), dtype)
+    assert not gqa_kernel._COUNTERS[0].any()
 
 
 def test_gqa_decode_refuses_what_the_kernel_does_not_take(device):
@@ -371,30 +417,33 @@ def test_gqa_decode_refuses_what_the_kernel_does_not_take(device):
         buf = torch.empty(k.numel() + 1, device=device)
         k_odd = buf[1:].view(k.shape)
         gqa_decode(q, k_odd, v, lens)
-    with pytest.raises(ValueError, match="head dim 48"):
-        gqa_decode(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                   v[..., :48].contiguous(), lens)
-    with pytest.raises(ValueError, match="at most 32"):
-        q64 = torch.zeros((2, 64, 64), device=device)
-        gqa_decode(q64, k[:, :, :1].contiguous(), v[:, :, :1].contiguous(), lens)
+    with pytest.raises(ValueError, match="head dim 44 unsupported; .* a multiple of 8"):
+        gqa_decode(q[..., :44].contiguous(), k[..., :44].contiguous(),
+                   v[..., :44].contiguous(), lens)
+    with pytest.raises(ValueError, match="head dim 264 unsupported; .* up to 256"):
+        q5, k5, v5 = (torch.cat([t] * 5, dim=-1)[..., :264].contiguous() for t in (q, k, v))
+        gqa_decode(q5, k5, v5, lens)
     with pytest.raises(ValueError, match="CUDA tensors"):
         gqa_kernel.gqa_decode_cuda(q.cpu(), k.cpu(), v.cpu(), lens.cpu())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
-@pytest.mark.parametrize("group", [1, 5, 32])
+@pytest.mark.parametrize("head_dim", [16, 24, 32, 64, 112, 128, 192, 256])
+@pytest.mark.parametrize("group", [1, 5, 17, 32, 48, 96])
 def test_gqa_decode_instances_fit_the_card(device, dtype, head_dim, group):
-    """Every instance (per dtype, head dim and group bucket) takes its
-    shared memory and keeps at least one CTA resident per SM."""
-    smem, ctas = gqa_kernel.instance_info(dtype, head_dim, group)
-    assert 0 < smem <= 227 * 1024 and ctas >= 1
+    """Every instance (per dtype, head-dim bucket and group bucket) takes
+    its shared memory and keeps at least one CTA resident per SM."""
+    info = gqa_kernel.instance_info(dtype, head_dim, group)
+    assert 0 < info["smem_bytes"] <= 227 * 1024 and info["ctas_per_sm"] >= 1
+    assert info["stages"] >= 1 and info["tile_rows"] in (32, 64) and info["registers"] > 0
+    assert info["heads_per_cta"] >= min(group, 4)
 
 
 def test_gqa_decode_launcher_refuses_bad_arguments(device):
     """The C entry point refuses what it does not take, without a launch:
-    an unknown dtype (-2), a head dim without an instance (-3), a group
-    above 32 or splits that do not cover the cache (-1)."""
+    an unknown dtype (-2), a head dim that is not a multiple of 8 or above
+    256 (-3), an empty group, splits that do not cover the cache, or several
+    splits without scratch (-1)."""
     lib = build.library("gqa_decode")
     q, k, v, lens = _gqa_operands(device, "kernels_dh128", torch.float32)
     out = torch.empty_like(q)
@@ -402,14 +451,16 @@ def test_gqa_decode_launcher_refuses_bad_arguments(device):
 
     def rc(dtype=0, n_g=3, n_dh=128, n_split=1, rows=64):
         return lib.gqa_decode_launch(dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     lens.data_ptr(), out.data_ptr(), 0, 0, 2, 64, 4, n_g,
-                                     n_dh, n_split, rows, stream)
+                                     lens.data_ptr(), out.data_ptr(), None, None, None, 2, 64,
+                                     4, n_g, n_dh, n_split, rows, stream)
 
     assert rc() == 0
     assert rc(dtype=2) == -2
-    assert rc(n_dh=48) == -3
-    assert rc(n_g=33) == -1
+    assert rc(n_dh=44) == -3
+    assert rc(n_dh=264) == -3
+    assert rc(n_g=0) == -1
     assert rc(rows=32) == -1
+    assert rc(n_split=2, rows=32) == -1
     torch.cuda.synchronize()
 
 
