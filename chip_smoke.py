@@ -27,9 +27,10 @@ Phases, each printing one JSON line per step:
            N = 128, bf16: prompts 1024 and 64 from a zero state, one decode
            step written in place over a random state, a ragged S = 100) and
            at two grouped fp32 shapes of ``tests/test_kernels.py`` (G = 2,
-           4); max |error| against a stated tolerance, and kernel / plain
-           times from CUDA events (decode cases also cold: the L2 flushed
-           before each call);
+           4), with the mma chunk kernel's resources and plan; max |error|
+           against a stated tolerance, and kernel / plain times from CUDA
+           events (decode cases and every SSD case also cold: the L2
+           flushed before each call);
   serve    ``repro_torch.launch.serve.main`` in batch mode at full width
            (``--batch 4 --prompt-len 64 --gen-len 32``) for the stacked and
            fused configs, the base SRU/QRNN configs under ``--engine pallas``,
@@ -106,7 +107,8 @@ KERNELS = ("fused_rnn_layer", "fused_rnn_stack", "linear_scan",
            "fused_rnn_layer_int8", "fused_rnn_stack_int8", "gqa_decode", "ssd")
 OUR_KERNEL_SYMBOLS = ("fused_rnn_layer_kernel", "linear_scan_kernel",  # device symbol names
                       "gqa_decode_mma_kernel", "gqa_decode_split_kernel",
-                      "ssd_chunk_kernel", "ssd_step_kernel")
+                      "ssd_chunk_kernel", "ssd_chunk_mma_kernel", "ssd_step_kernel",
+                      "ssd_step_vec_kernel")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 L2_FLUSH_BYTES = 128 << 20         # written between cold calls; the H100's L2 is 50 MB
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 SIMT
@@ -150,6 +152,22 @@ GQA_CASES = (
      (4, 32, 32, 112, 1056, (1025,) * 4), "bfloat16"),
     ("nemotron B=4 Hq=96 Hkv=8 Dh=192 S=1056 len=1025",
      (4, 96, 8, 192, 1056, (1025,) * 4), "bfloat16"),
+)
+# Chunked SSD (B4) cases, (name, (B, S, H, P, N, G, dtype, seed), options of
+# ``_ssd_case``): the mamba2-2.7b serve shapes (prefill 1024 first: the
+# summary's main row), then the grouped fp32 shapes of test_kernels.py.
+# ``bench_b4.py`` times the same cases.
+SSD_CASES = (
+    ("mamba2 prefill B=4 S=1024 bf16", (4, 1024, 80, 64, 128, 1, "bfloat16", 500), {}),
+    ("mamba2 prefill B=4 S=64 bf16", (4, 64, 80, 64, 128, 1, "bfloat16", 501), {}),
+    ("mamba2 decode B=4 S=1 bf16 in place", (4, 1, 80, 64, 128, 1, "bfloat16", 502),
+     {"s0": True, "in_place": True}),
+    ("mamba2 ragged B=4 S=100 bf16 s0", (4, 100, 80, 64, 128, 1, "bfloat16", 503),
+     {"s0": True}),
+    ("G=2 B=2 S=64 H=4 P=8 N=16 fp32 s0", (2, 64, 4, 8, 16, 2, "float32", 504),
+     {"s0": True, "model_like": False}),
+    ("G=4 B=2 S=32 H=8 P=4 N=4 fp32 s0", (2, 32, 8, 4, 4, 4, "float32", 505),
+     {"s0": True, "model_like": False}),
 )
 # Parity (phase 4): fp32 LM on the card vs the CPU, through up to 32 layers
 # and a head of up to 128256 columns; logits are O(1). The same sources of
@@ -459,10 +477,11 @@ def _summary(kname, source, replaces, rows):
     }
 
 
-def _run_cases(kname, wrapper, plain, cases, atol=ATOL, rtol=0.0, library=None):
+def _run_cases(kname, wrapper, plain, cases, atol=ATOL, rtol=0.0, library=None, cold=False):
     """Each case against its plain version (computed first: a wrapper may
-    write a state operand in place); decode cases (T = 1) are also timed
-    cold, with the L2 flushed before each call (``cold_ms``).
+    write a state operand in place); decode cases (T = 1), and every case
+    with ``cold``, are also timed cold, with the L2 flushed before each call
+    (``cold_ms``).
     ``library(*args)`` gives the one PyTorch call that computes the same
     function, timed as ``library_ms`` (with its max |error| against the
     plain version, not checked)."""
@@ -479,7 +498,7 @@ def _run_cases(kname, wrapper, plain, cases, atol=ATOL, rtol=0.0, library=None):
         each = errors(out, ref, atol, rtol)  # before the timed calls, which may write out
         ms = time_ms(lambda: wrapper(*args, **kw), iters=50)
         cold_ms = None
-        if T == 1:
+        if T == 1 or cold:
             cold_ms = time_ms(lambda: wrapper(*args, **kw), iters=50, flush=l2.zero_)
         plain_ms = time_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
         b_ms, b_by = bound(rw, ops, dtype)
@@ -635,32 +654,24 @@ def phase_kernels():
         "gqa_decode", "src/repro_torch/kernels/gqa_decode/csrc/gqa_decode.cu",
         "src/repro/kernels/gqa_decode/gqa_decode.py:66", rows)
 
-    # Chunked SSD: the mamba2-2.7b serve shapes (prefill 1024 first: the
-    # summary's main row), then the grouped fp32 shapes of test_kernels.py.
+    # Chunked SSD: SSD_CASES, each also timed cold.
     ssd_cases = []
-    for case in (
-        _ssd_case("mamba2 prefill B=4 S=1024 bf16", 4, 1024, 80, 64, 128, 1, "bfloat16", 500),
-        _ssd_case("mamba2 prefill B=4 S=64 bf16", 4, 64, 80, 64, 128, 1, "bfloat16", 501),
-        _ssd_case("mamba2 decode B=4 S=1 bf16 in place", 4, 1, 80, 64, 128, 1, "bfloat16",
-                  502, s0=True, in_place=True),
-        _ssd_case("mamba2 ragged B=4 S=100 bf16 s0", 4, 100, 80, 64, 128, 1, "bfloat16", 503,
-                  s0=True),
-        _ssd_case("G=2 B=2 S=64 H=4 P=8 N=16 fp32 s0", 2, 64, 4, 8, 16, 2, "float32", 504,
-                  s0=True, model_like=False),
-        _ssd_case("G=4 B=2 S=32 H=8 P=4 N=4 fp32 s0", 2, 32, 8, 4, 4, 4, "float32", 505,
-                  s0=True, model_like=False),
-    ):
+    for name, shape, kw in SSD_CASES:
+        case = _ssd_case(name, *shape, **kw)
         x = case[1][0]
         ssd_cases.append((str(x.dtype).split(".")[-1], x.shape[1]) + case)
     rows = _run_cases("ssd", _ssd_kernel_call, _ssd_plain_call, ssd_cases, atol=0.0,
-                      rtol=B4_RTOL)
-    smem, ctas = ssd_kernel.instance_info(torch.bfloat16, torch.bfloat16, 128)
-    emit({"phase": "kernels", "kernel": "ssd", "instance": "chunk kernel, bf16, N = 128",
-          "dynamic_smem_bytes": smem, "ctas_per_sm": ctas})
+                      rtol=B4_RTOL, cold=True)
+    heads_per_cta, grid = ssd_kernel.plan(4, 80, 1, 64, 128)
+    emit({"phase": "kernels", "kernel": "ssd", "instance": "mma chunk kernel, bf16, N = 128",
+          **ssd_kernel.instance_info(torch.bfloat16, torch.bfloat16, 128),
+          "heads_per_cta": heads_per_cta, "grid": grid, "ctas": grid[0] * grid[1] * grid[2],
+          "sm_count": torch.cuda.get_device_properties(0).multi_processor_count})
     summaries["ssd"] = _summary(
         "ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu", "src/repro/kernels/ssd/ssd.py:73",
         rows)
     summaries["ssd"]["bound_fp32_simt_ms"] = rows[0]["bound_fp32_simt_ms"]
+    summaries["ssd"]["cold_ms"] = rows[0]["cold_ms"]
     return summaries
 
 

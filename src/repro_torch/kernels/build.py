@@ -52,7 +52,7 @@ SOURCES: Dict[str, tuple] = {
     ),
     "ssd": (
         _PKG / "ssd" / "csrc" / "ssd.cu",
-        {"ssd_launch": [_I, _I] + [_P] * 9 + [_I] * 6 + [_P, _P],
+        {"ssd_launch": [_I, _I] + [_P] * 9 + [_I] * 7 + [_P, _P],
          "ssd_info": [_I] * 3 + [_P]},
         (),
     ),

@@ -14,10 +14,16 @@ full-width granite-20b, zamba2-7b and nemotron-4-340b shapes), head dims
 with no valid row), one split and many, 100 calls back to back (the
 combine's counters reset), every instance's resources, and the operands it
 refuses; for the chunked
-SSD (B4) one step written in place, sequences of 1, 127, 128, 129 and 1000
-steps (ragged chunks), one group and a group per head, state sizes and head
-dims of 16 to 128, both dtypes, an operand at an unaligned offset, one lane
-with one head, decays that underflow to 0, and the launcher's refusals.
+SSD (B4) one step written in place (also at P = 256 and at a head dim the
+16-byte form does not take), sequences of 1, 127, 128, 129 and 1000 steps
+(ragged chunks), one group and a group per head, state sizes and head dims
+of 16 to 128, both dtypes, an operand at an unaligned offset, one lane with
+one head, decays that underflow to 0, and the launcher's refusals; for its
+mma chunk kernel (bf16) state sizes 16/64/128 x head dims 8/64/256 x one,
+two and a group per head, sequences of 2, 63, 64, 65 and 1024 steps with
+mamba2's slow decays, head blocks that do not divide the heads of a group,
+16-byte aligned strided views with the state in place, the plan at the
+mamba2 shape, and every chunk instance's resources.
 
 They skip, with that reason, on a machine without a CUDA device (decided in
 the ``device`` fixture, not at import) and run on the card with
@@ -482,18 +488,27 @@ SSD_CASES = {
     "P32_N64": (3, 65, 4, 32, 64, 4, torch.bfloat16),
     "P128_N128": (1, 90, 2, 128, 128, 1, torch.float32),
     "one_lane_one_head": (1, 33, 1, 64, 128, 1, torch.float32),
+    "step_P6": (3, 1, 4, 6, 16, 2, torch.float32),
+    "step_P256": (2, 1, 4, 256, 128, 1, torch.bfloat16),
 }
 
 
-def _ssd_operands(device, B, S, H, P, N, G, dtype, seed, decay_scale=1.0):
+def _ssd_operands(device, B, S, H, P, N, G, dtype, seed, decay_scale=1.0, model_like=False):
+    """``model_like``: mamba2's slow decays (A = -1..-16 over the heads, dt
+    about 0.01), so the state carries over the whole sequence, as
+    ``chip_smoke._ssd_case`` draws them."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=device) * scale
 
     x = rnd(B, S, H, P).to(dtype)
-    dt = torch.nn.functional.softplus(rnd(B, S, H))
-    A = -torch.exp(rnd(H)) * decay_scale
+    if model_like:
+        dt = torch.nn.functional.softplus(rnd(B, S, H) * 0.5 - 4.6)
+        A = -torch.linspace(1.0, 16.0, H, device=device)
+    else:
+        dt = torch.nn.functional.softplus(rnd(B, S, H))
+        A = -torch.exp(rnd(H)) * decay_scale
     Bm, Cm = rnd(B, S, G, N, scale=0.3).to(dtype), rnd(B, S, G, N, scale=0.3).to(dtype)
     D = rnd(H, scale=0.1)
     s0 = rnd(B, H, N, P, scale=0.1)
@@ -588,10 +603,90 @@ def test_ssd_kernel_mixed_dtypes(device):
         _ssd_close(y, state, ry, rstate)
 
 
+@pytest.mark.parametrize("x_dtype,bc_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)],
+    ids=["bf16", "fp32", "bf16_x", "bf16_bc"])
 @pytest.mark.parametrize("N", [16, 64, 128])
-def test_ssd_chunk_kernel_fits_the_card(device, N):
-    smem, ctas = ssd_kernel.instance_info(torch.bfloat16, torch.bfloat16, N)
-    assert 0 < smem <= 227 * 1024 and ctas >= 1
+def test_ssd_chunk_kernel_fits_the_card(device, N, x_dtype, bc_dtype):
+    """Every chunk kernel instance the launcher can pick: the mma kernel
+    (bf16 x, B, C) and the fp32 one (the other three)."""
+    info = ssd_kernel.instance_info(x_dtype, bc_dtype, N)
+    assert 0 < info["smem_bytes"] <= 227 * 1024 and info["ctas_per_sm"] >= 1
+    assert 0 < info["registers"] <= 255
+    mma = x_dtype == bc_dtype == torch.bfloat16
+    assert (info["max_heads_per_cta"], info["p_slice"]) == ((5, 32) if mma else (1, 64))
+
+
+def test_ssd_plan_fills_one_round_at_the_mamba2_shape(device):
+    """On this card the plan of the mamba2 serve shape runs every CTA in
+    one round of resident CTAs."""
+    hb, grid = ssd_kernel.plan(4, 80, 1, 64, 128)
+    info = ssd_kernel.instance_info(torch.bfloat16, torch.bfloat16, 128)
+    ctas = grid[0] * grid[1] * grid[2]
+    assert hb >= 2 and ctas <= ssd_kernel._sm_count(0) * info["ctas_per_sm"]
+
+
+@pytest.mark.parametrize("G", [1, 2, 6])
+@pytest.mark.parametrize("P", [8, 64, 256])
+@pytest.mark.parametrize("N", [16, 64, 128])
+def test_ssd_mma_kernel_shapes(device, N, P, G):
+    """The mma chunk kernel (bf16 x, B, C) at state sizes and head dims
+    below, at and above its 128 rows and 32-column slices, one group, two
+    and a group per head, from s0."""
+    x, dt, A, Bm, Cm, D, s0 = _ssd_operands(device, 2, 70, 6, P, N, G, torch.bfloat16,
+                                            1000 + 100 * G + N + P)
+    y, state = ssd(x, dt, A, Bm, Cm, D, initial_state=s0)
+    ry, rstate = ssd_ref(x, dt, A, Bm, Cm, D, initial_state=s0)
+    torch.cuda.synchronize()
+    _ssd_close(y, state, ry, rstate)
+
+
+@pytest.mark.parametrize("S", [2, 63, 64, 65, 1024])
+def test_ssd_mma_kernel_lengths(device, S):
+    """Sequences of one chunk and the edges of the second, and a long one
+    with mamba2's slow decays (the state carries over all 1024 steps)."""
+    x, dt, A, Bm, Cm, D, s0 = _ssd_operands(device, 2, S, 8, 64, 128, 1, torch.bfloat16,
+                                            2000 + S, model_like=True)
+    for init in (None, s0):
+        y, state = ssd(x, dt, A, Bm, Cm, D, initial_state=init)
+        ry, rstate = ssd_ref(x, dt, A, Bm, Cm, D, initial_state=init)
+        torch.cuda.synchronize()
+        _ssd_close(y, state, ry, rstate)
+
+
+@pytest.mark.parametrize("H,G", [(13, 1), (14, 2), (7, 7)])
+def test_ssd_mma_kernel_ragged_head_blocks(device, H, G):
+    """Heads per group that the CTA's head block does not divide: the last
+    block of each group holds fewer heads."""
+    hb, _ = ssd_kernel.plan(2, H, G, 64, 128)
+    assert (H // G) % hb or H == G
+    x, dt, A, Bm, Cm, D, s0 = _ssd_operands(device, 2, 130, H, 64, 128, G, torch.bfloat16,
+                                            3000 + H, model_like=True)
+    y, state = ssd(x, dt, A, Bm, Cm, D, initial_state=s0)
+    ry, rstate = ssd_ref(x, dt, A, Bm, Cm, D, initial_state=s0)
+    torch.cuda.synchronize()
+    _ssd_close(y, state, ry, rstate)
+
+
+def test_ssd_mma_kernel_aligned_strided_views(device):
+    """x, B and C as 16-byte aligned views of wider rows, as the model's
+    in-projection hands them over: the kernel copies them with cp.async
+    through their strides; the state written in place at S = 1024."""
+    B, S, H, P, N = 2, 1024, 8, 64, 128
+    x, dt, A, Bm, Cm, D, s0 = _ssd_operands(device, B, S, H, P, N, 1, torch.bfloat16, 4000,
+                                            model_like=True)
+    xw = torch.zeros((B, S, H, P + 8), dtype=x.dtype, device=device)
+    xw[..., :P] = x
+    bcw = torch.zeros((B, S, 1, 2 * N + 8), dtype=Bm.dtype, device=device)
+    bcw[..., 8:N + 8], bcw[..., N + 8:] = Bm, Cm
+    xo, bo, co = xw[..., :P], bcw[..., 8:N + 8], bcw[..., N + 8:]
+    assert not xo.is_contiguous() and bo.data_ptr() % 16 == 0 and co.data_ptr() % 16 == 0
+    ry, rstate = ssd_ref(x, dt, A, Bm, Cm, D, initial_state=s0)
+    y, state = ssd(xo, dt, A, bo, co, D, initial_state=s0, state_out=s0)
+    torch.cuda.synchronize()
+    assert state is s0
+    _ssd_close(y, state, ry, rstate)
 
 
 def test_ssd_refuses_what_the_kernel_does_not_take_on_the_card(device):
@@ -607,7 +702,8 @@ def test_ssd_refuses_what_the_kernel_does_not_take_on_the_card(device):
 def test_ssd_launcher_refuses_bad_arguments(device):
     """The C entry point refuses what it does not take, without a launch:
     an unknown dtype (-2), N above 128 or P above 256 (-3), heads that do
-    not group (-1), a missing operand (-4)."""
+    not group or, for the mma chunk kernel, a head block outside 1..5 (-1),
+    a missing operand (-4)."""
     import ctypes
 
     lib = build.library("ssd")
@@ -617,12 +713,24 @@ def test_ssd_launcher_refuses_bad_arguments(device):
                                         *Cm.stride()[:3])
     stream = torch.cuda.current_stream().cuda_stream
 
-    def rc(x_dtype=0, n_h=4, n_p=16, n_n=16, y_ptr=y.data_ptr()):
+    xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    yb = torch.empty_like(xb)
+
+    def rc(x_dtype=0, n_h=4, n_p=16, n_n=16, y_ptr=y.data_ptr(), heads_per_cta=1):
         return lib.ssd_launch(x_dtype, 0, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                               Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(), s0.data_ptr(), y_ptr,
-                              state.data_ptr(), 1, 8, n_h, 2, n_p, n_n, strides, stream)
+                              state.data_ptr(), 1, 8, n_h, 2, n_p, n_n, heads_per_cta, strides,
+                              stream)
+
+    def rc_bf16(heads_per_cta):
+        return lib.ssd_launch(1, 1, xb.data_ptr(), dt.data_ptr(), A.data_ptr(), Bb.data_ptr(),
+                              Cb.data_ptr(), D.data_ptr(), s0.data_ptr(), yb.data_ptr(),
+                              state.data_ptr(), 1, 8, 4, 2, 16, 16, heads_per_cta, strides,
+                              stream)
 
     assert rc() == 0
+    assert rc_bf16(2) == 0
+    assert rc_bf16(0) == -1 and rc_bf16(6) == -1
     assert rc(x_dtype=2) == -2
     assert rc(n_n=129) == -3
     assert rc(n_p=257) == -3

@@ -7,7 +7,9 @@ inputs.
 Tolerances as ``tests/test_kernels.py``: 3e-5 in fp32, 5e-2 for a bf16 x
 (both sides round the fp32 result to bf16 once). The CUDA kernel itself is
 held to the plain version on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``).
+``chip_smoke.py``); here its precision scheme (bf16 tensor-core products
+with the fp32 operand split hi + lo) is emulated in fp32 and held to JAX's
+``ssd_ref`` at chip_smoke's B4 tolerance, and its host-side plan is checked.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.kernels.ssd.ref import ssd_ref
 
 TOL = 3e-5
 BF16_TOL = 5e-2
+B4_RTOL = 2e-5  # chip_smoke.py's B4 tolerance: of the largest magnitude, y and state each
 
 # name -> (B, S, H, P, N, G, chunk): the four shapes of
 # tests/test_kernels.py::test_ssd_kernel
@@ -237,3 +240,111 @@ def test_ssd_ref_is_the_sequential_chunked_ssd():
     y2, st2 = core_ssd.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=8, initial_state=s0,
                                    engine="sequential", return_final_state=True)
     assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+def _split(v: torch.Tensor, terms: int) -> torch.Tensor:
+    """``v`` as the sum of its first ``terms`` bf16 terms (hi, lo, ...),
+    in fp32: what the tensor cores multiply in its place."""
+    out, rest = torch.zeros_like(v), v
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16).float()
+        out, rest = out + t, rest - t
+    return out
+
+
+def _emulate_mma_chunks(x, dt, A, Bm, Cm, D, terms, L=64):
+    """The mma chunk kernel's arithmetic in fp32 on the CPU: 64-step chunks;
+    C B^T of the exact bf16 C and B; the scores as tril(C B^T o
+    exp(lambda_t - lambda_s)) o dt_s, split, times x (exact); C times the
+    split state; the state update as B^T times the split (w o x), w_s =
+    exp(lambda_T - lambda_s) dt_s. Products of split operands are exact in
+    fp32 (a bf16 term times a bf16 value), so each product here is the fp32
+    sum of the kernel's mma terms up to the order of the sums."""
+    Bsz, S, H, P = x.shape
+    rep = H // Bm.shape[2]
+    state = torch.zeros(Bsz, H, Bm.shape[3], P)
+    y = torch.empty(Bsz, S, H, P)
+    for t0 in range(0, S, L):
+        sl = slice(t0, min(S, t0 + L))
+        xc, dc = x[:, sl], dt[:, sl]
+        Bc, Cc = Bm[:, sl].repeat_interleave(rep, 2), Cm[:, sl].repeat_interleave(rep, 2)
+        lam = torch.cumsum(A * dc, 1).permute(0, 2, 1)  # (B, H, t)
+        nv = lam.shape[-1]
+        cb = torch.einsum("bthn,bshn->bhts", Cc, Bc)
+        mask = torch.tril(torch.ones(nv, nv, dtype=torch.bool))
+        diff = lam[..., :, None] - lam[..., None, :]
+        decay = torch.exp(torch.where(mask, diff, torch.full_like(diff, -torch.inf)))
+        scores = cb * decay * dc.permute(0, 2, 1)[..., None, :]
+        y1 = torch.einsum("bthn,bhnp->bthp", Cc, _split(state, terms))
+        y2 = torch.einsum("bhts,bshp->bthp", _split(scores, terms), xc)
+        y[:, sl] = y1 * torch.exp(lam).permute(0, 2, 1)[..., None] + y2 + D[:, None] * xc
+        w = torch.exp(lam[..., -1:] - lam) * dc.permute(0, 2, 1)  # (B, H, s)
+        wx = w.permute(0, 2, 1)[..., None] * xc
+        state = (torch.exp(lam[..., -1])[..., None, None] * state
+                 + torch.einsum("bshn,bshp->bhnp", Bc, _split(wx, terms)))
+    return y, state
+
+
+@pytest.mark.parametrize("terms,holds", [(2, True), (1, False)], ids=["hi_lo", "one_term"])
+def test_mma_precision_scheme_against_jax_ref(terms, holds):
+    """The kernel's split (two bf16 terms) holds B4_RTOL against JAX's
+    ``ssd_ref`` at the prompt-1024 serve case with mamba2's decays (A = -1
+    .. -16, dt about 0.01: the state carries over all 1024 steps); a single
+    bf16 term of the same operands does not, which is why the split is
+    there. x, B and C are bf16 values, as on the serve path."""
+    rng = np.random.default_rng(18)
+    B, S, H, P, N = 1, 1024, 4, 64, 128
+
+    def bf16(a):
+        return torch.tensor(a.astype(np.float32)).to(torch.bfloat16).float().numpy()
+
+    x = bf16(rng.standard_normal((B, S, H, P)))
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)) * 0.5 - 4.6)).astype(np.float32)
+    A = -np.linspace(1.0, 16.0, H).astype(np.float32)
+    Bm, Cm = (bf16(rng.standard_normal((B, S, 1, N)) * 0.3) for _ in range(2))
+    D = np.ones(H, np.float32)
+    ry, rstate = (np.asarray(v) for v in jax_ssd_ref(*map(_j, (x, dt, A, Bm, Cm, D))))
+    y, state = _emulate_mma_chunks(*map(_t, (x, dt, A, Bm, Cm, D)), terms)
+    rel_y = np.abs(y.numpy() - ry).max() / np.abs(ry).max()
+    rel_state = np.abs(state.numpy() - rstate).max() / np.abs(rstate).max()
+    assert (max(rel_y, rel_state) <= B4_RTOL) == holds, (rel_y, rel_state)
+
+
+def _plan_cover(batch, heads, groups, head_dim, hb, grid, p_slice):
+    """(lane, head, column) -> times covered, the kernel's CTA mapping
+    walked over ``grid``; asserts the heads of each CTA share a group."""
+    rep = heads // groups
+    blocks = -(-rep // hb)
+    seen = {}
+    for bx in range(grid[0]):
+        for by in range(grid[1]):
+            for bz in range(grid[2]):
+                g = by // blocks
+                h0 = g * rep + (by % blocks) * hb
+                nh = min(hb, (g + 1) * rep - h0)
+                assert nh >= 1 and {(h0 + i) // rep for i in range(nh)} == {g}
+                for h in range(h0, h0 + nh):
+                    for p in range(bx * p_slice, min(head_dim, (bx + 1) * p_slice)):
+                        seen[(bz, h, p)] = seen.get((bz, h, p), 0) + 1
+    return seen
+
+
+@pytest.mark.parametrize("batch,heads,groups,head_dim,ctas_per_sm", [
+    (4, 80, 1, 64, 1), (4, 80, 1, 64, 2), (2, 13, 1, 64, 1), (2, 14, 2, 64, 1),
+    (2, 7, 7, 256, 1), (1, 1, 1, 8, 1), (3, 8, 4, 100, 1), (4, 80, 8, 64, 1)])
+def test_chunk_plan_covers_every_head_and_column_once(batch, heads, groups, head_dim,
+                                                       ctas_per_sm):
+    hb, grid = ssd_kernel.chunk_plan(batch, heads, groups, head_dim, 132, ctas_per_sm, 5, 32)
+    assert 1 <= hb <= 5 and (hb >= 2 or heads == groups)
+    seen = _plan_cover(batch, heads, groups, head_dim, hb, grid, 32)
+    assert set(seen.values()) == {1}
+    assert len(seen) == batch * heads * head_dim
+
+
+def test_chunk_plan_fills_one_round_at_the_mamba2_shape():
+    """B = 4, H = 80, P = 64, G = 1 at one CTA per SM on 132 SMs: five heads
+    per CTA and two P slices, 128 CTAs in one round (97% of the slots),
+    where four heads would take two rounds and three 216 CTAs in two."""
+    hb, grid = ssd_kernel.chunk_plan(4, 80, 1, 64, 132, 1, 5, 32)
+    assert (hb, grid) == (5, (2, 16, 4))
+    assert grid[0] * grid[1] * grid[2] == 128 <= 132
