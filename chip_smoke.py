@@ -14,7 +14,12 @@ Phases, each printing one JSON line per step:
            1024, bf16; for the linear scan F = B * H = 4096) plus fp32,
            ragged-edge and long-sequence cases and one backward of the linear
            scan; the int8 forms of the layer and the stack (int8 gate slabs,
-           fp32 scales) at the same shapes; the decode attention (B5) at the
+           fp32 scales) at the same shapes, and bf16 ragged cases of both
+           (a QRNN layer and an int8 QRNN stack at H = 1000, T = 13, B = 3),
+           every fused-RNN case also timed cold, with each bf16 case's
+           tensor-core instance (shared memory, registers, CTAs per SM,
+           lanes per CTA, cluster size, grid, resident clusters, rows per
+           chunk, input-tile columns); the decode attention (B5) at the
            llama3-8b and smollm-360m serve shapes (caches of 96, 1056 and
            8192 rows, ragged lengths down to 1, bf16), the full-width head
            shapes of granite-20b (a group of 48), zamba2-7b (head dim 112)
@@ -105,7 +110,8 @@ PARITY_RUNS = (
 # Each kernel instance family with its launch counter (module attribute).
 KERNELS = ("fused_rnn_layer", "fused_rnn_stack", "linear_scan",
            "fused_rnn_layer_int8", "fused_rnn_stack_int8", "gqa_decode", "ssd")
-OUR_KERNEL_SYMBOLS = ("fused_rnn_layer_kernel", "linear_scan_kernel",  # device symbol names
+OUR_KERNEL_SYMBOLS = ("fused_rnn_layer_kernel", "fused_rnn_mma_kernel",  # device symbol names
+                      "linear_scan_kernel",
                       "gqa_decode_mma_kernel", "gqa_decode_split_kernel",
                       "ssd_chunk_kernel", "ssd_chunk_mma_kernel", "ssd_step_kernel",
                       "ssd_step_vec_kernel")
@@ -571,6 +577,66 @@ def _scan_backward_row():
     return row
 
 
+def fused_rnn_cases():
+    """The cases of the fused SRU/QRNN kernel (B1 layer, B2 stack, fp and
+    int8 slabs), keyed by kernel family: ``(dtype, T, name, args, kw, rw,
+    ops)`` each. First the main path's shapes (B = 4, width 1024, bf16; T =
+    64 first, the summary's main row, then T = 1), then ragged and fp32
+    cases. ``bench_b12.py`` times the same cases."""
+    cases = {k: [] for k in ("fused_rnn_layer", "fused_rnn_stack", "fused_rnn_layer_int8",
+                             "fused_rnn_stack_int8")}
+    seed = 0
+    for T in (64, 1):
+        for mode, d in (("sru_identity", 1024), ("qrnn", 1024), ("sru_proj", 512)):
+            seed += 1
+            cases["fused_rnn_layer"].append(("bfloat16", T) + _layer_case(
+                f"{mode} T={T} d={d}", mode, T, 4, d, 1024, "bfloat16", seed))
+            cases["fused_rnn_layer_int8"].append(("bfloat16", T) + _layer_case(
+                f"int8 {mode} T={T} d={d}", mode, T, 4, d, 1024, "bfloat16", seed, quant=True))
+        for cell in ("sru", "qrnn"):
+            seed += 1
+            cases["fused_rnn_stack"].append(("bfloat16", T) + _stack_case(
+                f"{cell} L=4 T={T}", cell, T, 4, 1024, 4, "bfloat16", seed))
+            cases["fused_rnn_stack_int8"].append(("bfloat16", T) + _stack_case(
+                f"int8 {cell} L=4 T={T}", cell, T, 4, 1024, 4, "bfloat16", seed, quant=True))
+        seed += 1
+    # Ragged: H = 1000 leaves a last lane block of 8 lanes (bf16 and int8)
+    # and d = 1000 pads each tap by 8; with fp32 IO, the last CTA of the
+    # CUDA-core body has 4 lanes (per-element int8 loads) and the last scale
+    # block 100 lanes.
+    cases["fused_rnn_layer"].append(("bfloat16", 13) + _layer_case(
+        "qrnn ragged T=13 B=3 d=H=1000", "qrnn", 13, 3, 1000, 1000, "bfloat16", 106, 4))
+    cases["fused_rnn_stack_int8"].append(("bfloat16", 13) + _stack_case(
+        "int8 qrnn ragged L=2 T=13 B=3 H=1000", "qrnn", 13, 3, 1000, 2, "bfloat16", 107, 4,
+        quant=True))
+    cases["fused_rnn_layer_int8"].append(("float32", 13) + _layer_case(
+        "int8 qrnn ragged T=13 d=H=996 fp32", "qrnn", 13, 3, 996, 996, "float32", 105, 4,
+        quant=True))
+    cases["fused_rnn_layer"].append(("float32", 64) + _layer_case(
+        "sru_identity T=64 d=1024 fp32", "sru_identity", 64, 4, 1024, 1024, "float32", 101))
+    cases["fused_rnn_layer"].append(("float32", 13) + _layer_case(
+        "qrnn ragged T=13 d=H=1000 fp32", "qrnn", 13, 3, 1000, 1000, "float32", 102, 4))
+    cases["fused_rnn_stack"].append(("float32", 64) + _stack_case(
+        "sru L=4 T=64 fp32", "sru", 64, 4, 1024, 4, "float32", 103))
+    cases["fused_rnn_stack"].append(("float32", 13) + _stack_case(
+        "qrnn ragged L=2 T=13 H=1000 fp32", "qrnn", 13, 3, 1000, 2, "float32", 104, 4))
+    return cases
+
+
+def fused_instance_info(args, kw):
+    """The tensor-core instance a bf16 fused-RNN case runs (one layer of a
+    stack): ``fused_rnn.instance_info`` for its shape."""
+    from repro_torch.kernels.fused_rnn import fused_rnn
+
+    x, taps = args[0], args[1]
+    T, B, d = x.shape
+    stack = "mode" not in kw
+    int8 = kw.get("scale", kw.get("sL")) is not None
+    return dict(fused_rnn.instance_info(
+        T, B, d, taps[0].shape[-1], int8=int8, ng=4 if kw.get("mode") == "sru_proj" else 3,
+        stack=stack, taps=len(taps), block_t=kw["block_t"]))
+
+
 def phase_kernels():
     """Every kernel against its plain version. Returns per-kernel summaries."""
     import torch
@@ -583,38 +649,11 @@ def phase_kernels():
     from repro_torch.kernels.linear_scan.ref import linear_scan_ref
     from repro_torch.kernels.ssd import ssd as ssd_kernel
 
-    layer_cases, stack_cases, scan_cases = [], [], []
-    layer_q_cases, stack_q_cases = [], []
-    seed = 0
-    for T in (64, 1):
-        for mode, d in (("sru_identity", 1024), ("qrnn", 1024), ("sru_proj", 512)):
-            seed += 1
-            layer_cases.append(("bfloat16", T) + _layer_case(
-                f"{mode} T={T} d={d}", mode, T, 4, d, 1024, "bfloat16", seed))
-            layer_q_cases.append(("bfloat16", T) + _layer_case(
-                f"int8 {mode} T={T} d={d}", mode, T, 4, d, 1024, "bfloat16", seed, quant=True))
-        for cell in ("sru", "qrnn"):
-            seed += 1
-            stack_cases.append(("bfloat16", T) + _stack_case(
-                f"{cell} L=4 T={T}", cell, T, 4, 1024, 4, "bfloat16", seed))
-            stack_q_cases.append(("bfloat16", T) + _stack_case(
-                f"int8 {cell} L=4 T={T}", cell, T, 4, 1024, 4, "bfloat16", seed, quant=True))
-        seed += 1
+    fused = fused_rnn_cases()
+    scan_cases = []
+    for seed, T in ((6, 64), (12, 1)):
         scan_cases.append(("bfloat16", T) + _scan_case(
             f"T={T} F=4096", T, 4096, "bfloat16", seed))
-    # Ragged: the last CTA has 4 lanes (per-element int8 loads) and the last
-    # scale block 100 lanes.
-    layer_q_cases.append(("float32", 13) + _layer_case(
-        "int8 qrnn ragged T=13 d=H=996 fp32", "qrnn", 13, 3, 996, 996, "float32", 105, 4,
-        quant=True))
-    layer_cases.append(("float32", 64) + _layer_case(
-        "sru_identity T=64 d=1024 fp32", "sru_identity", 64, 4, 1024, 1024, "float32", 101))
-    layer_cases.append(("float32", 13) + _layer_case(
-        "qrnn ragged T=13 d=H=1000 fp32", "qrnn", 13, 3, 1000, 1000, "float32", 102, 4))
-    stack_cases.append(("float32", 64) + _stack_case(
-        "sru L=4 T=64 fp32", "sru", 64, 4, 1024, 4, "float32", 103))
-    stack_cases.append(("float32", 13) + _stack_case(
-        "qrnn ragged L=2 T=13 H=1000 fp32", "qrnn", 13, 3, 1000, 2, "float32", 104, 4))
     for name, T, F, seed in (("T=64 F=4096 fp32", 64, 4096, 201),
                              ("ragged T=13 F=3000 fp32", 13, 3000, 202),
                              ("T=64 F=1 fp32", 64, 1, 203),
@@ -627,21 +666,30 @@ def phase_kernels():
     summaries = {}
     for kname, wrapper, plain, cases, source, replaces in (
         ("fused_rnn_layer", fused_rnn.fused_rnn_layer, fused_rnn.fused_rnn_layer_plain,
-         layer_cases, fused_src, "src/repro/kernels/fused_rnn/fused_rnn.py:113"),
+         fused["fused_rnn_layer"], fused_src, "src/repro/kernels/fused_rnn/fused_rnn.py:113"),
         ("fused_rnn_stack", stacked.fused_rnn_stack, stacked.fused_rnn_stack_plain,
-         stack_cases, fused_src, "src/repro/kernels/fused_rnn/stacked.py:144"),
+         fused["fused_rnn_stack"], fused_src, "src/repro/kernels/fused_rnn/stacked.py:144"),
         ("linear_scan", linear_scan.linear_scan_kernel, linear_scan_ref, scan_cases,
          "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
          "src/repro/kernels/linear_scan/linear_scan.py:76"),
         ("fused_rnn_layer_int8", fused_rnn.fused_rnn_layer, fused_rnn.fused_rnn_layer_plain,
-         layer_q_cases, fused_src, "src/repro/kernels/fused_rnn/fused_rnn.py:113"),
+         fused["fused_rnn_layer_int8"], fused_src,
+         "src/repro/kernels/fused_rnn/fused_rnn.py:113"),
         ("fused_rnn_stack_int8", stacked.fused_rnn_stack, stacked.fused_rnn_stack_plain,
-         stack_q_cases, fused_src, "src/repro/kernels/fused_rnn/stacked.py:144"),
+         fused["fused_rnn_stack_int8"], fused_src, "src/repro/kernels/fused_rnn/stacked.py:144"),
     ):
-        rows = _run_cases(kname, wrapper, plain, cases)
+        fused_kernel = kname.startswith("fused_rnn")
+        rows = _run_cases(kname, wrapper, plain, cases, cold=fused_kernel)
         if kname == "linear_scan":
             rows.append(_scan_backward_row())
+        if fused_kernel:
+            for dtype, _, name, args, kw, _, _ in cases:
+                if dtype == "bfloat16":
+                    emit({"phase": "kernels", "kernel": kname, "case": name,
+                          **fused_instance_info(args, kw)})
         summaries[kname] = _summary(kname, source, replaces, rows)
+        if fused_kernel:
+            summaries[kname]["cold_ms"] = rows[0]["cold_ms"]
     rows = _run_cases("gqa_decode", gqa_decode, gqa_decode_ref, gqa_cases, atol=B5_ATOL,
                       library=_sdpa)
     for _, _, name, (q, k, _, _), *_ in gqa_cases:  # the instance each case runs

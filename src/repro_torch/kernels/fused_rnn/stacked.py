@@ -11,7 +11,8 @@ layers and is cast to the input dtype once, at the end.
 On the TPU one kernel ran all L layers per time chunk with the full width in
 VMEM. On the card layer l+1's norm contracts over the full width of layer
 l's output, so lanes cannot be split across CTAs inside one launch without a
-grid-wide barrier. This wrapper therefore launches the layer kernel once per
+grid-wide barrier. With bf16 input each launch runs the kernel's tensor-core
+body, sized by ``fused_rnn.plan`` (``stack=True``). This wrapper therefore launches the layer kernel once per
 layer over all T, with a pre-norm prologue and a residual epilogue (L
 launches per call). That is exact: the stack is causal per layer. The
 residual stream between launches lives in two fp32 buffers used in turn.
@@ -35,7 +36,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.common import check_operand, largest_divisor_leq
 from repro_torch.kernels.fused_rnn import layout
-from repro_torch.kernels.fused_rnn.fused_rnn import kernel_dtype, weight_dtype
+from repro_torch.kernels.fused_rnn.fused_rnn import _plan_on, kernel_dtype, weight_dtype
 from repro_torch.kernels.fused_rnn.ref import fused_rnn_stack_ref, fused_rnn_stack_ref_q
 
 LAUNCHES = 0
@@ -85,6 +86,11 @@ def fused_rnn_stack(
     if qrnn:
         check_operand(tailsL, "tailsL", (L, B, H), x)
 
+    cluster = k_tile = 0  # read by the bf16 instances only
+    if x.dtype == torch.bfloat16:
+        p = _plan_on(x.device, T, B, H, H, int8=sL is not None, stack=True, taps=len(taps),
+                     block_t=block_t)
+        cluster, k_tile = p.cluster, p.k_tile
     xa = x.to(torch.float32, copy=True)
     xb = torch.empty_like(xa)
     c_last = torch.empty((L, B, H), dtype=x.dtype, device=x.device)
@@ -101,7 +107,7 @@ def fused_rnn_stack(
                 tailsL[l].data_ptr() if qrnn else None,
                 xb.data_ptr(), c_last[l].data_ptr(),
                 tails_last[l].data_ptr() if qrnn else None,
-                T, B, H, block_t, _EPS, stream,
+                T, B, H, block_t, _EPS, cluster, k_tile, stream,
             )
             build.check(rc, f"fused_rnn_stack layer {l}")
             if sL is None:

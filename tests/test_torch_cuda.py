@@ -23,7 +23,12 @@ mma chunk kernel (bf16) state sizes 16/64/128 x head dims 8/64/256 x one,
 two and a group per head, sequences of 2, 63, 64, 65 and 1024 steps with
 mamba2's slow decays, head blocks that do not divide the heads of a group,
 16-byte aligned strided views with the state in place, the plan at the
-mamba2 shape, and every chunk instance's resources.
+mamba2 shape, and every chunk instance's resources; for the fused RNN's
+tensor-core body (bf16 IO, bf16 and int8 slabs) one decode step to the
+largest batch at a width that leaves ragged lane blocks and padded taps,
+every mode and both stacks, operands off 16-byte alignment (element
+copies), back-to-back launches bit for bit, every served instance with all
+its clusters resident on the card, and the plans the launcher refuses.
 
 They skip, with that reason, on a machine without a CUDA device (decided in
 the ``device`` fixture, not at import) and run on the card with
@@ -230,10 +235,194 @@ def test_kernel_refuses_an_unknown_weight_type(device, lib_name, own_pairs):
         rc = lib.fused_rnn_layer_launch(
             dtype, wdtype, u.data_ptr(), w.data_ptr(), None, scale.data_ptr(), b3.data_ptr(),
             c0.data_ptr(), None, u.data_ptr(), None, h.data_ptr(), c_last.data_ptr(),
-            T, B, d, H, 2, 0, 1,
+            T, B, d, H, 2, 0, 1, 1, 16,
             torch.cuda.current_stream(device).cuda_stream,
         )
         assert rc == -2, (dtype, wdtype, rc)
+    torch.cuda.synchronize()
+    assert torch.all(h == 7.0)
+
+
+# The tensor-core body (bf16 IO): (T, B) from one decode step to the largest
+# batch; width 200 leaves a last lane block of 8 lanes (16 and 32 lanes a
+# CTA) and pads each tap of d = 200 by 8.
+MMA_SHAPES = [(1, 1), (1, 4), (13, 3), (64, 4), (3, 128)]
+
+
+def _mma_layer_operands(device, mode, T, B, d, H, int8, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    taps = [rnd(d, 3, H, scale=d ** -0.5) for _ in range(2 if mode == "qrnn" else 1)]
+    kw = {"mode": mode, "block_t": 32}
+    if int8:
+        if mode == "qrnn":
+            *taps, kw["scale"] = layout.quantize_qrnn_slabs(*taps)
+        else:
+            wq, kw["scale"] = layout.quantize_slabs(taps[0])
+            taps = [wq]
+    else:
+        taps = [w.to(torch.bfloat16) for w in taps]
+    if mode == "qrnn":
+        kw["tail"] = rnd(1, B, d).to(torch.bfloat16)
+    if mode == "sru_proj":
+        kw["wskip"] = rnd(d, H, scale=d ** -0.5).to(torch.bfloat16)
+    args = (rnd(T, B, d).to(torch.bfloat16), tuple(taps),
+            rnd(3, H, scale=0.5).to(torch.bfloat16), rnd(B, H, scale=0.5).to(torch.bfloat16))
+    return args, kw
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_slab", "int8_slab"])
+@pytest.mark.parametrize("T,B", MMA_SHAPES)
+@pytest.mark.parametrize("mode", ["sru_identity", "qrnn", "sru_proj"])
+def test_mma_layer_kernel_shapes(device, mode, T, B, int8):
+    d = 136 if mode == "sru_proj" else 200
+    args, kw = _mma_layer_operands(device, mode, T, B, d, 200, int8, seed=T * 1000 + B)
+    out = fused_rnn.fused_rnn_layer(*args, **kw)
+    ref = fused_rnn.fused_rnn_layer_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _close(out, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_slab", "int8_slab"])
+@pytest.mark.parametrize("T,B", MMA_SHAPES)
+@pytest.mark.parametrize("cell", ["sru", "qrnn"])
+def test_mma_stack_kernel_shapes(device, cell, T, B, int8):
+    """Two layers; QRNN's normed tail out (tails_last) is compared too."""
+    L, H = 2, 200
+    g = torch.Generator(device=device).manual_seed(500 + T * 1000 + B)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=g, device=device) * scale + shift
+
+    taps = [rnd(L, H, 3, H, scale=H ** -0.5) for _ in range(2 if cell == "qrnn" else 1)]
+    kw = {"block_t": 32}
+    if int8:
+        if cell == "qrnn":
+            *taps, kw["sL"] = layout.quantize_qrnn_slabs(*taps)
+        else:
+            wq, kw["sL"] = layout.quantize_slabs(taps[0])
+            taps = [wq]
+    else:
+        taps = [w.to(torch.bfloat16) for w in taps]
+    bf = torch.bfloat16
+    args = (rnd(T, B, H).to(bf), tuple(taps), rnd(L, 3, H, scale=0.5).to(bf),
+            rnd(L, H, scale=0.1, shift=1.0).to(bf), rnd(L, B, H, scale=0.5).to(bf),
+            rnd(L, B, H).to(bf) if cell == "qrnn" else None)
+    out = stacked.fused_rnn_stack(*args, **kw)
+    ref = stacked.fused_rnn_stack_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _close(out, ref, bf)
+
+
+def _offset_copy(t, elements=1):
+    """``t`` in a buffer ``elements`` past an aligned address: a contiguous
+    operand whose runs are not 16-byte aligned (element copies)."""
+    buf = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    out = buf[elements:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_slab", "int8_slab"])
+@pytest.mark.parametrize("mode", ["qrnn", "sru_proj"])
+def test_mma_layer_kernel_unaligned_operands(device, mode, int8):
+    """Input, tail, slabs and skip projection each one element off a 16-byte
+    boundary: every copy takes the element path, none falls back."""
+    args, kw = _mma_layer_operands(device, mode, 13, 3, 64, 96, int8, seed=7)
+    u, taps, b3, c0 = args
+    moved = (_offset_copy(u), tuple(_offset_copy(w) for w in taps), b3, c0)
+    kw_moved = dict(kw)
+    for key in ("tail", "wskip"):
+        if key in kw:
+            kw_moved[key] = _offset_copy(kw[key])
+    out = fused_rnn.fused_rnn_layer(*moved, **kw_moved)
+    ref = fused_rnn.fused_rnn_layer_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _close(out, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_slab", "int8_slab"])
+def test_mma_kernel_back_to_back_calls(device, int8):
+    """Twenty launches on one stream, layer and stack in turns: each agrees
+    with the first bit for bit (no state carries from one launch to the
+    next) and with the plain version."""
+    args, kw = _mma_layer_operands(device, "qrnn", 5, 4, 256, 256, int8, seed=11)
+    L, H = 2, 256
+    g = torch.Generator(device=device).manual_seed(12)
+    taps = [torch.randn((L, H, 3, H), generator=g, device=device) * H ** -0.5]
+    skw = {"block_t": 32}
+    if int8:
+        wq, skw["sL"] = layout.quantize_slabs(taps[0])
+        taps = [wq]
+    else:
+        taps = [taps[0].to(torch.bfloat16)]
+    bf = torch.bfloat16
+    sargs = (torch.randn((5, 4, H), generator=g, device=device).to(bf), tuple(taps),
+             torch.zeros((L, 3, H), device=device, dtype=bf),
+             torch.ones((L, H), device=device, dtype=bf),
+             torch.zeros((L, 4, H), device=device, dtype=bf), None)
+    first = fused_rnn.fused_rnn_layer(*args, **kw), stacked.fused_rnn_stack(*sargs, **skw)
+    outs = [(fused_rnn.fused_rnn_layer(*args, **kw), stacked.fused_rnn_stack(*sargs, **skw))
+            for _ in range(10)]
+    torch.cuda.synchronize()
+    for layer_out, stack_out in outs:
+        for o, f in zip(layer_out + stack_out, first[0] + first[1]):
+            assert (o is None and f is None) or torch.equal(o, f)
+    _close(first[0], fused_rnn.fused_rnn_layer_plain(*args, **kw), bf)
+    _close(first[1], stacked.fused_rnn_stack_plain(*sargs, **skw), bf)
+
+
+# Every served shape of the tensor-core body (B = 4, prompt 64 and one
+# decode step) and the ragged width: (d, H, ng, stack, taps).
+MMA_INSTANCES = {
+    "sru": (1024, 1024, 3, False, 1), "qrnn": (1024, 1024, 3, False, 2),
+    "sru_proj": (512, 1024, 4, False, 1), "sru_stack": (1024, 1024, 3, True, 1),
+    "qrnn_stack": (1024, 1024, 3, True, 2), "qrnn_ragged": (1000, 1000, 3, False, 2),
+    "sru_small": (512, 512, 3, False, 1), "qrnn_stack_small": (512, 512, 3, True, 2),
+}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_slab", "int8_slab"])
+@pytest.mark.parametrize("T", [1, 64])
+@pytest.mark.parametrize("case", sorted(MMA_INSTANCES))
+def test_mma_instances_fit_the_card(device, case, T, int8):
+    """The card takes the instance the plan asks for: its shared memory is
+    the plan's, one CTA per SM at least, every cluster of the grid resident
+    at once at the served width, no register spill past the 255 cap."""
+    d, H, ng, stack, taps = MMA_INSTANCES[case]
+    kw = {"int8": int8, "ng": ng, "stack": stack, "taps": taps, "block_t": min(T, 32)}
+    p = fused_rnn.plan(T, 4, d, H, n_sm=torch.cuda.get_device_properties(0).multi_processor_count,
+                       slots=fused_rnn.cluster_slots(0), **kw)
+    info = fused_rnn.instance_info(T, 4, d, H, **kw)
+    assert info["smem_bytes"] == p.smem_bytes
+    assert (info["lanes"], info["cluster"], info["grid"], info["k_tile"]) == (
+        p.lanes, p.cluster, p.grid, p.k_tile)
+    assert info["ctas_per_sm"] >= 1 and 0 < info["registers"] <= 255
+    assert info["max_active_clusters"] * p.cluster >= p.grid, info
+
+
+def test_mma_launcher_refuses_a_plan_it_cannot_take(device):
+    """A cluster size the card has no such cluster for, or an input tile
+    that is not a multiple of 16 columns, returns -3 and launches nothing."""
+    T, B, d, H = 2, 1, 16, 16
+    bf = torch.bfloat16
+    u = torch.zeros((T, B, d), device=device, dtype=bf)
+    w = torch.zeros((d, 3, H), device=device, dtype=bf)
+    b3, c0 = torch.zeros((3, H), device=device, dtype=bf), torch.zeros((B, H), device=device, dtype=bf)
+    h = torch.full((T, B, H), 7.0, device=device, dtype=bf)
+    c_last = torch.empty((B, H), device=device, dtype=bf)
+    lib = build.library("fused_rnn_layer")
+    for cluster, k_tile in ((3, 16), (16, 16), (1, 8), (1, 24), (1, 0)):
+        rc = lib.fused_rnn_layer_launch(
+            1, 1, u.data_ptr(), w.data_ptr(), None, None, b3.data_ptr(), c0.data_ptr(), None,
+            u.data_ptr(), None, h.data_ptr(), c_last.data_ptr(), T, B, d, H, 2, 0, 1,
+            cluster, k_tile, torch.cuda.current_stream(device).cuda_stream,
+        )
+        assert rc == -3, (cluster, k_tile, rc)
     torch.cuda.synchronize()
     assert torch.all(h == 7.0)
 
