@@ -11,9 +11,13 @@ Phases, each printing one JSON line per step:
            the nvcc version and ptxas's register/shared-memory report;
   kernels  each kernel against its plain PyTorch version on the card, on the
            same inputs, at the main path's shapes (T in {64, 1}, B = 4, width
-           1024, bf16; for the linear scan F = B * H = 4096) plus fp32,
-           ragged-edge and long-sequence cases and one backward of the linear
-           scan; the int8 forms of the layer and the stack (int8 gate slabs,
+           1024, bf16; for the linear scan F = B * H = 4096, and the single
+           stream's F = 1024 at T = 64 and a 1024-step prompt at F = 4096)
+           plus fp32, ragged-edge and long-sequence cases, each linear-scan
+           case bit for bit against its chunk emulation, within tolerance of
+           the sequential walk, with its chunk plan (chunk length, chunks,
+           CTAs), and the fused backward of the linear scan (one launch);
+           the int8 forms of the layer and the stack (int8 gate slabs,
            fp32 scales) at the same shapes, and bf16 ragged cases of both
            (a QRNN layer and an int8 QRNN stack at H = 1000, T = 13, B = 3),
            every fused-RNN case also timed cold, with each bf16 case's
@@ -34,8 +38,8 @@ Phases, each printing one JSON line per step:
            at two grouped fp32 shapes of ``tests/test_kernels.py`` (G = 2,
            4), with the mma chunk kernel's resources and plan; max |error|
            against a stated tolerance, and kernel / plain times from CUDA
-           events (decode cases and every SSD case also cold: the L2
-           flushed before each call);
+           events (decode cases and every SSD and linear-scan case also
+           cold: the L2 flushed before each call);
   serve    ``repro_torch.launch.serve.main`` in batch mode at full width
            (``--batch 4 --prompt-len 64 --gen-len 32``) for the stacked and
            fused configs, the base SRU/QRNN configs under ``--engine pallas``,
@@ -111,7 +115,7 @@ PARITY_RUNS = (
 KERNELS = ("fused_rnn_layer", "fused_rnn_stack", "linear_scan",
            "fused_rnn_layer_int8", "fused_rnn_stack_int8", "gqa_decode", "ssd")
 OUR_KERNEL_SYMBOLS = ("fused_rnn_layer_kernel", "fused_rnn_mma_kernel",  # device symbol names
-                      "linear_scan_kernel",
+                      "linear_scan_kernel", "linear_scan_bwd_kernel",
                       "gqa_decode_mma_kernel", "gqa_decode_split_kernel",
                       "ssd_chunk_kernel", "ssd_chunk_mma_kernel", "ssd_step_kernel",
                       "ssd_step_vec_kernel")
@@ -175,6 +179,27 @@ SSD_CASES = (
     ("G=4 B=2 S=32 H=8 P=4 N=4 fp32 s0", (2, 32, 8, 4, 4, 4, "float32", 505),
      {"s0": True, "model_like": False}),
 )
+# Linear-scan (B3) cases, (name, T, F, dtype, seed): the pallas configs'
+# prefill (first: the summary's main row) and decode step at B = 4 x H =
+# 1024, the single stream at prompt 64, a 1024-step prompt at B = 4, then
+# fp32, a ragged edge, one column and a long sequence. ``bench_b3.py`` times
+# the same cases, and the backward at SCAN_BWD_CASES.
+SCAN_CASES = (
+    ("T=64 F=4096", 64, 4096, "bfloat16", 6),
+    ("T=1 F=4096", 1, 4096, "bfloat16", 12),
+    ("T=64 F=1024 (single stream)", 64, 1024, "bfloat16", 13),
+    ("T=1024 F=4096 (prompt 1024)", 1024, 4096, "bfloat16", 14),
+    ("T=64 F=4096 fp32", 64, 4096, "float32", 201),
+    ("ragged T=13 F=3000 fp32", 13, 3000, "float32", 202),
+    ("T=64 F=1 fp32", 64, 1, "float32", 203),
+    ("long T=4096 F=128 fp32", 4096, 128, "float32", 204),
+)
+SCAN_BWD_CASES = (("backward T=64 F=4096 fp32", 64, 4096, "float32", 301),
+                  ("backward T=1024 F=4096 fp32", 1024, 4096, "float32", 303))
+# Linear-scan gradients against autograd through the plain walk: past one
+# chunk the kernel folds chunk aggregates, which round otherwise than the
+# walk's steps, by a few fp32 ulps of the largest gradient.
+B3_GRAD_RTOL = 2e-5
 # Parity (phase 4): fp32 LM on the card vs the CPU, through up to 32 layers
 # and a head of up to 128256 columns; logits are O(1). The same sources of
 # difference as ATOL.
@@ -363,13 +388,14 @@ def _stack_case(name, cell, T, B, H, L, dtype_name, seed, block_t=32, quant=Fals
 
 
 def _scan_case(name, T, F, dtype_name, seed):
-    """Inputs for one linear-scan case: a = sigmoid(normal), b, c0 normal."""
+    """Inputs for one linear-scan case: a = sigmoid(normal + 3), near 0.95 so
+    the carry reaches across the kernel's chunks; b, c0 normal."""
     import torch
 
     dev = torch.device("cuda")
     dt = getattr(torch, dtype_name)
     g = torch.Generator(device=dev).manual_seed(seed)
-    a = torch.sigmoid(torch.randn((T, F), generator=g, device=dev)).to(dt)
+    a = torch.sigmoid(torch.randn((T, F), generator=g, device=dev) + 3.0).to(dt)
     b = torch.randn((T, F), generator=g, device=dev).to(dt)
     c0 = torch.randn((F,), generator=g, device=dev).to(dt)
     rw = nbytes(a, b, c0) + nbytes(b)  # out (T, F) in b's dtype
@@ -526,24 +552,57 @@ def _run_cases(kname, wrapper, plain, cases, atol=ATOL, rtol=0.0, library=None, 
     return rows
 
 
-def _scan_backward_row():
-    """One backward through ``ops.linear_scan`` (forward + reverse-time
-    kernel) against autograd through the plain version, fp32, (T, B, H) =
-    (64, 4, 1024). ``ms``, ``plain_ms`` and the bound are those of the
-    backward's two kernel calls (the forward, then the reverse-time call on
-    its prepared time-flipped operands) and of their plain versions;
-    ``op_ms`` is the whole autograd forward + backward, flips, products and
-    dispatch included, and has no bound."""
+def _scan_chunked(a, b, c0):
+    """The linear-scan kernel's plain version: the chunk emulation."""
+    from repro_torch.kernels.linear_scan.ref import chunk_len, linear_scan_ref
+
+    return linear_scan_ref(a, b, c0, chunk=chunk_len(a.shape[0]))
+
+
+def _scan_checks(cases):
+    """Per linear-scan case: the kernel bit for bit equal to its chunk
+    emulation on three calls (repeated calls give the same bits), within
+    tolerance of the sequential walk; one line with the launch plan."""
     import torch
 
-    from repro_torch.kernels.linear_scan import ops
-    from repro_torch.kernels.linear_scan.linear_scan import linear_scan_kernel
+    from repro_torch.kernels.linear_scan import linear_scan as ls
     from repro_torch.kernels.linear_scan.ref import linear_scan_ref
 
-    T, B, H = 64, 4, 1024
-    _, (a0, b0, c00), _, _, _ = _scan_case("bwd", T, B * H, "float32", 301)
-    w = torch.randn((T, B * H), generator=torch.Generator(device="cuda").manual_seed(302),
-                    device="cuda")
+    for dtype, T, name, (a, b, c0), *_ in cases:
+        outs = [ls.linear_scan_kernel(a, b, c0) for _ in range(3)]
+        emu, walk = _scan_chunked(a, b, c0), linear_scan_ref(a, b, c0)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(o, emu) for o in outs)
+        err, tol, finite = compare([outs[0]], [walk])
+        p = ls.plan(T, a.shape[1], a.dtype)
+        emit({"phase": "kernels", "kernel": "linear_scan", "case": name, "chunk": p.chunk,
+              "n_chunks": p.n_chunks, "n_tiles": p.n_tiles, "ctas": p.ctas,
+              "vec_bytes": p.vec_bytes,
+              "bitwise_vs_chunk_emulation": bitwise, "walk_max_abs_err": err, "walk_tol": tol})
+        require(bitwise, f"linear_scan [{name}]: not bitwise equal to its chunk emulation")
+        require(finite and err <= tol, f"linear_scan [{name}]: walk err {err} > tol {tol}")
+
+
+def _scan_backward_row(name, T, F, dtype_name, seed):
+    """The fused backward of ``ops.linear_scan`` at one of SCAN_BWD_CASES
+    (F = B * H, B = 4): one launch of ``linear_scan_bwd``, bit for bit against
+    ``linear_scan_bwd_ref`` at the kernel's chunk, and autograd through
+    ``ops.linear_scan`` within ATOL (and, past one chunk, B3_GRAD_RTOL) of
+    autograd through the plain walk.
+    ``ms``/``cold_ms``, ``plain_ms`` and the bound are the backward launch's
+    and its plain version's: it reads a, c, g and c0 once and writes da, db
+    and dc0 once, 3 operations per element. ``op_ms`` is the whole autograd
+    forward + backward (two launches, the product, the sum and dispatch) and
+    has no bound."""
+    import torch
+
+    from repro_torch.kernels.linear_scan import linear_scan as ls
+    from repro_torch.kernels.linear_scan import ops
+    from repro_torch.kernels.linear_scan.ref import chunk_len, linear_scan_bwd_ref, linear_scan_ref
+
+    _, (a0, b0, c00), _, _, _ = _scan_case(name, T, F, dtype_name, seed)
+    w = torch.randn((T, F), generator=torch.Generator(device="cuda").manual_seed(seed + 1),
+                    device="cuda").to(a0.dtype)
 
     def fwd_bwd(fn):
         a, b, c0 = (t.clone().requires_grad_(True) for t in (a0, b0, c00))
@@ -551,29 +610,33 @@ def _scan_backward_row():
         return a.grad, b.grad, c0.grad
 
     grads, refs = fwd_bwd(ops.linear_scan), fwd_bwd(linear_scan_ref)
+    c = ls.linear_scan_kernel(a0, b0, c00)
+    before = ls.LAUNCHES
+    fused = ls.linear_scan_bwd(a0, c, c00, w)
+    launches = ls.LAUNCHES - before
+    chunk = chunk_len(T)
+    emu = linear_scan_bwd_ref(a0, c, c00, w, chunk=chunk)
     torch.cuda.synchronize()
-    err, tol, finite = compare(grads, refs)
-    # The reverse-time call's operands, as _LinearScan.backward prepares them.
-    a_rev = torch.cat([a0[1:], torch.zeros_like(a0[:1])], dim=0).flip(0).contiguous()
-    g_rev, z0 = w.flip(0).contiguous(), torch.zeros_like(c00)
-
-    def two_calls(fn):
-        fn(a0, b0, c00)
-        fn(a_rev, g_rev, z0)
-
-    # Each call reads a, b, c0 once and writes c once; 2 operations per element.
-    rw = 2 * (nbytes(a0, b0, c00) + nbytes(b0))
-    b_ms, b_by = bound(rw, 2 * 2.0 * T * B * H, "float32")
+    err, tol, finite = compare(grads, refs, ATOL, B3_GRAD_RTOL if T > chunk else 0.0)
+    bitwise = all(torch.equal(x, y) for x, y in zip(fused, emu))
+    l2 = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rw = nbytes(a0, c, w, c00) + nbytes(*fused)
+    b_ms, b_by = bound(rw, 3.0 * T * F, dtype_name)
     row = {
-        "phase": "kernels", "kernel": "linear_scan", "case": "backward T=64 F=4096 fp32",
-        "dtype": "float32", "T": T, "max_abs_err": err, "tol": tol, "finite": finite,
-        "ms": time_ms(lambda: two_calls(linear_scan_kernel), iters=50),
-        "plain_ms": time_ms(lambda: two_calls(linear_scan_ref), iters=3, warmup=1),
+        "phase": "kernels", "kernel": "linear_scan", "case": name,
+        "dtype": dtype_name, "T": T, "max_abs_err": err, "tol": tol, "finite": finite,
+        "bitwise_vs_chunk_emulation": bitwise, "launches_per_backward": launches,
+        "ms": time_ms(lambda: ls.linear_scan_bwd(a0, c, c00, w), iters=50),
+        "cold_ms": time_ms(lambda: ls.linear_scan_bwd(a0, c, c00, w), iters=50, flush=l2.zero_),
+        "plain_ms": time_ms(lambda: linear_scan_bwd_ref(a0, c, c00, w, chunk=chunk),
+                            iters=3, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
         "op_ms": time_ms(lambda: fwd_bwd(ops.linear_scan), iters=20),
     }
     emit(row)
-    require(finite and err <= tol, f"linear_scan [backward]: err {err} > tol {tol}")
+    require(finite and err <= tol, f"linear_scan [{name}]: err {err} > tol {tol}")
+    require(bitwise, f"linear_scan [{name}]: not bitwise equal to its chunk emulation")
+    require(launches == 1, f"linear_scan [{name}]: {launches} launches, expected 1")
     return row
 
 
@@ -646,19 +709,11 @@ def phase_kernels():
     from repro_torch.kernels.gqa_decode.ops import gqa_decode
     from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref
     from repro_torch.kernels.linear_scan import linear_scan
-    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
     from repro_torch.kernels.ssd import ssd as ssd_kernel
 
     fused = fused_rnn_cases()
-    scan_cases = []
-    for seed, T in ((6, 64), (12, 1)):
-        scan_cases.append(("bfloat16", T) + _scan_case(
-            f"T={T} F=4096", T, 4096, "bfloat16", seed))
-    for name, T, F, seed in (("T=64 F=4096 fp32", 64, 4096, 201),
-                             ("ragged T=13 F=3000 fp32", 13, 3000, 202),
-                             ("T=64 F=1 fp32", 64, 1, 203),
-                             ("long T=4096 F=128 fp32", 4096, 128, 204)):
-        scan_cases.append(("float32", T) + _scan_case(name, T, F, "float32", seed))
+    scan_cases = [(dtype, T) + _scan_case(name, T, F, dtype, seed)
+                  for name, T, F, dtype, seed in SCAN_CASES]
     gqa_cases = [(dtype, 1) + _gqa_case(name, *shape, dtype, 400 + i)
                  for i, (name, shape, dtype) in enumerate(GQA_CASES)]
 
@@ -669,7 +724,7 @@ def phase_kernels():
          fused["fused_rnn_layer"], fused_src, "src/repro/kernels/fused_rnn/fused_rnn.py:113"),
         ("fused_rnn_stack", stacked.fused_rnn_stack, stacked.fused_rnn_stack_plain,
          fused["fused_rnn_stack"], fused_src, "src/repro/kernels/fused_rnn/stacked.py:144"),
-        ("linear_scan", linear_scan.linear_scan_kernel, linear_scan_ref, scan_cases,
+        ("linear_scan", linear_scan.linear_scan_kernel, _scan_chunked, scan_cases,
          "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
          "src/repro/kernels/linear_scan/linear_scan.py:76"),
         ("fused_rnn_layer_int8", fused_rnn.fused_rnn_layer, fused_rnn.fused_rnn_layer_plain,
@@ -679,16 +734,17 @@ def phase_kernels():
          fused["fused_rnn_stack_int8"], fused_src, "src/repro/kernels/fused_rnn/stacked.py:144"),
     ):
         fused_kernel = kname.startswith("fused_rnn")
-        rows = _run_cases(kname, wrapper, plain, cases, cold=fused_kernel)
+        rows = _run_cases(kname, wrapper, plain, cases, cold=fused_kernel or kname == "linear_scan")
         if kname == "linear_scan":
-            rows.append(_scan_backward_row())
+            _scan_checks(cases)
+            rows += [_scan_backward_row(*case) for case in SCAN_BWD_CASES]
         if fused_kernel:
             for dtype, _, name, args, kw, _, _ in cases:
                 if dtype == "bfloat16":
                     emit({"phase": "kernels", "kernel": kname, "case": name,
                           **fused_instance_info(args, kw)})
         summaries[kname] = _summary(kname, source, replaces, rows)
-        if fused_kernel:
+        if fused_kernel or kname == "linear_scan":
             summaries[kname]["cold_ms"] = rows[0]["cold_ms"]
     rows = _run_cases("gqa_decode", gqa_decode, gqa_decode_ref, gqa_cases, atol=B5_ATOL,
                       library=_sdpa)

@@ -43,7 +43,8 @@ SOURCES: Dict[str, tuple] = {
     "fused_rnn_layer_int8": (_FUSED_RNN_SRC, _FUSED_RNN_FNS, ("-DFUSED_RNN_INT8",)),
     "linear_scan": (
         _PKG / "linear_scan" / "csrc" / "linear_scan.cu",
-        {"linear_scan_launch": [_I] + [_P] * 4 + [_I] * 2 + [_P]},
+        {"linear_scan_launch": [_I] + [_P] * 4 + [_I] * 3 + [_P] * 3,
+         "linear_scan_bwd_launch": [_I] + [_P] * 7 + [_I] * 3 + [_P] * 3},
         (),
     ),
     "gqa_decode": (

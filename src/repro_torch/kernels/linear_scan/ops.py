@@ -12,14 +12,16 @@ recurrence run in reverse time,
     cbar_t = g_t + a_{t+1} * cbar_{t+1}
     da_t   = cbar_t * c_{t-1},   db_t = cbar_t,   dc0 = a_0 * cbar_0
 
-so the backward runs the same kernel on time-flipped operands (the JAX
-package's ``_bwd_rule``).
+JAX's ``_bwd_rule`` runs its forward kernel on time-flipped operands and
+takes the products outside it; here one kernel launch
+(``linear_scan.linear_scan_bwd``) walks time down, reads ``a_{t+1}``,
+``c_{t-1}`` and ``g`` in place and writes all three gradients.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.linear_scan.linear_scan import linear_scan_kernel
+from repro_torch.kernels.linear_scan.linear_scan import linear_scan_bwd, linear_scan_kernel
 
 
 class _LinearScan(torch.autograd.Function):
@@ -32,12 +34,7 @@ class _LinearScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, c, c0 = ctx.saved_tensors
-        a_next = torch.cat([a[1:], torch.zeros_like(a[:1])], dim=0)
-        cbar = linear_scan_kernel(
-            a_next.flip(0), g.flip(0).contiguous(), torch.zeros_like(c0)
-        ).flip(0)
-        c_prev = torch.cat([c0[None], c[:-1]], dim=0)
-        return cbar * c_prev, cbar, a[0] * cbar[0]
+        return linear_scan_bwd(a, c, c0, g.contiguous())
 
 
 def linear_scan(

@@ -6,9 +6,13 @@ forms of both (a width that is not a multiple of 8, two scale blocks with a
 ragged second one, an int8 slab at an unaligned offset, the largest batch,
 ``sru_proj`` and QRNN, the stack at L = 4) and an unknown weight type; for
 the linear scan (B3) widths that are and are not a multiple of the vector
-width, one time step to a long sequence, an operand at an unaligned
-offset, and the reverse-time backward; for the decode attention (B5) the
-shapes of ``tests/test_kernels.py``, groups of 1 to 96 (17, and the
+width, one time step to a long sequence (one chunk to 64), bit for bit
+against the chunk emulation, an operand at an unaligned offset, lane-of-B
+against B = 1 bit for bit, the fused backward (one launch, bit for bit),
+twenty repeated calls with the same bits, calls on two streams at once,
+``pallas`` streaming against one-shot within one chunk and past it, and
+the launcher's refusals;
+for the decode attention (B5) the shapes of ``tests/test_kernels.py``, groups of 1 to 96 (17, and the
 full-width granite-20b, zamba2-7b and nemotron-4-340b shapes), head dims
 16 to 256 (24, 112, 192), ragged lengths down to 1 on a long cache (splits
 with no valid row), one split and many, 100 calls back to back (the
@@ -47,7 +51,8 @@ from repro_torch.kernels.gqa_decode.ops import gqa_decode
 from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref
 from repro_torch.kernels.linear_scan import linear_scan as ls_kernel
 from repro_torch.kernels.linear_scan import ops as ls_ops
-from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+from repro_torch.kernels.linear_scan.ref import (CHUNK, chunk_len, linear_scan_bwd_ref,
+                                                 linear_scan_ref)
 from repro_torch.kernels.ssd import ssd as ssd_kernel
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ref import ssd_ref
@@ -57,6 +62,8 @@ from repro_torch.kernels.ssd.ref import ssd_ref
 # i.e. one bf16 ulp (2^-7 relative) at the largest output.
 FP32_TOL = 5e-5
 BF16_RTOL = 2.0 ** -7
+# Streaming in blocks against one-shot: the JAX package's tolerance.
+STREAM_TOL = 3e-5
 
 
 @pytest.fixture
@@ -427,48 +434,213 @@ def test_mma_launcher_refuses_a_plan_it_cannot_take(device):
     assert torch.all(h == 7.0)
 
 
-def _scan_operands(device, T, F, dtype, seed):
+def _scan_operands(device, T, F, dtype, seed, shift=0.0):
+    """a = sigmoid(normal + shift), b, c0 normal. ``shift=3`` puts a near
+    0.95, so the carry reaches across chunks of 64 steps and the fold's
+    rounding shows."""
     g = torch.Generator(device=device).manual_seed(seed)
-    a = torch.sigmoid(torch.randn((T, F), generator=g, device=device)).to(dtype)
+    a = torch.sigmoid(torch.randn((T, F), generator=g, device=device) + shift).to(dtype)
     b = torch.randn((T, F), generator=g, device=device).to(dtype)
     c0 = torch.randn((F,), generator=g, device=device).to(dtype)
     return a, b, c0
 
 
+def _chunked(a, b, c0):
+    return linear_scan_ref(a, b, c0, chunk=chunk_len(a.shape[0]))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("T", [1, 13, 4096])
-@pytest.mark.parametrize("F", [1, 7, 4096, 4097])
+@pytest.mark.parametrize("T", [1, 13, 64, 1024, 4096])
+@pytest.mark.parametrize("F", [1, 7, 1024, 4096, 4097])
 def test_linear_scan_kernel_matches_plain(device, F, T, dtype):
-    """Bitwise: the kernel rounds the product and the sum separately, as the
-    plain version does, and stores each step in the operands' dtype."""
-    a, b, c0 = _scan_operands(device, T, F, dtype, seed=T * 10_000 + F)
+    """Bitwise against the chunk emulation: the kernel rounds the product and
+    the sum separately, folds the chunks' aggregates in the same order, and
+    stores each step in the operands' dtype. Within FP32_TOL (fp32) or one
+    bf16 ulp (bf16) of the sequential walk."""
+    a, b, c0 = _scan_operands(device, T, F, dtype, seed=T * 10_000 + F, shift=3.0)
     before = ls_kernel.LAUNCHES
     out = ls_kernel.linear_scan_kernel(a, b, c0)
     assert ls_kernel.LAUNCHES == before + 1
-    ref = linear_scan_ref(a, b, c0)
+    ref = _chunked(a, b, c0)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == (T, F)
     assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+    _close([out], [linear_scan_ref(a, b, c0)], dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_linear_scan_kernel_unaligned_operand(device, dtype):
     """An operand that starts one element past an aligned address takes the
-    per-element path; F = 4096 alone would take the vector path."""
-    T, F = 37, 4096
-    a, b, c0 = _scan_operands(device, T, F, dtype, seed=7)
-    buf = torch.empty(T * F + 1, dtype=dtype, device=device)
-    b_off = buf[1:].view(T, F)
-    b_off.copy_(b)
-    assert b_off.data_ptr() % 8 != 0
-    out = ls_kernel.linear_scan_kernel(a, b_off, c0)
+    per-element path (bf16); F = 4096 alone would take bf16 pairs. One chunk
+    and four."""
+    for T in (37, 200):
+        F = 4096
+        a, b, c0 = _scan_operands(device, T, F, dtype, seed=7, shift=3.0)
+        buf = torch.empty(T * F + 1, dtype=dtype, device=device)
+        b_off = buf[1:].view(T, F)
+        b_off.copy_(b)
+        assert b_off.data_ptr() % 8 != 0
+        out = ls_kernel.linear_scan_kernel(a, b_off, c0)
+        torch.cuda.synchronize()
+        assert torch.equal(out, _chunked(a, b, c0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("T", [64, 1024])
+def test_linear_scan_kernel_lane_of_b_is_bitwise(device, T, dtype):
+    """B = 4 lanes of H = 1024 in one call (F = 4096) give, lane by lane, the
+    bits of each lane's own call (F = 1024): the chunking is T's alone."""
+    a, b, c0 = _scan_operands(device, T, 4096, dtype, seed=T + 1, shift=3.0)
+    full = ls_kernel.linear_scan_kernel(a, b, c0)
+    for lane in range(4):
+        cols = slice(lane * 1024, (lane + 1) * 1024)
+        one = ls_kernel.linear_scan_kernel(a[:, cols].contiguous(), b[:, cols].contiguous(),
+                                           c0[cols].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(full[:, cols], one), lane
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("T,F", [(1, 4096), (13, 7), (64, 4096), (200, 4097), (1024, 4096),
+                                 (4096, 128)])
+def test_linear_scan_bwd_kernel_is_one_launch_and_bitwise(device, T, F, dtype):
+    """The fused backward: one launch, bit for bit ``linear_scan_bwd_ref`` at
+    the kernel's chunk (cbar stored in g's dtype before the products)."""
+    a, b, c0 = _scan_operands(device, T, F, dtype, seed=5 * T + F, shift=3.0)
+    c = ls_kernel.linear_scan_kernel(a, b, c0)
+    g = torch.randn((T, F), generator=torch.Generator(device=device).manual_seed(T),
+                    device=device).to(dtype)
+    before = ls_kernel.LAUNCHES
+    grads = ls_kernel.linear_scan_bwd(a, c, c0, g)
+    assert ls_kernel.LAUNCHES == before + 1
+    want = linear_scan_bwd_ref(a, c, c0, g, chunk=chunk_len(T))
     torch.cuda.synchronize()
-    assert torch.equal(out, linear_scan_ref(a, b, c0))
+    for name, mine, ref in zip(("da", "db", "dc0"), grads, want):
+        assert mine.dtype == dtype and mine.shape == ref.shape
+        assert torch.equal(mine, ref), (name, (mine.float() - ref.float()).abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_linear_scan_kernel_long_sequence(device, dtype):
+    """T = 16384 is 256 chunks of 64 steps: the last CTA folds 255
+    aggregates, eight rounds of staged records. Forward and backward bit
+    for bit their chunk emulation."""
+    T, F = 16384, 100
+    a, b, c0 = _scan_operands(device, T, F, dtype, seed=17, shift=3.0)
+    g = torch.randn((T, F), generator=torch.Generator(device=device).manual_seed(18),
+                    device=device).to(dtype)
+    out = ls_kernel.linear_scan_kernel(a, b, c0)
+    grads = ls_kernel.linear_scan_bwd(a, out, c0, g)
+    want = _chunked(a, b, c0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    for mine, ref in zip(grads, linear_scan_bwd_ref(a, want, c0, g, chunk=chunk_len(T))):
+        assert torch.equal(mine, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_linear_scan_kernel_is_deterministic(device, dtype):
+    """Twenty calls at T = 4096 (64 chunks, CTAs in whatever order the card
+    runs them) give the same bits, forward and backward."""
+    a, b, c0 = _scan_operands(device, 4096, 1000, dtype, seed=11, shift=3.0)
+    g = torch.randn((4096, 1000), generator=torch.Generator(device=device).manual_seed(12),
+                    device=device).to(dtype)
+    first = ls_kernel.linear_scan_kernel(a, b, c0)
+    first_bwd = ls_kernel.linear_scan_bwd(a, first, c0, g)
+    for _ in range(19):
+        assert torch.equal(ls_kernel.linear_scan_kernel(a, b, c0), first)
+        for mine, ref in zip(ls_kernel.linear_scan_bwd(a, first, c0, g), first_bwd):
+            assert torch.equal(mine, ref)
+
+
+def test_linear_scan_launcher_refuses_bad_arguments(device):
+    """-1 for an empty scan, a chunk outside 1 .. 64, or several chunks
+    without their scratch; -2 for an unknown dtype."""
+    lib = build.library("linear_scan")
+    a = torch.zeros((128, 64), device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    p = a.data_ptr()
+
+    def fwd(dtype, T, F, chunk, sync=None, agg=None):
+        return lib.linear_scan_launch(dtype, p, p, p, p, T, F, chunk, sync, agg, stream)
+
+    assert fwd(0, 0, 64, 64) == -1
+    assert fwd(0, 128, 0, 64) == -1
+    assert fwd(2, 128, 64, 64) == -2
+    assert fwd(0, 128, 64, 0) == -1
+    assert fwd(0, 64, 64, 65) == -1
+    assert fwd(0, 128, 64, 64) == -1  # two chunks, no ticket word or records
+    assert lib.linear_scan_bwd_launch(0, p, p, p, p, p, p, p, 128, 64, 64, None, None,
+                                      stream) == -1
+    torch.cuda.synchronize()
+
+
+def test_linear_scan_kernel_on_two_streams_at_once(device):
+    """Calls of several chunks on two streams that overlap, forward and
+    backward in turns: each stream has its own ticket word and flags, so
+    each result is bit for bit its chunk emulation."""
+    cases = [_scan_operands(device, 4096, 1000, torch.float32, seed=21, shift=3.0),
+             _scan_operands(device, 2048, 3000, torch.bfloat16, seed=22, shift=3.0)]
+    gs = [torch.randn(a.shape, generator=torch.Generator(device=device).manual_seed(i),
+                      device=device).to(a.dtype) for i, (a, _, _) in enumerate(cases)]
+    want = [_chunked(*ops) for ops in cases]
+    want_bwd = [linear_scan_bwd_ref(a, w, c0, g, chunk=chunk_len(a.shape[0]))
+                for (a, _, c0), w, g in zip(cases, want, gs)]
+    streams = [torch.cuda.Stream(device) for _ in cases]
+    torch.cuda.synchronize()
+    outs = [[] for _ in cases]
+    for _ in range(10):
+        for s, (a, b, c0), w, g, o in zip(streams, cases, want, gs, outs):
+            with torch.cuda.stream(s):
+                o.append((ls_kernel.linear_scan_kernel(a, b, c0),
+                          ls_kernel.linear_scan_bwd(a, w, c0, g)))
+    torch.cuda.synchronize()
+    for o, w, wb in zip(outs, want, want_bwd):
+        for fwd, bwd in o:
+            assert torch.equal(fwd, w)
+            assert all(torch.equal(x, y) for x, y in zip(bwd, wb))
+
+
+@pytest.mark.parametrize("n_blocks,block_len", [(3, 16), (3, 40)])
+def test_pallas_streaming_against_one_shot(device, n_blocks, block_len):
+    """Under ``pallas``, the recurrence and an SRU layer (B = 4, H = 1024)
+    streamed in blocks with their carry, against one call over all T. The
+    recurrence is bit for bit while that T is one chunk (48 steps); past it
+    (120 steps: the one call folds chunk aggregates, the blocks walk) both
+    are within the JAX package's streaming tolerance, as the layer is at any
+    T (its gate GEMM runs at another M)."""
+    from repro_torch.core import cells, mts, scan
+
+    T, B, H = n_blocks * block_len, 4, 1024
+    g = torch.Generator(device=device).manual_seed(T)
+    a = torch.sigmoid(torch.randn((T, B, H), generator=g, device=device) + 3.0)
+    b = torch.randn((T, B, H), generator=g, device=device)
+    c0 = torch.randn((B, H), generator=g, device=device)
+    one = scan.linear_scan(a, b, c0, engine="pallas")
+    c, outs = c0, []
+    for i in range(n_blocks):
+        blk = slice(i * block_len, (i + 1) * block_len)
+        outs.append(scan.linear_scan(a[blk], b[blk], c, engine="pallas"))
+        c = outs[-1][-1]
+    params = cells.sru_init(torch.Generator().manual_seed(T), H, H, device=device)
+    x = torch.randn((B, T, H), generator=g, device=device)
+    h_one, c_one = mts.mts_sru(params, x, c0, engine="pallas")
+    st, hs = mts.StreamState(c=c0, x_tail=None), []
+    for i in range(n_blocks):
+        h, st = mts.mts_stream_step("sru", params, st, x[:, i * block_len:(i + 1) * block_len],
+                                    engine="pallas")
+        hs.append(h)
+    torch.cuda.synchronize()
+    streamed = torch.cat(outs)
+    if T <= CHUNK:
+        assert torch.equal(streamed, one)
+    for got, want in ((streamed, one), (torch.cat(hs, dim=1), h_one), (st.c, c_one)):
+        torch.testing.assert_close(got, want, rtol=STREAM_TOL, atol=STREAM_TOL)
 
 
 def test_linear_scan_backward_matches_plain_autograd(device):
-    """The VJP runs the kernel in reverse time on flipped operands; against
-    autograd through the plain version. fp32, trailing dims (T, B, H)."""
+    """The VJP is one launch of the fused backward; against autograd through
+    the plain walk. fp32, trailing dims (T, B, H)."""
     g = torch.Generator(device=device).manual_seed(3)
     T, B, H = 64, 4, 1000
     a0 = torch.sigmoid(torch.randn((T, B, H), generator=g, device=device))
@@ -485,7 +657,7 @@ def test_linear_scan_backward_matches_plain_autograd(device):
             out = linear_scan_ref(a.reshape(T, -1), b.reshape(T, -1), c0.reshape(-1)).reshape(T, B, H)
         (out * w).sum().backward()
         grads.append([t.grad for t in (a, b, c0)])
-    assert ls_kernel.LAUNCHES == before + 2  # forward and reverse-time backward
+    assert ls_kernel.LAUNCHES == before + 2  # forward and fused backward
     torch.cuda.synchronize()
     for mine, ref in zip(*grads):
         err = (mine - ref).abs().max().item()

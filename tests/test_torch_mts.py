@@ -22,6 +22,7 @@ from repro.core import cells as jcells
 from repro.core import mts as jmts
 from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.core import cells, mts, scan
+from repro_torch.kernels.linear_scan.ref import CHUNK
 
 LAYER_TOL = 2e-5
 STREAM_TOL = 3e-5
@@ -137,7 +138,7 @@ def test_lstm_precompute_equals_naive():
 
 @pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("cell", ["sru", "qrnn"])
-@pytest.mark.parametrize("n_blocks,block_len", [(3, 16), (5, 7), (1, 24)])
+@pytest.mark.parametrize("n_blocks,block_len", [(3, 16), (5, 7), (1, 24), (3, 40)])
 def test_streaming_equals_one_shot(engine, cell, n_blocks, block_len):
     """The paper's deployment: a live stream in blocks, carry (and QRNN conv
     tail) passed between them, against one-shot at JAX's tolerance. Not
@@ -160,11 +161,13 @@ def test_streaming_equals_one_shot(engine, cell, n_blocks, block_len):
 
 
 @pytest.mark.parametrize("engine", ENGINES)
-@pytest.mark.parametrize("n_blocks,block_len", [(3, 16), (5, 7), (4, 1)])
+@pytest.mark.parametrize("n_blocks,block_len", [(3, 16), (5, 7), (4, 1), (3, 40)])
 def test_recurrence_streaming_is_exact(engine, n_blocks, block_len):
     """The recurrence alone, streamed in blocks with its carry: sequential
-    and pallas repeat one-shot's per-step arithmetic, so they are bitwise;
-    chunked and associative associate the steps by block (JAX's 3e-5)."""
+    repeats one-shot's per-step arithmetic, so it is bitwise; so does pallas
+    while the one-shot T is one chunk (at most 64 steps), but past that the
+    one-shot call folds chunk aggregates where the blocks walk, and chunked
+    and associative associate the steps by block (JAX's 3e-5)."""
     rng = np.random.default_rng(n_blocks * block_len)
     a, b = (torch.tensor(rng.normal(size=(n_blocks * block_len, 2, 24)).astype(np.float32))
             for _ in range(2))
@@ -178,7 +181,7 @@ def test_recurrence_streaming_is_exact(engine, n_blocks, block_len):
         c = out[-1]
         outs.append(out)
     out = torch.cat(outs)
-    if engine in ("sequential", "pallas"):
+    if engine == "sequential" or (engine == "pallas" and out.shape[0] <= CHUNK):
         assert torch.equal(out, ref)
     else:
         torch.testing.assert_close(out, ref, rtol=STREAM_TOL, atol=STREAM_TOL)
