@@ -46,15 +46,20 @@ Phases, each printing one JSON line per step:
            ``sru-paper-large`` on its own chunked engine,
            ``lstm-paper-large``, the four ``*-int8`` configs, ``llama3-8b``
            (prompt 64 and 1024), ``smollm-360m`` and ``mamba2-2.7b`` (prompt
-           64 and 1024); each run's launches of
-           each kernel instance, fp and int8 apart (counts set to 0 just
-           before the run, read just after), its init time and peak memory;
+           64 and 1024), each twice: with the eager steps and with the
+           steps as CUDA graphs (the default: prefill and every decode step
+           a replay, ``capture_ms`` for the warm-ups and captures); each
+           run's launches of each kernel instance, fp and int8 apart (counts
+           set to 0 just before the run, read just after), its init time and
+           peak memory; both modes must give the expected launches, keep the
+           caches where they lie and give the same tokens;
   profile  per config (the fp fused, stacked and pallas runs, the two
-           stacked int8 runs, llama3-8b, smollm-360m and mamba2-2.7b), a
-           decode step's host time and torch.profiler's device time by
-           kernel, hence the device's idle share, against the step's bytes
-           bound (mamba2: its SSM state read and written too); the attention
-           LMs' KV cache and mamba2's state and conv tails must keep their
+           stacked int8 runs, llama3-8b, smollm-360m and mamba2-2.7b), eager
+           and captured, a decode step's host time and torch.profiler's
+           device time by kernel, hence the device's idle share, against the
+           step's bytes bound (mamba2: its SSM state read and written too);
+           the card's count of our kernels per step must equal the expected
+           launches per step in both modes; the caches must keep their
            storage (written in place);
   parity   the stacked SRU and QRNN LMs, the base SRU and QRNN LMs under
            pallas, the LSTM LM, two int8 LMs (stacked SRU, fused QRNN),
@@ -66,7 +71,7 @@ Phases, each printing one JSON line per step:
 
 Then one ``{"phase_seconds": {...}}`` line (each phase's wall time, the
 serve phase's warm-ups included), one ``{"kernels": [...]}`` line (launches
-from the serve phase), the
+from the serve phase, eager and captured runs summed), the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the last
 line. Without a CUDA device, or without the repository beside this file, it
@@ -200,6 +205,10 @@ SCAN_BWD_CASES = (("backward T=64 F=4096 fp32", 64, 4096, "float32", 301),
 # chunk the kernel folds chunk aggregates, which round otherwise than the
 # walk's steps, by a few fp32 ulps of the largest gradient.
 B3_GRAD_RTOL = 2e-5
+# torch.profiler has come back without any device event for one window of
+# graph replays on the H100 (torch 2.11, CUDA 12.8), where another run's
+# windows all had theirs; the profile phase profiles such a window again.
+PROFILE_WINDOWS = 3
 # Parity (phase 4): fp32 LM on the card vs the CPU, through up to 32 layers
 # and a head of up to 128256 columns; logits are O(1). The same sources of
 # difference as ATOL.
@@ -831,9 +840,11 @@ def _expected_launches(cfg, decode_steps: int) -> dict:
 
 
 def phase_serve():
-    """The main path: each run through serve.main, with every kernel's count
-    set to 0 just before the run and read just after. Returns the launches
-    summed over the runs."""
+    """The main path: each run through serve.main twice, with the eager steps
+    and with the steps as CUDA graphs (the default), every kernel's count
+    set to 0 just before each run and read just after. Both must give the
+    expected launches, keep the caches where they lie and give the same
+    tokens. Returns the launches summed over both runs of every config."""
     from repro_torch.launch import serve
 
     gen_len, batch = 32, 4
@@ -841,41 +852,49 @@ def phase_serve():
     # Warm-up of every run at the measured shapes: CUDA context, allocator,
     # cuBLAS's first call at each GEMM shape, and the first launch of each
     # kernel on the run's path (runs that share their cuBLAS shapes still
-    # differ in the elementwise kernels they launch first).
+    # differ in the elementwise kernels they launch first). A captured run
+    # warms its own steps up before it captures them (``capture_ms``).
     for arch, engine, prompt_len in SERVE_RUNS:
         extra = ["--engine", engine] if engine else []
         with contextlib.redirect_stdout(io.StringIO()):
             require(serve.main(["--arch", arch, "--gen-len", "2", "--prompt-len", str(prompt_len)]
-                               + extra) == 0, f"serve warm-up {arch} {engine}")
+                               + extra, graphs=False) == 0, f"serve warm-up {arch} {engine}")
     totals = dict.fromkeys(KERNELS, 0)
     for arch, engine, prompt_len in SERVE_RUNS:
         extra = ["--engine", engine] if engine else []
-        buf = io.StringIO()
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-        with contextlib.redirect_stdout(buf):
-            rc = serve.main([
-                "--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt_len),
-                "--gen-len", str(gen_len),
-            ] + extra)
-        launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
-        require(rc == 0, f"serve {arch} {engine} returned {rc}")
-        line = next(x for x in buf.getvalue().splitlines() if x.startswith("serve-stats "))
-        stats = json.loads(line[len("serve-stats "):])
         cfg = _run_cfg(arch, engine)
-        calls = 1 + (gen_len - 1)  # one prefill, gen_len - 1 decode steps
         want = _expected_launches(cfg, gen_len - 1)
-        tokens = stats.pop("tokens")
-        ok_tokens = all(0 <= t < cfg.vocab for row in tokens for t in row)
+        calls = 1 + (gen_len - 1)  # one prefill, gen_len - 1 decode steps
         engine_used = cfg.scan_engine if cfg.cell in ("sru", "qrnn") else None
-        emit({"phase": "serve", **stats, "prompt_len": prompt_len, "engine": engine_used,
-              "launches": launches, "launches_per_step": sum(launches.values()) / calls,
-              "sample_tokens": tokens[0][:8]})
-        require(launches == want, f"serve {arch} {engine}: launches {launches} != {want}")
-        require(ok_tokens and len(tokens) == batch and len(tokens[0]) == gen_len,
-                f"serve {arch} {engine}: bad tokens")
-        for k, n in launches.items():
-            totals[k] += n
+        tokens = {}
+        for graphs in (False, True):
+            what = f"serve {arch} {engine} ({'captured' if graphs else 'eager'})"
+            buf = io.StringIO()
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            with contextlib.redirect_stdout(buf):
+                rc = serve.main([
+                    "--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt_len),
+                    "--gen-len", str(gen_len),
+                ] + extra, graphs=graphs)
+            launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+            require(rc == 0, f"{what} returned {rc}")
+            line = next(x for x in buf.getvalue().splitlines() if x.startswith("serve-stats "))
+            stats = json.loads(line[len("serve-stats "):])
+            tokens[graphs] = stats.pop("tokens")
+            ok_tokens = all(0 <= t < cfg.vocab for row in tokens[graphs] for t in row)
+            emit({"phase": "serve", **stats, "prompt_len": prompt_len, "engine": engine_used,
+                  "launches": launches, "launches_per_step": sum(launches.values()) / calls,
+                  "sample_tokens": tokens[graphs][0][:8]})
+            require(stats["graphs"] == graphs, f"{what}: graphs {stats['graphs']}")
+            require(launches == want, f"{what}: launches {launches} != {want}")
+            require(stats["cache_in_place"], f"{what}: the caches moved")
+            require(ok_tokens and len(tokens[graphs]) == batch
+                    and len(tokens[graphs][0]) == gen_len, f"{what}: bad tokens")
+            for k, n in launches.items():
+                totals[k] += n
+        require(tokens[True] == tokens[False],
+                f"serve {arch} {engine}: the captured steps' tokens differ from the eager ones")
     return totals
 
 
@@ -891,17 +910,62 @@ def _tree_to(tree, device):
     return None if tree is None else tree.to(device)
 
 
-def phase_profile():
-    """Where a decode step's time goes (B = 4, after a 64-token prefill): host
-    clock per step without the profiler, then torch.profiler's device time
-    per step by kernel. Idle share = 1 - device time / step time. The step's
-    bound is the bytes it must move once over the HBM rate: every layer
-    weight, the final norm, the logits matrix and the valid KV rows read, or
-    for Mamba-2 its SSM state and conv tails read and written."""
+def _profile_steps(cfg, params, prefill, decode, inputs, steps):
+    """One prefill, then ``steps`` decode steps untimed, ``steps`` timed on
+    the host clock and ``steps`` under torch.profiler (again, up to
+    PROFILE_WINDOWS windows, while the profiler shows no device event).
+    Returns (host ms per step, [(device us per step, events per step, name)]
+    of the device-side events, whether the caches kept their storage, the
+    caches, the windows profiled)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.training.graphs import leaves
+
+    logits, caches = prefill(params, inputs)
+    ptrs = [t.data_ptr() for t in leaves(caches)]
+
+    def run():
+        nonlocal logits, caches
+        for _ in range(steps):
+            tok = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)[:, None]
+            logits, caches = decode(params, caches, tok)
+        torch.cuda.synchronize()
+
+    run()  # warm-up
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    for window in range(1, PROFILE_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+        kernels = []  # device-side events only (kernels, copies): no double count
+        for e in prof.key_averages():
+            dev_us = getattr(e, "self_device_time_total", 0.0) or 0.0
+            if e.device_type == DeviceType.CUDA and dev_us > 0:
+                kernels.append((dev_us / steps, e.count / steps, e.key))
+        if kernels:
+            break
+    in_place = [t.data_ptr() for t in leaves(caches)] == ptrs
+    kernels.sort(reverse=True)
+    return wall_ms, kernels, in_place, caches, window
+
+
+def phase_profile():
+    """Where a decode step's time goes (B = 4, after a 64-token prefill), with
+    the eager steps and with the steps as CUDA graphs: host clock per step
+    without the profiler, then torch.profiler's device time per step by
+    kernel. Idle share = 1 - device time / step time. The device counts the
+    launches of our kernels per step (``OUR_KERNEL_SYMBOLS``), which must be
+    the wrappers' expected launches per step in both modes: the card's own
+    confirmation that each replay runs our kernels. The step's bound is the
+    bytes it must move once over the HBM rate: every layer weight, the final
+    norm, the logits matrix and the valid KV rows read, or for Mamba-2 its
+    SSM state and conv tails read and written."""
+    import torch
+
+    from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.models.layers import _dtype
     from repro_torch.training.steps import build_decode_step, build_prefill_step
@@ -911,55 +975,50 @@ def phase_profile():
         cfg = _run_cfg(arch, engine)
         params = lm.lm_init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda",
                             dtype=_dtype(cfg.compute_dtype))
-        prefill = build_prefill_step(cfg, batch=4, max_len=prompt_len + 3 * steps, device="cuda")
+        max_len = prompt_len + (2 + PROFILE_WINDOWS) * steps
+        prefill = build_prefill_step(cfg, batch=4, max_len=max_len, device="cuda")
         decode = build_decode_step(cfg)
-        prompt = torch.zeros((4, prompt_len), dtype=torch.long, device="cuda")
-        logits, caches = prefill(params, {"inputs": prompt})
-        ptrs = {k: v.data_ptr() for k, v in caches["layers"].items()}
-
-        def run():
-            nonlocal logits, caches
-            for _ in range(steps):
-                tok = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)[:, None]
-                logits, caches = decode(params, caches, tok)
-            torch.cuda.synchronize()
-
-        run()  # warm-up
-        t0 = time.perf_counter()
-        run()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-        in_place = {k: v.data_ptr() for k, v in caches["layers"].items()} == ptrs
-        kernels = []  # device-side events only (kernels, copies): no double count
-        for e in prof.key_averages():
-            dev_us = getattr(e, "self_device_time_total", 0.0) or 0.0
-            if e.device_type == DeviceType.CUDA and dev_us > 0:
-                kernels.append((dev_us / steps, e.count / steps, e.key))
-        kernels.sort(reverse=True)
-        device_ms = sum(k[0] for k in kernels) / 1e3 if kernels else None
-        ours_us = sum(k[0] for k in kernels if any(n in k[2] for n in OUR_KERNEL_SYMBOLS))
+        inputs = {"inputs": torch.zeros((4, prompt_len), dtype=torch.long, device="cuda")}
+        per_step = (sum(_expected_launches(cfg, 1).values())
+                    - sum(_expected_launches(cfg, 0).values()))
         head = params["embed"].get("unembed", params["embed"]["embed"])
-        kv_bytes = 0
-        if cfg.ssm:  # every cache leaf read and written once per step
-            kv_bytes = 2 * _tree_bytes(caches["layers"])
-        elif cfg.cell is None:  # mean valid rows over the profiled steps
-            rows = prompt_len + 2 * steps + (steps + 1) / 2
-            kv = caches["layers"]["k"]
-            kv_bytes = 2 * cfg.n_layers * 4 * rows * cfg.n_kv_heads * cfg.d_head * kv.element_size()
-        step_bytes = (_tree_bytes(params["layers"]) + _tree_bytes(params["final_norm"])
-                      + _tree_bytes(head) + kv_bytes)
-        emit({"phase": "profile", "arch": arch,
-              "engine": cfg.scan_engine if cfg.cell in ("sru", "qrnn") else None,
-              "step_ms": wall_ms, "device_ms": device_ms,
-              "device_ops_per_step": sum(k[1] for k in kernels),
-              "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms,
-              "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3, "step_bytes": step_bytes,
-              "cache_bytes_per_step": kv_bytes,
-              "cache_in_place": in_place, "our_kernels_us_per_step": ours_us,
-              "top_kernels_us_per_step": [[round(k[0], 2), k[1], k[2][:70]] for k in kernels[:8]]})
-        require(in_place, f"profile {arch}: the decode step moved the cache")
-        del params, caches, logits
+        weight_bytes = (_tree_bytes(params["layers"]) + _tree_bytes(params["final_norm"])
+                        + _tree_bytes(head))
+        captured = serve.capture_batch_steps(cfg, prefill, decode, params, inputs)
+        for graphs, (pre, dec) in ((False, (prefill, decode)), (True, captured)):
+            wall_ms, kernels, in_place, caches, windows = _profile_steps(
+                cfg, params, pre, dec, inputs, steps)
+            device_ms = sum(k[0] for k in kernels) / 1e3 if kernels else None
+            ours = [k for k in kernels if any(n in k[2] for n in OUR_KERNEL_SYMBOLS)]
+            ours_per_step = sum(k[1] for k in ours)
+            kv_bytes = 0
+            if cfg.ssm:  # every cache leaf read and written once per step
+                kv_bytes = 2 * _tree_bytes(caches["layers"])
+            elif cfg.cell is None:  # mean valid rows over the profiled steps
+                rows = prompt_len + (1 + windows) * steps + (steps + 1) / 2
+                kv_bytes = (2 * cfg.n_layers * 4 * rows * cfg.n_kv_heads * cfg.d_head
+                            * caches["layers"]["k"].element_size())
+            step_bytes = weight_bytes + kv_bytes
+            emit({"phase": "profile", "arch": arch,
+                  "engine": cfg.scan_engine if cfg.cell in ("sru", "qrnn") else None,
+                  "graphs": graphs, "step_ms": wall_ms, "device_ms": device_ms,
+                  "profile_windows": windows,
+                  "device_ops_per_step": sum(k[1] for k in kernels),
+                  "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms,
+                  "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3, "step_bytes": step_bytes,
+                  "cache_bytes_per_step": kv_bytes, "cache_in_place": in_place,
+                  "our_kernels_us_per_step": sum(k[0] for k in ours),
+                  "our_launches_per_step": ours_per_step, "expected_launches_per_step": per_step,
+                  "top_kernels_us_per_step": [[round(k[0], 2), k[1], k[2][:70]]
+                                              for k in kernels[:8]]})
+            mode = "captured" if graphs else "eager"
+            require(in_place, f"profile {arch} ({mode}): the decode step moved the cache")
+            require(device_ms is not None, f"profile {arch} ({mode}): no device time traced")
+            require(ours_per_step == per_step,
+                    f"profile {arch} ({mode}): the card ran {ours_per_step} of our kernels a "
+                    f"step, expected {per_step}")
+            del caches
+        del params, captured
 
 
 def phase_parity():

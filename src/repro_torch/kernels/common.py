@@ -37,6 +37,26 @@ def cuda_dtype_code(t: torch.Tensor) -> int:
     return DTYPE_CODES[t.dtype]
 
 
+def stream_words(table: dict, device: torch.device, n: int, at_least: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 words of launch state (arrival counters,
+    a ticket word and flags) for a launch on the current stream of
+    ``device``, from a kernel that leaves them fit for its next launch, so
+    that they are zeroed only when allocated. The launches that share a
+    buffer must therefore run one after another: each stream has its own in
+    ``table``, of at least ``at_least`` words (made anew only when a launch
+    needs more), and a launch captured into a CUDA graph (replayed on
+    whatever stream, while an eager launch may replace its stream's buffer)
+    gets one of its own, zeroed by a fill captured with it."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(n, dtype=torch.int32, device=device)
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = table.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, at_least), dtype=torch.int32, device=device)
+        table[key] = buf
+    return buf
+
+
 def largest_divisor_leq(n: int, k: int) -> int:
     """Time steps per kernel chunk: the largest divisor of ``n`` that is at
     most ``k``, so the chunks tile the sequence as the TPU kernel's did."""

@@ -6,7 +6,9 @@ The TPU kernel walked the cache in ``block_s`` blocks inside one program per
 (lane, KV head); the CUDA kernel cuts the cache into splits that run in
 parallel (``split_plan``) and the last CTA of each (lane, KV head, head
 block) to finish combines them, so the block size is not an argument.
-``LAUNCHES`` counts calls that launched the kernel (one CUDA launch each).
+That CTA sets its arrival counter back to 0, so a counter buffer is zeroed
+once, when it is made. ``LAUNCHES`` counts calls that launched the kernel
+(one CUDA launch each).
 """
 from __future__ import annotations
 
@@ -18,13 +20,13 @@ import types
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import DTYPE_CODES, cuda_dtype_code
+from repro_torch.kernels.common import DTYPE_CODES, cuda_dtype_code, stream_words
 
 LAUNCHES = 0
 MAX_SPLITS = 64  # the last CTA reads every split's partial
 INFO_FIELDS = ("smem_bytes", "ctas_per_sm", "stages", "tile_rows", "registers", "heads_per_cta")
 
-_COUNTERS = {}  # device index -> int32 arrival counters, zero between calls
+_COUNTERS = {}  # (device index, stream) -> arrival counters (``common.stream_words``)
 
 
 def split_plan(batch: int, n_kv: int, seq: int, n_sm: int, ctas_per_sm: int, tile: int,
@@ -74,18 +76,6 @@ def plan(dtype: torch.dtype, batch: int, n_kv: int, seq: int, head_dim: int, gro
     return n_split, rows, head_blocks
 
 
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed arrival counters on ``device``, allocated once
-    (again only when a call needs more); each call leaves them at zero. The
-    calls of one device share them, so they run on one stream at a time."""
-    index = device.index or 0
-    buf = _COUNTERS.get(index)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[index] = buf
-    return buf
-
-
 def gqa_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on operands ``ops.gqa_decode`` has checked."""
@@ -100,9 +90,10 @@ def gqa_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     many = n_split > 1
     part_ml = torch.empty((B, Hkv, n_split, G, 2) if many else (0,), **f32)
     part_acc = torch.empty((B, Hkv, n_split, G, Dh) if many else (0,), **f32)
-    counters = _counters(q.device, B * Hkv * head_blocks) if many else None
     lib = build.library("gqa_decode")
     with torch.cuda.device(q.device):
+        counters = (stream_words(_COUNTERS, q.device, B * Hkv * head_blocks, 1024)
+                    if many else None)
         rc = lib.gqa_decode_launch(
             code, q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             part_ml.data_ptr(), part_acc.data_ptr(), None if counters is None else

@@ -22,14 +22,17 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_operand, cuda_dtype_code
+from repro_torch.kernels.common import check_operand, cuda_dtype_code, stream_words
 from repro_torch.kernels.linear_scan.ref import chunk_len, linear_scan_bwd_ref, linear_scan_ref
 
 LAUNCHES = 0
 THREADS = 32        # one warp per CTA
 AGG_BYTES = 16      # one thread's aggregate record: (A, A, B, B) in fp32
 
-_SYNC = {}  # (device index, stream) -> int32 ticket word + ready flags, zero when allocated
+# (device index, stream) -> a 64-bit ticket word and ready flags
+# (``common.stream_words``). The kernel never needs them zeroed again: each
+# launch takes a new epoch from the ticket word and tags its flags with it.
+_SYNC = {}
 
 
 class Plan(NamedTuple):
@@ -55,24 +58,6 @@ def plan(T: int, F: int, dtype: torch.dtype, aligned4: bool = True) -> Plan:
     return Plan(chunk, n_chunks, vec, n_tiles, n_chunks * n_tiles)
 
 
-def _sync(device: torch.device, n_flags: int) -> torch.Tensor:
-    """A 64-bit ticket word and at least ``n_flags`` ready flags for a
-    launch on the current stream of ``device``. The kernel never needs them
-    zeroed again: each launch takes a new epoch from the ticket word and
-    tags its flags with it. So the launches that share them must run one
-    after another: each stream has its own, and a launch captured into a
-    CUDA graph (replayed on whatever stream) gets a buffer of its own,
-    zeroed by the fill captured with it."""
-    if torch.cuda.is_current_stream_capturing():
-        return torch.zeros(2 + n_flags, dtype=torch.int32, device=device)
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    buf = _SYNC.get(key)
-    if buf is None or buf.numel() < 2 + n_flags:
-        buf = torch.zeros(2 + max(n_flags, 4096), dtype=torch.int32, device=device)
-        _SYNC[key] = buf
-    return buf
-
-
 def _scratch(T: int, F: int, device: torch.device):
     """(chunk, sync buffer, aggregate records) for a call; no scratch for
     one chunk. Sized for a column a thread, the most tiles the C entry can
@@ -82,7 +67,7 @@ def _scratch(T: int, F: int, device: torch.device):
     if n_chunks == 1:
         return chunk, None, None
     n_tiles = -(-F // THREADS)
-    sync = _sync(device, n_chunks * n_tiles)
+    sync = stream_words(_SYNC, device, 2 + n_chunks * n_tiles, 2 + 4096)
     agg = torch.empty((n_chunks - 1) * n_tiles * THREADS * AGG_BYTES // 4,
                       dtype=torch.float32, device=device)
     return chunk, sync, agg

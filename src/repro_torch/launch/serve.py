@@ -25,9 +25,16 @@ slabs are quantized at init and served through the int8 forms of the fused
 kernels, on ``fused``/``fused_stack`` only; it leaves every other leaf (all
 of an attention LM) as it is, as in JAX. A config's ``ring_overlap`` changes
 nothing on one device.
+On the card the prefill and every decode step run as CUDA graphs, as the
+JAX ``launch/serve.py`` runs each step as one jitted executable
+(``capture_batch_steps``; the capture's time is ``capture_ms``);
+``main(argv, graphs=False)`` runs the eager steps instead, for comparison
+(no flag: the JAX script has none for jit). On the CPU the steps run
+eagerly.
 Continuous mode and the other flags of the JAX ``launch/serve.py`` wait for
 later slices. Besides the two human-readable lines, the run prints one
-``serve-stats {json}`` line with its timings, the card's peak memory
+``serve-stats {json}`` line with its timings, whether the steps ran as
+graphs, whether the caches kept their storage, the card's peak memory
 (``peak_mem_gb``, null on the CPU) and its tokens.
 """
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.models import lm
 from repro_torch.models.layers import _dtype, resolve_device
+from repro_torch.training import graphs as step_graphs
 from repro_torch.training.steps import build_decode_step, build_prefill_step
 
 # How each engine runs an SRU/QRNN layer on the card; its keys are the engines.
@@ -93,9 +101,34 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_batch(cfg, params, args, device: torch.device) -> dict:
-    """The lockstep path: one prefill, ``gen_len - 1`` decode steps. Returns
-    the timings and the generated tokens."""
+def _greedy(cfg, logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)[:, None]
+
+
+def capture_batch_steps(cfg, prefill_step, decode_step, params, inputs):
+    """The batch path's two steps as CUDA graphs, as the JAX
+    ``launch/serve.py`` jits them. Each step is warmed up eagerly first (the decode step over clones
+    of the warm-up prefill's caches), then the prefill is captured at the
+    run's (batch, prompt length, max_len), then the decode step over the
+    caches the captured prefill outputs, which it updates in place, in the
+    prefill graph's memory pool. Returns the two ``CapturedStep``s."""
+    logits, caches = step_graphs.warm_up(prefill_step, params, inputs)
+    token = _greedy(cfg, logits)
+    step_graphs.warm_up(decode_step, params, caches, token)
+    del logits, caches
+    prefill = step_graphs.capture(prefill_step, params, inputs)
+    decode = step_graphs.capture(decode_step, params, prefill.outputs[1], token,
+                                 pool=prefill.pool)
+    return prefill, decode
+
+
+def run_batch(cfg, params, args, device: torch.device, graphs: bool = True) -> dict:
+    """The lockstep path: one prefill, ``gen_len - 1`` decode steps. On a
+    CUDA device with ``graphs`` both steps run as CUDA graph replays,
+    captured before the timed region (``capture_batch_steps``); otherwise,
+    and always on the CPU, the eager steps run. The greedy argmax runs
+    outside the steps, as outside the jit in JAX. Returns the timings,
+    whether the caches kept their storage, and the generated tokens."""
     max_len = args.prompt_len + args.gen_len
     prefill = build_prefill_step(cfg, batch=args.batch, max_len=max_len, device=device)
     decode = build_decode_step(cfg)
@@ -103,18 +136,28 @@ def run_batch(cfg, params, args, device: torch.device) -> dict:
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen)
     inputs = {"inputs": prompt.to(device)}
 
+    captured = graphs and device.type == "cuda"
+    capture_ms = None
+    if captured:
+        _sync(device)
+        t0 = time.perf_counter()
+        prefill, decode = capture_batch_steps(cfg, prefill, decode, params, inputs)
+        _sync(device)
+        capture_ms = (time.perf_counter() - t0) * 1e3
+
     _sync(device)
     t0 = time.perf_counter()
     logits, caches = prefill(params, inputs)
     _sync(device)
     t_prefill = time.perf_counter() - t0
+    storage = [t.data_ptr() for t in step_graphs.leaves(caches)]
 
-    tok = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)[:, None]
+    tok = _greedy(cfg, logits)
     out_tokens = [tok]
     t0 = time.perf_counter()
     for _ in range(args.gen_len - 1):
         logits, caches = decode(params, caches, tok)
-        tok = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)[:, None]
+        tok = _greedy(cfg, logits)
         out_tokens.append(tok)
     _sync(device)
     t_decode = time.perf_counter() - t0
@@ -123,16 +166,21 @@ def run_batch(cfg, params, args, device: torch.device) -> dict:
     return {
         "arch": cfg.name,
         "device": str(device),
+        "graphs": captured,
+        "capture_ms": capture_ms,
         "prefill_ms": t_prefill * 1e3,
         "decode_ms": t_decode * 1e3,
         "prefill_tok_s": args.batch * args.prompt_len / max(t_prefill, 1e-9),
         "decode_tok_s": args.batch * n_dec / max(t_decode, 1e-9),
         "decode_steps": n_dec,
+        "cache_in_place": [t.data_ptr() for t in step_graphs.leaves(caches)] == storage,
         "tokens": tokens.tolist(),
     }
 
 
-def main(argv=None) -> int:
+def main(argv=None, graphs: bool = True) -> int:
+    """The command line; ``graphs=False`` serves with the eager steps on the
+    card too (``run_batch``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--batch", type=int, default=4)
@@ -181,7 +229,7 @@ def main(argv=None) -> int:
     _sync(device)
     init_ms = (time.perf_counter() - t0) * 1e3
 
-    stats = run_batch(cfg, params, args, device)
+    stats = run_batch(cfg, params, args, device, graphs=graphs)
     stats["init_ms"] = init_ms
     stats["peak_mem_gb"] = (torch.cuda.max_memory_allocated(device) / 1e9
                             if device.type == "cuda" else None)

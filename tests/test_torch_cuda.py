@@ -16,8 +16,10 @@ for the decode attention (B5) the shapes of ``tests/test_kernels.py``, groups of
 full-width granite-20b, zamba2-7b and nemotron-4-340b shapes), head dims
 16 to 256 (24, 112, 192), ragged lengths down to 1 on a long cache (splits
 with no valid row), one split and many, 100 calls back to back (the
-combine's counters reset), every instance's resources, and the operands it
-refuses; for the chunked
+combine's counters reset), calls of many splits on two streams at once and
+a captured call replayed after the stream's counters were replaced (each
+stream, and each captured call, has counters of its own), every instance's
+resources, and the operands it refuses; for the chunked
 SSD (B4) one step written in place (also at P = 256 and at a head dim the
 16-byte form does not take), sequences of 1, 127, 128, 129 and 1000 steps
 (ragged chunks), one group and a group per head, state sizes and head dims
@@ -33,6 +35,11 @@ largest batch at a width that leaves ragged lane blocks and padded taps,
 every mode and both stacks, operands off 16-byte alignment (element
 copies), back-to-back launches bit for bit, every served instance with all
 its clusters resident on the card, and the plans the launcher refuses.
+And the batch serving steps as CUDA graphs (``training/graphs.py``): for one
+config of each block kind and each engine (int8 instances included) at full
+width, a captured prefill and 8 captured decode steps, twice, against the
+eager steps: the same tokens and logits, the same launches counted, the
+caches kept where they are.
 
 They skip, with that reason, on a machine without a CUDA device (decided in
 the ``device`` fixture, not at import) and run on the card with
@@ -44,6 +51,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from repro_torch.configs.registry import get_config
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_rnn import fused_rnn, layout, stacked
 from repro_torch.kernels.gqa_decode import gqa_decode as gqa_kernel
@@ -56,6 +64,11 @@ from repro_torch.kernels.linear_scan.ref import (CHUNK, chunk_len, linear_scan_b
 from repro_torch.kernels.ssd import ssd as ssd_kernel
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ref import ssd_ref
+from repro_torch.launch import serve
+from repro_torch.models import lm
+from repro_torch.models.layers import _dtype
+from repro_torch.training import graphs
+from repro_torch.training.steps import build_decode_step, build_prefill_step
 
 # fp32: both sides compute in fp32 and differ only by summation order and a
 # few ulp of expf/tanhf/rsqrtf. bf16: the same, then one output rounding,
@@ -771,7 +784,60 @@ def test_gqa_decode_kernel_back_to_back_calls(device, dtype):
         lens_all.append(lens)
     for out, lens in zip(outs, lens_all):
         _close((out,), (gqa_decode_ref(q, k, v, lens),), dtype)
-    assert not gqa_kernel._COUNTERS[0].any()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    assert not gqa_kernel._COUNTERS[(q.device.index, stream)].any()
+
+
+
+def test_gqa_decode_kernel_on_two_streams_at_once(device):
+    """Calls of many splits on two streams that overlap, repeated: each
+    stream has its own arrival counters, so each result is bit for bit the
+    same call's alone (with shared counters one call's last-CTA test could
+    fire before its own splits landed and combine unwritten partials)."""
+    cases = []
+    for case, dtype, lengths in (
+            ("llama3_len1_long_cache", torch.bfloat16, (8192, 6000, 8192, 7000)),
+            ("g32_dh128_full", torch.float32, (1000,))):
+        q, k, v, _ = _gqa_operands(device, case, dtype)
+        B, Hq, Dh = q.shape
+        assert gqa_kernel.plan(dtype, B, k.shape[2], k.shape[1], Dh, Hq // k.shape[2])[0] > 1
+        cases.append((q, k, v, torch.tensor(lengths, dtype=torch.int32, device=device)))
+    alone = [gqa_decode(*ops) for ops in cases]
+    streams = [torch.cuda.Stream(device) for _ in cases]
+    torch.cuda.synchronize()
+    outs = [[] for _ in cases]
+    for _ in range(20):
+        for s, ops, o in zip(streams, cases, outs):
+            with torch.cuda.stream(s):
+                o.append(gqa_decode(*ops))
+    torch.cuda.synchronize()
+    for o, want in zip(outs, alone):
+        assert all(torch.equal(x, want) for x in o)
+
+
+def test_gqa_decode_kernel_captured_keeps_its_own_counters(device):
+    """A call captured into a CUDA graph has counters of its own, zeroed by a
+    fill captured with it: after the capture the stream's eager buffer is
+    replaced (as a call that needs more counters replaces it; no served
+    shape needs more than the 1024 a buffer starts with, so the test drops
+    it), the old buffer's memory is written over, an eager call runs on a
+    new buffer, and each replay still gives the eager result bit for bit."""
+    q, k, v, _ = _gqa_operands(device, "llama3_len1_long_cache", torch.bfloat16)
+    lens = torch.tensor((8192, 4000, 1, 777), dtype=torch.int32, device=device)
+    assert gqa_kernel.plan(torch.bfloat16, 4, 8, 8192, 128, 4)[0] > 1
+    gqa_decode(q, k, v, lens)  # warm-up: library, plan, eager counters
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = gqa_decode(q, k, v, lens)
+    key = (q.device.index, torch.cuda.current_stream(device).cuda_stream)
+    n = gqa_kernel._COUNTERS.pop(key).numel()
+    junk = torch.full((n,), 7, dtype=torch.int32, device=device)  # where the old buffer was
+    eager = gqa_decode(q, k, v, lens)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    del junk
 
 
 def test_gqa_decode_refuses_what_the_kernel_does_not_take(device):
@@ -1098,3 +1164,79 @@ def test_ssd_launcher_refuses_bad_arguments(device):
     assert rc(n_h=3) == -1
     assert rc(y_ptr=None) == -4
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The batch serving steps as CUDA graphs (``training/graphs.py``)
+# ---------------------------------------------------------------------------
+
+# (arch, --engine override, config overrides, prompt length): one config of
+# each block kind and each engine at full width, the int8 instances of the
+# layer and the stack among them, cut to 2 layers where deeper; the second
+# pallas case has a prompt of two B3 chunks.
+GRAPH_CASES = {
+    "stacked_fused_stack": ("sru-paper-large-stacked", None, {"n_layers": 2}, 64),
+    "fused": ("qrnn-paper-large-fused", None, {}, 64),
+    "pallas": ("sru-paper-large", "pallas", {}, 64),
+    "pallas_two_chunks": ("qrnn-paper-large", "pallas", {}, 100),
+    "chunked": ("sru-paper-large", None, {}, 64),
+    "sequential": ("qrnn-paper-large", "sequential", {}, 64),
+    "associative": ("sru-paper-large", "associative", {}, 64),
+    "lstm": ("lstm-paper-large", None, {}, 64),
+    "stacked_int8": ("qrnn-paper-large-stacked-int8", None, {"n_layers": 2}, 64),
+    "fused_int8": ("sru-paper-large-int8", None, {}, 64),
+    "llama3": ("llama3-8b", None, {"n_layers": 2}, 64),
+    "smollm": ("smollm-360m", None, {"n_layers": 2}, 64),
+    "mamba2": ("mamba2-2.7b", None, {"n_layers": 2}, 64),
+}
+GRAPH_LOGIT_TOL = 3e-5  # fp32 logits that are not bitwise equal; bf16 must be
+
+
+def _serve_steps(cfg, prefill, decode, params, inputs, steps):
+    """A prefill and ``steps`` greedy decode steps: (tokens, logits of each
+    step, the caches' storage kept, the launches counted)."""
+    with graphs.uncounted() as launches:
+        logits, caches = prefill(params, inputs)
+        storage = [t.data_ptr() for t in graphs.leaves(caches)]
+        outs, toks = [logits.clone()], []
+        for _ in range(steps):
+            toks.append(serve._greedy(cfg, logits))
+            logits, caches = decode(params, caches, toks[-1])
+            outs.append(logits.clone())
+        in_place = [t.data_ptr() for t in graphs.leaves(caches)] == storage
+    torch.cuda.synchronize()
+    return torch.cat(toks, dim=1), outs, in_place, launches
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_captured_steps_match_the_eager_steps(device, case):
+    """Captured prefill plus 8 captured decode steps, twice over, against the
+    eager steps on the same params and prompt: the same greedy tokens, logits
+    bitwise equal (or, in fp32, within GRAPH_LOGIT_TOL; the difference is in
+    the message), the same launches of each kernel counted, and the caches
+    the graphs replay over kept where they are."""
+    arch, engine, overrides, prompt_len = GRAPH_CASES[case]
+    cfg = get_config(arch).with_(**overrides)
+    if engine:
+        cfg = cfg.with_(scan_engine=engine)
+    params = lm.lm_init(torch.Generator(device=device).manual_seed(0), cfg, device=device,
+                        dtype=_dtype(cfg.compute_dtype))
+    g = torch.Generator().manual_seed(1)
+    inputs = {"inputs": torch.randint(0, cfg.vocab, (4, prompt_len), generator=g).to(device)}
+    steps = 8
+    prefill = build_prefill_step(cfg, batch=4, max_len=prompt_len + steps + 1, device=device)
+    decode = build_decode_step(cfg)
+    eager = _serve_steps(cfg, prefill, decode, params, inputs, steps)
+    assert eager[2]
+    cap_prefill, cap_decode = serve.capture_batch_steps(cfg, prefill, decode, params, inputs)
+    graph_caches = [t.data_ptr() for t in graphs.leaves(cap_prefill.outputs[1])]
+    for _ in range(2):
+        toks, outs, in_place, launches = _serve_steps(cfg, cap_prefill, cap_decode, params,
+                                                      inputs, steps)
+        assert torch.equal(toks, eager[0])
+        for i, (got, want) in enumerate(zip(outs, eager[1])):
+            err = (got.float() - want.float()).abs().max().item()
+            assert torch.equal(got, want) or (got.dtype == torch.float32
+                                              and err <= GRAPH_LOGIT_TOL), (i, err)
+        assert in_place and launches == eager[3]
+        assert [t.data_ptr() for t in graphs.leaves(cap_prefill.outputs[1])] == graph_caches

@@ -376,6 +376,7 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "assert len(mods) >= 15, mods\n"
+        "assert 'repro_torch.training.graphs' in mods, mods\n"
         "print(len(mods))\n"
     )
     out = subprocess.run(
