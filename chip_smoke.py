@@ -53,6 +53,23 @@ Phases, each printing one JSON line per step:
            set to 0 just before the run, read just after), its init time and
            peak memory; both modes must give the expected launches, keep the
            caches where they lie and give the same tokens;
+  continuous  ``serve --mode continuous`` (the ``Scheduler``, B = 4 slots)
+           at full width for ``sru-paper-large-stacked`` (B2),
+           ``qrnn-paper-large-fused`` (B1), ``sru-paper-large --engine
+           pallas`` (B3) and ``qrnn-paper-large-stacked-int8`` (B2 int8),
+           five runs each: the JAX benchmarks' headline trace (128 requests,
+           150 req/s, prompt 32) eager and captured at async depth 1 and
+           captured at depth 2, and a shared-prefix trace with the prefix
+           cache off and on; every stream's tokens must agree between eager
+           and captured, depth 1 and 2, cache off and on (with a hit); each
+           run's launches must equal its prefill chunks plus decode steps
+           times a step's launches (counts set to 0 just before the run and
+           read just after); the pool's caches must keep their storage;
+           goodput, TTFT, TPOT, ms per tick, occupancy, fetch wait, capture
+           time and peak memory per run; then two captured runs of 32
+           requests per config, one with the tick trace on (host time per
+           tick by phase) and one under torch.profiler (device time per
+           tick, hence the idle share);
   profile  per config (the fp fused, stacked and pallas runs, the two
            stacked int8 runs, llama3-8b, smollm-360m and mamba2-2.7b), eager
            and captured, a decode step's host time and torch.profiler's
@@ -71,7 +88,7 @@ Phases, each printing one JSON line per step:
 
 Then one ``{"phase_seconds": {...}}`` line (each phase's wall time, the
 serve phase's warm-ups included), one ``{"kernels": [...]}`` line (launches
-from the serve phase, eager and captured runs summed), the
+from the serve and continuous phases, eager and captured runs summed), the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the last
 line. Without a CUDA device, or without the repository beside this file, it
@@ -91,7 +108,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("build", "kernels", "serve", "profile", "parity")
+PHASES = ("build", "kernels", "serve", "continuous", "profile", "parity")
 # (arch, --engine override, --prompt-len): the runs of the serve phase.
 SERVE_RUNS = (
     ("sru-paper-large-stacked", None, 64), ("qrnn-paper-large-stacked", None, 64),
@@ -103,6 +120,26 @@ SERVE_RUNS = (
     ("llama3-8b", None, 64), ("llama3-8b", None, 1024), ("smollm-360m", None, 64),
     ("mamba2-2.7b", None, 64), ("mamba2-2.7b", None, 1024),
 )
+# (arch, --engine override): the continuous phase's configs, one per kernel
+# on the path (B2, B1, B3, B2 int8).
+CONTINUOUS_CONFIGS = (("sru-paper-large-stacked", None), ("qrnn-paper-large-fused", None),
+                      ("sru-paper-large", "pallas"), ("qrnn-paper-large-stacked-int8", None))
+# (run, graphs, serve flags): the JAX benchmarks' headline trace eager and
+# captured at async depth 1 and captured at depth 2; a shared-prefix trace
+# (32 requests, 150 req/s, prompts of 64 of which 3 in 4 open with one
+# 32-token prefix) with the prefix cache off and on.
+_HEADLINE = ["--headline-trace"]
+_SHARED = ["--requests", "32", "--arrival-rate", "150", "--prompt-len", "64",
+           "--gen-len", "32", "--prefix-share", "0.75", "--async-depth", "2"]
+CONTINUOUS_RUNS = (
+    ("headline eager d1", False, _HEADLINE + ["--async-depth", "1"]),
+    ("headline captured d1", True, _HEADLINE + ["--async-depth", "1"]),
+    ("headline captured d2", True, _HEADLINE + ["--async-depth", "2"]),
+    ("shared prefix, cache off", True, _SHARED),
+    ("shared prefix, cache on", True, _SHARED + ["--prefix-cache-mb", "64"]),
+)
+# Requests of the profiled continuous run (a shorter headline-like trace).
+CONTINUOUS_PROFILE_REQUESTS = 32
 # (arch, --engine override): the fused int8 runs are not profiled (their
 # kernels take the bf16 twins' time), nor the long prompts.
 PROFILE_RUNS = tuple(r[:2] for r in SERVE_RUNS[:6] + SERVE_RUNS[8:10] + SERVE_RUNS[12:13]
@@ -898,6 +935,124 @@ def phase_serve():
     return totals
 
 
+def phase_continuous():
+    """Continuous batching (``serve --mode continuous``, B = 4 slots, full
+    width, bf16): each config's five runs (``CONTINUOUS_RUNS``) through
+    ``serve.main``, every kernel's count set to 0 just before each run and
+    read just after. Required: the eager and captured runs, and depth 1 and
+    2, give every stream the same tokens; the prefix cache on gives the
+    cache-off tokens with at least one hit; each run's launches equal its
+    engine steps (prefill chunks plus decode steps) times the launches of a
+    step; every pool cache leaf keeps its storage; every request completes.
+    Then one captured depth-2 run of a shorter trace under torch.profiler:
+    device time per tick against the host's, hence the idle share. Returns
+    the launches summed over the runs."""
+    from repro_torch.launch import serve
+
+    counters = _launch_counters()
+    totals = dict.fromkeys(KERNELS, 0)
+    for arch, engine in CONTINUOUS_CONFIGS:
+        extra = ["--engine", engine] if engine else []
+        cfg = _run_cfg(arch, engine)
+        tokens, stats_of = {}, {}
+        for run, graphs, flags in CONTINUOUS_RUNS:
+            what = f"continuous {arch} {engine} [{run}]"
+            buf = io.StringIO()
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            with contextlib.redirect_stdout(buf):
+                rc = serve.main(["--arch", arch, "--mode", "continuous", "--batch", "4"]
+                                + flags + extra, graphs=graphs)
+            launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+            require(rc == 0, f"{what} returned {rc}")
+            line = next(x for x in buf.getvalue().splitlines()
+                        if x.startswith("continuous-stats "))
+            stats = json.loads(line[len("continuous-stats "):])
+            tokens[run] = stats.pop("tokens")
+            stats_of[run] = stats
+            steps = stats["prefill_chunks"] + stats["decode_steps"]
+            want = _expected_launches(cfg, steps - 1)
+            ok_tokens = all(0 <= t < cfg.vocab for row in tokens[run].values() for t in row)
+            emit({"phase": "continuous", "arch": arch, "engine": cfg.scan_engine, "run": run,
+                  "launches": launches, "expected_launches": want,
+                  "ms_per_tick": stats["busy_s"] / max(stats["ticks"], 1) * 1e3,
+                  "ttft_p50_ms": stats["ttft_s"]["p50"] * 1e3,
+                  "ttft_p95_ms": stats["ttft_s"]["p95"] * 1e3,
+                  "tpot_p50_ms": stats["tpot_s"]["p50"] * 1e3, **stats})
+            require(stats["graphs"] == graphs, f"{what}: graphs {stats['graphs']}")
+            require(launches == want, f"{what}: launches {launches} != {want} "
+                    f"({stats['prefill_chunks']} prefill chunks, {stats['decode_steps']} "
+                    "decode steps)")
+            require(stats["cache_in_place"], f"{what}: a pool cache leaf moved")
+            require(stats["completed"] == stats["requests"] and ok_tokens,
+                    f"{what}: {stats['completed']}/{stats['requests']} completed, tokens in "
+                    f"vocab {ok_tokens}")
+            for k, n in launches.items():
+                totals[k] += n
+        runs = [r for r, _, _ in CONTINUOUS_RUNS]
+        for a, b, why in ((runs[0], runs[1], "eager and captured"),
+                          (runs[1], runs[2], "async depth 1 and 2"),
+                          (runs[3], runs[4], "the prefix cache off and on")):
+            same = [rid for rid in tokens[a] if tokens[a][rid] == tokens[b][rid]]
+            require(len(same) == len(tokens[a]) and tokens[a].keys() == tokens[b].keys(),
+                    f"continuous {arch} {engine}: {why} differ on "
+                    f"{len(tokens[a]) - len(same)} of {len(tokens[a])} streams")
+        require(stats_of[runs[4]]["prefix_hits"] >= 1,
+                f"continuous {arch} {engine}: the prefix cache had no hit")
+        _profile_continuous(cfg, stats_of[runs[2]])
+    return totals
+
+
+def _profile_continuous(cfg, unprofiled):
+    """Two captured depth-2 Schedulers on ``CONTINUOUS_PROFILE_REQUESTS``
+    headline-trace requests: one with the tick trace on, for the host's time
+    per tick by phase (span sums per tick); one under torch.profiler, for
+    the device time of all device-side events (kernels, copies) per tick,
+    against the host's busy time per tick in that run (inflated by the
+    profiler) and in the unprofiled depth-2 headline run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+    from repro_torch.models.layers import _dtype
+    from repro_torch.observability import Telemetry, TraceRecorder
+    from repro_torch.serving import Scheduler, headline_poisson_trace
+
+    params = lm.lm_init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda",
+                        dtype=_dtype(cfg.compute_dtype))
+    trace = headline_poisson_trace(cfg.vocab, requests=CONTINUOUS_PROFILE_REQUESTS)
+    tel = Telemetry(trace=TraceRecorder(capacity=1 << 20))
+    eng = Scheduler(cfg, params, batch=4, async_depth=2, device="cuda", telemetry=tel)
+    eng.warmup()
+    eng.run(trace)
+    spans = {}
+    for e in tel.trace.events():
+        if e["ph"] == "X" and e.get("tid") == 1:
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e3
+    traced_ticks = eng.metrics.ticks
+    eng = Scheduler(cfg, params, batch=4, async_depth=2, device="cuda")
+    eng.warmup()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.run(headline_poisson_trace(cfg.vocab, requests=CONTINUOUS_PROFILE_REQUESTS))
+        torch.cuda.synchronize()
+    device_ms = sum(getattr(e, "self_device_time_total", 0.0) or 0.0
+                    for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3
+    ticks, busy_ms = eng.metrics.ticks, eng.metrics.busy_s * 1e3
+    device_per_tick = device_ms / max(ticks, 1)
+    tick_ms = unprofiled["busy_s"] * 1e3 / max(unprofiled["ticks"], 1)
+    emit({"phase": "continuous", "arch": cfg.name, "engine": cfg.scan_engine,
+          "run": f"profiled, captured d2, {CONTINUOUS_PROFILE_REQUESTS} requests",
+          "host_ms_per_tick_by_phase": {k: v / max(traced_ticks, 1) for k, v in spans.items()},
+          "traced_ticks": traced_ticks,
+          "ticks": ticks, "device_ms": device_ms, "busy_ms": busy_ms,
+          "device_ms_per_tick": device_per_tick, "ms_per_tick_profiled": busy_ms / max(ticks, 1),
+          "idle_share_profiled": 1.0 - device_ms / busy_ms if busy_ms else None,
+          "ms_per_tick_unprofiled": tick_ms,
+          "idle_share_vs_unprofiled": 1.0 - device_per_tick / tick_ms if tick_ms else None})
+    require(device_ms > 0, f"continuous profile {cfg.name}: no device time traced")
+
+
 def _tree_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_tree_bytes(v) for v in tree.values())
@@ -1112,8 +1267,9 @@ def main(argv=None) -> int:
         emit({"phase_seconds": seconds})
         summaries, launches = results.get("kernels"), results.get("serve")
         if summaries and launches is not None:
+            continuous = results.get("continuous") or {}
             for name, s in summaries.items():
-                s["launches"] = launches[name]
+                s["launches"] = launches[name] + continuous.get(name, 0)
                 require(s["launches"] > 0, f"{name}: no launch on the main path")
             emit({"kernels": list(summaries.values())})
         smi = subprocess.run(

@@ -49,7 +49,7 @@ def _require_served(cfg) -> None:
     if unserved:
         raise NotImplementedError(
             f"{cfg.name}: the port does not serve {'/'.join(unserved)} configs yet "
-            "(ROADMAP.md, open item (e3): the MoE, hybrid and frontend archs)"
+            "(ROADMAP.md §A6: the other assigned archs, MoE, hybrid and frontend ones)"
         )
 
 
@@ -111,21 +111,14 @@ def _block_cache(cfg, batch: int, max_len: int, dtype, device) -> Dict:
     return rnn.rnn_init_cache(cfg, batch, dtype, device)
 
 
-def _tree_map(fn, *trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
-    return None if first is None else fn(*trees)
-
-
 def _stacked_init(make, n: int):
     """``n`` layers of ``make()`` written one at a time into stacked
     ``(n, ...)`` leaves: only one layer exists outside the stack."""
     one = make()
-    out = _tree_map(lambda t: t.new_empty((n, *t.shape)), one)
+    out = rnn.tree_map(lambda t: t.new_empty((n, *t.shape)), one)
     for l in range(n):
         one = one if l == 0 else make()
-        _tree_map(lambda o, t: o[l].copy_(t), out, one)
+        rnn.tree_map(lambda o, t: o[l].copy_(t), out, one)
     return out
 
 

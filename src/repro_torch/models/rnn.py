@@ -29,6 +29,15 @@ from repro_torch.models.layers import rmsnorm, rmsnorm_init
 _INITS = {"sru": cells.sru_init, "qrnn": cells.qrnn_init, "lstm": cells.lstm_init}
 
 
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of dicts with the first tree's keys; a
+    ``None`` leaf stays ``None``."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return None if first is None else fn(*trees)
+
+
 def rnn_block_init(gen, cfg, dtype, device) -> Dict:
     d, h = cfg.d_model, cfg.rnn_hidden
     return {
@@ -138,3 +147,73 @@ def rnn_stack_prefill(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.
 def rnn_stack_decode(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """One token through all L layers: L kernel launches under ``fused_stack``."""
     return rnn_stack_prefill(params, cfg, x, cache)
+
+
+# ---------------------------------------------------------------------------
+# Per-slot (lane) cache ops, for continuous batching (``serving/``).
+#
+# A stream's whole serving state is one lane of the stacked cache: every leaf
+# is (L, B, ...) with the batch at axis 1. These ops work on any tree of
+# dicts honouring that layout, the ``{"layers": ...}`` wrapper of
+# ``models/lm.py::lm_init_caches`` included, and return new trees, as the JAX
+# package's do; the serving steps (``training/steps.py``) copy their results
+# into the pool's own buffers. Masks select with ``torch.where``, never an
+# arithmetic blend, so a lane outside the mask keeps its exact bits. A lane
+# is a device tensor (an int is turned into one): a CUDA graph captures a
+# tensor's address, where an int would be baked into the graph.
+# ---------------------------------------------------------------------------
+
+def _lane_index(lane, device) -> torch.Tensor:
+    """``lane`` as a (K,) int64 index on ``device``: an int, a 0-dim tensor
+    or a (K,) tensor."""
+    return torch.as_tensor(lane, dtype=torch.int64, device=device).reshape(-1)
+
+
+def _lane_bcast(lane_mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """Broadcast a (B,) lane mask against a (L, B, ...) cache leaf."""
+    return lane_mask.reshape((1, -1) + (1,) * (leaf.dim() - 2))
+
+
+def rnn_cache_reset_lanes(cache, lane_mask: torch.Tensor):
+    """Zero the state of masked lanes; unmasked lanes keep their bits.
+    ``lane_mask``: (B,) bool. Fixed shape (a ``where``, not a gather), so one
+    captured reset serves any admission pattern."""
+    return tree_map(
+        lambda leaf: torch.where(_lane_bcast(lane_mask, leaf), torch.zeros_like(leaf), leaf),
+        cache)
+
+
+def rnn_cache_merge_lanes(old, new, lane_mask: torch.Tensor):
+    """Masked lanes from ``new``, the rest bitwise from ``old``: what lets one
+    fixed-shape step serve many independent streams (the step computes all B
+    lanes, the merge commits only the lanes that belong to it)."""
+    return tree_map(lambda o, n: torch.where(_lane_bcast(lane_mask, o), n, o), old, new)
+
+
+def rnn_cache_extract_lane(cache, lane):
+    """Lane ``lane``'s per-stream state: each (L, B, ...) leaf -> (L, ...)."""
+    return tree_map(
+        lambda leaf: leaf.index_select(1, _lane_index(lane, leaf.device)).squeeze(1), cache)
+
+
+def rnn_cache_inject_lane(cache, lane, state):
+    """Write a per-stream state (as ``rnn_cache_extract_lane`` returns it)
+    into lane ``lane``. Extract -> inject round-trips bitwise."""
+    return tree_map(
+        lambda leaf, s: leaf.index_copy(1, _lane_index(lane, leaf.device),
+                                        s.to(leaf.dtype).unsqueeze(1)),
+        cache, state)
+
+
+def rnn_cache_extract_lanes(cache, lanes):
+    """Batched ``rnn_cache_extract_lane``: ``lanes`` (K,) -> each (L, B, ...)
+    leaf gathered to (L, K, ...)."""
+    return tree_map(lambda leaf: leaf.index_select(1, _lane_index(lanes, leaf.device)), cache)
+
+
+def rnn_cache_inject_lanes(cache, lanes, states):
+    """Batched ``rnn_cache_inject_lane``: scatter ``states`` (leaves
+    (L, K, ...)) into ``lanes`` (K,). Duplicate lanes are a caller error."""
+    return tree_map(
+        lambda leaf, s: leaf.index_copy(1, _lane_index(lanes, leaf.device), s.to(leaf.dtype)),
+        cache, states)

@@ -39,7 +39,13 @@ And the batch serving steps as CUDA graphs (``training/graphs.py``): for one
 config of each block kind and each engine (int8 instances included) at full
 width, a captured prefill and 8 captured decode steps, twice, against the
 eager steps: the same tokens and logits, the same launches counted, the
-caches kept where they are.
+caches kept where they are. And the continuous-batching Scheduler
+(``serving/engine.py``) with its five steps captured, at full width (two
+layers) for B2, B1, B3 and B2 int8: against the eager Scheduler at async
+depth 1 and 2 on a shared-prefix trace with the prefix cache on, the same
+tokens and logits bit for bit, the launches its steps account for, the pool
+kept where it is; two lanes snapshotted, then two injected, in one tick,
+every state kept; and a capture that fails raising, with no eager fallback.
 
 They skip, with that reason, on a machine without a CUDA device (decided in
 the ``device`` fixture, not at import) and run on the card with
@@ -48,6 +54,7 @@ main-path shapes and timings are ``chip_smoke.py``'s.
 """
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -67,6 +74,7 @@ from repro_torch.kernels.ssd.ref import ssd_ref
 from repro_torch.launch import serve
 from repro_torch.models import lm
 from repro_torch.models.layers import _dtype
+from repro_torch.serving import Request, Scheduler, clone_trace, shared_prefix_trace
 from repro_torch.training import graphs
 from repro_torch.training.steps import build_decode_step, build_prefill_step
 
@@ -1240,3 +1248,127 @@ def test_captured_steps_match_the_eager_steps(device, case):
                                               and err <= GRAPH_LOGIT_TOL), (i, err)
         assert in_place and launches == eager[3]
         assert [t.data_ptr() for t in graphs.leaves(cap_prefill.outputs[1])] == graph_caches
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching: the Scheduler's five steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# (arch, --engine override, config overrides): a config for each kernel on
+# the path, at full width, cut to 2 layers where deeper.
+ENGINE_GRAPH_CASES = {
+    "stacked": ("sru-paper-large-stacked", None, {"n_layers": 2}),
+    "fused": ("qrnn-paper-large-fused", None, {}),
+    "pallas": ("sru-paper-large", "pallas", {}),
+    "stacked_int8": ("qrnn-paper-large-stacked-int8", None, {"n_layers": 2}),
+}
+
+
+class _TickClock:
+    """An engine clock that moves 1 ms at every read: both engines see the
+    same arrivals whatever the host's speed."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 1e-3
+        return self.t
+
+
+def _engine_case(device, case):
+    arch, engine, overrides = ENGINE_GRAPH_CASES[case]
+    cfg = get_config(arch).with_(**overrides)
+    if engine:
+        cfg = cfg.with_(scan_engine=engine)
+    params = lm.lm_init(torch.Generator(device=device).manual_seed(0), cfg, device=device,
+                        dtype=_dtype(cfg.compute_dtype))
+    return cfg, params
+
+
+def _serve_engine(cfg, params, device, trace, **kw):
+    eng = Scheduler(cfg, params, batch=4, prefix_cache_mb=8.0, trace_logits=True,
+                    clock=_TickClock(), device=device, **kw)
+    eng.warmup()
+    with graphs.uncounted() as launches:
+        eng.run(clone_trace(trace), max_ticks=2000)
+    torch.cuda.synchronize()
+    return eng, launches
+
+
+@pytest.mark.parametrize("case", sorted(ENGINE_GRAPH_CASES))
+@pytest.mark.parametrize("depth", [1, 2])
+def test_captured_scheduler_matches_the_eager_scheduler(device, case, depth):
+    """A shared-prefix trace (prompts of 70: two 32-token chunks and a tail,
+    the first chunk shared by half) through the eager Scheduler at depth 1
+    and the captured one at ``depth``: every stream's tokens and traced
+    logits rows bit for bit, prefix hits, each run's launches equal to its
+    prefill chunks plus decode steps times the step's launches, the pool's
+    leaves where they were allocated."""
+    cfg, params = _engine_case(device, case)
+    trace = shared_prefix_trace(12, rate=0.0, prefix_len=32, prompt_len=70, share=0.5,
+                                vocab=cfg.vocab, seed=3, gen_mix=((4, 0.5), (12, 0.5)))
+    eager, eager_launches = _serve_engine(cfg, params, device, trace, graphs=False)
+    captured, launches = _serve_engine(cfg, params, device, trace, async_depth=depth)
+    assert not eager.captured and captured.captured and captured.capture_ms > 0
+    for eng, counted in ((eager, eager_launches), (captured, launches)):
+        m = eng.metrics
+        assert m.completed == len(trace) and m.prefix_hits > 0 and eng.cache_in_place
+        assert sum(counted) == cfg.n_layers * (m.prefill_chunks + m.decode_steps)
+    for rid in range(len(trace)):
+        assert eager.logit_trace[rid] and len(eager.logit_trace[rid]) == \
+            len(captured.logit_trace[rid])
+        for a, b in zip(eager.logit_trace[rid], captured.logit_trace[rid]):
+            assert np.array_equal(a, b), rid
+
+
+def test_captured_snapshot_and_inject_of_two_lanes_in_one_tick(device):
+    """Two snapshots replayed back to back share the graph's one static
+    output; each is copied out before the next replay, so both states are
+    kept. Two injects replayed back to back write both lanes."""
+    cfg, params = _engine_case(device, "stacked")
+    eng = Scheduler(cfg, params, batch=4, prefix_cache_mb=8.0, device=device)
+    eng.warmup()
+    with torch.inference_mode():
+        for leaf in graphs.leaves(eng.pool.caches):
+            leaf.copy_(torch.randn(leaf.shape, device=device).to(leaf.dtype))
+    before = [t.clone() for t in graphs.leaves(eng.pool.caches)]
+    s1 = eng._snapshot(eng.pool.caches, eng._lanes[1])
+    h1 = {k: eng._to_host(v) for k, v in s1["layers"].items()}
+    s3 = eng._snapshot(eng.pool.caches, eng._lanes[3])
+    h3 = {k: eng._to_host(v) for k, v in s3["layers"].items()}
+    assert s1 is s3  # the one static output of the snapshot graph
+    torch.cuda.synchronize()
+    for (k, v1), b in zip(h1.items(), before):
+        assert torch.equal(v1, b[:, 1].cpu()) and torch.equal(h3[k], b[:, 3].cpu())
+    for lane, host in ((0, h3), (2, h1)):
+        eng._inject(eng.pool.caches, eng._lanes[lane],
+                    {"layers": {k: v.to(device, non_blocking=True) for k, v in host.items()}})
+    torch.cuda.synchronize()
+    for a, b in zip(graphs.leaves(eng.pool.caches), before):
+        assert torch.equal(a[:, 0], b[:, 3]) and torch.equal(a[:, 2], b[:, 1])
+        assert torch.equal(a[:, 1], b[:, 1]) and torch.equal(a[:, 3], b[:, 3])
+    assert eng.cache_in_place
+
+
+def test_scheduler_capture_failure_raises(device):
+    """A step that cannot be captured (it waits for the host) fails the
+    warm-up and every tick after it: the engine never falls back to the
+    eager steps on the card."""
+    cfg, params = _engine_case(device, "fused")
+    eng = Scheduler(cfg, params, batch=4, device=device)
+    decode = eng._decode
+
+    def waits_for_the_host(params, caches, token, mask):
+        out = decode(params, caches, token, mask)
+        out[0].sum().item()
+        return out
+
+    eng._decode = waits_for_the_host
+    with pytest.raises(RuntimeError, match="capturing"):
+        eng.warmup()
+    assert not eng.captured and eng._decode is waits_for_the_host
+    eng.submit(Request(rid=0, prompt=np.arange(8), max_new_tokens=2))
+    with pytest.raises(RuntimeError, match="capturing"):
+        eng.tick()
+    assert eng.metrics.ticks == 0

@@ -341,7 +341,7 @@ def test_unserved_families_are_refused_naming_the_queue(arch):
     cfg = ArchConfig(**dataclasses.asdict(JAX_REGISTRY[arch])).reduced()
     for make in (lambda: lm.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu"),
                  lambda: lm.lm_init_caches(cfg, 2, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, open item \(e3\)"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A6"):
             make()
 
 
@@ -358,7 +358,8 @@ def test_serve_base_config_on_pallas_runs_as_a_module():
 
 def test_serve_rejects_unknown_flags_and_engines(capsys):
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "sru-paper-large-stacked", "--mode", "continuous"])
+        serve.main(["--arch", "sru-paper-large-stacked", "--mode", "continuous",
+                    "--speculative"])
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", "sru-paper-large", "--engine", "bogus", "--device", "cpu"])
     msg = str(exc.value)
