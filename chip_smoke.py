@@ -12,7 +12,10 @@ Phases, each printing one JSON line per step:
   kernels  each kernel against its plain PyTorch version on the card, on the
            same inputs, at the main path's shapes (T in {64, 1}, B = 4, width
            1024, bf16; for the linear scan F = B * H = 4096, and the single
-           stream's F = 1024 at T = 64 and a 1024-step prompt at F = 4096)
+           stream's F = 1024 at T = 64 and a 1024-step prompt at F = 4096;
+           the verify shape of speculative decode, T = 4 and 8, in bf16 and
+           fp32, for the SRU and QRNN layer, both stacks, the int8 QRNN stack
+           and the linear scan)
            plus fp32, ragged-edge and long-sequence cases, each linear-scan
            case bit for bit against its chunk emulation, within tolerance of
            the sequential walk, with its chunk plan (chunk length, chunks,
@@ -70,6 +73,20 @@ Phases, each printing one JSON line per step:
            requests per config, one with the tick trace on (host time per
            tick by phase) and one under torch.profiler (device time per
            tick, hence the idle share);
+  speculative  ``serve --mode continuous --speculative`` (draft steps and the
+           k-step draft block as graphs of a draft pool, the target's verify
+           chunk at T = k) for the continuous phase's four configs: in fp32
+           compute, 32 headline-trace requests, captured at depth 2, plain,
+           the floor draft (``sru-paper-draft``, seed 1) at k = 4 and the
+           oracle draft (the target itself) at k = 4 and 8, every stream's
+           tokens equal to plain's, the oracle never rolling back and the
+           floor at least once; in bf16 the headline trace at depth 2,
+           plain captured, the floor at k = 4 eager and captured (same
+           tokens required) and the oracle at k = 4 captured, each run's
+           launches equal to its target and draft steps times a step's
+           launches, both pools kept in place, the streams that differ from
+           plain reported; then a tick-traced and a profiled oracle run per
+           config (host ms per tick by phase, device idle);
   profile  per config (the fp fused, stacked and pallas runs, the two
            stacked int8 runs, llama3-8b, smollm-360m and mamba2-2.7b), eager
            and captured, a decode step's host time and torch.profiler's
@@ -88,7 +105,8 @@ Phases, each printing one JSON line per step:
 
 Then one ``{"phase_seconds": {...}}`` line (each phase's wall time, the
 serve phase's warm-ups included), one ``{"kernels": [...]}`` line (launches
-from the serve and continuous phases, eager and captured runs summed), the
+from the serve, continuous and speculative phases, eager and captured runs
+summed), the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the last
 line. Without a CUDA device, or without the repository beside this file, it
@@ -108,7 +126,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("build", "kernels", "serve", "continuous", "profile", "parity")
+PHASES = ("build", "kernels", "serve", "continuous", "speculative", "profile", "parity")
 # (arch, --engine override, --prompt-len): the runs of the serve phase.
 SERVE_RUNS = (
     ("sru-paper-large-stacked", None, 64), ("qrnn-paper-large-stacked", None, 64),
@@ -140,6 +158,22 @@ CONTINUOUS_RUNS = (
 )
 # Requests of the profiled continuous run (a shorter headline-like trace).
 CONTINUOUS_PROFILE_REQUESTS = 32
+# Speculative decode: block widths of the verify-shape kernel cases, and the
+# phase's runs. fp32 compute (the tokens must equal the plain run's): a
+# 32-request headline-shaped trace, captured, async depth 2, plain, the floor
+# draft (``sru-paper-draft``, seed 1) at k = 4, and the oracle draft (the
+# target itself) at k = 4 and 8. bf16 (the served dtype; ties break
+# otherwise in the chunk form and the step form, so the tokens against plain
+# are reported, not required): the headline trace at depth 2, plain
+# captured, the floor at k = 4 eager and captured, the oracle at k = 4
+# captured. (run, draft, k, graphs).
+VERIFY_KS = (4, 8)
+SPEC_FP32_REQUESTS = 32
+SPEC_FP32_RUNS = (("plain", None, 0, True), ("floor k=4", "floor", 4, True),
+                  ("oracle k=4", "oracle", 4, True), ("oracle k=8", "oracle", 8, True))
+SPEC_BF16_RUNS = (("plain captured d2", None, 0, True), ("floor k=4 eager d2", "floor", 4, False),
+                  ("floor k=4 captured d2", "floor", 4, True),
+                  ("oracle k=4 captured d2", "oracle", 4, True))
 # (arch, --engine override): the fused int8 runs are not profiled (their
 # kernels take the bf16 twins' time), nor the long prompts.
 PROFILE_RUNS = tuple(r[:2] for r in SERVE_RUNS[:6] + SERVE_RUNS[8:10] + SERVE_RUNS[12:13]
@@ -224,8 +258,9 @@ SSD_CASES = (
 # Linear-scan (B3) cases, (name, T, F, dtype, seed): the pallas configs'
 # prefill (first: the summary's main row) and decode step at B = 4 x H =
 # 1024, the single stream at prompt 64, a 1024-step prompt at B = 4, then
-# fp32, a ragged edge, one column and a long sequence. ``bench_b3.py`` times
-# the same cases, and the backward at SCAN_BWD_CASES.
+# fp32, a ragged edge, one column, a long sequence and the verify shapes
+# (T = k). ``bench_b3.py`` times the same cases, and the backward at
+# SCAN_BWD_CASES.
 SCAN_CASES = (
     ("T=64 F=4096", 64, 4096, "bfloat16", 6),
     ("T=1 F=4096", 1, 4096, "bfloat16", 12),
@@ -235,6 +270,10 @@ SCAN_CASES = (
     ("ragged T=13 F=3000 fp32", 13, 3000, "float32", 202),
     ("T=64 F=1 fp32", 64, 1, "float32", 203),
     ("long T=4096 F=128 fp32", 4096, 128, "float32", 204),
+    ("verify T=4 F=4096", 4, 4096, "bfloat16", 205),
+    ("verify T=8 F=4096", 8, 4096, "bfloat16", 206),
+    ("verify T=4 F=4096 fp32", 4, 4096, "float32", 207),
+    ("verify T=8 F=4096 fp32", 8, 4096, "float32", 208),
 )
 SCAN_BWD_CASES = (("backward T=64 F=4096 fp32", 64, 4096, "float32", 301),
                   ("backward T=1024 F=4096 fp32", 1024, 4096, "float32", 303))
@@ -245,6 +284,15 @@ B3_GRAD_RTOL = 2e-5
 # torch.profiler has come back without any device event for one window of
 # graph replays on the H100 (torch 2.11, CUDA 12.8), where another run's
 # windows all had theirs; the profile phase profiles such a window again.
+# After many profiled sessions of graph replays in one process (the
+# continuous and speculative phases' profiled runs), a session also loses
+# its first few device events (up to 8 of 168 on that card), a profiler
+# warm-up cycle hands some of its last events to the next cycle, and in a
+# session of a second a host-clock boundary let the last ~100 kernels before
+# it in. So each window's steps follow steps traced in the same session, and
+# only the device events inside the window's device-side range (its
+# record_function's span on the card's own clock) are kept
+# (``_profile_steps``).
 PROFILE_WINDOWS = 3
 # Parity (phase 4): fp32 LM on the card vs the CPU, through up to 32 layers
 # and a head of up to 128256 columns; logits are O(1). The same sources of
@@ -709,6 +757,22 @@ def fused_rnn_cases():
             cases["fused_rnn_stack_int8"].append(("bfloat16", T) + _stack_case(
                 f"int8 {cell} L=4 T={T}", cell, T, 4, 1024, 4, "bfloat16", seed, quant=True))
         seed += 1
+    # The verify shape of speculative decode: the target's layers at T = k,
+    # k = 4 and 8, B = 4, width 1024, in both IO dtypes.
+    for T in VERIFY_KS:
+        for dtype in ("bfloat16", "float32"):
+            for mode in ("sru_identity", "qrnn"):
+                seed += 1
+                cases["fused_rnn_layer"].append((dtype, T) + _layer_case(
+                    f"verify {mode} T={T} d=1024 {dtype}", mode, T, 4, 1024, 1024, dtype, seed))
+            for cell in ("sru", "qrnn"):
+                seed += 1
+                cases["fused_rnn_stack"].append((dtype, T) + _stack_case(
+                    f"verify {cell} L=4 T={T} {dtype}", cell, T, 4, 1024, 4, dtype, seed))
+            seed += 1
+            cases["fused_rnn_stack_int8"].append((dtype, T) + _stack_case(
+                f"verify int8 qrnn L=4 T={T} {dtype}", "qrnn", T, 4, 1024, 4, dtype, seed,
+                quant=True))
     # Ragged: H = 1000 leaves a last lane block of 8 lanes (bf16 and int8)
     # and d = 1000 pads each tap by 8; with fp32 IO, the last CTA of the
     # CUDA-core body has 4 lanes (per-element int8 loads) and the last scale
@@ -1003,13 +1067,15 @@ def phase_continuous():
     return totals
 
 
-def _profile_continuous(cfg, unprofiled):
+def _profile_continuous(cfg, unprofiled, phase="continuous", spec_k=0):
     """Two captured depth-2 Schedulers on ``CONTINUOUS_PROFILE_REQUESTS``
     headline-trace requests: one with the tick trace on, for the host's time
     per tick by phase (span sums per tick); one under torch.profiler, for
     the device time of all device-side events (kernels, copies) per tick,
     against the host's busy time per tick in that run (inflated by the
-    profiler) and in the unprofiled depth-2 headline run."""
+    profiler) and in the unprofiled depth-2 headline run. With ``spec_k``
+    both are speculative with the oracle draft (the target as its own
+    draft) at that k."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1023,7 +1089,8 @@ def _profile_continuous(cfg, unprofiled):
                         dtype=_dtype(cfg.compute_dtype))
     trace = headline_poisson_trace(cfg.vocab, requests=CONTINUOUS_PROFILE_REQUESTS)
     tel = Telemetry(trace=TraceRecorder(capacity=1 << 20))
-    eng = Scheduler(cfg, params, batch=4, async_depth=2, device="cuda", telemetry=tel)
+    spec = dict(draft_cfg=cfg, draft_params=params, spec_k=spec_k) if spec_k else {}
+    eng = Scheduler(cfg, params, batch=4, async_depth=2, device="cuda", telemetry=tel, **spec)
     eng.warmup()
     eng.run(trace)
     spans = {}
@@ -1031,7 +1098,7 @@ def _profile_continuous(cfg, unprofiled):
         if e["ph"] == "X" and e.get("tid") == 1:
             spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e3
     traced_ticks = eng.metrics.ticks
-    eng = Scheduler(cfg, params, batch=4, async_depth=2, device="cuda")
+    eng = Scheduler(cfg, params, batch=4, async_depth=2, device="cuda", **spec)
     eng.warmup()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.run(headline_poisson_trace(cfg.vocab, requests=CONTINUOUS_PROFILE_REQUESTS))
@@ -1041,8 +1108,9 @@ def _profile_continuous(cfg, unprofiled):
     ticks, busy_ms = eng.metrics.ticks, eng.metrics.busy_s * 1e3
     device_per_tick = device_ms / max(ticks, 1)
     tick_ms = unprofiled["busy_s"] * 1e3 / max(unprofiled["ticks"], 1)
-    emit({"phase": "continuous", "arch": cfg.name, "engine": cfg.scan_engine,
-          "run": f"profiled, captured d2, {CONTINUOUS_PROFILE_REQUESTS} requests",
+    what = f", oracle k={spec_k}" if spec_k else ""
+    emit({"phase": phase, "arch": cfg.name, "engine": cfg.scan_engine,
+          "run": f"profiled, captured d2{what}, {CONTINUOUS_PROFILE_REQUESTS} requests",
           "host_ms_per_tick_by_phase": {k: v / max(traced_ticks, 1) for k, v in spans.items()},
           "traced_ticks": traced_ticks,
           "ticks": ticks, "device_ms": device_ms, "busy_ms": busy_ms,
@@ -1050,7 +1118,183 @@ def _profile_continuous(cfg, unprofiled):
           "idle_share_profiled": 1.0 - device_ms / busy_ms if busy_ms else None,
           "ms_per_tick_unprofiled": tick_ms,
           "idle_share_vs_unprofiled": 1.0 - device_per_tick / tick_ms if tick_ms else None})
-    require(device_ms > 0, f"continuous profile {cfg.name}: no device time traced")
+    require(device_ms > 0, f"{phase} profile {cfg.name}: no device time traced")
+
+
+def _spec_row(stats, plain=None):
+    """A continuous run's line fields: the timings and the speculative
+    counters; against ``plain`` tokens, how many streams differ and where
+    each first differs."""
+    row = {"ms_per_tick": stats["busy_s"] / max(stats["ticks"], 1) * 1e3,
+           "ttft_p50_ms": stats["ttft_s"]["p50"] * 1e3, "ttft_p95_ms": stats["ttft_s"]["p95"] * 1e3,
+           "tpot_p50_ms": stats["tpot_s"]["p50"] * 1e3}
+    for k in ("goodput_tok_s", "spec_acceptance_rate", "accepted_tokens_per_cycle",
+              "verify_steps", "draft_steps", "spec_rollbacks", "decode_steps", "prefill_chunks",
+              "ticks", "completed", "requests", "capture_ms", "peak_mem_gb", "cache_in_place",
+              "graphs", "fetch_wait_s", "occupancy_mean"):
+        row[k] = stats.get(k)
+    if plain is not None:
+        first = {}
+        for rid, toks in stats["tokens"].items():
+            ref = plain[rid]
+            if toks != ref:
+                first[rid] = next((i for i, (a, b) in enumerate(zip(toks, ref)) if a != b),
+                                  min(len(toks), len(ref)))
+        row["streams_differing_from_plain"] = len(first)
+        row["first_difference_at"] = sorted(first.values())
+    return row
+
+
+def _spec_fp32(arch, engine):
+    """fp32 compute, captured, depth 2, ``SPEC_FP32_REQUESTS`` requests of
+    the headline trace through the Scheduler: plain, then each draft of
+    ``SPEC_FP32_RUNS``. Required: every stream's tokens equal the plain
+    run's; the oracle rolls back never and accepts everything; the floor
+    rolls back at least once; every request completes; both pools stay."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import Scheduler, clone_trace, headline_poisson_trace
+
+    cfg = _run_cfg(arch, engine).with_(compute_dtype="float32")
+    dcfg = get_config("sru-paper-draft").with_(compute_dtype="float32")
+    params, dparams = (lm.lm_init(torch.Generator(device="cuda").manual_seed(seed), c,
+                                  device="cuda", dtype=torch.float32)
+                       for seed, c in ((0, cfg), (1, dcfg)))
+    trace = headline_poisson_trace(cfg.vocab, requests=SPEC_FP32_REQUESTS)
+    plain = None
+    for run, draft, k, _ in SPEC_FP32_RUNS:
+        what = f"speculative fp32 {arch} {engine} [{run}]"
+        spec = {}
+        if draft:
+            spec = dict(draft_cfg=dcfg if draft == "floor" else cfg,
+                        draft_params=dparams if draft == "floor" else params, spec_k=k)
+        torch.cuda.reset_peak_memory_stats()
+        eng = Scheduler(cfg, params, batch=4, async_depth=2, device="cuda", **spec)
+        eng.warmup()
+        done = eng.run(clone_trace(trace))
+        torch.cuda.synchronize()
+        stats = eng.metrics.report()
+        stats.update(graphs=eng.captured, capture_ms=eng.capture_ms,
+                     peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     cache_in_place=eng.cache_in_place, requests=len(trace),
+                     tokens={r.rid: list(r.tokens) for r in done})
+        row = _spec_row(stats, plain)
+        emit({"phase": "speculative", "arch": arch, "engine": cfg.scan_engine, "run": run,
+              "compute": "float32", "draft": draft, "k": k or None, **row})
+        require(stats["completed"] == len(trace) and eng.cache_in_place and eng.captured,
+                f"{what}: {stats['completed']}/{len(trace)} completed, pools in place "
+                f"{eng.cache_in_place}")
+        if plain is None:
+            plain = stats["tokens"]
+            continue
+        require(row["streams_differing_from_plain"] == 0,
+                f"{what}: {row['streams_differing_from_plain']} streams differ from plain")
+        if draft == "oracle":
+            require(stats["spec_rollbacks"] == 0 and stats["spec_acceptance_rate"] == 1.0,
+                    f"{what}: oracle rolled back {stats['spec_rollbacks']} times, acceptance "
+                    f"{stats['spec_acceptance_rate']}")
+        else:
+            require(stats["spec_rollbacks"] >= 1, f"{what}: the floor draft never rolled back")
+        del eng
+
+
+def phase_speculative():
+    """Speculative decode on the card (``serve --mode continuous
+    --speculative``, B = 4 slots, full width): per config of
+    ``CONTINUOUS_CONFIGS``, the fp32 runs (``_spec_fp32``), then the bf16
+    runs of ``SPEC_BF16_RUNS`` on the headline trace at depth 2, through
+    ``serve.main`` (the oracle, whose draft params are the target's, through
+    ``serve.run_continuous``), every kernel's count set to 0 just before
+    each run and read just after. Required: every request completes; the
+    floor's eager and captured runs give the same tokens; both pools stay
+    where they were allocated; the launches equal the target's steps
+    (prefill chunks, decode steps, verify steps) times its launches a step,
+    plus, for the oracle, the draft's steps (its prefill chunks, the
+    target's here since every lane speculates, and ``draft_steps``) times
+    the same. Reported: how many streams differ from the plain bf16 run.
+    Then one tick-traced and one profiled oracle run per config. Returns
+    the launches summed over the bf16 runs."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.layers import _dtype
+
+    counters = _launch_counters()
+    totals = dict.fromkeys(KERNELS, 0)
+    dev = torch.device("cuda")
+    for arch, engine in CONTINUOUS_CONFIGS:
+        _spec_fp32(arch, engine)
+        extra = ["--engine", engine] if engine else []
+        cfg = _run_cfg(arch, engine)
+        tokens, stats_of = {}, {}
+        for run, draft, k, graphs in SPEC_BF16_RUNS:
+            what = f"speculative {arch} {engine} [{run}]"
+            flags = ["--arch", arch, "--mode", "continuous", "--batch", "4", "--headline-trace",
+                     "--async-depth", "2"] + extra
+            if draft:
+                flags += ["--speculative", "--spec-k", str(k)]
+            buf = io.StringIO()
+            if draft == "oracle":
+                # serve.main with the target's params as the draft's
+                args = serve.parse_args(flags)
+                torch.cuda.reset_peak_memory_stats(dev)
+                params = lm.lm_init(torch.Generator(device=dev).manual_seed(args.seed), cfg,
+                                    device=dev, dtype=_dtype(cfg.compute_dtype))
+                for mod, attr in counters.values():
+                    setattr(mod, attr, 0)
+                with contextlib.redirect_stdout(buf):
+                    stats = serve.run_continuous(cfg, params, args, dev, graphs=graphs,
+                                                 draft_cfg=cfg, draft_params=params)
+                launches = {k_: getattr(mod, attr) for k_, (mod, attr) in counters.items()}
+                stats["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+                stats = json.loads(json.dumps(stats))  # request ids as serve-stats prints them
+                del params
+            else:
+                for mod, attr in counters.values():
+                    setattr(mod, attr, 0)
+                with contextlib.redirect_stdout(buf):
+                    rc = serve.main(flags, graphs=graphs)
+                launches = {k_: getattr(mod, attr) for k_, (mod, attr) in counters.items()}
+                require(rc == 0, f"{what} returned {rc}")
+                line = next(x for x in buf.getvalue().splitlines()
+                            if x.startswith("continuous-stats "))
+                stats = json.loads(line[len("continuous-stats "):])
+            stats_of[run] = stats
+            tokens[run] = stats["tokens"]
+            target_steps = stats["prefill_chunks"] + stats["decode_steps"] + stats["verify_steps"]
+            want = _expected_launches(cfg, target_steps - 1)
+            if draft == "oracle":
+                draft_want = _expected_launches(cfg, stats["prefill_chunks"]
+                                                + stats["draft_steps"] - 1)
+                want = {k_: n + draft_want[k_] for k_, n in want.items()}
+            ok_tokens = all(0 <= t < cfg.vocab for row in tokens[run].values() for t in row)
+            plain = tokens[SPEC_BF16_RUNS[0][0]] if draft else None
+            emit({"phase": "speculative", "arch": arch, "engine": cfg.scan_engine, "run": run,
+                  "compute": "bfloat16", "draft": draft, "k": k or None, "launches": launches,
+                  "expected_launches": want, **_spec_row(stats, plain)})
+            require(stats["graphs"] == graphs, f"{what}: graphs {stats['graphs']}")
+            require(launches == want, f"{what}: launches {launches} != {want} "
+                    f"({stats['prefill_chunks']} prefill chunks, {stats['decode_steps']} decode "
+                    f"steps, {stats['verify_steps']} verify steps, {stats['draft_steps']} draft "
+                    "steps)")
+            require(stats["cache_in_place"], f"{what}: a pool cache leaf moved")
+            require(stats["completed"] == stats["requests"] and ok_tokens,
+                    f"{what}: {stats['completed']}/{stats['requests']} completed, tokens in "
+                    f"vocab {ok_tokens}")
+            require(not draft or stats["verify_steps"] > 0, f"{what}: no verify step")
+            for k_, n in launches.items():
+                totals[k_] += n
+        eager, captured = (tokens[r[0]] for r in SPEC_BF16_RUNS[1:3])
+        same = [rid for rid in eager if eager[rid] == captured.get(rid)]
+        require(len(same) == len(eager) == len(captured),
+                f"speculative {arch} {engine}: eager and captured differ on "
+                f"{len(eager) - len(same)} of {len(eager)} streams")
+        _profile_continuous(cfg, stats_of[SPEC_BF16_RUNS[3][0]], phase="speculative", spec_k=4)
+    emit({"phase": "speculative", "launches": totals})
+    return totals
 
 
 def _tree_bytes(tree) -> int:
@@ -1067,14 +1311,16 @@ def _tree_to(tree, device):
 
 def _profile_steps(cfg, params, prefill, decode, inputs, steps):
     """One prefill, then ``steps`` decode steps untimed, ``steps`` timed on
-    the host clock and ``steps`` under torch.profiler (again, up to
-    PROFILE_WINDOWS windows, while the profiler shows no device event).
-    Returns (host ms per step, [(device us per step, events per step, name)]
-    of the device-side events, whether the caches kept their storage, the
-    caches, the windows profiled)."""
+    the host clock and, in one torch.profiler session, ``steps`` more
+    traced and dropped, then the window: ``steps`` whose device events
+    (those inside the window's range on the card's clock) are kept (again,
+    up to PROFILE_WINDOWS windows, while the profiler shows no device
+    event). Returns (host ms per step, [(device us per step, events per
+    step, name)] of the device-side events, whether the caches kept their
+    storage, the caches, the windows profiled)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.training.graphs import leaves
 
@@ -1095,11 +1341,17 @@ def _profile_steps(cfg, params, prefill, decode, inputs, steps):
     for window in range(1, PROFILE_WINDOWS + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
-        kernels = []  # device-side events only (kernels, copies): no double count
-        for e in prof.key_averages():
-            dev_us = getattr(e, "self_device_time_total", 0.0) or 0.0
-            if e.device_type == DeviceType.CUDA and dev_us > 0:
-                kernels.append((dev_us / steps, e.count / steps, e.key))
+            with record_function("chip_smoke.window"):
+                run()
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        span = [e.time_range for e in device if e.name == "chip_smoke.window"]
+        by_name = {}  # device-side events only (kernels, copies): no double count
+        for e in device:
+            if (span and e.name != "chip_smoke.window" and e.time_range.start >= span[0].start
+                    and e.time_range.end <= span[0].end):
+                us, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        kernels = [(us / steps, n / steps, name) for name, (us, n) in by_name.items() if us > 0]
         if kernels:
             break
     in_place = [t.data_ptr() for t in leaves(caches)] == ptrs
@@ -1130,7 +1382,7 @@ def phase_profile():
         cfg = _run_cfg(arch, engine)
         params = lm.lm_init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda",
                             dtype=_dtype(cfg.compute_dtype))
-        max_len = prompt_len + (2 + PROFILE_WINDOWS) * steps
+        max_len = prompt_len + (2 + 2 * PROFILE_WINDOWS) * steps
         prefill = build_prefill_step(cfg, batch=4, max_len=max_len, device="cuda")
         decode = build_decode_step(cfg)
         inputs = {"inputs": torch.zeros((4, prompt_len), dtype=torch.long, device="cuda")}
@@ -1150,7 +1402,7 @@ def phase_profile():
             if cfg.ssm:  # every cache leaf read and written once per step
                 kv_bytes = 2 * _tree_bytes(caches["layers"])
             elif cfg.cell is None:  # mean valid rows over the profiled steps
-                rows = prompt_len + (1 + windows) * steps + (steps + 1) / 2
+                rows = prompt_len + (1 + 2 * windows) * steps + (steps + 1) / 2
                 kv_bytes = (2 * cfg.n_layers * 4 * rows * cfg.n_kv_heads * cfg.d_head
                             * caches["layers"]["k"].element_size())
             step_bytes = weight_bytes + kv_bytes
@@ -1268,8 +1520,10 @@ def main(argv=None) -> int:
         summaries, launches = results.get("kernels"), results.get("serve")
         if summaries and launches is not None:
             continuous = results.get("continuous") or {}
+            speculative = results.get("speculative") or {}
             for name, s in summaries.items():
-                s["launches"] = launches[name] + continuous.get(name, 0)
+                s["launches"] = (launches[name] + continuous.get(name, 0)
+                                 + speculative.get(name, 0))
                 require(s["launches"] > 0, f"{name}: no launch on the main path")
             emit({"kernels": list(summaries.values())})
         smi = subprocess.run(

@@ -12,6 +12,10 @@
   as in JAX. ``--prefix-cache-mb``, ``--async-depth`` and ``--prefix-share``
   are the JAX flags; ``--headline-trace`` replays the JAX benchmarks'
   seed-pinned trace (``serving/workload.py::HEADLINE_TRACE``) instead.
+  ``--speculative`` turns on speculative multi-token decode: a draft RNN
+  (``--draft-config``, default ``sru-paper-draft``, params from ``--seed`` +
+  1, reduced with ``--reduced``) proposes blocks of ``--spec-k`` tokens that
+  the target verifies in one (B, k) chunk, with the plain greedy tokens.
 
 Runs on the card unless ``--device cpu`` is given:
 
@@ -22,6 +26,9 @@ Runs on the card unless ``--device cpu`` is given:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-large-stacked \\
         --mode continuous --requests 16 --batch 4 --prompt-len 64 --gen-len 32
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qrnn-paper-large-fused \\
+        --mode continuous --headline-trace --speculative --spec-k 4
 
 The port serves every ``paper_rnn`` config (SRU/QRNN/LSTM, the ``*-int8``
 ones included), the dense GQA attention LMs ``llama3-8b`` and
@@ -45,8 +52,8 @@ runs each step as one jitted executable (batch: ``capture_batch_steps``;
 continuous: ``Scheduler.warmup``; the capture's time is ``capture_ms``);
 ``main(argv, graphs=False)`` runs the eager steps instead, for comparison
 (no flag: the JAX script has none for jit). On the CPU the steps run
-eagerly. Speculative decode, the telemetry flags and the mesh flags of the
-JAX ``launch/serve.py`` wait for later slices. Besides the human-readable
+eagerly. The telemetry flags and the mesh flags of the JAX
+``launch/serve.py`` wait for later slices. Besides the human-readable
 lines, a batch run prints one ``serve-stats {json}`` line and a continuous
 run one ``continuous-stats {json}`` line: timings, whether the steps ran as
 graphs, whether the caches kept their storage, the card's peak memory
@@ -222,16 +229,49 @@ def continuous_trace(cfg, args, chunk: int):
         gen_mix=gen_mix, vocab=cfg.vocab, seed=args.seed)
 
 
-def run_continuous(cfg, params, args, device: torch.device, graphs: bool = True) -> dict:
+def draft_model(cfg, args, device: torch.device):
+    """The speculative draft of ``--draft-config`` (reduced with
+    ``--reduced``) and its params from ``--seed`` + 1, as the JAX
+    ``run_continuous`` makes them; ``(None, None)`` without
+    ``--speculative``. A draft with another vocab, or the prefix cache
+    beside it, exits."""
+    if not args.speculative:
+        return None, None
+    draft_cfg = get_config(args.draft_config)
+    if args.reduced:
+        draft_cfg = draft_cfg.reduced()
+    if draft_cfg.vocab != cfg.vocab:
+        raise SystemExit(
+            f"serve: --draft-config {draft_cfg.name!r} has vocab "
+            f"{draft_cfg.vocab} but the target's is {cfg.vocab}; "
+            "speculative acceptance compares token ids, so draft and "
+            "target must share the vocab"
+        )
+    if args.prefix_cache_mb > 0:
+        raise SystemExit(
+            "serve: --speculative and --prefix-cache-mb are mutually "
+            "exclusive (a hit-injected target state has no draft-side "
+            "counterpart)"
+        )
+    params = lm.lm_init(torch.Generator(device=device).manual_seed(args.seed + 1), draft_cfg,
+                        device=device, dtype=_dtype(draft_cfg.compute_dtype))
+    return draft_cfg, params
+
+
+def run_continuous(cfg, params, args, device: torch.device, graphs: bool = True,
+                   draft_cfg=None, draft_params=None) -> dict:
     """The continuous-batching path (JAX ``run_continuous``): the flags'
-    open-loop trace served by a ``Scheduler`` over ``--batch`` slots, its
-    steps captured as CUDA graphs on the card before the run (``graphs``).
-    Returns the engine's metrics report with the capture time, whether the
-    steps ran as graphs and the caches kept their storage, the prefix
-    cache's report, and each request's tokens."""
+    open-loop trace served by a ``Scheduler`` over ``--batch`` slots, with
+    the draft ``draft_cfg``/``draft_params`` if given (speculative decode in
+    blocks of ``--spec-k``), its steps captured as CUDA graphs on the card
+    before the run (``graphs``). Returns the engine's metrics report with
+    the capture time, whether the steps ran as graphs and the caches (the
+    draft's too) kept their storage, the prefix cache's report, the draft
+    and k, and each request's tokens."""
     engine = Scheduler(
         cfg, params, batch=args.batch, chunk=args.chunk, queue_capacity=args.queue_cap,
         prefix_cache_mb=args.prefix_cache_mb, async_depth=args.async_depth,
+        draft_cfg=draft_cfg, draft_params=draft_params, spec_k=args.spec_k,
         device=device, graphs=graphs)
     trace = continuous_trace(cfg, args, engine.chunk)
     engine.warmup()
@@ -244,6 +284,7 @@ def run_continuous(cfg, params, args, device: torch.device, graphs: bool = True)
         capture_ms=engine.capture_ms, cache_in_place=engine.cache_in_place,
         chunk=engine.chunk, async_depth=args.async_depth, requests=len(trace),
         prefix_cache=engine.prefix_cache.report() if engine.prefix_cache else None,
+        speculative={"draft": draft_cfg.name, "k": engine.spec_k} if draft_cfg else None,
         tokens={r.rid: list(r.tokens) for r in trace})
     return rep
 
@@ -266,6 +307,16 @@ def _print_continuous(rep: dict, args) -> None:
         f"fetch wait: {rep['fetch_wait_s']*1e3:.1f}ms "
         f"(async depth {args.async_depth})"
     )
+    spec = rep["speculative"]
+    if spec is not None:
+        print(
+            f"  speculative: draft {spec['draft']} k={spec['k']}  "
+            f"acceptance: {rep['spec_acceptance_rate']*100:.0f}% "
+            f"({rep['spec_accepted']}/{rep['spec_proposed']} draft tokens)  "
+            f"tokens/verify: {rep['accepted_tokens_per_cycle']:.2f}  "
+            f"verify steps: {rep['verify_steps']}  draft steps: "
+            f"{rep['draft_steps']}  rollbacks: {rep['spec_rollbacks']}"
+        )
     pc = rep["prefix_cache"]
     if pc is not None:
         print(
@@ -281,9 +332,9 @@ def _print_continuous(rep: dict, args) -> None:
         print(f"sample tokens (rid {done[0]}):", np.asarray(rep["tokens"][done[0]][:16]))
 
 
-def main(argv=None, graphs: bool = True) -> int:
-    """The command line; ``graphs=False`` serves with the eager steps on the
-    card too (``run_batch``)."""
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line's flags, checked as the JAX ``main`` checks them
+    (``ap.error`` exits)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument(
@@ -347,11 +398,37 @@ def main(argv=None, graphs: bool = True) -> int:
              "(128 requests, 150 req/s, prompt 32, seed 0) in place of the "
              "trace the other flags describe",
     )
+    ap.add_argument(
+        "--speculative", action="store_true",
+        help="continuous mode: speculative multi-token decode (draft RNN "
+             "proposes, target verifies per fused (B, k) chunk; greedy output "
+             "identical to plain decode)",
+    )
+    ap.add_argument(
+        "--draft-config", default="sru-paper-draft",
+        help="speculative mode: registered draft arch (must share the target "
+             "vocab)",
+    )
+    ap.add_argument(
+        "--spec-k", type=int, default=4,
+        help="speculative mode: tokens per drafted block",
+    )
     args = ap.parse_args(argv)
     if args.gen_len < 1 or args.prompt_len < 1 or args.batch < 1:
         ap.error("--batch, --prompt-len and --gen-len must be >= 1")
     if args.mode != "continuous" and args.headline_trace:
         ap.error("--headline-trace requires --mode continuous")
+    if args.speculative and args.mode != "continuous":
+        ap.error("--speculative requires --mode continuous")
+    if args.spec_k < 1:
+        ap.error("--spec-k must be >= 1")
+    return args
+
+
+def main(argv=None, graphs: bool = True) -> int:
+    """The command line; ``graphs=False`` serves with the eager steps on the
+    card too (``run_batch``, ``run_continuous``)."""
+    args = parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.engine:
@@ -377,7 +454,9 @@ def main(argv=None, graphs: bool = True) -> int:
     init_ms = (time.perf_counter() - t0) * 1e3
 
     if args.mode == "continuous":
-        stats = run_continuous(cfg, params, args, device, graphs=graphs)
+        draft_cfg, draft_params = draft_model(cfg, args, device)
+        stats = run_continuous(cfg, params, args, device, graphs=graphs,
+                               draft_cfg=draft_cfg, draft_params=draft_params)
     else:
         stats = run_batch(cfg, params, args, device, graphs=graphs)
     stats["init_ms"] = init_ms

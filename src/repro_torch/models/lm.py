@@ -5,6 +5,7 @@ Entry points:
                                                       slabs when ``cfg.weight_quant == "int8"``)
   * ``lm_init_caches(cfg, batch, max_len, device)``   stacked decode caches
   * ``lm_prefill(params, cfg, batch, caches)``        logits of last pos + caches
+  * ``lm_verify(params, cfg, batch, caches)``         every position's logits + caches
   * ``lm_decode_step(params, cfg, caches, tok)``      one-token serve step
 
 The params tree has the JAX package's keys and layout (``bridge.py``
@@ -198,13 +199,26 @@ def _head(params, cfg, h):
     return logits_apply(layout.cast_params(params["embed"], compute), h)
 
 
+def _prefill_layers(params, cfg, batch, caches):
+    compute = _dtype(cfg.compute_dtype)
+    h = embed_apply(params["embed"], batch["inputs"]).to(compute)
+    return _run_layers(params, cfg, h, caches, decode=False)
+
+
 def lm_prefill(params, cfg, batch, caches):
     """``batch["inputs"]``: (B, T) token ids. Returns the last position's
     logits (B, 1, V_padded) and the new caches."""
-    compute = _dtype(cfg.compute_dtype)
-    h = embed_apply(params["embed"], batch["inputs"]).to(compute)
-    h, caches = _run_layers(params, cfg, h, caches, decode=False)
+    h, caches = _prefill_layers(params, cfg, batch, caches)
     return _head(params, cfg, h[:, -1:]), caches
+
+
+def lm_verify(params, cfg, batch, caches):
+    """``lm_prefill`` that keeps EVERY position's logits (B, T, V_padded):
+    the target half of speculative decode scores a drafted block of T tokens
+    in one chunk on the MTS path. RMSNorm and the head are maps over
+    positions, so row T-1 is what ``lm_prefill`` gives for the chunk."""
+    h, caches = _prefill_layers(params, cfg, batch, caches)
+    return _head(params, cfg, h), caches
 
 
 def lm_decode_step(params, cfg, caches, token):

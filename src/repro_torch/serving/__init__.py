@@ -7,11 +7,10 @@ Public surface:
 * ``SlotPool`` / ``Slot`` / ``SlotState`` — the cache-backed lane pool;
 * ``Scheduler`` — the dispatch/retire tick loop multiplexing streams onto
   one set of fixed-shape steps (CUDA graphs on the card; ``async_depth``
-  double-buffers ticks);
+  double-buffers ticks; ``draft_cfg`` adds speculative decode);
 * ``PrefixCache`` — the prefix-sharing trie of snapshotted stack states;
 * ``EngineMetrics`` — goodput / TTFT / TPOT / occupancy / prefix-hit stats;
-* ``SpecLane`` — per-lane speculative-decode replay queue (kept with the
-  slots; the speculative Scheduler comes with a later slice);
+* ``SpecLane`` — per-lane speculative-decode replay queue;
 * ``poisson_trace`` / ``shared_prefix_trace`` / ``headline_poisson_trace`` /
   ``clone_trace`` — open-loop synthetic traffic.
 """

@@ -57,8 +57,30 @@ the same way, from pinned memory, so dispatch never waits for the device.
 A capture that fails raises: there is no eager fallback on the card. On
 the CPU the eager steps run.
 
-Speculative decode (``draft_cfg``) comes with a later slice (ROADMAP §A3):
-the Scheduler refuses it.
+**Speculative multi-token decode** (``draft_cfg``/``draft_params``/``spec_k``)
+applies the paper's multi-time-step trick at decode time: a low-width draft
+RNN proposes tokens one masked (B, 1) step at a time, and the target scores
+the whole block in ONE (B, k) chunk (``build_verify_step``, the MTS path
+prefill takes). Greedy output stays the plain decode's because acceptance
+is exact: each lane keeps a queue of committed but unconsumed tokens
+(``SpecLane``, r of them), the block replays those r tokens and then the
+draft's proposals, and the per-position argmax yields the true next token
+at position r - 1 plus one more committed token per matching draft
+position. A fully matched block keeps the advanced lane state; any mismatch
+restores both lanes (target and draft) to their pre-block state by one lane
+inject each. The draft mirrors every token the target consumes (prompt
+chunks, tails, the block), so both caches sit at "committed stream minus
+queue". A lane starts a new block only once its previous block has
+retired, so ``async_depth`` > 1 still overlaps the plain lanes' work with
+the host. Speculative mode and the prefix cache exclude each other, and
+``Request.speculative=False`` pins a stream to plain decode.
+
+On the card the draft pool has its own five graphs, the k draft steps of a
+block with their input composition are ONE graph (``build_draft_block_step``),
+and the target's verify step is one more. The pre-block snapshots stay on
+the device: each is copied, right behind the snapshot replay that made it,
+into a rollback buffer allocated once per lane and per pool (at most one
+block per lane is in flight), and a rollback injects from that buffer.
 """
 from __future__ import annotations
 
@@ -77,15 +99,17 @@ from repro_torch.observability import NULL_TELEMETRY, Telemetry
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.queue import Request, RequestQueue
-from repro_torch.serving.slots import Slot, SlotPool, SlotState
+from repro_torch.serving.slots import Slot, SlotPool, SlotState, SpecLane
 from repro_torch.training import graphs as step_graphs
 from repro_torch.training.steps import (
     build_cache_init,
     build_chunk_prefill_step,
+    build_draft_block_step,
     build_lane_inject,
     build_lane_reset,
     build_lane_snapshot,
     build_masked_decode_step,
+    build_verify_step,
 )
 
 # Where a DECODING lane's next input token lives at dispatch time.
@@ -103,7 +127,11 @@ class _TickWork:
     that was recycled under it. ``serial`` is the tick that dispatched this
     work (the id of its ``inflight`` async span). The tensors are host
     copies (pinned, filled asynchronously on the card); ``event`` marks the
-    end of the tick's copies (None on the CPU).
+    end of the tick's copies (None on the CPU). Speculative blocks add the
+    per-position argmax and the composed block tokens, and per lane a
+    ``(slot, request, r, first)`` record for acceptance at retire; their
+    rollback states stay on the device, in the Scheduler's per-lane
+    buffers.
     """
 
     serial: int = 0
@@ -114,11 +142,16 @@ class _TickWork:
     decode_emits: List[Tuple[Slot, Request, bool]] = field(default_factory=list)
     decode_trace: Optional[torch.Tensor] = None
     snapshots: List[Tuple[np.ndarray, object]] = field(default_factory=list)
+    spec_toks: Optional[torch.Tensor] = None
+    spec_chunk: Optional[torch.Tensor] = None
+    spec_trace: Optional[torch.Tensor] = None
+    spec_emits: List[Tuple[Slot, Request, int, bool]] = field(default_factory=list)
     event: Optional[object] = None
 
     @property
     def retirable(self) -> bool:
-        return bool(self.prefill_emits or self.decode_emits or self.snapshots)
+        return bool(self.prefill_emits or self.decode_emits or self.snapshots
+                    or self.spec_emits)
 
 
 class Scheduler:
@@ -135,9 +168,10 @@ class Scheduler:
     steps as CUDA graphs on a CUDA device (the eager steps otherwise, and
     always on the CPU). ``telemetry`` (an ``observability.Telemetry``) turns
     on the tick trace and rolling metrics; absent, every hook is a no-op.
-    ``clock`` is the engine clock (injectable for tests). ``draft_cfg``,
-    ``draft_params`` and ``spec_k`` are the JAX signature's speculative
-    decode, refused until the speculative slice (ROADMAP §A3).
+    ``clock`` is the engine clock (injectable for tests). ``draft_cfg`` and
+    ``draft_params`` (a pure-RNN LM sharing the vocab) turn on speculative
+    decode with blocks of ``spec_k`` tokens; requests opt out one by one
+    with ``Request.speculative=False``.
     """
 
     def __init__(
@@ -170,12 +204,6 @@ class Scheduler:
             )
         if cfg.frontend:
             raise ValueError("continuous batching serves token streams (no frontend)")
-        if draft_cfg is not None:
-            raise NotImplementedError(
-                "speculative decode (draft_cfg) is not ported yet: ROADMAP.md §A3, the "
-                "speculative slice (build_verify_step, lm_verify, the draft/verify "
-                "Scheduler with sru-paper-draft)"
-            )
         if batch < 1:
             raise ValueError("batch (slot count) must be >= 1")
         if async_depth < 1:
@@ -219,7 +247,50 @@ class Scheduler:
         self._decode = build_masked_decode_step(cfg)
         self._snapshot = build_lane_snapshot(cfg)
         self._inject = build_lane_inject(cfg)
-        self._storage = [t.data_ptr() for t in step_graphs.leaves(self.pool.caches)]
+
+        # Speculative decode: a draft pool with its own fixed-shape steps (the
+        # draft is another architecture; the oracle draft, the target as its
+        # own draft, still gets steps of its own over its own pool), the
+        # draft's k-step block, and the target's (B, spec_k) verify step.
+        self.spec_enabled = draft_cfg is not None
+        self.draft_cfg = draft_cfg
+        self.draft_params = draft_params
+        self.spec_k = int(spec_k)
+        self.draft_caches = None
+        if self.spec_enabled:
+            if draft_params is None:
+                raise ValueError("speculative decode needs draft_params")
+            if lm.block_kind(draft_cfg) != "rnn" or draft_cfg.attn_every or draft_cfg.frontend:
+                raise ValueError(
+                    f"draft model {draft_cfg.name!r} must be a pure-RNN token "
+                    "stack (same constraints as the target)"
+                )
+            if draft_cfg.vocab != cfg.vocab:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab} != target vocab "
+                    f"{cfg.vocab}: speculative decode compares token ids"
+                )
+            if self.spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            if self.prefix_cache is not None:
+                raise ValueError(
+                    "speculative decode and the prefix cache are mutually "
+                    "exclusive: a hit-injected target state has no draft-side "
+                    "counterpart, so the draft could not mirror the stream"
+                )
+            self.draft_caches = build_cache_init(draft_cfg, batch=batch, device=self.device)()
+            self._d_reset = build_lane_reset(draft_cfg)
+            self._d_prefill = build_chunk_prefill_step(draft_cfg, chunk=self.chunk)
+            self._d_decode = build_masked_decode_step(draft_cfg)
+            self._d_snapshot = build_lane_snapshot(draft_cfg)
+            self._d_inject = build_lane_inject(draft_cfg)
+            self._d_block = build_draft_block_step(draft_cfg, k=self.spec_k)
+            self._verify = build_verify_step(cfg, chunk=self.spec_k)
+            # Rollback buffers: one pre-block state per lane and per pool,
+            # written right behind each snapshot.
+            self._rollback = [self._lane_buffer(self.pool.caches) for _ in range(batch)]
+            self._d_rollback = [self._lane_buffer(self.draft_caches) for _ in range(batch)]
+        self._storage = [t.data_ptr() for t in self._pool_leaves()]
 
     # -- host <-> device -----------------------------------------------------
 
@@ -243,11 +314,27 @@ class Scheduler:
         host.copy_(t, non_blocking=True)
         return host
 
+    def _pool_leaves(self) -> List[torch.Tensor]:
+        return step_graphs.leaves(self.pool.caches) + step_graphs.leaves(self.draft_caches)
+
     @property
     def cache_in_place(self) -> bool:
-        """Whether every pool cache leaf still lies where it was allocated
-        (the graphs replay over these addresses)."""
-        return [t.data_ptr() for t in step_graphs.leaves(self.pool.caches)] == self._storage
+        """Whether every cache leaf of the pool (and of the draft's pool)
+        still lies where it was allocated (the graphs replay over these
+        addresses)."""
+        return [t.data_ptr() for t in self._pool_leaves()] == self._storage
+
+    @staticmethod
+    def _lane_buffer(caches):
+        """A tree shaped as one lane's state (``build_lane_snapshot``)."""
+        return tree_map(lambda t: t.new_empty(t[:, 0].shape), caches)
+
+    def _snapshot_into(self, snapshot, caches, lane: int, buffer) -> None:
+        """Lane ``lane``'s state into ``buffer``, copied on the device right
+        behind the snapshot (a graph's next replay overwrites its output)."""
+        state = snapshot(caches, self._lanes[lane])
+        with torch.inference_mode():
+            tree_map(lambda dst, src: dst.copy_(src), buffer, state)
 
     # -- clock ---------------------------------------------------------------
 
@@ -286,48 +373,80 @@ class Scheduler:
                 self._warmup_eager()
 
     def _static_args(self):
-        """Zero example arguments of the steps, on the device."""
+        """Zero example arguments of the steps, on the device: the lane
+        mask, a chunk, a token, a lane, and a block's tokens and sources."""
         dev = self.device
         return (torch.zeros((self.batch,), dtype=torch.bool, device=dev),
                 torch.zeros((self.batch, self.chunk), dtype=torch.int64, device=dev),
                 torch.zeros((self.batch, 1), dtype=torch.int64, device=dev),
-                torch.zeros((), dtype=torch.int64, device=dev))
+                torch.zeros((), dtype=torch.int64, device=dev),
+                torch.zeros((self.batch, self.spec_k), dtype=torch.int64, device=dev),
+                torch.zeros((self.batch, self.spec_k), dtype=torch.bool, device=dev))
+
+    def _pool_steps(self, draft: bool = False) -> tuple:
+        """One pool's five steps (reset, prefill, decode, snapshot, inject)
+        with its params and caches: the target's, or the draft's."""
+        if draft:
+            return ((self._d_reset, self._d_prefill, self._d_decode, self._d_snapshot,
+                     self._d_inject), self.draft_params, self.draft_caches)
+        return ((self._reset, self._prefill, self._decode, self._snapshot, self._inject),
+                self.params, self.pool.caches)
 
     def _warmup_eager(self) -> None:
-        mask, tokens, token, lane = self._static_args()
-        caches = self._reset(self.pool.caches, mask)
-        self._prefill(self.params, caches, tokens, mask)
-        self._decode(self.params, caches, token, mask)
-        if self.prefix_cache is not None:
-            self._inject(caches, lane, self._snapshot(caches, lane))
+        mask, tokens, token, lane, block, src = self._static_args()
+        for draft in ([False, True] if self.spec_enabled else [False]):
+            (reset, prefill, decode, snapshot, inject), params, caches = self._pool_steps(draft)
+            reset(caches, mask)
+            prefill(params, caches, tokens, mask)
+            decode(params, caches, token, mask)
+            if self.prefix_cache is not None or self.spec_enabled:
+                inject(caches, lane, snapshot(caches, lane))
+        if self.spec_enabled:
+            self._d_block(self.draft_params, self.draft_caches, block, src, mask)
+            self._verify(self.params, self.pool.caches, block, mask)
 
-    def _capture(self) -> None:
-        torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        caches, params = self.pool.caches, self.params
-        mask, tokens, token, lane = self._static_args()
+    def _capture_pool(self, draft: bool) -> list:
+        """Warm up, then capture, one pool's five steps; returns the
+        captured steps in ``_pool_steps`` order."""
+        (reset, prefill, decode, snapshot, inject), params, caches = self._pool_steps(draft)
+        mask, tokens, token, lane, _, _ = self._static_args()
         with torch.inference_mode():
-            state = tree_map(torch.clone, self._snapshot(caches, lane))
+            state = tree_map(torch.clone, snapshot(caches, lane))
 
         def no_params(step):
             return lambda _, *args: step(*args)
 
-        step_graphs.warm_up(no_params(self._reset), None, caches, mask)
-        step_graphs.warm_up(self._prefill, params, caches, tokens, mask)
-        step_graphs.warm_up(self._decode, params, caches, token, mask)
-        step_graphs.warm_up(no_params(self._snapshot), None, caches, lane)
-        step_graphs.warm_up(no_params(self._inject), None, caches, lane, state)
-        # Each graph gets a memory pool of its own: the engine replays them
-        # in an order that changes from tick to tick, so no graph may
-        # allocate where another's outputs live. The steps are replaced only
-        # once all five are captured.
+        step_graphs.warm_up(no_params(reset), None, caches, mask)
+        step_graphs.warm_up(prefill, params, caches, tokens, mask)
+        step_graphs.warm_up(decode, params, caches, token, mask)
+        step_graphs.warm_up(no_params(snapshot), None, caches, lane)
+        step_graphs.warm_up(no_params(inject), None, caches, lane, state)
         capture = step_graphs.capture
-        (self._reset, self._prefill, self._decode, self._snapshot, self._inject) = (
-            capture(self._reset, caches, mask),
-            capture(self._prefill, params, caches, tokens, mask),
-            capture(self._decode, params, caches, token, mask),
-            capture(self._snapshot, caches, lane),
-            capture(self._inject, caches, lane, state))
+        return [capture(reset, caches, mask), capture(prefill, params, caches, tokens, mask),
+                capture(decode, params, caches, token, mask), capture(snapshot, caches, lane),
+                capture(inject, caches, lane, state)]
+
+    def _capture(self) -> None:
+        """Each graph gets a memory pool of its own: the engine replays them
+        in an order that changes from tick to tick, so no graph may allocate
+        where another's outputs live. The steps are replaced only once every
+        graph is captured."""
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        target = self._capture_pool(draft=False)
+        if self.spec_enabled:
+            mask, _, _, _, block, src = self._static_args()
+            draft = self._capture_pool(draft=True)
+            step_graphs.warm_up(self._d_block, self.draft_params, self.draft_caches, block, src,
+                                mask)
+            step_graphs.warm_up(self._verify, self.params, self.pool.caches, block, mask)
+            d_block = step_graphs.capture(self._d_block, self.draft_params, self.draft_caches,
+                                          block, src, mask)
+            verify = step_graphs.capture(self._verify, self.params, self.pool.caches, block, mask)
+            (self._d_reset, self._d_prefill, self._d_decode, self._d_snapshot,
+             self._d_inject) = draft
+            self._d_block, self._verify = d_block, verify
+        (self._reset, self._prefill, self._decode, self._snapshot, self._inject) = target
         torch.cuda.synchronize(self.device)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.captured = True
@@ -415,9 +534,12 @@ class Scheduler:
         if self.tel.metrics_writer is not None:
             self.tel.metrics_writer.write(row)
 
-    def _trace_rows(self, logits: torch.Tensor, emits) -> torch.Tensor:
-        rows = self._to_device(np.asarray([s.lane for s, _, _ in emits], np.int64))
-        return self._to_host(logits.index_select(0, rows)[:, -1].float())
+    def _trace_rows(self, logits: torch.Tensor, emits, last: bool = True) -> torch.Tensor:
+        """The emitting lanes' logits rows, on their way to the host: the
+        last position's, or (``last=False``, a verify block) every one."""
+        rows = self._to_device(np.asarray([e[0].lane for e in emits], np.int64))
+        picked = logits.index_select(0, rows)
+        return self._to_host((picked[:, -1] if last else picked).float())
 
     def _dispatch(self) -> Optional[_TickWork]:
         """Host -> device half of a tick: admission and step dispatch, no
@@ -434,6 +556,7 @@ class Scheduler:
         # start prefill at the cached boundary. Zero-length prompts have
         # nothing to prefill: they seed with BOS and decode at once.
         admit_mask = np.zeros((self.batch,), bool)
+        d_admit_mask = np.zeros((self.batch,), bool)
         hits: List[Tuple[int, object]] = []
         with tr.span("admit") as admit_span:
             for lane in self.pool.free_lanes():
@@ -443,6 +566,9 @@ class Scheduler:
                 slot = self.pool.slots[lane]
                 slot.assign(req)
                 self.metrics.on_admit(req, now)
+                if self.spec_enabled and req.speculative is not False:
+                    slot.spec = SpecLane()
+                    d_admit_mask[lane] = True
                 boundary, state = 0, None
                 if self.prefix_cache is not None and req.prompt_len:
                     boundary, state = self.prefix_cache.lookup(req.prompt)
@@ -461,10 +587,16 @@ class Scheduler:
                     slot.state = SlotState.DECODING
                     slot.last_token = self._seed_token
                     slot.fb_src = SRC_HOST
+                    if slot.spec is not None:
+                        # the seed is committed (an input, not an emission)
+                        # but unconsumed: the first verify block replays it
+                        slot.spec.queue = [self._seed_token]
             if admit_mask.any():
                 admit_span.arg("cold", int(admit_mask.sum()))
                 with self.tel.annotate("reset"):
                     self._reset(self.pool.caches, self._to_device(admit_mask))
+            if d_admit_mask.any():
+                self._d_reset(self.draft_caches, self._to_device(d_admit_mask))
         if hits:
             with tr.span("inject", lanes=len(hits)), self.tel.annotate("inject"):
                 for lane, state in hits:
@@ -489,12 +621,21 @@ class Scheduler:
                 for s in chunk_slots:
                     tokens[s.lane] = s.req.prompt[s.pos : s.pos + self.chunk]
                     mask[s.lane] = True
+                tokens_d = self._to_device(tokens)
                 with self.tel.annotate("prefill"):
                     pre_nxt, logits, _ = self._prefill(
-                        self.params, self.pool.caches, self._to_device(tokens),
-                        self._to_device(mask))
+                        self.params, self.pool.caches, tokens_d, self._to_device(mask))
                 self.metrics.prefill_chunks += 1
                 self.metrics.prefill_lane_chunks += len(chunk_slots)
+                # the draft mirrors every prompt token a speculative lane
+                # consumes (the same chunk, its lanes only), so both caches
+                # stay at "committed stream minus queue"
+                d_mask = np.zeros((self.batch,), bool)
+                for s in chunk_slots:
+                    d_mask[s.lane] = s.spec is not None
+                if d_mask.any():
+                    self._d_prefill(self.draft_params, self.draft_caches, tokens_d,
+                                    self._to_device(d_mask))
                 for s in chunk_slots:
                     s.pos += self.chunk
                     if self.prefix_cache is not None and self.prefix_cache.wants(
@@ -531,8 +672,11 @@ class Scheduler:
         tok_host = np.zeros((self.batch, 1), np.int64)
         src = np.zeros((self.batch,), np.int64)
         mask = np.zeros((self.batch,), bool)
+        d_tail_mask = np.zeros((self.batch,), bool)
         for s in self.pool:
             if s.state is SlotState.DECODING:
+                if s.spec is not None:
+                    continue  # speculative lanes advance by draft/verify blocks
                 if len(s.req.tokens) + s.pending >= s.req.max_new_tokens:
                     continue  # all remaining emissions already in flight
                 mask[s.lane] = True
@@ -548,6 +692,7 @@ class Scheduler:
                 tok_host[s.lane, 0] = s.req.prompt[s.pos]
                 s.pos += 1
                 mask[s.lane] = True
+                d_tail_mask[s.lane] = s.spec is not None  # the draft mirrors the tail
                 if s.prompt_remaining == 0:
                     # this tail token is the prompt's last: the step's output
                     # is the stream's first sample
@@ -558,7 +703,7 @@ class Scheduler:
                     s.fb_src = SRC_DECODE
         if mask.any():
             with tr.span("decode", lanes=int(mask.sum())):
-                tok = self._to_device(tok_host)
+                tok = tok_host_d = self._to_device(tok_host)
                 if (src != SRC_HOST).any():
                     src_d = self._to_device(src)
                     zeros = torch.zeros_like(src_d)
@@ -576,7 +721,13 @@ class Scheduler:
                     work.decode_nxt = self._to_host(nxt)
                     if self.trace_logits:
                         work.decode_trace = self._trace_rows(logits, work.decode_emits)
+        if d_tail_mask.any():
+            with tr.span("draft"), self.tel.annotate("draft"):
+                self._d_decode(self.draft_params, self.draft_caches, tok_host_d,
+                               self._to_device(d_tail_mask))
+                self.metrics.draft_steps += 1
 
+        self._dispatch_spec(work)
         self.metrics.on_tick(self.pool.occupancy(), len(self.queue))
         if not work.retirable:
             return None
@@ -584,6 +735,66 @@ class Scheduler:
             work.event = torch.cuda.Event()
             work.event.record()
         return work
+
+    def _dispatch_spec(self, work: _TickWork) -> None:
+        """Draft-propose and target-verify one speculative block per ready
+        lane. A lane is ready when its previous block has retired
+        (``pending == 0``: acceptance needs the block's argmax on the host
+        before the next block's tokens can be composed). The block's k
+        positions are the lane's queue (r committed tokens, known to the
+        host) and then k - r draft proposals; the draft consumes the same k
+        tokens the verify chunk does, so on a full accept both lanes advance
+        in lockstep. The pre-block states are kept only where a rejection is
+        possible (r < k; a pure replay always accepts)."""
+        if not self.spec_enabled:
+            return
+        spec_slots = [
+            s
+            for s in self.pool
+            if s.state is SlotState.DECODING
+            and s.spec is not None
+            and s.pending == 0
+            and s.spec.queue
+            and len(s.req.tokens) < s.req.max_new_tokens
+        ]
+        if not spec_slots:
+            return
+        tr = self.tel.trace
+        k = self.spec_k
+        host_toks = np.zeros((self.batch, k), np.int64)
+        host_src = np.zeros((self.batch, k), bool)
+        mask = np.zeros((self.batch,), bool)
+        snap_lanes = []
+        for s in spec_slots:
+            r = len(s.spec.queue)
+            host_toks[s.lane, :r] = s.spec.queue
+            host_src[s.lane, :r] = True
+            mask[s.lane] = True
+            if r < k:
+                snap_lanes.append(s.lane)
+            work.spec_emits.append((s, s.req, r, len(s.req.tokens) == 0))
+            s.pending += 1
+            self.metrics.spec_cycles += 1
+            self.metrics.spec_proposed += k - r
+        if snap_lanes:
+            with tr.span("snapshot", lanes=len(snap_lanes)), self.tel.annotate("snapshot"):
+                for lane in snap_lanes:
+                    self._snapshot_into(self._snapshot, self.pool.caches, lane,
+                                        self._rollback[lane])
+                    self._snapshot_into(self._d_snapshot, self.draft_caches, lane,
+                                        self._d_rollback[lane])
+        mask_d = self._to_device(mask)
+        with tr.span("draft", lanes=len(spec_slots), k=k), self.tel.annotate("draft"):
+            block = self._d_block(self.draft_params, self.draft_caches,
+                                  self._to_device(host_toks), self._to_device(host_src), mask_d)
+            self.metrics.draft_steps += k
+        with tr.span("verify", lanes=len(spec_slots), k=k), self.tel.annotate("verify"):
+            v_toks, v_logits, _ = self._verify(self.params, self.pool.caches, block, mask_d)
+            self.metrics.verify_steps += 1
+            work.spec_toks = self._to_host(v_toks)
+            work.spec_chunk = self._to_host(block)
+            if self.trace_logits:
+                work.spec_trace = self._trace_rows(v_logits, work.spec_emits, last=False)
 
     def _retire(self, work: _TickWork, finished: List[Request]) -> None:
         """Device -> host half of a tick: wait for the tick's copies, then
@@ -594,6 +805,7 @@ class Scheduler:
             serial=work.serial,
             decode=len(work.decode_emits),
             prefill=len(work.prefill_emits),
+            spec=len(work.spec_emits),
             snapshots=len(work.snapshots),
         ):
             if work.event is not None:
@@ -602,11 +814,15 @@ class Scheduler:
             dec_h = work.decode_nxt.numpy() if work.decode_emits else None
             pre_tr = work.prefill_trace.numpy() if work.prefill_trace is not None else None
             dec_tr = work.decode_trace.numpy() if work.decode_trace is not None else None
+            spec_h = work.spec_toks.numpy() if work.spec_emits else None
+            spec_blk = work.spec_chunk.numpy() if work.spec_emits else None
+            spec_tr = work.spec_trace.numpy() if work.spec_trace is not None else None
         self.metrics.fetch_wait_s += time.perf_counter() - t0
         for prefix, state in work.snapshots:
             self.prefix_cache.insert(prefix, state)
         self._apply_emits(work.prefill_emits, pre_h, pre_tr, finished)
         self._apply_emits(work.decode_emits, dec_h, dec_tr, finished)
+        self._apply_spec_emits(work.spec_emits, spec_h, spec_blk, spec_tr, finished)
 
     def _apply_emits(self, emits, nxt_h, trace_h, finished: List[Request]) -> None:
         now = self._now()
@@ -619,6 +835,10 @@ class Scheduler:
             tok = int(nxt_h[slot.lane])
             slot.last_token = tok
             req.tokens.append(tok)
+            if slot.spec is not None:
+                # a first token from prefill or a tail: committed but not yet
+                # consumed; the lane's first verify block replays it
+                slot.spec.queue.append(tok)
             self.metrics.on_token(req, now, first)
             if trace_h is not None:
                 self.logit_trace.setdefault(req.rid, []).append(trace_h[i])
@@ -626,6 +846,68 @@ class Scheduler:
                 slot.state = SlotState.DRAINING
                 self.metrics.on_finish(req, now)
                 finished.append(req)
+
+    def _apply_spec_emits(self, emits, toks_h, block_h, trace_h,
+                          finished: List[Request]) -> None:
+        """Accept a retired speculative block per lane: emission 1 is the
+        argmax at the last replayed position (always committed: its whole
+        input prefix was), and each draft position matching the previous
+        emission commits one more. A fully matched block keeps the advanced
+        lane state; otherwise both lanes (target and draft) are restored
+        from their rollback buffers and the new emissions join the replay
+        queue. A finish (budget or EOS) inside a block drops the surplus
+        emissions into ``spec_discarded_tokens``: they never reach the
+        stream, its timings or goodput."""
+        now = self._now()
+        k = self.spec_k
+        for i, (slot, req, r, first) in enumerate(emits):
+            if slot.req is not req:
+                continue  # lane recycled under the block
+            slot.pending -= 1
+            if slot.state is not SlotState.DECODING:
+                continue  # cancel landed at an earlier retire: discard
+            out = toks_h[slot.lane]
+            blk = block_h[slot.lane]
+            emitted = [int(out[r - 1])]
+            for p in range(r, k):
+                if int(blk[p]) != emitted[-1]:
+                    break
+                emitted.append(int(out[p]))
+            full_accept = len(emitted) == k - r + 1
+            self.metrics.spec_accepted += len(emitted) - 1
+            self.tel.trace.instant("spec_accept", rid=req.rid, accepted=len(emitted) - 1,
+                                   proposed=k - r, full=int(full_accept))
+            kept = emitted[: req.max_new_tokens - len(req.tokens)]
+            if self.eos_id is not None and self.eos_id in kept:
+                kept = kept[: kept.index(self.eos_id) + 1]
+            self.metrics.spec_discarded_tokens += len(emitted) - len(kept)
+            for j, tok in enumerate(kept):
+                slot.last_token = tok
+                req.tokens.append(tok)
+                self.metrics.on_token(req, now, first and j == 0)
+                self.metrics.spec_emitted_tokens += 1
+                if trace_h is not None:
+                    self.logit_trace.setdefault(req.rid, []).append(trace_h[i, r - 1 + j])
+            if len(req.tokens) >= req.max_new_tokens or (
+                self.eos_id is not None and kept and kept[-1] == self.eos_id
+            ):
+                slot.state = SlotState.DRAINING
+                self.metrics.on_finish(req, now)
+                finished.append(req)
+            elif full_accept:
+                # the block the lanes consumed was all committed tokens: keep
+                # the advanced state; only the bonus emission is pending
+                slot.spec.queue = [emitted[-1]]
+            else:
+                # a draft token in the consumed block was wrong: restore both
+                # lanes to their pre-block state and replay the grown queue
+                # (r + new emissions <= k)
+                self.metrics.spec_rollbacks += 1
+                self.tel.trace.instant("spec_rollback", rid=req.rid)
+                lane = self._lanes[slot.lane]
+                self._inject(self.pool.caches, lane, self._rollback[slot.lane])
+                self._d_inject(self.draft_caches, lane, self._d_rollback[slot.lane])
+                slot.spec.queue = slot.spec.queue + kept
 
     # -- run loop ------------------------------------------------------------
 

@@ -3,8 +3,8 @@ path's ``build_prefill_step`` and ``build_decode_step``, and the fixed-shape
 lane-masked steps of continuous batching (``serving/engine.py``).
 
 Each builder closes over the config and returns a plain function that runs
-under ``torch.inference_mode()``. The verify step of speculative decode and
-the training steps come with later slices.
+under ``torch.inference_mode()``. The training steps come with a later
+slice.
 """
 from __future__ import annotations
 
@@ -116,6 +116,54 @@ def build_chunk_prefill_step(cfg, *, chunk: int):
             return _greedy(cfg, logits), logits, caches
 
     return prefill_step
+
+
+def build_verify_step(cfg, *, chunk: int):
+    """Speculative-block verification: ``(params, caches, tokens (B, chunk)
+    int64, lane_mask (B,) bool) -> (per_pos_tok (B, chunk), logits (B, chunk,
+    V), caches)``. The drafted block rides the chunk-prefill path
+    (``lm_verify`` keeps every position's logits), and ``per_pos_tok[:, i]``
+    is the greedy sample after ``tokens[:, : i + 1]``, so acceptance is
+    decided from one (B, chunk) array. Masked lanes keep their cache bits; a
+    rejected lane is restored from its pre-block snapshot
+    (``build_lane_snapshot`` / ``build_lane_inject``)."""
+
+    def verify_step(params, caches, tokens, lane_mask):
+        if tokens.shape[-1] != chunk:
+            raise ValueError(f"verify: tokens {tuple(tokens.shape)}, chunk {chunk}")
+        with torch.inference_mode():
+            logits, new = lm.lm_verify(params, cfg, {"inputs": tokens}, caches)
+            _copy_into(caches, rnn.rnn_cache_merge_lanes(caches, new, lane_mask))
+            return torch.argmax(logits[..., : cfg.vocab], dim=-1), logits, caches
+
+    return verify_step
+
+
+def build_draft_block_step(cfg, *, k: int):
+    """The draft half of a speculative block as one step: ``(params, caches,
+    host_toks (B, k) int64, host_src (B, k) bool, lane_mask (B,) bool) ->
+    block (B, k) int64``. It runs k masked one-token steps of the draft; the
+    input at position p is ``host_toks[:, p]`` where ``host_src[:, p]`` (a
+    lane's committed, unconsumed queue), else the draft's own output of the
+    step before, chosen on the device. ``block`` holds the k tokens the
+    draft consumed: the verify chunk's input. The JAX Scheduler runs these
+    k steps one by one (``repro/serving/engine.py::_dispatch_spec``); as
+    one step they are one CUDA graph on the card."""
+    decode = build_masked_decode_step(cfg)
+
+    def draft_block_step(params, caches, host_toks, host_src, lane_mask):
+        if host_toks.shape[-1] != k:
+            raise ValueError(f"draft block: tokens {tuple(host_toks.shape)}, k {k}")
+        with torch.inference_mode():
+            prev = torch.zeros_like(host_toks[:, 0])
+            cols = []
+            for p in range(k):
+                col = torch.where(host_src[:, p], host_toks[:, p], prev)
+                cols.append(col)
+                prev, _, _ = decode(params, caches, col[:, None], lane_mask)
+            return torch.stack(cols, dim=1)
+
+    return draft_block_step
 
 
 def build_lane_reset(cfg):

@@ -46,6 +46,14 @@ depth 1 and 2 on a shared-prefix trace with the prefix cache on, the same
 tokens and logits bit for bit, the launches its steps account for, the pool
 kept where it is; two lanes snapshotted, then two injected, in one tick,
 every state kept; and a capture that fails raising, with no eager fallback.
+And speculative decode (the draft pool's graphs, the k-step draft block as
+one graph, the target's verify graph): the captured speculative Scheduler
+against the eager one at depth 1 and 2, fp32 and bf16, for the same four
+configs with the floor draft, tokens, logits rows and counters bit for bit,
+rollbacks, launches, both pools in place; the draft block graph against k
+replays of the draft's one-step graph, bit for bit; two rollbacks in one
+tick after the snapshot graph replayed again, both lanes restored bit for
+bit; and a verify step that cannot be captured raising.
 
 They skip, with that reason, on a machine without a CUDA device (decided in
 the ``device`` fixture, not at import) and run on the card with
@@ -74,7 +82,8 @@ from repro_torch.kernels.ssd.ref import ssd_ref
 from repro_torch.launch import serve
 from repro_torch.models import lm
 from repro_torch.models.layers import _dtype
-from repro_torch.serving import Request, Scheduler, clone_trace, shared_prefix_trace
+from repro_torch.serving import (Request, Scheduler, clone_trace, poisson_trace,
+                                 shared_prefix_trace)
 from repro_torch.training import graphs
 from repro_torch.training.steps import build_decode_step, build_prefill_step
 
@@ -1372,3 +1381,157 @@ def test_scheduler_capture_failure_raises(device):
     with pytest.raises(RuntimeError, match="capturing"):
         eng.tick()
     assert eng.metrics.ticks == 0
+
+
+# ---------------------------------------------------------------------------
+# Speculative decode: the draft pool's graphs, the draft block, the verify
+# ---------------------------------------------------------------------------
+
+def _spec_case(device, case, dtype):
+    """The target of ``case`` and the floor draft (``sru-paper-draft``, seed
+    1), both computing in ``dtype``."""
+    arch, engine, overrides = ENGINE_GRAPH_CASES[case]
+    cfg = get_config(arch).with_(compute_dtype=dtype, **overrides)
+    if engine:
+        cfg = cfg.with_(scan_engine=engine)
+    dcfg = get_config("sru-paper-draft").with_(compute_dtype=dtype)
+    made = [lm.lm_init(torch.Generator(device=device).manual_seed(seed), c, device=device,
+                       dtype=_dtype(dtype)) for seed, c in ((0, cfg), (1, dcfg))]
+    return cfg, made[0], dcfg, made[1]
+
+
+def _spec_engine(device, cfg, params, dcfg, dparams, trace, **kw):
+    eng = Scheduler(cfg, params, batch=4, trace_logits=True, clock=_TickClock(), device=device,
+                    draft_cfg=dcfg, draft_params=dparams, spec_k=4, **kw)
+    eng.warmup()
+    with graphs.uncounted() as launches:
+        eng.run(clone_trace(trace), max_ticks=4000)
+    torch.cuda.synchronize()
+    return eng, launches
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(ENGINE_GRAPH_CASES))
+@pytest.mark.parametrize("depth", [1, 2])
+def test_captured_speculative_scheduler_matches_the_eager_one(device, case, depth, dtype):
+    """A Poisson trace (prompts of 5, 40 and 70: tails, chunks and chunks
+    with a tail) through the eager and the captured speculative Scheduler,
+    both at ``depth`` (a lane speculates every other tick at depth 2, so the
+    counters depend on it), floor draft, k = 4: every stream's tokens and
+    traced logits rows bit for bit, the same speculative counters, rollbacks,
+    each run's launches equal to the target's prefill chunks, decode steps
+    and verify steps times its layers (the draft runs no kernel of ours),
+    both pools kept where they were allocated."""
+    cfg, params, dcfg, dparams = _spec_case(device, case, dtype)
+    trace = poisson_trace(10, rate=0.0, prompt_lens=[5, 40, 70], vocab=cfg.vocab, seed=4,
+                          gen_mix=((4, 0.5), (12, 0.5)))
+    eager, eager_launches = _spec_engine(device, cfg, params, dcfg, dparams, trace,
+                                         graphs=False, async_depth=depth)
+    captured, launches = _spec_engine(device, cfg, params, dcfg, dparams, trace,
+                                      async_depth=depth)
+    assert not eager.captured and captured.captured and captured.capture_ms > 0
+    counters = ("verify_steps", "draft_steps", "spec_cycles", "spec_accepted", "spec_rollbacks",
+                "decode_steps", "prefill_chunks")
+    reps = [eng.metrics.report() for eng in (eager, captured)]
+    assert {c: reps[0][c] for c in counters} == {c: reps[1][c] for c in counters}
+    assert reps[1]["spec_rollbacks"] > 0 and reps[1]["completed"] == len(trace)
+    for eng, counted, rep in ((eager, eager_launches, reps[0]), (captured, launches, reps[1])):
+        assert eng.cache_in_place and eng.idle
+        assert sum(counted) == cfg.n_layers * (rep["prefill_chunks"] + rep["decode_steps"]
+                                               + rep["verify_steps"])
+    for rid in range(len(trace)):
+        assert eager.logit_trace[rid] and len(eager.logit_trace[rid]) == \
+            len(captured.logit_trace[rid])
+        for a, b in zip(eager.logit_trace[rid], captured.logit_trace[rid]):
+            assert np.array_equal(a, b), rid
+
+
+def _random_pool(device, caches, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.inference_mode():
+        for leaf in graphs.leaves(caches):
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device=device).to(leaf.dtype))
+    return [t.clone() for t in graphs.leaves(caches)]
+
+
+def test_draft_block_graph_equals_k_single_step_calls(device):
+    """The draft block (k = 4 steps and their input choice, one graph)
+    against four replays of the draft's captured one-step graph with each
+    column chosen the same way: the same block and the same draft caches,
+    bit for bit, from the same random pool; lane 2, outside the mask, keeps
+    its bits."""
+    cfg, params, dcfg, dparams = _spec_case(device, "fused", "bfloat16")
+    eng = Scheduler(cfg, params, batch=4, device=device, draft_cfg=dcfg, draft_params=dparams,
+                    spec_k=4)
+    eng.warmup()
+    start = _random_pool(device, eng.draft_caches, 5)
+    toks = torch.randint(0, cfg.vocab, (4, 4), device=device)
+    src = torch.arange(4, device=device)[None, :] < torch.tensor([[1], [4], [2], [3]],
+                                                                  device=device)
+    mask = torch.tensor([True, True, False, True], device=device)
+    with graphs.uncounted():
+        block = eng._d_block(dparams, eng.draft_caches, toks, src, mask).clone()
+        after_block = [t.clone() for t in graphs.leaves(eng.draft_caches)]
+        with torch.inference_mode():
+            for leaf, s in zip(graphs.leaves(eng.draft_caches), start):
+                leaf.copy_(s)
+        prev, cols = torch.zeros(4, dtype=torch.int64, device=device), []
+        for p in range(4):
+            col = torch.where(src[:, p], toks[:, p], prev)
+            cols.append(col)
+            prev = eng._d_decode(dparams, eng.draft_caches, col[:, None], mask)[0].clone()
+    torch.cuda.synchronize()
+    assert torch.equal(block, torch.stack(cols, 1))
+    for a, b, s in zip(graphs.leaves(eng.draft_caches), after_block, start):
+        assert torch.equal(a, b) and torch.equal(a[:, 2], s[:, 2])
+    assert eng.cache_in_place
+
+
+def test_two_rollbacks_in_one_tick_restore_both_lanes(device):
+    """Lanes 1 and 3 snapshotted into their rollback buffers (both pools),
+    the snapshot graphs replayed once more for lane 0, both pools then
+    overwritten: injecting the two buffers restores lanes 1 and 3 bit for
+    bit and leaves lanes 0 and 2 as they were overwritten; both pools stay
+    where they were allocated."""
+    cfg, params, dcfg, dparams = _spec_case(device, "stacked_int8", "bfloat16")
+    eng = Scheduler(cfg, params, batch=4, device=device, draft_cfg=dcfg, draft_params=dparams,
+                    spec_k=4)
+    eng.warmup()
+    pools = ((eng._snapshot, eng._inject, eng.pool.caches, eng._rollback),
+             (eng._d_snapshot, eng._d_inject, eng.draft_caches, eng._d_rollback))
+    before = [_random_pool(device, caches, 7 + i) for i, (_, _, caches, _) in enumerate(pools)]
+    with graphs.uncounted():
+        for snapshot, _, caches, buffers in pools:
+            for lane in (1, 3):
+                eng._snapshot_into(snapshot, caches, lane, buffers[lane])
+            snapshot(caches, eng._lanes[0])
+        after = [_random_pool(device, caches, 20 + i) for i, (_, _, caches, _) in enumerate(pools)]
+        for _, inject, caches, buffers in pools:
+            for lane in (1, 3):
+                inject(caches, eng._lanes[lane], buffers[lane])
+    torch.cuda.synchronize()
+    for (_, _, caches, _), b, a in zip(pools, before, after):
+        for leaf, x, y in zip(graphs.leaves(caches), b, a):
+            assert torch.equal(leaf[:, 1], x[:, 1]) and torch.equal(leaf[:, 3], x[:, 3])
+            assert torch.equal(leaf[:, 0], y[:, 0]) and torch.equal(leaf[:, 2], y[:, 2])
+    assert eng.cache_in_place
+
+
+def test_verify_capture_failure_raises(device):
+    """A verify step that waits for the host fails the warm-up, and no step
+    of either pool is replaced: no eager fallback on the card."""
+    cfg, params, dcfg, dparams = _spec_case(device, "fused", "bfloat16")
+    eng = Scheduler(cfg, params, batch=4, device=device, draft_cfg=dcfg, draft_params=dparams,
+                    spec_k=4)
+    verify, d_decode = eng._verify, eng._d_decode
+
+    def waits_for_the_host(params, caches, tokens, mask):
+        out = verify(params, caches, tokens, mask)
+        out[0].sum().item()
+        return out
+
+    eng._verify = waits_for_the_host
+    with pytest.raises(RuntimeError, match="capturing"):
+        eng.warmup()
+    assert not eng.captured and eng._verify is waits_for_the_host
+    assert eng._d_decode is d_decode and not isinstance(eng._decode, graphs.CapturedStep)

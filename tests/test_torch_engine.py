@@ -14,8 +14,9 @@ a stream multiplexed through the engine equals the stream run alone at the
 engine's width (bitwise for SRU) and at B = 1 (within 3e-5: PyTorch's CPU
 BLAS sums a one-row product, a GEMV, in another order), slot isolation under a mid-flight admit and evict,
 backpressure and ``cancel``, the metrics report's schema, the refusal of
-attention, Mamba, hybrid and frontend configs (and of speculative decode,
-a later slice), prefix hit == cold prefill (bitwise), ``async_depth`` 1 == 2
+attention, Mamba, hybrid and frontend configs (and speculative decode's
+validation errors; its own checks are in ``tests/test_torch_speculative.py``),
+prefix hit == cold prefill (bitwise), ``async_depth`` 1 == 2
 (with the EOS discard), the empty-prompt seed. Under ``pallas`` a prefill
 chunk longer than B3's 64 steps (``--chunk 80``) folds chunk aggregates, so
 the engine equals the one-shot prefill within STREAM_TOL (3e-5), not
@@ -410,8 +411,20 @@ def test_engine_refuses_attention_mamba_hybrid_frontend_and_speculative():
             Scheduler(cfg, {}, batch=2, device=CPU)
     with pytest.raises(ValueError, match="frontend"):
         Scheduler(sru.with_(frontend="audio_stub"), {}, batch=2, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A3"):
-        Scheduler(sru, {}, batch=2, device=CPU, draft_cfg=sru, draft_params={})
+    # speculative decode: JAX's validation errors
+    draft = get_config("sru-paper-draft").reduced()
+    with pytest.raises(ValueError, match="draft_params"):
+        Scheduler(sru, {}, batch=2, device=CPU, draft_cfg=draft)
+    with pytest.raises(ValueError, match="pure-RNN"):
+        Scheduler(sru, {}, batch=2, device=CPU, draft_cfg=sru.with_(attn_every=2),
+                  draft_params={})
+    with pytest.raises(ValueError, match="vocab"):
+        Scheduler(sru, {}, batch=2, device=CPU, draft_cfg=draft.with_(vocab=7), draft_params={})
+    with pytest.raises(ValueError, match="spec_k"):
+        Scheduler(sru, {}, batch=2, device=CPU, draft_cfg=draft, draft_params={}, spec_k=0)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        Scheduler(sru, {}, batch=2, device=CPU, draft_cfg=draft, draft_params={},
+                  prefix_cache_mb=4.0)
     with pytest.raises(ValueError, match="async_depth"):
         Scheduler(sru, {}, batch=1, async_depth=0, device=CPU)
 

@@ -357,9 +357,9 @@ def test_serve_base_config_on_pallas_runs_as_a_module():
 
 
 def test_serve_rejects_unknown_flags_and_engines(capsys):
-    with pytest.raises(SystemExit):
-        serve.main(["--arch", "sru-paper-large-stacked", "--mode", "continuous",
-                    "--speculative"])
+    with pytest.raises(SystemExit):  # --speculative requires --mode continuous
+        serve.main(["--arch", "sru-paper-large-stacked", "--device", "cpu", "--speculative"])
+    assert "--speculative requires --mode continuous" in capsys.readouterr().err
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", "sru-paper-large", "--engine", "bogus", "--device", "cpu"])
     msg = str(exc.value)
