@@ -87,6 +87,27 @@ Phases, each printing one JSON line per step:
            launches, both pools kept in place, the streams that differ from
            plain reported; then a tick-traced and a profiled oracle run per
            config (host ms per tick by phase, device idle);
+  telemetry  ``serve --mode continuous`` with the telemetry flags for the
+           continuous phase's four configs, captured, async depth 2: the
+           headline trace with telemetry off and on in turns (off, on, on,
+           off; on = ``--trace-out --metrics-jsonl --metrics-every 16
+           --prom-out``), then ``--torch-profile DIR`` on 32 headline
+           requests (the captures inside the session) and an oracle
+           speculative run (k = 4) with the trace on; every run captured,
+           complete, pools in place, launches = steps x a step's launches;
+           the on runs' tokens equal the off runs' for every stream;
+           ``tools/trace_check.py`` (a subprocess, its default epsilons)
+           accepts each trace and the metrics rows; the Prometheus snapshot
+           parses; the profile names the ``decode`` and ``prefill``
+           annotations. Printed: ms per tick off and on (the overhead),
+           stragglers, host ms per tick by phase (trace spans), and from the
+           profile (``profile_split``) device ms per tick by phase, each
+           device event attributed through its correlation id to the launch
+           under a phase annotation (a graph replay's kernels to its
+           ``cudaGraphLaunch``), the share no phase claimed, lost device
+           events, and host ms per tick by phase and by call; the artifacts
+           stay under ``build/telemetry/`` (the profiles open in Perfetto or
+           TensorBoard);
   profile  per config (the fp fused, stacked and pallas runs, the two
            stacked int8 runs, llama3-8b, smollm-360m and mamba2-2.7b), eager
            and captured, a decode step's host time and torch.profiler's
@@ -105,8 +126,8 @@ Phases, each printing one JSON line per step:
 
 Then one ``{"phase_seconds": {...}}`` line (each phase's wall time, the
 serve phase's warm-ups included), one ``{"kernels": [...]}`` line (launches
-from the serve, continuous and speculative phases, eager and captured runs
-summed), the
+from the serve, continuous, speculative and telemetry phases, eager and
+captured runs summed), the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the last
 line. Without a CUDA device, or without the repository beside this file, it
@@ -119,6 +140,8 @@ import contextlib
 import io
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -126,7 +149,8 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("build", "kernels", "serve", "continuous", "speculative", "profile", "parity")
+PHASES = ("build", "kernels", "serve", "continuous", "speculative", "telemetry", "profile",
+          "parity")
 # (arch, --engine override, --prompt-len): the runs of the serve phase.
 SERVE_RUNS = (
     ("sru-paper-large-stacked", None, 64), ("qrnn-paper-large-stacked", None, 64),
@@ -174,6 +198,27 @@ SPEC_FP32_RUNS = (("plain", None, 0, True), ("floor k=4", "floor", 4, True),
 SPEC_BF16_RUNS = (("plain captured d2", None, 0, True), ("floor k=4 eager d2", "floor", 4, False),
                   ("floor k=4 captured d2", "floor", 4, True),
                   ("oracle k=4 captured d2", "oracle", 4, True))
+# Telemetry (phase ``telemetry``): per config of CONTINUOUS_CONFIGS, the
+# headline trace captured at async depth 2 with telemetry off and on in
+# turns (the overhead is the on runs' ms per tick against the off runs' in
+# one call), "on" being every file sink: the tick trace, a metrics row every
+# TELEMETRY_METRICS_EVERY ticks and the Prometheus snapshot. Then a
+# ``--torch-profile`` run on CONTINUOUS_PROFILE_REQUESTS headline requests
+# and an oracle speculative run (k = 4) with the trace on. Artifacts go to
+# TELEMETRY_DIR.
+TELEMETRY_RUNS = ("off", "on", "on again", "off again")
+TELEMETRY_METRICS_EVERY = 16
+TELEMETRY_DIR = ROOT / "build" / "telemetry"
+# The tick phases the Scheduler annotates (``serving/engine.py``), and the
+# host calls whose every call makes device work (a call with none in the
+# profile lost its device events).
+TICK_PHASES = ("reset", "inject", "prefill", "snapshot", "decode", "draft", "verify")
+LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+TELEMETRY_TOP_CALLS = 10
+# A Prometheus text-exposition sample: ``name value`` or
+# ``name{quantile="q"} value``.
+PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{quantile="[0-9.]+"\})? (\S+)$')
 # (arch, --engine override): the fused int8 runs are not profiled (their
 # kernels take the bf16 twins' time), nor the long prompts.
 PROFILE_RUNS = tuple(r[:2] for r in SERVE_RUNS[:6] + SERVE_RUNS[8:10] + SERVE_RUNS[12:13]
@@ -283,17 +328,20 @@ SCAN_BWD_CASES = (("backward T=64 F=4096 fp32", 64, 4096, "float32", 301),
 B3_GRAD_RTOL = 2e-5
 # torch.profiler has come back without any device event for one window of
 # graph replays on the H100 (torch 2.11, CUDA 12.8), where another run's
-# windows all had theirs; the profile phase profiles such a window again.
-# After many profiled sessions of graph replays in one process (the
-# continuous and speculative phases' profiled runs), a session also loses
-# its first few device events (up to 8 of 168 on that card), a profiler
-# warm-up cycle hands some of its last events to the next cycle, and in a
-# session of a second a host-clock boundary let the last ~100 kernels before
-# it in. So each window's steps follow steps traced in the same session, and
-# only the device events inside the window's device-side range (its
-# record_function's span on the card's own clock) are kept
-# (``_profile_steps``).
+# windows all had theirs. After many profiled sessions of graph replays in
+# one process (the continuous, speculative and telemetry phases' profiled
+# runs), a session also loses its first few device events (up to 8 of 168 on
+# that card), and within a window it has lost some (11 of 512 of our kernels
+# in eight mamba2 replays), while a window bounded on the card's clock let
+# kernels of the steps before it in (llama3-8b eager: 32.125 a step). So
+# each window's steps follow steps traced in the same session; the window's
+# device events are those launched by the runtime calls inside its
+# record_function range on the host, matched by correlation id
+# (``profile_split``); and a window that shows lost events (a launching call
+# without device events, or replays of the decode graph with unequal event
+# counts) is profiled again (``_profile_steps``).
 PROFILE_WINDOWS = 3
+PROFILE_WINDOW = "chip_smoke.window"
 # Parity (phase 4): fp32 LM on the card vs the CPU, through up to 32 layers
 # and a head of up to 128256 columns; logits are O(1). The same sources of
 # difference as ATOL.
@@ -906,6 +954,26 @@ def _launch_counters():
             "ssd": (ssd, "LAUNCHES")}
 
 
+def _counted_run(counters, call, what):
+    """``call()`` (``serve.main`` or ``serve.run_continuous``, its output
+    captured) with every kernel's count set to 0 just before it and read
+    just after. Returns the run's ``continuous-stats`` dict (JSON round
+    trip: the request ids as serve prints them) and the launches."""
+    buf = io.StringIO()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    with contextlib.redirect_stdout(buf):
+        rc = call()
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    if isinstance(rc, dict):
+        stats = json.loads(json.dumps(rc))
+    else:
+        require(rc == 0, f"{what} returned {rc}")
+        line = next(x for x in buf.getvalue().splitlines() if x.startswith("continuous-stats "))
+        stats = json.loads(line[len("continuous-stats "):])
+    return stats, launches
+
+
 def _run_cfg(arch, engine):
     from repro_torch.configs.registry import get_config
 
@@ -1021,17 +1089,9 @@ def phase_continuous():
         tokens, stats_of = {}, {}
         for run, graphs, flags in CONTINUOUS_RUNS:
             what = f"continuous {arch} {engine} [{run}]"
-            buf = io.StringIO()
-            for mod, attr in counters.values():
-                setattr(mod, attr, 0)
-            with contextlib.redirect_stdout(buf):
-                rc = serve.main(["--arch", arch, "--mode", "continuous", "--batch", "4"]
-                                + flags + extra, graphs=graphs)
-            launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
-            require(rc == 0, f"{what} returned {rc}")
-            line = next(x for x in buf.getvalue().splitlines()
-                        if x.startswith("continuous-stats "))
-            stats = json.loads(line[len("continuous-stats "):])
+            stats, launches = _counted_run(
+                counters, lambda: serve.main(["--arch", arch, "--mode", "continuous", "--batch",
+                                              "4"] + flags + extra, graphs=graphs), what)
             tokens[run] = stats.pop("tokens")
             stats_of[run] = stats
             steps = stats["prefill_chunks"] + stats["decode_steps"]
@@ -1093,11 +1153,8 @@ def _profile_continuous(cfg, unprofiled, phase="continuous", spec_k=0):
     eng = Scheduler(cfg, params, batch=4, async_depth=2, device="cuda", telemetry=tel, **spec)
     eng.warmup()
     eng.run(trace)
-    spans = {}
-    for e in tel.trace.events():
-        if e["ph"] == "X" and e.get("tid") == 1:
-            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e3
     traced_ticks = eng.metrics.ticks
+    spans = _span_ms_per_tick(tel.trace.to_chrome(), traced_ticks)
     eng = Scheduler(cfg, params, batch=4, async_depth=2, device="cuda", **spec)
     eng.warmup()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1111,7 +1168,7 @@ def _profile_continuous(cfg, unprofiled, phase="continuous", spec_k=0):
     what = f", oracle k={spec_k}" if spec_k else ""
     emit({"phase": phase, "arch": cfg.name, "engine": cfg.scan_engine,
           "run": f"profiled, captured d2{what}, {CONTINUOUS_PROFILE_REQUESTS} requests",
-          "host_ms_per_tick_by_phase": {k: v / max(traced_ticks, 1) for k, v in spans.items()},
+          "host_ms_per_tick_by_phase": spans,
           "traced_ticks": traced_ticks,
           "ticks": ticks, "device_ms": device_ms, "busy_ms": busy_ms,
           "device_ms_per_tick": device_per_tick, "ms_per_tick_profiled": busy_ms / max(ticks, 1),
@@ -1236,32 +1293,21 @@ def phase_speculative():
                      "--async-depth", "2"] + extra
             if draft:
                 flags += ["--speculative", "--spec-k", str(k)]
-            buf = io.StringIO()
             if draft == "oracle":
                 # serve.main with the target's params as the draft's
                 args = serve.parse_args(flags)
                 torch.cuda.reset_peak_memory_stats(dev)
                 params = lm.lm_init(torch.Generator(device=dev).manual_seed(args.seed), cfg,
                                     device=dev, dtype=_dtype(cfg.compute_dtype))
-                for mod, attr in counters.values():
-                    setattr(mod, attr, 0)
-                with contextlib.redirect_stdout(buf):
-                    stats = serve.run_continuous(cfg, params, args, dev, graphs=graphs,
-                                                 draft_cfg=cfg, draft_params=params)
-                launches = {k_: getattr(mod, attr) for k_, (mod, attr) in counters.items()}
+                stats, launches = _counted_run(
+                    counters, lambda: serve.run_continuous(cfg, params, args, dev, graphs=graphs,
+                                                           draft_cfg=cfg, draft_params=params),
+                    what)
                 stats["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-                stats = json.loads(json.dumps(stats))  # request ids as serve-stats prints them
                 del params
             else:
-                for mod, attr in counters.values():
-                    setattr(mod, attr, 0)
-                with contextlib.redirect_stdout(buf):
-                    rc = serve.main(flags, graphs=graphs)
-                launches = {k_: getattr(mod, attr) for k_, (mod, attr) in counters.items()}
-                require(rc == 0, f"{what} returned {rc}")
-                line = next(x for x in buf.getvalue().splitlines()
-                            if x.startswith("continuous-stats "))
-                stats = json.loads(line[len("continuous-stats "):])
+                stats, launches = _counted_run(
+                    counters, lambda: serve.main(flags, graphs=graphs), what)
             stats_of[run] = stats
             tokens[run] = stats["tokens"]
             target_steps = stats["prefill_chunks"] + stats["decode_steps"] + stats["verify_steps"]
@@ -1297,6 +1343,327 @@ def phase_speculative():
     return totals
 
 
+def _trace_check(what, path, *flags):
+    """``tools/trace_check.py`` on ``path`` as a subprocess, with its own
+    default epsilons; fails the phase unless it accepts the trace."""
+    out = subprocess.run([sys.executable, str(ROOT / "tools" / "trace_check.py"), str(path),
+                          *flags], capture_output=True, text=True, timeout=300)
+    require(out.returncode == 0,
+            f"{what}: trace_check refused {path}: {out.stdout.strip()} {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[-1]
+
+
+def _prometheus_ok(text: str) -> bool:
+    """Every non-comment line is a sample (``PROM_SAMPLE``) with a number
+    for its value, and there is at least one."""
+    samples = [x for x in text.splitlines() if x and not x.startswith("#")]
+    for line in samples:
+        m = PROM_SAMPLE.match(line)
+        if m is None:
+            return False
+        try:
+            float(m.group(2))
+        except ValueError:
+            return False
+    return bool(samples)
+
+
+def _span_ms_per_tick(doc, ticks):
+    """Host ms per tick by phase from a tick trace (Chrome JSON: span sums
+    on the tick track)."""
+    track = next(e["tid"] for e in doc["traceEvents"]
+                 if e.get("ph") == "M" and e.get("args", {}).get("name") == "tick")
+    spans = {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X" and e.get("tid") == track:
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e3
+    return {k: v / max(ticks, 1) for k, v in sorted(spans.items())}
+
+
+def profile_split(doc, ticks, phases=TICK_PHASES):
+    """Split a torch.profiler trace (Chrome JSON; a ``--torch-profile``
+    capture) by phase, the ``record_function`` annotations named in
+    ``phases`` (the tick phases), from the first such annotation on (the
+    warm-up and the captures before it are left out):
+
+    * host: every host event on the annotations' thread (ops, runtime and
+      driver calls) is nested by time; its self time goes to the phase of
+      the annotation it lies in (``unannotated`` outside any), by name; an
+      annotation's own self time is ``(python)``, the Python code of the
+      dispatch between its calls;
+    * device: each kernel, copy and set is attributed through its
+      correlation id to the runtime call that launched it, and that call's
+      phase (a graph replay's kernels run later on the card, at depth 2
+      during the next tick, but carry the ``cudaGraphLaunch``'s id);
+    * lost events: a launching call (``LAUNCH_CALLS``) with no device event
+      lost them (torch.profiler drops a session's first events); the phase
+      instances (one annotation each) with such a call are counted, and the
+      per-phase device times are the complete instances' mean times the
+      instances a tick. The device events of each phase's graph replays are
+      counted per replay (``graph_launch_device_events``: the distinct
+      counts; replays of one graph that lost none agree).
+
+    Returns a dict of ms per tick (and each phase's device us and events by
+    name, over the run), or None when the trace has no phase annotation."""
+    ev = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    anns = sorted((e for e in ev if e.get("cat") == "user_annotation"
+                   and e.get("name") in phases), key=lambda e: e["ts"])
+    if not anns:
+        return None
+    pid, tid, t0 = anns[0]["pid"], anns[0]["tid"], anns[0]["ts"]
+    host = sorted((e for e in ev if e.get("cat") in ("cpu_op", "cuda_runtime", "cuda_driver",
+                                                      "user_annotation")
+                   and e.get("pid") == pid and e.get("tid") == tid and e["ts"] >= t0),
+                  key=lambda e: (e["ts"], -e["dur"]))
+    self_us, ann_us, instances = {}, {}, {}
+    corr_of = {}       # correlation id -> (phase, instance or None)
+    launches = []      # (correlation id, phase, instance) of launching calls
+    graph_launches = []  # the same, of graph replays
+    frames = []        # open events: [end, phase, name, dur, children's us, instance]
+
+    def close(frame):
+        _, phase, name, dur, kids, _ = frame
+        key = (phase, name)
+        self_us[key] = self_us.get(key, 0.0) + max(dur - kids, 0.0)
+
+    for e in host:
+        while frames and e["ts"] >= frames[-1][0]:
+            close(frames.pop())
+        phase = frames[-1][1] if frames else "unannotated"
+        inst = frames[-1][5] if frames else None
+        is_ann = e["cat"] == "user_annotation" and e["name"] in phases
+        if is_ann:
+            phase = e["name"]
+            inst = instances.get(phase, 0)
+            instances[phase] = inst + 1
+            ann_us[phase] = ann_us.get(phase, 0.0) + e["dur"]
+        if frames:
+            frames[-1][4] += e["dur"]
+        frames.append([e["ts"] + e["dur"], phase, "(python)" if is_ann else e["name"], e["dur"],
+                       0.0, inst])
+        corr = e.get("args", {}).get("correlation")
+        if corr is not None and e["cat"] in ("cuda_runtime", "cuda_driver"):
+            corr_of[corr] = (phase, inst)
+            if e["name"] in LAUNCH_CALLS:
+                launches.append((corr, phase, inst))
+            if e["name"] == "cudaGraphLaunch":
+                graph_launches.append((corr, phase, inst))
+    while frames:
+        close(frames.pop())
+
+    dev_us, inst_us, by_name, per_corr, outside = {}, {}, {}, {}, 0
+    for e in ev:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        corr = e.get("args", {}).get("correlation")
+        if corr not in corr_of:
+            outside += 1  # the warm-up's and captures' device work
+            continue
+        per_corr[corr] = per_corr.get(corr, 0) + 1
+        phase, inst = corr_of[corr]
+        dev_us[phase] = dev_us.get(phase, 0.0) + e["dur"]
+        inst_us[(phase, inst)] = inst_us.get((phase, inst), 0.0) + e["dur"]
+        us_n = by_name.setdefault(phase, {}).setdefault(e["name"], [0.0, 0])
+        us_n[0] += e["dur"]
+        us_n[1] += 1
+    lost = [(c, p, i) for c, p, i in launches if c not in per_corr]
+    graph_counts = {}
+    for c, p, _ in graph_launches:
+        graph_counts.setdefault(p, set()).add(per_corr.get(c, 0))
+    lost_inst = {(p, i) for _, p, i in lost}
+    per_tick = 1e3 * max(ticks, 1)
+    device_by_phase = {}
+    for phase, n in instances.items():
+        kept = [i for i in range(n) if (phase, i) not in lost_inst]
+        if kept:
+            mean_us = sum(inst_us.get((phase, i), 0.0) for i in kept) / len(kept)
+            device_by_phase[phase] = mean_us * n / per_tick
+    device_total = sum(dev_us.values())
+    host_by_phase = {}
+    for phase in list(instances) + ["unannotated"]:
+        calls = sorted(((us, name) for (p, name), us in self_us.items() if p == phase),
+                       reverse=True)
+        total = ann_us.get(phase, sum(us for us, _ in calls))
+        host_by_phase[phase] = {
+            "ms_per_tick": total / per_tick,
+            "calls_ms_per_tick": [[name, us / per_tick]
+                                  for us, name in calls[:TELEMETRY_TOP_CALLS]]}
+    return {"phase_instances": instances,
+            "device_ms_per_tick": device_total / per_tick,
+            "device_ms_per_tick_by_phase": device_by_phase,
+            "device_ms_per_tick_unattributed": dev_us.get("unannotated", 0.0) / per_tick,
+            "unattributed_share": (dev_us.get("unannotated", 0.0) / device_total
+                                   if device_total else None),
+            "host_ms_per_tick_by_phase": host_by_phase,
+            "launching_calls": len(launches), "lost_launching_calls": len(lost),
+            "phase_instances_with_lost_events": len({k for k in lost_inst if k[1] is not None}),
+            "first_lost_call_at": (launches.index(lost[0]) if lost else None),
+            "last_lost_call_at": (launches.index(lost[-1]) if lost else None),
+            "graph_launch_device_events": {p: sorted(n) for p, n in graph_counts.items()},
+            "device_events_before_the_run": outside, "device_us_by_name": by_name}
+
+
+def phase_telemetry():
+    """Telemetry on the card (``serve --mode continuous`` with the telemetry
+    flags, B = 4 slots, full width, bf16, captured, async depth 2) for each
+    config of ``CONTINUOUS_CONFIGS``, every kernel's count set to 0 just
+    before each run and read just after:
+
+    1. the headline trace with telemetry off and on in turns
+       (``TELEMETRY_RUNS``; on = ``--trace-out --metrics-jsonl
+       --metrics-every 16 --prom-out``), through ``serve.main``;
+    2. ``--torch-profile DIR`` on ``CONTINUOUS_PROFILE_REQUESTS`` headline
+       requests, through ``serve.run_continuous``;
+    3. the oracle draft (the target as its own draft) at k = 4 on the
+       headline trace with the trace on.
+
+    Required, a failure fails the phase: every run captured, complete,
+    with its pool in place and the launches its steps account for (target
+    steps, and the oracle draft's, times a step's launches); the on runs'
+    tokens equal the off runs' for every stream, bit for bit; the off runs
+    record nothing; ``tools/trace_check.py`` accepts the on runs' traces
+    and metrics rows (overlap, decode, fetch, retire) and the speculative
+    trace (draft, verify) at its default epsilons; the Prometheus snapshot
+    parses; the profiler ran and its ``*.pt.trace.json`` names the
+    ``decode`` and ``prefill`` annotations. Printed per config: ms per tick
+    off and on (the telemetry's overhead), the straggler count, host ms per
+    tick by phase from the trace, and from the profile device ms per tick
+    by phase with the share no phase claimed and host ms per tick by phase
+    and by call (``profile_split``). Returns the launches summed over the
+    runs."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.layers import _dtype
+    from repro_torch.serving import headline_poisson_trace
+
+    counters = _launch_counters()
+    totals = dict.fromkeys(KERNELS, 0)
+    dev = torch.device("cuda")
+    shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
+    for arch, engine in CONTINUOUS_CONFIGS:
+        extra = ["--engine", engine] if engine else []
+        cfg = _run_cfg(arch, engine)
+        base = ["--arch", arch, "--mode", "continuous", "--batch", "4", "--async-depth",
+                "2"] + extra
+        top = TELEMETRY_DIR / (arch + (f"-{engine}" if engine else ""))
+        tokens, ms, on_stats = {}, {}, []
+
+        def checked(stats, launches, what, draft_steps=None):
+            target = stats["prefill_chunks"] + stats["decode_steps"] + stats["verify_steps"]
+            want = _expected_launches(cfg, target - 1)
+            if draft_steps is not None:  # the oracle draft: the target's own kernels
+                drafted = _expected_launches(cfg, stats["prefill_chunks"] + draft_steps - 1)
+                want = {k: n + drafted[k] for k, n in want.items()}
+            require(stats["graphs"], f"{what}: the steps did not run as graphs")
+            require(launches == want, f"{what}: launches {launches} != {want}")
+            require(stats["cache_in_place"], f"{what}: a pool cache leaf moved")
+            require(stats["completed"] == stats["requests"],
+                    f"{what}: {stats['completed']}/{stats['requests']} completed")
+            for k, n in launches.items():
+                totals[k] += n
+
+        for run in TELEMETRY_RUNS:
+            what = f"telemetry {arch} {engine} [{run}]"
+            d = top / run.replace(" ", "_")
+            d.mkdir(parents=True)
+            flags = base + ["--headline-trace"]
+            on = run.startswith("on")
+            if on:
+                flags += ["--trace-out", str(d / "trace.json"), "--metrics-jsonl",
+                          str(d / "metrics.jsonl"), "--metrics-every",
+                          str(TELEMETRY_METRICS_EVERY), "--prom-out", str(d / "metrics.prom")]
+            stats, launches = _counted_run(counters, lambda: serve.main(flags), what)
+            checked(stats, launches, what)
+            tokens[run] = stats["tokens"]
+            ms[run] = stats["busy_s"] / max(stats["ticks"], 1) * 1e3
+            sinks = (stats["stragglers"], stats["trace_events"], stats["metrics_rows"])
+            if not on:
+                require(sinks == (None, None, None), f"{what}: telemetry off recorded {sinks}")
+                continue
+            require(None not in sinks, f"{what}: a sink recorded nothing: {sinks}")
+            verdict = _trace_check(what, d / "trace.json", "--metrics-jsonl",
+                                   str(d / "metrics.jsonl"), "--expect-overlap",
+                                   "--expect-phase", "decode", "--expect-phase", "fetch",
+                                   "--expect-phase", "retire")
+            prom = (d / "metrics.prom").read_text()
+            require(_prometheus_ok(prom), f"{what}: the Prometheus snapshot does not parse")
+            on_stats.append({"run": run, "stragglers": stats["stragglers"],
+                             "trace_events": stats["trace_events"],
+                             "metrics_rows": stats["metrics_rows"], "trace_check": verdict,
+                             "host_ms_per_tick_by_phase": _span_ms_per_tick(
+                                 json.loads((d / "trace.json").read_text()), stats["ticks"])})
+        ref = tokens[TELEMETRY_RUNS[0]]
+        for run in TELEMETRY_RUNS[1:]:
+            differ = [rid for rid in ref if tokens[run].get(rid) != ref[rid]]
+            require(not differ and tokens[run].keys() == ref.keys(),
+                    f"telemetry {arch} {engine}: [{run}] differs from [off] on {len(differ)} "
+                    f"of {len(ref)} streams")
+
+        # the profiled run: the warm-up (captures) and the run in one session
+        what = f"telemetry {arch} {engine} [torch profile]"
+        d = top / "profile"
+        args = serve.parse_args(base + ["--torch-profile", str(d)])
+        params = lm.lm_init(torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev,
+                            dtype=_dtype(cfg.compute_dtype))
+        trace = headline_poisson_trace(cfg.vocab, requests=CONTINUOUS_PROFILE_REQUESTS)
+        stats, launches = _counted_run(
+            counters, lambda: serve.run_continuous(cfg, params, args, dev, trace=trace), what)
+        checked(stats, launches, what)
+        require(stats["torch_profile"] is True, f"{what}: the profiler did not run")
+        files = sorted(d.glob("*.pt.trace.json"))
+        require(len(files) == 1, f"{what}: {len(files)} *.pt.trace.json files in {d}")
+        doc = json.loads(files[0].read_text())
+        named = {e.get("name") for e in doc["traceEvents"] if e.get("cat") == "user_annotation"}
+        require({"decode", "prefill"} <= named,
+                f"{what}: the profile's annotations {sorted(named)} lack decode or prefill")
+        split = profile_split(doc, stats["ticks"])
+        require(split is not None and split["device_ms_per_tick"] > 0,
+                f"{what}: no device time attributed to the run")
+        del split["device_us_by_name"]  # by kernel: in the profile, not in the line
+        busy = stats["busy_s"] / max(stats["ticks"], 1) * 1e3
+        in_ops = sum(h["ms_per_tick"] for h in split["host_ms_per_tick_by_phase"].values())
+        profile = {"requests": len(trace), "ticks": stats["ticks"], "ms_per_tick_profiled": busy,
+                   "host_ms_per_tick_outside_phases_and_ops": busy - in_ops,
+                   "trace_mb": files[0].stat().st_size / 2**20, **split}
+        del doc
+
+        # the oracle speculative run with the trace on
+        what = f"telemetry {arch} {engine} [speculative oracle k=4]"
+        d = top / "speculative"
+        d.mkdir(parents=True)
+        args = serve.parse_args(base + ["--headline-trace", "--speculative", "--spec-k", "4",
+                                        "--trace-out", str(d / "trace.json")])
+        stats, launches = _counted_run(
+            counters, lambda: serve.run_continuous(cfg, params, args, dev, draft_cfg=cfg,
+                                                   draft_params=params), what)
+        checked(stats, launches, what, draft_steps=stats["draft_steps"])
+        require(stats["verify_steps"] > 0 and stats["trace_events"],
+                f"{what}: {stats['verify_steps']} verify steps, {stats['trace_events']} events")
+        spec_verdict = _trace_check(what, d / "trace.json", "--expect-phase", "draft",
+                                    "--expect-phase", "verify")
+        del params
+
+        off_ms = [ms[r] for r in TELEMETRY_RUNS if not r.startswith("on")]
+        on_ms = [ms[r] for r in TELEMETRY_RUNS if r.startswith("on")]
+        emit({"phase": "telemetry", "arch": arch, "engine": cfg.scan_engine,
+              "ms_per_tick": ms, "ms_per_tick_off": sum(off_ms) / len(off_ms),
+              "ms_per_tick_on": sum(on_ms) / len(on_ms),
+              "overhead_ms_per_tick": sum(on_ms) / len(on_ms) - sum(off_ms) / len(off_ms),
+              "tokens_on_equal_off": True, "graphs": True, "on_runs": on_stats,
+              "speculative": {"stragglers": stats["stragglers"],
+                              "trace_events": stats["trace_events"],
+                              "spec_acceptance_rate": stats["spec_acceptance_rate"],
+                              "ms_per_tick": stats["busy_s"] / max(stats["ticks"], 1) * 1e3,
+                              "host_ms_per_tick_by_phase": _span_ms_per_tick(
+                                  json.loads((d / "trace.json").read_text()), stats["ticks"]),
+                              "trace_check": spec_verdict},
+              "profile": profile})
+    emit({"phase": "telemetry", "launches": totals})
+    return totals
+
+
 def _tree_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_tree_bytes(v) for v in tree.values())
@@ -1312,14 +1679,14 @@ def _tree_to(tree, device):
 def _profile_steps(cfg, params, prefill, decode, inputs, steps):
     """One prefill, then ``steps`` decode steps untimed, ``steps`` timed on
     the host clock and, in one torch.profiler session, ``steps`` more
-    traced and dropped, then the window: ``steps`` whose device events
-    (those inside the window's range on the card's clock) are kept (again,
-    up to PROFILE_WINDOWS windows, while the profiler shows no device
-    event). Returns (host ms per step, [(device us per step, events per
-    step, name)] of the device-side events, whether the caches kept their
-    storage, the caches, the windows profiled)."""
+    traced and dropped, then the window: ``steps`` inside a
+    ``record_function`` (PROFILE_WINDOW), whose device events are the ones
+    launched inside it (``profile_split``); again, up to PROFILE_WINDOWS
+    windows, while a window shows lost device events. Returns (host ms per
+    step, [(device us per step, events per step, name)] of the device-side
+    events, whether the caches kept their storage, the caches, the windows
+    profiled)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.training.graphs import leaves
@@ -1338,22 +1705,21 @@ def _profile_steps(cfg, params, prefill, decode, inputs, steps):
     t0 = time.perf_counter()
     run()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    path = ROOT / "build" / "profile_window.pt.trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
     for window in range(1, PROFILE_WINDOWS + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
-            with record_function("chip_smoke.window"):
+            with record_function(PROFILE_WINDOW):
                 run()
-        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        span = [e.time_range for e in device if e.name == "chip_smoke.window"]
-        by_name = {}  # device-side events only (kernels, copies): no double count
-        for e in device:
-            if (span and e.name != "chip_smoke.window" and e.time_range.start >= span[0].start
-                    and e.time_range.end <= span[0].end):
-                us, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-        kernels = [(us / steps, n / steps, name) for name, (us, n) in by_name.items() if us > 0]
-        if kernels:
+        prof.export_chrome_trace(str(path))
+        split = profile_split(json.loads(path.read_text()), steps, phases=(PROFILE_WINDOW,))
+        path.unlink()
+        by_name = (split or {}).get("device_us_by_name", {}).get(PROFILE_WINDOW, {})
+        graph_counts = (split or {}).get("graph_launch_device_events", {}).get(PROFILE_WINDOW, [])
+        if by_name and split["lost_launching_calls"] == 0 and len(graph_counts) <= 1:
             break
+    kernels = [(us / steps, n / steps, name) for name, (us, n) in by_name.items() if us > 0]
     in_place = [t.data_ptr() for t in leaves(caches)] == ptrs
     kernels.sort(reverse=True)
     return wall_ms, kernels, in_place, caches, window
@@ -1521,9 +1887,10 @@ def main(argv=None) -> int:
         if summaries and launches is not None:
             continuous = results.get("continuous") or {}
             speculative = results.get("speculative") or {}
+            telemetry = results.get("telemetry") or {}
             for name, s in summaries.items():
                 s["launches"] = (launches[name] + continuous.get(name, 0)
-                                 + speculative.get(name, 0))
+                                 + speculative.get(name, 0) + telemetry.get(name, 0))
                 require(s["launches"] > 0, f"{name}: no launch on the main path")
             emit({"kernels": list(summaries.values())})
         smi = subprocess.run(

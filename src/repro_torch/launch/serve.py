@@ -52,13 +52,35 @@ runs each step as one jitted executable (batch: ``capture_batch_steps``;
 continuous: ``Scheduler.warmup``; the capture's time is ``capture_ms``);
 ``main(argv, graphs=False)`` runs the eager steps instead, for comparison
 (no flag: the JAX script has none for jit). On the CPU the steps run
-eagerly. The telemetry flags and the mesh flags of the JAX
-``launch/serve.py`` wait for later slices. Besides the human-readable
-lines, a batch run prints one ``serve-stats {json}`` line and a continuous
-run one ``continuous-stats {json}`` line: timings, whether the steps ran as
-graphs, whether the caches kept their storage, the card's peak memory
-(``peak_mem_gb``, null on the CPU) and the tokens (per request id in
-continuous mode).
+eagerly.
+
+Telemetry, continuous mode only, as in JAX: ``--trace-out`` (Chrome
+trace-event JSON of tick-phase spans and request lifecycles, the span
+catalog of ``docs/observability.md``), ``--metrics-jsonl`` (rolling
+live-metrics rows every ``--metrics-every`` ticks), ``--prom-out`` (an
+end-of-run Prometheus text snapshot), and ``--torch-profile DIR``, the
+port's ``--jax-profile``: a ``torch.profiler`` capture of the warm-up and
+the run into DIR, each step dispatch inside a ``record_function``/NVTX
+range named by its tick phase. Any of these turns on the straggler monitor
+(``runtime/monitor.py``); its flagged ticks are ``straggler`` instants on
+the trace. ``tools/trace_check.py`` validates the trace and the rows:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-small --reduced \
+        --device cpu --mode continuous --requests 8 --batch 3 --prompt-len 12 \
+        --gen-len 8 --chunk 8 --trace-out /tmp/t.json --metrics-jsonl /tmp/m.jsonl \
+        --metrics-every 16 --prom-out /tmp/m.prom
+    python tools/trace_check.py /tmp/t.json --metrics-jsonl /tmp/m.jsonl \
+        --expect-phase decode --expect-phase fetch --expect-phase retire
+
+The mesh flags of the JAX ``launch/serve.py`` wait for a later slice
+(ROADMAP §A7). Besides the human-readable lines, a batch run prints one
+``serve-stats {json}`` line and a continuous run one ``continuous-stats
+{json}`` line: timings, whether the steps ran as graphs, whether the caches
+kept their storage, the card's peak memory (``peak_mem_gb``, null on the
+CPU), the tokens (per request id in continuous mode) and, in continuous
+mode, the flagged ticks (``stragglers``), the trace's events
+(``trace_events``), the metrics rows (``metrics_rows``) and whether the
+profiler ran (``torch_profile``), each null when its flag is off.
 """
 from __future__ import annotations
 
@@ -72,6 +94,8 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.models import lm
 from repro_torch.models.layers import _dtype, resolve_device
+from repro_torch.observability import Telemetry, torch_profile, write_prometheus
+from repro_torch.runtime.monitor import StepMonitor
 from repro_torch.serving import (Scheduler, headline_poisson_trace, poisson_trace,
                                  shared_prefix_trace)
 from repro_torch.training import graphs as step_graphs
@@ -259,32 +283,67 @@ def draft_model(cfg, args, device: torch.device):
 
 
 def run_continuous(cfg, params, args, device: torch.device, graphs: bool = True,
-                   draft_cfg=None, draft_params=None) -> dict:
+                   draft_cfg=None, draft_params=None, trace=None) -> dict:
     """The continuous-batching path (JAX ``run_continuous``): the flags'
-    open-loop trace served by a ``Scheduler`` over ``--batch`` slots, with
-    the draft ``draft_cfg``/``draft_params`` if given (speculative decode in
-    blocks of ``--spec-k``), its steps captured as CUDA graphs on the card
-    before the run (``graphs``). Returns the engine's metrics report with
+    open-loop trace (or ``trace``, a list of ``Request``s, where given)
+    served by a ``Scheduler`` over ``--batch`` slots, with the draft
+    ``draft_cfg``/``draft_params`` if given (speculative decode in blocks of
+    ``--spec-k``), its steps captured as CUDA graphs on the card before the
+    run (``graphs``). Returns the engine's metrics report with
     the capture time, whether the steps ran as graphs and the caches (the
     draft's too) kept their storage, the prefix cache's report, the draft
-    and k, and each request's tokens."""
-    engine = Scheduler(
-        cfg, params, batch=args.batch, chunk=args.chunk, queue_capacity=args.queue_cap,
-        prefix_cache_mb=args.prefix_cache_mb, async_depth=args.async_depth,
-        draft_cfg=draft_cfg, draft_params=draft_params, spec_k=args.spec_k,
-        device=device, graphs=graphs)
-    trace = continuous_trace(cfg, args, engine.chunk)
-    engine.warmup()
-    _sync(device)
-    engine.run(trace)
-    _sync(device)
+    and k, each request's tokens, and what the telemetry sinks recorded.
+
+    The telemetry flags work as in the JAX ``run_continuous``: any of them
+    adds a ``StepMonitor``; ``--torch-profile`` wraps the engine's
+    construction, warm-up (the captures) and run in ``torch_profile`` and
+    turns on the step annotations while the capture runs; the trace, the
+    metrics rows and the Prometheus snapshot are written after the run,
+    each announced by a line."""
+    telemetry_on = bool(args.trace_out or args.metrics_jsonl or args.torch_profile
+                        or args.prom_out)
+    with torch_profile(args.torch_profile, device) as profiling:
+        tel = Telemetry.from_flags(
+            trace_out=args.trace_out, metrics_jsonl=args.metrics_jsonl,
+            metrics_every=args.metrics_every,
+            monitor=StepMonitor() if telemetry_on else None, profiling=profiling)
+        engine = Scheduler(
+            cfg, params, batch=args.batch, chunk=args.chunk, queue_capacity=args.queue_cap,
+            prefix_cache_mb=args.prefix_cache_mb, async_depth=args.async_depth,
+            draft_cfg=draft_cfg, draft_params=draft_params, spec_k=args.spec_k,
+            telemetry=tel, device=device, graphs=graphs)
+        if trace is None:
+            trace = continuous_trace(cfg, args, engine.chunk)
+        engine.warmup()
+        _sync(device)
+        engine.run(trace)
+        _sync(device)
     rep = engine.metrics.report()
+    trace_events = None
+    if args.trace_out:
+        doc = tel.trace.export(args.trace_out)
+        trace_events = len(doc["traceEvents"])
+        dropped = doc["otherData"]["dropped_events"]
+        print(f"trace: {trace_events} events -> {args.trace_out}"
+              + (f" ({dropped} dropped by the ring bound)" if dropped else ""))
+    if args.metrics_jsonl:
+        print(f"metrics: {tel.metrics_writer.rows} rows -> {args.metrics_jsonl}")
+    if args.prom_out:
+        write_prometheus(args.prom_out, rep)
+        print(f"prometheus snapshot -> {args.prom_out}")
+    if tel.monitor is not None and tel.monitor.events:
+        print(f"stragglers: {len(tel.monitor.events)} flagged ticks")
+    tel.close()
     rep.update(
         arch=cfg.name, device=str(device), graphs=engine.captured,
         capture_ms=engine.capture_ms, cache_in_place=engine.cache_in_place,
         chunk=engine.chunk, async_depth=args.async_depth, requests=len(trace),
         prefix_cache=engine.prefix_cache.report() if engine.prefix_cache else None,
         speculative={"draft": draft_cfg.name, "k": engine.spec_k} if draft_cfg else None,
+        stragglers=len(tel.monitor.events) if tel.monitor is not None else None,
+        trace_events=trace_events,
+        metrics_rows=tel.metrics_writer.rows if tel.metrics_writer is not None else None,
+        torch_profile=profiling if args.torch_profile else None,
         tokens={r.rid: list(r.tokens) for r in trace})
     return rep
 
@@ -413,6 +472,33 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--spec-k", type=int, default=4,
         help="speculative mode: tokens per drafted block",
     )
+    ap.add_argument(
+        "--trace-out", default=None,
+        help="continuous mode: write a Chrome trace-event JSON of per-tick "
+             "phase spans + request lifecycles here (load in "
+             "https://ui.perfetto.dev)",
+    )
+    ap.add_argument(
+        "--metrics-jsonl", default=None,
+        help="continuous mode: append rolling live-metrics rows (streaming "
+             "TTFT/TPOT quantiles, goodput, occupancy) here, one JSON object "
+             "per sample",
+    )
+    ap.add_argument(
+        "--metrics-every", type=int, default=32,
+        help="continuous mode: sample a --metrics-jsonl row every N ticks",
+    )
+    ap.add_argument(
+        "--prom-out", default=None,
+        help="continuous mode: write the end-of-run metrics report as a "
+             "Prometheus text-exposition snapshot (textfile-collector format)",
+    )
+    ap.add_argument(
+        "--torch-profile", default=None, metavar="DIR",
+        help="continuous mode: capture a torch.profiler trace (host, and the "
+             "card's kernels on a CUDA device) into DIR with tick-phase "
+             "record_function/NVTX ranges on every step dispatch",
+    )
     args = ap.parse_args(argv)
     if args.gen_len < 1 or args.prompt_len < 1 or args.batch < 1:
         ap.error("--batch, --prompt-len and --gen-len must be >= 1")
@@ -422,6 +508,15 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--speculative requires --mode continuous")
     if args.spec_k < 1:
         ap.error("--spec-k must be >= 1")
+    if args.mode != "continuous" and (
+        args.trace_out or args.metrics_jsonl or args.prom_out or args.torch_profile
+    ):
+        ap.error(
+            "--trace-out/--metrics-jsonl/--prom-out/--torch-profile require "
+            "--mode continuous (the batch path has no tick phases to trace)"
+        )
+    if args.metrics_every < 1:
+        ap.error("--metrics-every must be >= 1")
     return args
 
 

@@ -1,20 +1,40 @@
-"""Serving telemetry, the part of ``repro/observability/`` the serving engine
-needs: the tick trace (``trace.py``), the rolling live metrics
-(``rolling.py``), and the ``Telemetry`` bundle the Scheduler holds.
+"""Serving telemetry, the port's ``repro/observability/``: tick tracing,
+rolling live metrics, exporters, the profiler seam, and the ``Telemetry``
+bundle the Scheduler holds.
 
-Off by default: the default bundle is all no-ops (the shared ``NULL_TRACE``,
-no rolling window, no writer, a null annotation), so disabled telemetry
-costs a few no-op calls a tick and no device sync. The profiler
-annotations, the exporters, the step monitor and the serve flags that turn
-them on come with a later slice (ROADMAP §A4); until then ``annotate`` is
-the null annotation.
+Off by default and without a device sync when off: the Scheduler always
+holds a ``Telemetry`` object, but the default one is all no-ops (the shared
+``NULL_TRACE``, no rolling window, no writer, no monitor, the null
+annotation), so disabled telemetry costs a few no-op calls a tick. On, it
+reads the host clock only: outputs are token-identical with telemetry on or
+off (``tests/test_torch_observability.py``).
+
+Modules:
+
+* ``trace``    — bounded ring-buffer span recorder, Chrome trace-event JSON
+  export (Perfetto; the span catalog of ``docs/observability.md`` holds for
+  the port's traces as it is);
+* ``rolling``  — streaming P² quantiles, the shared EWMA (``StepMonitor``
+  delegates here), windowed live-metrics rows; home of ``latency_dist``;
+* ``export``   — metrics JSONL writer and Prometheus text exposition;
+* ``profiler`` — optional ``torch.profiler`` capture with phase-named
+  ``record_function``/NVTX ranges on each step dispatch.
+
+``Telemetry.from_flags`` builds the bundle from the serve flags
+(``launch/serve.py --trace-out/--metrics-jsonl/--metrics-every/
+--torch-profile``).
 """
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass, field
 from typing import Callable, ContextManager, Optional
 
+from repro_torch.observability.export import (
+    MetricsJSONLWriter,
+    prometheus_text,
+    write_prometheus,
+)
+from repro_torch.observability.profiler import annotation, null_annotation, torch_profile
 from repro_torch.observability.rolling import (
     EwmaMeanVar,
     P2Quantile,
@@ -25,6 +45,7 @@ from repro_torch.observability.trace import NULL_TRACE, NullTrace, Span, TraceRe
 
 __all__ = [
     "EwmaMeanVar",
+    "MetricsJSONLWriter",
     "NULL_TELEMETRY",
     "NULL_TRACE",
     "NullTrace",
@@ -33,17 +54,14 @@ __all__ = [
     "Span",
     "Telemetry",
     "TraceRecorder",
+    "annotation",
     "latency_dist",
     "make_trace",
     "null_annotation",
+    "prometheus_text",
+    "torch_profile",
+    "write_prometheus",
 ]
-
-_NULL_CTX = contextlib.nullcontext()
-
-
-def null_annotation(name: str) -> ContextManager:
-    """The off switch of step annotations: one shared, reusable null context."""
-    return _NULL_CTX
 
 
 @dataclass
@@ -53,16 +71,57 @@ class Telemetry:
     * ``trace``          — span recorder (``NULL_TRACE`` when off);
     * ``rolling``        — live windowed metrics, sampled every
       ``metrics_every`` ticks (0 disables sampling even if present);
-    * ``metrics_writer`` — a sink with ``write(row)`` for the sampled rows;
-    * ``annotate``       — a context factory wrapped around each step's
-      dispatch, named by phase.
+    * ``metrics_writer`` — JSONL sink for the sampled rows;
+    * ``monitor``        — a ``runtime.monitor.StepMonitor``; every tick's
+      host time feeds it, and flagged stragglers become ``straggler``
+      instant events on the trace (duck-typed: ``observe(step, dt)``);
+    * ``annotate``       — ``profiler.annotation`` while a profiler capture
+      runs, else the shared null annotation.
     """
 
     trace: NullTrace = field(default_factory=lambda: NULL_TRACE)
     rolling: Optional[RollingMetrics] = None
     metrics_every: int = 0
-    metrics_writer: Optional[object] = None
+    metrics_writer: Optional[MetricsJSONLWriter] = None
+    monitor: Optional[object] = None
     annotate: Callable[[str], ContextManager] = null_annotation
+
+    @property
+    def enabled(self) -> bool:
+        return (
+            self.trace.enabled
+            or self.rolling is not None
+            or self.monitor is not None
+        )
+
+    @classmethod
+    def from_flags(
+        cls,
+        *,
+        trace_out: Optional[str] = None,
+        metrics_jsonl: Optional[str] = None,
+        metrics_every: int = 32,
+        trace_capacity: int = 1 << 16,
+        monitor: Optional[object] = None,
+        profiling: bool = False,
+        rolling_window: int = 256,
+    ) -> "Telemetry":
+        """Build from the serve flag values (None/0 = that sink off)."""
+        wants_rolling = bool(metrics_jsonl) and metrics_every > 0
+        return cls(
+            trace=make_trace(bool(trace_out), capacity=trace_capacity),
+            rolling=RollingMetrics(window=rolling_window) if wants_rolling else None,
+            metrics_every=metrics_every if wants_rolling else 0,
+            metrics_writer=(
+                MetricsJSONLWriter(metrics_jsonl) if wants_rolling else None
+            ),
+            monitor=monitor,
+            annotate=annotation if profiling else null_annotation,
+        )
+
+    def close(self) -> None:
+        if self.metrics_writer is not None:
+            self.metrics_writer.close()
 
 
 #: The all-off default the Scheduler falls back to.

@@ -167,7 +167,8 @@ class Scheduler:
     (gathered on the device, fetched with the tick). ``graphs`` runs the
     steps as CUDA graphs on a CUDA device (the eager steps otherwise, and
     always on the CPU). ``telemetry`` (an ``observability.Telemetry``) turns
-    on the tick trace and rolling metrics; absent, every hook is a no-op.
+    on the tick trace, rolling metrics, the straggler monitor and the
+    profiler's step annotations; absent, every hook is a no-op.
     ``clock`` is the engine clock (injectable for tests). ``draft_cfg`` and
     ``draft_params`` (a pure-RNN LM sharing the vocab) turn on speculative
     decode with blocks of ``spec_k`` tokens; requests opt out one by one
@@ -513,18 +514,24 @@ class Scheduler:
                 with tr.span("retire", serial=oldest.serial):
                     self._retire(oldest, finished)
                 tr.async_end("inflight", "tick_inflight", id=oldest.serial)
-        self._observe_tick(t0)
+        self._observe_tick(serial, t0)
         return finished
 
-    def _observe_tick(self, t0: float) -> None:
-        """The tick's host time into ``busy_s`` and the rolling window; a
-        metrics row every ``metrics_every`` ticks. (The straggler monitor
-        comes with ROADMAP §A4.)"""
+    def _observe_tick(self, serial: int, t0: float) -> None:
+        """The tick's host time into ``busy_s``, the rolling window and the
+        straggler monitor (a flagged tick becomes a ``straggler`` instant on
+        the engine track); a metrics row every ``metrics_every`` ticks. Host
+        clock only: no device sync."""
         tel = self.tel
         dt = self._clock() - t0
         self.metrics.busy_s += dt
         if tel.rolling is not None:
             tel.rolling.observe_tick_time(dt)
+        if tel.monitor is not None:
+            res = tel.monitor.observe(serial, dt)
+            if res["straggler"]:
+                tel.trace.instant("straggler", tid="engine", tick=serial, dt_s=dt,
+                                  z=res["z"], mean_s=res["mean"])
         if tel.metrics_every and tel.rolling is not None \
                 and self.metrics.ticks % tel.metrics_every == 0:
             self._sample_metrics()
@@ -777,7 +784,9 @@ class Scheduler:
             self.metrics.spec_cycles += 1
             self.metrics.spec_proposed += k - r
         if snap_lanes:
-            with tr.span("snapshot", lanes=len(snap_lanes)), self.tel.annotate("snapshot"):
+            # no trace span: JAX's Scheduler writes none for these snapshots,
+            # and the port's traces follow its span catalog
+            with self.tel.annotate("snapshot"):
                 for lane in snap_lanes:
                     self._snapshot_into(self._snapshot, self.pool.caches, lane,
                                         self._rollback[lane])

@@ -53,7 +53,12 @@ configs with the floor draft, tokens, logits rows and counters bit for bit,
 rollbacks, launches, both pools in place; the draft block graph against k
 replays of the draft's one-step graph, bit for bit; two rollbacks in one
 tick after the snapshot graph replayed again, both lanes restored bit for
-bit; and a verify step that cannot be captured raising.
+bit; and a verify step that cannot be captured raising. And telemetry on
+the card: the captured Scheduler (plain and speculative, the four configs)
+with every sink and the profiler's step annotations on gives the tokens,
+logits rows and launches of the run without, still captured, with a trace
+``tools/trace_check.py`` accepts; ``serve --torch-profile``'s trace names
+the tick phases and holds the graph replays' kernels under them.
 
 They skip, with that reason, on a machine without a CUDA device (decided in
 the ``device`` fixture, not at import) and run on the card with
@@ -1535,3 +1540,92 @@ def test_verify_capture_failure_raises(device):
         eng.warmup()
     assert not eng.captured and eng._verify is waits_for_the_host
     assert eng._d_decode is d_decode and not isinstance(eng._decode, graphs.CapturedStep)
+
+
+# ---------------------------------------------------------------------------
+# Telemetry on the card: every sink and the profiler's annotations on
+# ---------------------------------------------------------------------------
+
+def _repo_module(name, relpath):
+    """A script of the repository (``tools/trace_check.py``,
+    ``chip_smoke.py``) imported as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / relpath
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _telemetry_run(device, cfg, params, trace, spec, tel=None):
+    kw = dict(draft_cfg=spec[0], draft_params=spec[1], spec_k=4) if spec else {}
+    eng = Scheduler(cfg, params, batch=4, async_depth=2, trace_logits=True, clock=_TickClock(),
+                    device=device, telemetry=tel, **kw)
+    eng.warmup()
+    with graphs.uncounted() as launches:
+        done = eng.run(clone_trace(trace), max_ticks=4000)
+    torch.cuda.synchronize()
+    return eng, sum(launches), {r.rid: list(r.tokens) for r in done}
+
+
+@pytest.mark.parametrize("case", sorted(ENGINE_GRAPH_CASES))
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "speculative"])
+def test_captured_tokens_equal_with_telemetry_on(device, case, spec, tmp_path):
+    """A Poisson trace through the captured Scheduler at depth 2 with every
+    sink on (trace, metrics rows, straggler monitor) inside a torch.profiler
+    capture with the step annotations on, against the same run with
+    telemetry off: the steps still captured (the annotations stay outside
+    the captures), every stream's tokens and logits rows bit for bit, the
+    same launches; the trace passes ``trace_check``."""
+    from repro_torch.observability import Telemetry, torch_profile
+    from repro_torch.runtime.monitor import StepMonitor
+
+    cfg, params, dcfg, dparams = _spec_case(device, case, "bfloat16")
+    draft = (dcfg, dparams) if spec else None
+    trace = poisson_trace(10, rate=0.0, prompt_lens=[5, 40, 70], vocab=cfg.vocab, seed=4,
+                          gen_mix=((4, 0.5), (12, 0.5)))
+    off, off_launches, off_tokens = _telemetry_run(device, cfg, params, trace, draft)
+    with torch_profile(str(tmp_path / "prof"), device) as profiling:
+        assert profiling
+        tel = Telemetry.from_flags(trace_out="yes", metrics_jsonl=str(tmp_path / "m.jsonl"),
+                                   metrics_every=4, monitor=StepMonitor(), profiling=profiling)
+        on, on_launches, on_tokens = _telemetry_run(device, cfg, params, trace, draft, tel)
+    tel.close()
+    assert on.captured and off.captured and on.cache_in_place and on.idle
+    assert on_launches == off_launches > 0
+    assert on_tokens == off_tokens and len(on_tokens) == len(trace)
+    for rid in range(len(trace)):
+        assert off.logit_trace[rid] and len(off.logit_trace[rid]) == len(on.logit_trace[rid])
+        for a, b in zip(off.logit_trace[rid], on.logit_trace[rid]):
+            assert np.array_equal(a, b), rid
+    want = ["decode", "fetch", "retire"] + (["draft", "verify"] if spec else [])
+    errors = _repo_module("trace_check", "tools/trace_check.py").check_trace(tel.trace.to_chrome(), expect_overlap=True,
+                                        expect_phases=want, epsilon_frac=0.35,
+                                        epsilon_us=3000.0)
+    assert errors == [], errors
+
+
+def test_annotation_names_appear_in_a_cuda_profile(device, tmp_path):
+    """``serve --torch-profile`` on the card: the profiler runs around the
+    captures and the run, its trace names the tick phases, and the graph
+    replays' kernels are found under the phase annotation of their
+    ``cudaGraphLaunch`` through the correlation ids (``chip_smoke``'s
+    split), none of the run's launches without its device events."""
+    import json
+
+    chip_smoke = _repo_module("chip_smoke", "chip_smoke.py")
+    cfg, params = _engine_case(device, "fused")
+    args = serve.parse_args(["--arch", cfg.name, "--mode", "continuous", "--requests", "8",
+                             "--prompt-len", "40", "--gen-len", "8", "--async-depth", "2",
+                             "--torch-profile", str(tmp_path)])
+    stats = serve.run_continuous(cfg, params, args, device)
+    assert stats["torch_profile"] is True and stats["graphs"] and stats["completed"] == 8
+    doc = json.loads(next(tmp_path.glob("*.pt.trace.json")).read_text())
+    named = {e["name"] for e in doc["traceEvents"] if e.get("cat") == "user_annotation"}
+    assert {"decode", "prefill", "reset"} <= named
+    split = chip_smoke.profile_split(doc, stats["ticks"])
+    assert split["device_ms_per_tick_by_phase"]["decode"] > 0
+    assert split["device_ms_per_tick_by_phase"]["prefill"] > 0
+    assert split["lost_launching_calls"] == 0 and split["unattributed_share"] < 0.5
