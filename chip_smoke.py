@@ -42,7 +42,12 @@ Phases, each printing one JSON line per step:
            4), with the mma chunk kernel's resources and plan; max |error|
            against a stated tolerance, and kernel / plain times from CUDA
            events (decode cases and every SSD and linear-scan case also
-           cold: the L2 flushed before each call);
+           cold: the L2 flushed before each call); and the fused layer's
+           and stack's autograd Functions (SRU and QRNN, both stacks, fp
+           and int8 slabs, T = 64, B = 4, width 1024, bf16 and fp32): the
+           gradient of every floating operand against autograd through the
+           plain version, the launches of a forward and backward, and
+           their times;
   serve    ``repro_torch.launch.serve.main`` in batch mode at full width
            (``--batch 4 --prompt-len 64 --gen-len 32``) for the stacked and
            fused configs, the base SRU/QRNN configs under ``--engine pallas``,
@@ -122,12 +127,27 @@ Phases, each printing one JSON line per step:
            layers so the CPU side fits in time and host memory) at full width
            in fp32 compute, same params, on the card versus the plain path on
            the CPU: teacher-forced prefill logits, 8 decode steps and their
-           argmax; the attention and Mamba caches keep their storage.
+           argmax; the attention and Mamba caches keep their storage;
+  train    training at full width, 8 x 256 tokens a step, 4 steps, for
+           ``sru``/``qrnn-paper-large-stacked`` (B2),
+           ``qrnn-paper-large-fused`` (B1) and ``smollm-360m`` through
+           ``repro_torch.launch.train.main``, ``sru-paper-large`` on
+           ``pallas`` (B3 forward and backward) and ``mamba2-2.7b`` cut to 2
+           layers through the same loop over ``build_train_step``
+           (``launch/train.py`` has no engine or depth flag, as in JAX):
+           per config the fp32 step 0
+           on the card against the CPU's (same params and batch: loss and
+           grad norm), then the run in the config's dtypes with every
+           kernel's count set to 0 just before and read just after
+           (launches equal to the expected), finite losses, ms per step,
+           tokens/s, peak memory and the B1/B2 backward's recompute time;
+           then a run saved half way and resumed against the uninterrupted
+           one (max |param difference|).
 
 Then one ``{"phase_seconds": {...}}`` line (each phase's wall time, the
 serve phase's warm-ups included), one ``{"kernels": [...]}`` line (launches
-from the serve, continuous, speculative and telemetry phases, eager and
-captured runs summed), the
+from the serve, continuous, speculative, telemetry and train phases, eager
+and captured runs summed), the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the last
 line. Without a CUDA device, or without the repository beside this file, it
@@ -139,6 +159,7 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -150,7 +171,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("build", "kernels", "serve", "continuous", "speculative", "telemetry", "profile",
-          "parity")
+          "parity", "train")
 # (arch, --engine override, --prompt-len): the runs of the serve phase.
 SERVE_RUNS = (
     ("sru-paper-large-stacked", None, 64), ("qrnn-paper-large-stacked", None, 64),
@@ -232,6 +253,34 @@ PARITY_RUNS = (
     ("smollm-360m", None, {}), ("llama3-8b", None, {"n_layers": 2}),
     ("mamba2-2.7b", None, {"n_layers": 2}),
 )
+# Training (phase ``train``): (arch, engine override, config overrides) at
+# full width, TRAIN_BATCH x TRAIN_SEQ tokens a step, TRAIN_STEPS steps. The
+# runs without overrides go through ``repro_torch.launch.train.main``; its
+# flags (the JAX package's) have no --engine and no depth, so the others run
+# ``build_train_step`` on the config in the same loop.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 4
+TRAIN_RUNS = (
+    ("sru-paper-large-stacked", None, {}), ("qrnn-paper-large-stacked", None, {}),  # B2
+    ("qrnn-paper-large-fused", None, {}),                                          # B1
+    ("sru-paper-large", "pallas", {}),                                             # B3
+    ("smollm-360m", None, {}), ("mamba2-2.7b", None, {"n_layers": 2}),
+)
+# A run saved at step TRAIN_STEPS // 2 and resumed ends with the
+# uninterrupted run's params: equal but for the last-ulp effect of atomics
+# in the embedding gradient on fp32 masters of magnitude < 1 (~6e-8); a lost
+# moment or step would move them by about one AdamW update (the learning
+# rate, >= 1.5e-5 here).
+TRAIN_RESUME_ARCH = "sru-paper-large-stacked"
+TRAIN_RESUME_TOL = 1e-6
+TRAIN_DIR = ROOT / "build" / "train"
+# Autograd Functions of B1/B2 (kernels phase): their gradients against
+# autograd through the plain version on the card. The Functions' backward
+# recomputes the plain version with its recurrence through the linear scan
+# (B3's chunked fold order, the plain walk's one step at a time), so fp32
+# rounding differs along T = 64 steps and the backward's products: ATOL,
+# plus GRAD_RTOL of the largest gradient (and one bf16 ulp of it for a bf16
+# operand), the JAX package's gradient tolerance.
+GRAD_RTOL = 5e-4
 # Each kernel instance family with its launch counter (module attribute).
 KERNELS = ("fused_rnn_layer", "fused_rnn_stack", "linear_scan",
            "fused_rnn_layer_int8", "fused_rnn_stack_int8", "gqa_decode", "ssd")
@@ -782,6 +831,99 @@ def _scan_backward_row(name, T, F, dtype_name, seed):
     return row
 
 
+def _grad_inputs(args, kw):
+    """Copies of a kernel call's ``(args, kw)`` (taps in a tuple), each
+    floating tensor a leaf that wants its gradient, and the list of those."""
+    import torch
+
+    def one(t):
+        if not torch.is_tensor(t):
+            return t
+        return t.detach().clone().requires_grad_(t.is_floating_point())
+
+    a = [tuple(one(t) for t in x) if isinstance(x, tuple) else one(x) for x in args]
+    k = {key: one(v) for key, v in kw.items()}
+    flat = [t for x in a for t in (x if isinstance(x, tuple) else (x,))] + list(k.values())
+    return a, k, [t for t in flat if torch.is_tensor(t) and t.requires_grad]
+
+
+def _fn_grad_row(kname, fn, plain, dtype, name, args, kw, rw, ops):
+    """One autograd Function of B1/B2 (``ops.fused_layer`` /
+    ``stacked.fused_stack``) against autograd through its plain version on
+    the card, on the same inputs and output cotangents: the gradient of every
+    floating operand (int8 slabs get none: straight-through). A call
+    launches the fused kernel once per layer, and its backward the linear
+    scan twice per layer (the recompute's recurrence). ``op_ms`` is
+    forward + backward through the Function, ``plain_ms`` through the plain
+    version; the bound counts the forward's bytes plus every gradient written
+    once, and three times the forward's operations (the forward's product
+    and the two of its backward)."""
+    import torch
+
+    from repro_torch.kernels.fused_rnn import fused_rnn, stacked
+    from repro_torch.kernels.linear_scan import linear_scan
+
+    g = torch.Generator(device="cuda").manual_seed(len(name))
+    with torch.no_grad():
+        shapes = [o for o in fn(*args, **kw) if o is not None]
+    cots = [torch.randn(o.shape, generator=g, device="cuda").to(o.dtype) for o in shapes]
+
+    def grads(f):
+        a, k, wrt = _grad_inputs(args, kw)
+        outs = [o for o in f(*a, **k) if o is not None]
+        return torch.autograd.grad(outs, wrt, cots)
+
+    counter = stacked if kname.startswith("fused_rnn_stack") else fused_rnn
+    attr = "LAUNCHES_INT8" if kname.endswith("int8") else "LAUNCHES"
+    before, scans_before = getattr(counter, attr), linear_scan.LAUNCHES
+    got = grads(fn)
+    launches = getattr(counter, attr) - before
+    scans = linear_scan.LAUNCHES - scans_before
+    want = grads(plain)
+    torch.cuda.synchronize()
+    err, tol, finite = compare(got, want, ATOL, GRAD_RTOL)
+    b_ms, b_by = bound(rw + nbytes(*_grad_inputs(args, kw)[2]), 3.0 * ops, dtype)
+    L = args[1][0].shape[0] if "mode" not in kw else 1
+    row = {"phase": "kernels", "kernel": kname, "case": "autograd " + name, "dtype": dtype,
+           "max_abs_err": err, "tol": tol, "finite": finite, "launches_per_call": launches,
+           "linear_scan_launches_per_call": scans,
+           "op_ms": time_ms(lambda: grads(fn), iters=5, warmup=1),
+           "plain_ms": time_ms(lambda: grads(plain), iters=2, warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    require(finite and err <= tol, f"{kname} [autograd {name}]: err {err} > tol {tol}")
+    require(launches == L and scans == 2 * L,
+            f"{kname} [autograd {name}]: {launches} launches and {scans} of the linear scan, "
+            f"expected {L} and {2 * L}")
+    return row
+
+
+def fused_fn_grad_rows():
+    """The B1/B2 autograd Functions at the main path's shapes (T = 64, B =
+    4, width 1024): the SRU and QRNN layer and both L = 4 stacks, fp and int8
+    slabs, in bf16 and fp32."""
+    from repro_torch.kernels.fused_rnn import fused_rnn, ops, stacked
+
+    rows, seed = [], 600
+    for dtype in ("bfloat16", "float32"):
+        for quant in (False, True):
+            q = "_int8" if quant else ""
+            tag = "int8 " if quant else ""
+            for mode in ("sru_identity", "qrnn"):
+                seed += 1
+                rows.append(_fn_grad_row(
+                    "fused_rnn_layer" + q, ops.fused_layer, fused_rnn.fused_rnn_layer_plain, dtype,
+                    *_layer_case(f"{tag}{mode} T=64 d=1024 {dtype}", mode, 64, 4, 1024, 1024,
+                                 dtype, seed, quant=quant)))
+            for cell in ("sru", "qrnn"):
+                seed += 1
+                rows.append(_fn_grad_row(
+                    "fused_rnn_stack" + q, stacked.fused_stack, stacked.fused_rnn_stack_plain,
+                    dtype, *_stack_case(f"{tag}{cell} L=4 T=64 {dtype}", cell, 64, 4, 1024, 4,
+                                        dtype, seed, quant=quant)))
+    return rows
+
+
 def fused_rnn_cases():
     """The cases of the fused SRU/QRNN kernel (B1 layer, B2 stack, fp and
     int8 slabs), keyed by kernel family: ``(dtype, T, name, args, kw, rw,
@@ -904,6 +1046,9 @@ def phase_kernels():
         summaries[kname] = _summary(kname, source, replaces, rows)
         if fused_kernel or kname == "linear_scan":
             summaries[kname]["cold_ms"] = rows[0]["cold_ms"]
+    for row in fused_fn_grad_rows():  # the autograd Functions' backward
+        summaries[row["kernel"]].setdefault("autograd_cases_passed", 0)
+        summaries[row["kernel"]]["autograd_cases_passed"] += 1
     rows = _run_cases("gqa_decode", gqa_decode, gqa_decode_ref, gqa_cases, atol=B5_ATOL,
                       library=_sdpa)
     for _, _, name, (q, k, _, _), *_ in gqa_cases:  # the instance each case runs
@@ -1848,6 +1993,249 @@ def phase_parity():
         del params_gpu, params_cpu
 
 
+def _expected_train_launches(cfg, steps: int) -> dict:
+    """Launches of each kernel over ``steps`` train steps: the fused RNN
+    kernels once per layer per forward, and under remat (``"block"``) the
+    forward runs again in the backward's recompute; their autograd
+    Functions' backward launches none. The linear scan adds its one-launch
+    backward per layer. Attention and Mamba train through plain PyTorch (the
+    decode kernels have no VJP in JAX): none."""
+    want = dict.fromkeys(KERNELS, 0)
+    if cfg.cell not in ("sru", "qrnn"):
+        return want
+    passes = 2 if cfg.remat != "none" else 1
+    layers = cfg.n_layers * steps * cfg.microbatches
+    if cfg.scan_engine == "fused_stack" and cfg.fuse_depth:
+        want["fused_rnn_stack"] = passes * layers
+    elif cfg.scan_engine in ("fused", "fused_stack"):
+        want["fused_rnn_layer"] = passes * layers
+    if cfg.scan_engine in ("fused", "fused_stack"):
+        want["linear_scan"] = 2 * layers  # the recompute's recurrence, forward and backward
+    elif cfg.scan_engine == "pallas":
+        want["linear_scan"] = (passes + 1) * layers
+    return want
+
+
+def _train_cfg(arch, engine, overrides):
+    """The config as ``launch.train.main`` runs it at TRAIN_BATCH."""
+    cfg = _run_cfg(arch, engine).with_(**overrides)
+    return cfg.with_(microbatches=min(cfg.microbatches, max(1, TRAIN_BATCH // 2)))
+
+
+def _train_parity(cfg):
+    """Step 0 in fp32 compute on the card and on the CPU: the params
+    ``launch.train.main`` draws (seed 0, drawn on the card, copied to the
+    host) and its first batch. Returns (loss, grad norm) per device."""
+    import torch
+
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.training.steps import TrainState, build_train_step, init_train_state
+
+    cfg32 = cfg.with_(compute_dtype="float32")
+    card = init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg32,
+                            device="cuda")
+    host = TrainState(params=_tree_to(card.params, "cpu"), opt=AdamWState(
+        step=card.opt.step.cpu(), m=_tree_to(card.opt.m, "cpu"),
+        v=_tree_to(card.opt.v, "cpu")), ef=None)  # before the card's step updates in place
+    batch = make_pipeline(cfg32, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(0)
+    out = {}
+    for dev, state in (("cuda", card), ("cpu", host)):
+        step = build_train_step(cfg32, base_lr=3e-4, warmup=20, total_steps=TRAIN_STEPS)
+        _, m = step(state, batch_to_device(batch, dev))
+        out[dev] = (m["loss"].item(), m["grad_norm"].item())
+    return out
+
+
+def _recompute_ms(cfg):
+    """Device ms per train step of the B1/B2 autograd Functions' backward
+    (the recompute through the plain version, its recurrence on the linear
+    scan, and its autograd), at the
+    step's shapes in the compute dtype: forward + backward of one call less
+    its forward, times the calls a step makes (a layer per call under
+    ``fused``, the whole stack under ``fused_stack``, per microbatch). None
+    for a config with neither."""
+    from repro_torch.kernels.fused_rnn import ops, stacked
+
+    B = TRAIN_BATCH // cfg.microbatches
+    dtype = cfg.compute_dtype
+    cell = cfg.cell
+    if cfg.scan_engine == "fused_stack" and cfg.fuse_depth:
+        fn, calls = stacked.fused_stack, cfg.microbatches
+        _, args, kw, _, _ = _stack_case("train", cell, TRAIN_SEQ, B, cfg.d_model, cfg.n_layers,
+                                        dtype, 900, block_t=cfg.mts_block_size)
+    elif cfg.scan_engine == "fused":
+        fn, calls = ops.fused_layer, cfg.microbatches * cfg.n_layers
+        mode = "qrnn" if cell == "qrnn" else "sru_identity"
+        _, args, kw, _, _ = _layer_case("train", mode, TRAIN_SEQ, B, cfg.d_model, cfg.rnn_hidden,
+                                        dtype, 901, block_t=cfg.mts_block_size)
+    else:
+        return None
+    import torch
+
+    def fwd():
+        with torch.no_grad():
+            fn(*args, **kw)
+
+    def fwd_bwd():
+        a, k, _ = _grad_inputs(args, kw)
+        outs = [o for o in fn(*a, **k) if o is not None]
+        torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
+
+    return (time_ms(fwd_bwd, iters=2, warmup=1) - time_ms(fwd, iters=5, warmup=1)) * calls
+
+
+def _train_loop(cfg, monitor, metrics_out):
+    """``launch.train.main``'s loop on a config its flags cannot name (an
+    engine override, a cut depth): same seed, pipeline, schedule and
+    monitor; writes the same metrics history."""
+    import torch
+
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.training.steps import build_train_step, init_train_state
+
+    pipeline = make_pipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    step_fn = build_train_step(cfg, base_lr=3e-4, warmup=20, total_steps=TRAIN_STEPS)
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    history = []
+    for step in range(TRAIN_STEPS):
+        batch = batch_to_device(pipeline.batch_at(step), "cuda")
+        monitor.start()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        monitor.stop(step)
+        history.append({"step": step, "loss": loss,
+                        **{k: float(v) for k, v in metrics.items() if k != "loss"}})
+    metrics_out.write_text(json.dumps(history))
+    return 0
+
+
+def _resume_check(counters):
+    """``launch.train.main`` on TRAIN_RESUME_ARCH: TRAIN_STEPS straight with
+    a checkpoint at half way, and again from that checkpoint (a copy of it
+    in a fresh directory, ``--resume auto``). Returns the max |difference|
+    between the two final checkpoints' leaves, and the launches."""
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    full, resumed = TRAIN_DIR / "resume_full", TRAIN_DIR / "resume_from_half"
+    k = TRAIN_STEPS // 2
+    base = ["--arch", TRAIN_RESUME_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(TRAIN_STEPS), "--save-every", str(k), "--log-every", "1"]
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    with contextlib.redirect_stdout(io.StringIO()):
+        require(train.main(base + ["--checkpoint-dir", str(full)]) == 0, "resume: full run")
+        shutil.copytree(full / f"step_{k}", resumed / f"step_{k}")
+        require(train.main(base + ["--checkpoint-dir", str(resumed), "--resume", "auto"]) == 0,
+                "resume: resumed run")
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+    def leaves(d):
+        manifest = json.loads((d / f"step_{TRAIN_STEPS}" / "MANIFEST.json").read_text())
+        return {e["path"]: np.load(d / f"step_{TRAIN_STEPS}" / e["file"])
+                for e in manifest["leaves"]}
+
+    a, b = leaves(full), leaves(resumed)
+    require(a.keys() == b.keys(), "resume: the checkpoints' leaves differ")
+    diff = max(float(np.abs(a[p].astype(np.float64) - b[p]).max()) for p in a)
+    return diff, launches
+
+
+def phase_train():
+    """Training at full width (TRAIN_RUNS): per config the fp32 step-0
+    parity with the CPU, then TRAIN_STEPS steps in the config's own dtypes
+    (fp32 masters, bf16 compute) through ``launch.train.main`` (or its loop)
+    with every kernel's count set to 0 just before and read just after:
+    launches equal to the expected, finite losses, ms per step after the
+    first, tokens/s, peak memory, and the B1/B2 backward's recompute time per
+    step. Then the resume check."""
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.runtime import StepMonitor
+
+    counters = _launch_counters()
+    totals = dict.fromkeys(KERNELS, 0)
+    if TRAIN_DIR.exists():
+        shutil.rmtree(TRAIN_DIR)
+    TRAIN_DIR.mkdir(parents=True)
+    for arch, engine, overrides in TRAIN_RUNS:
+        cfg = _train_cfg(arch, engine, overrides)
+        what = f"train {arch} {engine or ''}".strip()
+        parity = _train_parity(cfg)
+        (loss_card, gn_card), (loss_cpu, gn_cpu) = parity["cuda"], parity["cpu"]
+        loss_err, gn_err = abs(loss_card - loss_cpu), abs(gn_card - gn_cpu)
+        require(loss_err <= PARITY_TOL and gn_err <= PARITY_TOL * gn_cpu,
+                f"{what}: fp32 step 0 on the card (loss {loss_card}, grad norm {gn_card}) != "
+                f"the CPU's ({loss_cpu}, {gn_cpu})")
+
+        times = []
+
+        class Monitor(StepMonitor):
+            def stop(self, step):
+                torch.cuda.synchronize()
+                m = super().stop(step)
+                times.append(m["step_time"])
+                return m
+
+        metrics_out = TRAIN_DIR / f"{arch}-{engine or 'own'}.json"
+        argv = ["--arch", arch, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--steps", str(TRAIN_STEPS), "--log-every", "1", "--metrics-out", str(metrics_out)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        real_monitor, train.StepMonitor = train.StepMonitor, Monitor
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = (train.main(argv) if engine is None and not overrides
+                      else _train_loop(cfg, Monitor(), metrics_out))
+        finally:
+            train.StepMonitor = real_monitor
+        launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        require(rc == 0, f"{what}: returned {rc}")
+        history = json.loads(metrics_out.read_text())
+        losses = [h["loss"] for h in history]
+        want = _expected_train_launches(cfg, TRAIN_STEPS)
+        require(launches == want, f"{what}: launches {launches} != {want}")
+        require(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+                f"{what}: losses {losses}")
+        step_ms = sum(times[1:]) / len(times[1:]) * 1e3
+        recompute = _recompute_ms(cfg)
+        emit({"phase": "train", "arch": arch, "engine": cfg.scan_engine,
+              "via": "launch.train.main" if engine is None and not overrides else "train loop",
+              "n_layers": cfg.n_layers, "depth_cut_from": _run_cfg(arch, engine).n_layers
+              if overrides else None, "compute": cfg.compute_dtype, "remat": cfg.remat,
+              "microbatches": cfg.microbatches, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "losses": losses, "grad_norms": [h["grad_norm"] for h in history],
+              "step0_fp32": {"loss_card": loss_card, "loss_cpu": loss_cpu, "loss_err": loss_err,
+                             "grad_norm_card": gn_card, "grad_norm_cpu": gn_cpu,
+                             "grad_norm_err": gn_err, "tol": PARITY_TOL, "grad_norm_rtol":
+                             PARITY_TOL},
+              "first_step_ms": times[0] * 1e3, "ms_per_step": step_ms,
+              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3, "peak_mem_gb": peak_gb,
+              "launches": {k: n for k, n in launches.items() if n},
+              "expected_launches": {k: n for k, n in want.items() if n},
+              "recompute_ms_per_step": recompute,
+              "recompute_share": None if recompute is None else recompute / step_ms})
+        for k, n in launches.items():
+            totals[k] += n
+        torch.cuda.empty_cache()
+    diff, launches = _resume_check(counters)
+    emit({"phase": "train", "arch": TRAIN_RESUME_ARCH, "resume_from_step": TRAIN_STEPS // 2,
+          "steps": TRAIN_STEPS, "max_abs_param_diff": diff, "tol": TRAIN_RESUME_TOL})
+    require(diff <= TRAIN_RESUME_TOL, f"train resume: params differ by {diff}")
+    for k, n in launches.items():
+        totals[k] += n
+    emit({"phase": "train", "launches": totals})
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1888,9 +2276,11 @@ def main(argv=None) -> int:
             continuous = results.get("continuous") or {}
             speculative = results.get("speculative") or {}
             telemetry = results.get("telemetry") or {}
+            train = results.get("train") or {}
             for name, s in summaries.items():
                 s["launches"] = (launches[name] + continuous.get(name, 0)
-                                 + speculative.get(name, 0) + telemetry.get(name, 0))
+                                 + speculative.get(name, 0) + telemetry.get(name, 0)
+                                 + train.get(name, 0))
                 require(s["launches"] > 0, f"{name}: no launch on the main path")
             emit({"kernels": list(summaries.values())})
         smi = subprocess.run(

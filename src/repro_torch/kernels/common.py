@@ -64,3 +64,24 @@ def largest_divisor_leq(n: int, k: int) -> int:
         if n % d == 0:
             return d
     return 1
+
+
+def recompute_grads(plain, inputs, needs, grad_outs):
+    """The backward of a kernel's autograd Function, as the JAX package's
+    ``custom_vjp`` rules for its fused kernels do it: evaluate ``plain`` (the
+    kernel's plain version) again on detached copies of the saved
+    ``inputs`` with autograd on, and differentiate it against ``grad_outs``.
+    ``needs[i]`` says whether input i wants a gradient (never an integer
+    one). Returns one gradient or ``None`` per input."""
+    detached = [None if t is None else t.detach().requires_grad_(bool(n))
+                for t, n in zip(inputs, needs)]
+    wrt = [t for t, n in zip(detached, needs) if n]
+    if not wrt:
+        return [None] * len(inputs)
+    with torch.enable_grad():
+        outs = plain(*detached)
+    pairs = [(o, g) for o, g in zip(outs, grad_outs)
+             if o is not None and g is not None and o.requires_grad]
+    got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                   allow_unused=True))
+    return [next(got) if n else None for n in needs]

@@ -42,7 +42,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.common import DTYPE_CODES, check_operand, cuda_dtype_code
 from repro_torch.kernels.fused_rnn import layout
-from repro_torch.kernels.fused_rnn.ref import fused_rnn_ref, fused_rnn_ref_q
+from repro_torch.kernels.fused_rnn.ref import fused_rnn_ref, fused_rnn_ref_q, _scan
 
 LAUNCHES = 0
 LAUNCHES_INT8 = 0
@@ -220,16 +220,17 @@ def weight_dtype(scale, io_code: int) -> int:
 
 
 def fused_rnn_layer_plain(u, taps, b3, c0, *, mode, tail=None, wskip=None, block_t=128,
-                          scale=None):
-    """The plain version of :func:`fused_rnn_layer` (same arguments)."""
+                          scale=None, scan=_scan):
+    """The plain version of :func:`fused_rnn_layer` (same arguments; ``scan``:
+    the recurrence, ``ref.py``)."""
     if mode == "qrnn":
         u, w3, b3 = layout.qrnn_operands({"w0": taps[0], "w1": taps[1], "b": b3}, u, tail)
     else:
         w3 = taps[0]
     if scale is None:
-        return fused_rnn_ref(u, w3, b3, wskip, c0, mode=mode)
+        return fused_rnn_ref(u, w3, b3, wskip, c0, mode=mode, scan=scan)
     s3 = layout.expand_scales(scale, w3.shape[-1])
-    return fused_rnn_ref_q(u, w3, s3, b3, wskip, c0, mode=mode)
+    return fused_rnn_ref_q(u, w3, s3, b3, wskip, c0, mode=mode, scan=scan)
 
 
 def fused_rnn_layer(

@@ -8,6 +8,11 @@ stream across all layers, cast once at the end. The int8 twins accumulate the
 raw int8 values in fp32 and multiply the per-lane scales in after the
 accumulate, then add the bias. The CPU path of every kernel wrapper runs
 them, and ``chip_smoke.py`` holds the kernels to them on the card.
+
+``scan`` (every function here) is the recurrence, ``(x_hat, f, r, skip, c0)
+-> (h, c_last)`` in fp32: by default ``_scan``, step by step as the
+kernels walk it. The autograd Functions' backward passes the same
+recurrence evaluated by the linear-scan kernel (``ops.py``).
 """
 from __future__ import annotations
 
@@ -35,23 +40,23 @@ def _gates(uf, w3, s3, b3):
     return z + b3.float()
 
 
-def fused_rnn_ref(u, w3, b3, wskip, c0, *, mode: str):
+def fused_rnn_ref(u, w3, b3, wskip, c0, *, mode: str, scan=_scan):
     """u: (T, B, d); w3: (d, 3, H); b3: (3, H); c0: (B, H).
 
     mode: ``sru_identity`` (skip = u, needs d == H), ``sru_proj``
     (skip = u @ wskip), ``qrnn`` (tanh on x_hat, no skip term).
     Returns (h, c_last): (T, B, H), (B, H) in u's dtype.
     """
-    return _layer(u, w3, None, b3, wskip, c0, mode)
+    return _layer(u, w3, None, b3, wskip, c0, mode, scan)
 
 
-def fused_rnn_ref_q(u, wq, s3, b3, wskip, c0, *, mode: str):
+def fused_rnn_ref_q(u, wq, s3, b3, wskip, c0, *, mode: str, scan=_scan):
     """Int8 twin of :func:`fused_rnn_ref`. ``wq``: int8 (d, 3, H); ``s3``:
     fp32 per-lane scales (3, H). ``wskip`` stays fp and is not scaled."""
-    return _layer(u, wq, s3, b3, wskip, c0, mode)
+    return _layer(u, wq, s3, b3, wskip, c0, mode, scan)
 
 
-def _layer(u, w3, s3, b3, wskip, c0, mode):
+def _layer(u, w3, s3, b3, wskip, c0, mode, scan):
     uf = u.float()
     z = _gates(uf, w3, s3, b3)
     x_hat = z[..., 0, :]
@@ -65,11 +70,12 @@ def _layer(u, w3, s3, b3, wskip, c0, mode):
         skip = uf @ wskip.float()
     else:
         skip = None
-    h, c_last = _scan(x_hat, f, r, skip, c0)
+    h, c_last = scan(x_hat, f, r, skip, c0)
     return h.to(u.dtype), c_last.to(u.dtype)
 
 
-def fused_rnn_stack_ref(x, w3L, b3L, lnL, c0L, tailsL, *, cell: str, eps: float = 1e-6):
+def fused_rnn_stack_ref(x, w3L, b3L, lnL, c0L, tailsL, *, cell: str, eps: float = 1e-6,
+                        scan=_scan):
     """The depth-fused stack. x: (T, B, d) residual stream; w3L: (L, K, d, 3, H)
     with K = 2 for QRNN (the [w0 ; w1] shifted-input halves); b3L: (L, 3, H);
     lnL: (L, d) pre-norm gains; c0L: (L, B, H); tailsL: (L, B, d) per-layer
@@ -77,16 +83,17 @@ def fused_rnn_stack_ref(x, w3L, b3L, lnL, c0L, tailsL, *, cell: str, eps: float 
     is pre-norm -> gates -> recurrence -> highway -> residual, all in fp32.
     Returns (y, c_lastL, tails_lastL) in x's dtype; tails_lastL is None for SRU.
     """
-    return _stack(x, w3L, None, b3L, lnL, c0L, tailsL, cell, eps)
+    return _stack(x, w3L, None, b3L, lnL, c0L, tailsL, cell, eps, scan)
 
 
-def fused_rnn_stack_ref_q(x, wqL, sL, b3L, lnL, c0L, tailsL, *, cell: str, eps: float = 1e-6):
+def fused_rnn_stack_ref_q(x, wqL, sL, b3L, lnL, c0L, tailsL, *, cell: str, eps: float = 1e-6,
+                          scan=_scan):
     """Int8 twin of :func:`fused_rnn_stack_ref`. ``wqL``: int8 (L, K, d, 3, H);
     ``sL``: fp32 per-lane scales (L, 3, H), shared by the K taps."""
-    return _stack(x, wqL, sL, b3L, lnL, c0L, tailsL, cell, eps)
+    return _stack(x, wqL, sL, b3L, lnL, c0L, tailsL, cell, eps, scan)
 
 
-def _stack(x, w3L, sL, b3L, lnL, c0L, tailsL, cell, eps):
+def _stack(x, w3L, sL, b3L, lnL, c0L, tailsL, cell, eps, scan):
     qrnn = cell == "qrnn"
     xf = x.float()
     c_lasts, new_tails = [], []
@@ -105,7 +112,7 @@ def _stack(x, w3L, sL, b3L, lnL, c0L, tailsL, cell, eps):
         x_hat = torch.tanh(z[..., 0, :]) if qrnn else z[..., 0, :]
         f = torch.sigmoid(z[..., 1, :])
         r = torch.sigmoid(z[..., 2, :])
-        h, c_last = _scan(x_hat, f, r, None if qrnn else u, c0L[l])
+        h, c_last = scan(x_hat, f, r, None if qrnn else u, c0L[l])
         c_lasts.append(c_last)
         xf = xf + h
     tails_out = torch.stack(new_tails).to(x.dtype) if qrnn else None

@@ -24,6 +24,16 @@ Int8 gate slabs (``sL`` given): the taps are int8 ``(L, H, 3, H)`` and
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 version (``ref.py::fused_rnn_stack_ref`` / ``fused_rnn_stack_ref_q``).
+
+Differentiable, as JAX's ``_stack_core`` / ``_stack_core_q`` are through
+``jax.custom_vjp``: ``_StackCore`` runs the L launches forward and saves
+the call's inputs (never the two fp32 residual buffers); its backward
+evaluates :func:`fused_rnn_stack_plain` again on them, its recurrence
+through the linear-scan kernel (``ops.linear_scan_recurrence``), and
+differentiates it. Int8 slabs (``sL`` given) are straight-through: no
+gradient for the int8 taps, the reference's for the rest. The backward
+launches no fused kernel; per layer it launches the linear scan forward
+and backward once each.
 ``LAUNCHES`` counts launches of the fp instances, one per layer,
 ``LAUNCHES_INT8`` those of the int8 ones.
 """
@@ -34,10 +44,11 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_operand, largest_divisor_leq
+from repro_torch.kernels.common import check_operand, largest_divisor_leq, recompute_grads
 from repro_torch.kernels.fused_rnn import layout
 from repro_torch.kernels.fused_rnn.fused_rnn import _plan_on, kernel_dtype, weight_dtype
-from repro_torch.kernels.fused_rnn.ref import fused_rnn_stack_ref, fused_rnn_stack_ref_q
+from repro_torch.kernels.fused_rnn.ops import linear_scan_recurrence
+from repro_torch.kernels.fused_rnn.ref import fused_rnn_stack_ref, fused_rnn_stack_ref_q, _scan
 
 LAUNCHES = 0
 LAUNCHES_INT8 = 0
@@ -45,14 +56,18 @@ LAUNCHES_INT8 = 0
 _EPS = 1e-6  # matches models/layers.py rmsnorm
 
 
-def fused_rnn_stack_plain(x, taps, b3L, lnL, c0L, tailsL=None, *, block_t=128, sL=None):
-    """The plain version of :func:`fused_rnn_stack` (same arguments)."""
+def fused_rnn_stack_plain(x, taps, b3L, lnL, c0L, tailsL=None, *, block_t=128, sL=None,
+                          scan=_scan):
+    """The plain version of :func:`fused_rnn_stack` (same arguments; ``scan``:
+    the recurrence, ``ref.py``)."""
     cell = "qrnn" if len(taps) == 2 else "sru"
     w3L = layout.stack_taps(taps)
     if sL is None:
-        return fused_rnn_stack_ref(x, w3L, b3L, lnL, c0L, tailsL, cell=cell, eps=_EPS)
+        return fused_rnn_stack_ref(x, w3L, b3L, lnL, c0L, tailsL, cell=cell, eps=_EPS,
+                                   scan=scan)
     sL = layout.expand_scales(sL, w3L.shape[-1])
-    return fused_rnn_stack_ref_q(x, w3L, sL, b3L, lnL, c0L, tailsL, cell=cell, eps=_EPS)
+    return fused_rnn_stack_ref_q(x, w3L, sL, b3L, lnL, c0L, tailsL, cell=cell, eps=_EPS,
+                                 scan=scan)
 
 
 def fused_rnn_stack(
@@ -118,14 +133,39 @@ def fused_rnn_stack(
     return xa.to(x.dtype), c_last, tails_last
 
 
-def _stack_fwd_impl(x, taps, b3L, lnL, c0L, tailsL, block_t, sL=None):
-    """Pick the time block as the TPU did and run the stack. ``x``: (T, B, d)
-    with d == H (the residual stream feeds each layer's highway)."""
+class _StackCore(torch.autograd.Function):
+    """The stack: ``apply(block_t, x, b3L, lnL, c0L, tailsL, sL, *taps) ->
+    (y, c_last[, tails_last])``; ``tailsL`` and ``sL`` may be None, and
+    ``tails_last`` comes only with the QRNN's two taps."""
+
+    @staticmethod
+    def forward(ctx, block_t, x, b3L, lnL, c0L, tailsL, sL, *taps):
+        ctx.save_for_backward(x, b3L, lnL, c0L, tailsL, sL, *taps)
+        y, c_last, tails_last = fused_rnn_stack(x, taps, b3L, lnL, c0L, tailsL,
+                                                block_t=block_t, sL=sL)
+        return (y, c_last) if tails_last is None else (y, c_last, tails_last)
+
+    @staticmethod
+    def backward(ctx, *grad_outs):
+        def plain(x, b3L, lnL, c0L, tailsL, sL, *taps):
+            return fused_rnn_stack_plain(x, taps, b3L, lnL, c0L, tailsL, sL=sL,
+                                         scan=linear_scan_recurrence)
+
+        grads = recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[1:], grad_outs)
+        return (None, *grads)
+
+
+def fused_stack(x, taps, b3L, lnL, c0L, tailsL=None, *, block_t=128, sL=None):
+    """:func:`fused_rnn_stack` through ``_StackCore``: differentiable (int8
+    slabs: straight-through), with the time block picked as the TPU did.
+    ``x``: (T, B, d) with d == H (the residual stream feeds each layer's
+    highway). Returns ``(y, c_last, tails_last)``."""
     d, H = x.shape[-1], taps[0].shape[-1]
     if d != H:
         raise ValueError(f"the depth-fused stack needs d_model == hidden, got {d} != {H}")
     bt = largest_divisor_leq(x.shape[0], block_t)
-    return fused_rnn_stack(x, taps, b3L, lnL, c0L, tailsL, block_t=bt, sL=sL)
+    out = _StackCore.apply(bt, x, b3L, lnL, c0L, tailsL, sL, *taps)
+    return out if len(out) == 3 else (*out, None)
 
 
 def fused_sru_stack(
@@ -144,7 +184,7 @@ def fused_sru_stack(
         taps, sL, b3L, _, _ = layout.sru_slabs_q(params)
     else:
         (taps, b3L, _, _), sL = layout.sru_slabs(params), None
-    y, c_last, _ = _stack_fwd_impl(x, taps, b3L, ln_g, c0, None, block_t, sL)
+    y, c_last, _ = fused_stack(x, taps, b3L, ln_g, c0, None, block_t=block_t, sL=sL)
     return y, c_last
 
 
@@ -163,4 +203,4 @@ def fused_qrnn_stack(
         taps, sL, b3L = layout.qrnn_slabs_q(params)
     else:
         (taps, b3L), sL = layout.qrnn_slabs(params), None
-    return _stack_fwd_impl(x, taps, b3L, ln_g, c0, tails, block_t, sL)
+    return fused_stack(x, taps, b3L, ln_g, c0, tails, block_t=block_t, sL=sL)

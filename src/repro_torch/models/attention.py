@@ -16,8 +16,9 @@ the cache is copied. Slots and lengths are computed on the device from
 ``pos``: no host sync per layer or step.
 
 On one device the model axis is 1, so of the JAX package's sharding only the
-head padding (``pad_heads_to``) applies. ``attn_train`` waits for the
-training slice.
+head padding (``pad_heads_to``) applies. ``attn_train``, the training
+forward, runs ``chunked_attention`` and is differentiated by autograd; the
+decode kernel is never on the training path (JAX has no VJP for it).
 """
 from __future__ import annotations
 
@@ -136,6 +137,20 @@ def chunked_attention(
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         blocks.append(out.permute(0, 3, 1, 2, 4))  # (B, cq, Hkv, G, Dh)
     return torch.cat(blocks, dim=1).reshape(B, Sq, Hq, Dh).to(q.dtype)
+
+
+def attn_train(params, cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d); positions (B, S). Causal (SWA) attention over the
+    sequence, no cache."""
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    k, v = _maybe_repeat_kv(cfg, k, v)
+    out = chunked_attention(
+        q, k, v, positions, positions,
+        window=cfg.sliding_window, chunk_q=cfg.attn_chunk, chunk_k=cfg.attn_chunk,
+    )
+    out = _head_mask(cfg, out)
+    B, S = x.shape[:2]
+    return out.reshape(B, S, -1) @ params["w_o"]
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,8 @@
 Entry points:
   * ``lm_init(gen, cfg, device, dtype)``              params tree (int8 gate
                                                       slabs when ``cfg.weight_quant == "int8"``)
+  * ``lm_forward(params, cfg, batch)``                train logits (B, S, V_padded)
+  * ``lm_loss(params, cfg, batch)``                   scalar CE loss (+ metrics)
   * ``lm_init_caches(cfg, batch, max_len, device)``   stacked decode caches
   * ``lm_prefill(params, cfg, batch, caches)``        logits of last pos + caches
   * ``lm_verify(params, cfg, batch, caches)``         every position's logits + caches
@@ -13,14 +15,24 @@ converts between the two). The port serves the paper's SRU/QRNN/LSTM LMs,
 the dense GQA attention LMs (``llama3-8b``, ``smollm-360m``) and the Mamba-2
 LM (``mamba2-2.7b``). Attention and Mamba caches are written in place
 (``models/attention.py``, ``models/mamba.py``); RNN caches are returned
-anew, as in JAX. MoE, the hybrids, the frontends and the training forward
-wait for later slices (ROADMAP.md).
+anew, as in JAX. MoE, the hybrids and the frontends wait for later slices
+(ROADMAP.md).
+
+The training forward (``lm_hidden`` / ``lm_forward`` / ``lm_loss``) is
+differentiated by autograd: the fused RNN kernels through their autograd
+Functions (``kernels/fused_rnn/ops.py``, ``stacked.py``), the linear scan
+through its own (``kernels/linear_scan/ops.py``), attention through
+``chunked_attention`` and Mamba through ``core/ssd.py::ssd_chunked``, as in
+JAX. ``cfg.remat`` recomputes each block (``"block"``:
+``torch.utils.checkpoint``) or all but its matmul outputs (``"dots"``).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.fused_rnn import layout
 from repro_torch.models import attention, mamba, rnn
@@ -44,14 +56,37 @@ def block_kind(cfg) -> str:
 
 
 def _require_served(cfg) -> None:
-    """Refuse the families the port does not serve yet, naming the queue."""
+    """Refuse the families the port does not serve or train yet, naming the queue."""
     unserved = [name for name, on in (("moe", cfg.moe), ("attn_every", cfg.attn_every),
                                       ("frontend", cfg.frontend)) if on]
     if unserved:
         raise NotImplementedError(
-            f"{cfg.name}: the port does not serve {'/'.join(unserved)} configs yet "
+            f"{cfg.name}: the port does not run {'/'.join(unserved)} configs yet "
             "(ROADMAP.md §A6: the other assigned archs, MoE, hybrid and frontend ones)"
         )
+
+
+# The matmul outputs remat="dots" keeps (JAX's
+# ``dots_with_no_batch_dims_saveable``: products without batch dims).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots():
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def maybe_remat(fn, remat: str):
+    """none: save everything; block: recompute everything in the backward;
+    dots: recompute all but matmul outputs."""
+    if remat == "block":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    if remat == "dots":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                                        context_fn=_save_dots)
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +100,11 @@ def _attn_block_init(gen, cfg, dtype, device) -> Dict:
         "ln2": rmsnorm_init(cfg.d_model, dtype, device),
         "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, device),
     }
+
+
+def _attn_block_apply(params, cfg, x, positions):
+    h = x + attention.attn_train(params["attn"], cfg, rmsnorm(params["ln1"], x), positions)
+    return h + mlp_apply(params["mlp"], rmsnorm(params["ln2"], h), cfg.mlp_type)
 
 
 def _attn_block_prefill(params, cfg, x, cache):
@@ -91,6 +131,15 @@ def _mamba_block_prefill(params, cfg, x, cache):
 def _mamba_block_decode(params, cfg, x, cache):
     out, cache = mamba.mamba_decode(params["mamba"], cfg, rmsnorm(params["ln1"], x), cache)
     return x + out, cache
+
+
+def _block_apply(params, cfg, x, positions):
+    kind = block_kind(cfg)
+    if kind == "attn":
+        return _attn_block_apply(params, cfg, x, positions)
+    if kind == "mamba":
+        return x + mamba.mamba_apply(params["mamba"], cfg, rmsnorm(params["ln1"], x))
+    return rnn.rnn_block_apply(params, cfg, x)
 
 
 def _block_init(gen, cfg, dtype, device) -> Dict:
@@ -162,6 +211,89 @@ def lm_init_caches(cfg, batch: int, max_len: int, device="cuda"):
     device = resolve_device(device)
     one = _block_cache(cfg, batch, max_len, _dtype(cfg.compute_dtype), device)
     return {"layers": {k: v.new_zeros((cfg.n_layers, *v.shape)) for k, v in one.items()}}
+
+
+# ---------------------------------------------------------------------------
+# Train forward / loss
+# ---------------------------------------------------------------------------
+
+def lm_hidden(params, cfg, batch) -> torch.Tensor:
+    """Embed -> blocks -> final norm. ``batch["inputs"]``: (B, S) token ids.
+    Returns (B, S, d) in the compute dtype."""
+    _require_served(cfg)
+    compute = _dtype(cfg.compute_dtype)
+    h = embed_apply(params["embed"], batch["inputs"]).to(compute)
+    B, S = h.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
+    layers = params["layers"]
+    if cfg.cast_params_once:  # one cast of the whole stack; fp32 masters get grads through it
+        layers = layout.cast_params(layers, compute)
+
+    if block_kind(cfg) == "rnn" and cfg.fuse_depth:
+        def stack_apply(lp, x):
+            return rnn.rnn_stack_apply(layout.cast_params(lp, compute), cfg, x)
+
+        h = maybe_remat(stack_apply, cfg.remat)(layers, h)
+    else:
+        def apply_block(lp, x):
+            return _block_apply(layout.cast_params(lp, compute), cfg, x, positions)
+
+        apply_block = maybe_remat(apply_block, cfg.remat)
+        for l in range(cfg.n_layers):
+            h = apply_block(rnn.layer_slice(layers, l), h)
+    return rmsnorm(params["final_norm"].to(compute), h)
+
+
+def lm_forward(params, cfg, batch) -> torch.Tensor:
+    h = lm_hidden(params, cfg, batch)
+    return logits_apply(layout.cast_params(params["embed"], h.dtype), h)
+
+
+def _ce_terms(cfg, logits, targets):
+    """(logz, ll) per token in fp32; the padded vocab's columns excluded."""
+    logits = logits.float()
+    if cfg.padded_vocab != cfg.vocab:
+        pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
+        logits = torch.where(pad_mask, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return logz, ll
+
+
+def lm_loss(params, cfg, batch):
+    """Cross-entropy over targets. ``batch``: inputs, targets, mask.
+    Returns ``(loss, {"loss", "tokens"})``. With ``cfg.loss_chunk > 0`` the
+    (tokens, V) logits are never materialized: the final hidden states go
+    through the head ``loss_chunk`` tokens at a time, each chunk under
+    checkpoint."""
+    targets = batch["targets"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+
+    if not cfg.loss_chunk:
+        logz, ll = _ce_terms(cfg, lm_forward(params, cfg, batch), targets)
+        loss = torch.sum((logz - ll) * mask) / denom
+        return loss, {"loss": loss, "tokens": torch.sum(mask)}
+
+    h = lm_hidden(params, cfg, batch)
+    B, S, d = h.shape
+    n = max(S // cfg.loss_chunk, 1)
+    C = S // n
+    embed_c = layout.cast_params(params["embed"], h.dtype)
+    hc, tc, mc = h.reshape(B, n, C, d), targets.reshape(B, n, C), mask.reshape(B, n, C)
+
+    def chunk_nll(hx, tx, mx):
+        logz, ll = _ce_terms(cfg, logits_apply(embed_c, hx), tx)
+        return torch.sum((logz - ll) * mx)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        total = total + checkpoint(chunk_nll, hc[:, i], tc[:, i], mc[:, i],
+                                   use_reentrant=False, preserve_rng_state=False)
+    loss = total / denom
+    return loss, {"loss": loss, "tokens": torch.sum(mask)}
 
 
 # ---------------------------------------------------------------------------

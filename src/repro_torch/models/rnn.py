@@ -6,10 +6,10 @@ stacked SRU / QRNN / LSTM layers. Block = pre-norm + cell + residual
 (``core/scan.py``); LSTM ignores it and runs ``core/mts.py::lstm_forward``,
 as in the JAX package. Two granularities:
 
-  * per-layer — ``rnn_block_init/prefill/decode`` + ``rnn_init_cache``: one
-    block at a time; ``models/lm.py`` loops them over the layers
+  * per-layer — ``rnn_block_init/apply/prefill/decode`` + ``rnn_init_cache``:
+    one block at a time; ``models/lm.py`` loops them over the layers
     (``engine="fused"``: one whole-layer kernel per block).
-  * stack-level — ``rnn_stack_prefill/decode``: the whole stack in one call,
+  * stack-level — ``rnn_stack_apply/prefill/decode``: the whole stack in one call,
     with stacked params ``(L, ...)`` and a stacked cache ``(L, B, H)``. With
     ``cfg.scan_engine == "fused_stack"`` (SRU/QRNN, d_model == hidden) it
     runs the depth-fused stack (``kernels/fused_rnn/stacked.py``).
@@ -25,17 +25,9 @@ import torch
 from repro_torch.core import cells, mts
 from repro_torch.kernels.fused_rnn import stacked
 from repro_torch.models.layers import rmsnorm, rmsnorm_init
+from repro_torch.tree import tree_map
 
 _INITS = {"sru": cells.sru_init, "qrnn": cells.qrnn_init, "lstm": cells.lstm_init}
-
-
-def tree_map(fn, *trees):
-    """``fn`` over the leaves of trees of dicts with the first tree's keys; a
-    ``None`` leaf stays ``None``."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
-    return None if first is None else fn(*trees)
 
 
 def rnn_block_init(gen, cfg, dtype, device) -> Dict:
@@ -44,6 +36,22 @@ def rnn_block_init(gen, cfg, dtype, device) -> Dict:
         "ln1": rmsnorm_init(d, dtype, device),
         "cell": _INITS[cfg.cell](gen, d, h, dtype, device),
     }
+
+
+def rnn_block_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Train: the full sequence through the MTS executor from a zero state.
+    x: (B, T, d). Differentiable on every engine: the fused kernels through
+    their autograd Functions, ``pallas`` through the linear scan's."""
+    h = rmsnorm(params["ln1"], x)
+    if cfg.cell == "sru":
+        out, _ = mts.mts_sru(params["cell"], h, engine=cfg.scan_engine,
+                             block_size=cfg.mts_block_size)
+    elif cfg.cell == "qrnn":
+        out, _ = mts.mts_qrnn(params["cell"], h, engine=cfg.scan_engine,
+                              block_size=cfg.mts_block_size)
+    else:
+        out, _ = mts.lstm_forward(params["cell"], h, precompute=True)
+    return x + out
 
 
 def rnn_init_cache(cfg, batch: int, dtype, device) -> Dict:
@@ -135,6 +143,18 @@ def _stack_fused(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tenso
         )
         new_cache = {"c": c_last, "x_tail": tails_last[:, :, None, :]}
     return y.transpose(0, 1), new_cache
+
+
+def rnn_stack_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Train: the whole stack from a zero state. x: (B, T, d)."""
+    if _depth_fusible(cfg):
+        one = rnn_init_cache(cfg, x.shape[0], x.dtype, x.device)
+        cache = {k: v.new_zeros((cfg.n_layers, *v.shape)) for k, v in one.items()}
+        y, _ = _stack_fused(params, cfg, x, cache)
+        return y
+    for l in range(cfg.n_layers):
+        x = rnn_block_apply(layer_slice(params, l), cfg, x)
+    return x
 
 
 def rnn_stack_prefill(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:

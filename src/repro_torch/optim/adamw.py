@@ -1,0 +1,98 @@
+"""AdamW, from ``repro/optim/adamw.py``: configurable moment dtype, global-norm
+clipping, decoupled weight decay on matrices only (ndim >= 2), and a cosine
+schedule with linear warmup. The moment math is fp32 whatever the moments'
+storage dtype, as in JAX.
+
+Plain functions on trees of dicts of tensors. ``adamw_update`` writes the
+new params and moments into the tensors it is given (under
+``torch.no_grad()``) and returns those same trees: the port's form of the
+JAX train step's ``donate_argnums=(0,)``. The values are JAX's.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor  # () int32
+    m: Dict
+    v: Dict
+
+
+def _moment_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def adamw_init(params, moment_dtype: str = "float32") -> AdamWState:
+    dt = _moment_dtype(moment_dtype)
+    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    step_device = tree_leaves(params)[0].device
+    return AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=step_device),
+        m=tree_map(zeros, params),
+        v=tree_map(zeros, params),
+    )
+
+
+def global_norm(tree) -> torch.Tensor:
+    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+@torch.no_grad()
+def adamw_update(
+    grads,
+    state: AdamWState,
+    params,
+    lr: torch.Tensor,
+    *,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+    clip_norm: float = 1.0,
+) -> Tuple[Dict, AdamWState, Dict]:
+    """One step. ``params``, ``state.m``, ``state.v`` and ``state.step`` are
+    updated in place and returned with the metrics ``grad_norm`` and ``lr``."""
+    step = state.step + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+
+    stepf = step.float()
+    bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=step.device), stepf)
+    bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=step.device), stepf)
+
+    def upd(p, g, m, v):
+        g = g.float() * scale
+        m32 = b1 * m.float() + (1 - b1) * g
+        v32 = b2 * v.float() + (1 - b2) * g * g
+        mhat = m32 / bc1
+        vhat = v32 / bc2
+        delta = mhat / (torch.sqrt(vhat) + eps)
+        if p.dim() >= 2:  # decoupled decay on matrices only
+            delta = delta + weight_decay * p.float()
+        p.copy_(p.float() - lr * delta)
+        m.copy_(m32)
+        v.copy_(v32)
+
+    tree_map(upd, params, grads, state.m, state.v)
+    state.step.copy_(step)
+    return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int, min_frac: float = 0.1):
+    """``lr(step)`` for a () int tensor ``step``, in fp32 on its device."""
+
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        step = step.float()
+        warm = base_lr * torch.clamp((step + 1) / max(warmup, 1), max=1.0)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = min_frac + (1 - min_frac) * 0.5 * (1 + torch.cos(math.pi * prog))
+        return torch.where(step < warmup, warm, base_lr * cos)
+
+    return lr

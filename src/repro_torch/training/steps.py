@@ -1,18 +1,121 @@
-"""Serving steps, from ``repro/training/steps.py``: the batch
-path's ``build_prefill_step`` and ``build_decode_step``, and the fixed-shape
-lane-masked steps of continuous batching (``serving/engine.py``).
+"""Train and serving steps, from ``repro/training/steps.py``: the train
+step (``TrainState``, ``init_train_state``, ``build_train_step``,
+``build_eval_step``), the batch path's ``build_prefill_step`` and
+``build_decode_step``, and the fixed-shape lane-masked steps of continuous
+batching (``serving/engine.py``).
 
-Each builder closes over the config and returns a plain function that runs
-under ``torch.inference_mode()``. The training steps come with a later
-slice.
+Each builder closes over the config and returns a plain function. The
+serving steps run under ``torch.inference_mode()``; the train step runs
+eagerly with autograd (capturing it as a CUDA graph is later work).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch.models import lm, rnn
+from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, cosine_schedule
+from repro_torch.optim.compression import compress_grads, ef_init
+from repro_torch.tree import tree_leaves, unflatten_like
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+class TrainState(NamedTuple):
+    params: Dict
+    opt: AdamWState
+    ef: Optional[Dict]  # error-feedback residuals (grad compression) or None
+
+
+def init_train_state(gen: torch.Generator, cfg, compression: Optional[str] = None,
+                     device="cuda") -> TrainState:
+    params = lm.lm_init(gen, cfg, device=device)
+    opt = adamw_init(params, cfg.moment_dtype)
+    ef = ef_init(params) if compression not in (None, "none") else None
+    return TrainState(params=params, opt=opt, ef=ef)
+
+
+def _split_microbatch(batch: Dict, n_mb: int, i: int) -> Dict:
+    def one(x):
+        mb = x.shape[0] // n_mb
+        return x[i * mb:(i + 1) * mb]
+
+    return {k: one(v) for k, v in batch.items()}
+
+
+def build_train_step(
+    cfg,
+    *,
+    base_lr: float = 3e-4,
+    warmup: int = 100,
+    total_steps: int = 10000,
+    compression: Optional[str] = None,
+):
+    """``train_step(state, batch) -> (state, metrics)``: microbatched
+    gradient accumulation (a Python loop, fp32 sums: JAX's ``lax.scan``),
+    loss averaged over microbatches and grads scaled only when there are
+    several, optional compression with error feedback, then AdamW at
+    ``schedule(opt.step)``. The params, moments and step are updated in
+    place and the same tensors returned (the port's ``donate_argnums``).
+    ``metrics``: ``loss``, ``grad_norm``, ``lr`` (tensors on the device).
+
+    Int8 weight-quantized configs are refused, as the JAX package's step
+    refuses them (``jax.grad`` of int8 gate slabs is a ``TypeError``)."""
+    if cfg.weight_quant == "int8":
+        raise TypeError(
+            f"{cfg.name}: int8 weight-quantized configs do not train (their gate slabs "
+            "are int8, and the JAX package's build_train_step cannot differentiate them "
+            "either); train the fp config and quantize at init"
+        )
+    schedule = cosine_schedule(base_lr, warmup, total_steps)
+
+    def train_step(state: TrainState, batch: Dict):
+        n_mb = cfg.microbatches
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(state.params)]
+        params = unflatten_like(state.params, leaves)
+
+        def grads_of(mb):
+            loss, _ = lm.lm_loss(params, cfg, mb)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            return loss.detach(), [torch.zeros_like(p, dtype=torch.float32) if g is None
+                                   else g.float() for p, g in zip(leaves, grads)]
+
+        if n_mb == 1:
+            loss, g_sum = grads_of(batch)
+        else:
+            g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+            loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+            for i in range(n_mb):
+                loss_i, g_i = grads_of(_split_microbatch(batch, n_mb, i))
+                g_sum = [a + g for a, g in zip(g_sum, g_i)]
+                loss = loss + loss_i
+            loss = loss / n_mb
+        grads = unflatten_like(state.params, [g / n_mb for g in g_sum] if n_mb > 1 else g_sum)
+        grads, new_ef = compress_grads(grads, state.ef, compression)
+        lr = schedule(state.opt.step)
+        new_params, new_opt, opt_metrics = adamw_update(grads, state.opt, state.params, lr)
+        return TrainState(params=new_params, opt=new_opt, ef=new_ef), {"loss": loss, **opt_metrics}
+
+    return train_step
+
+
+def build_eval_step(cfg):
+    """``eval_step(params, batch) -> metrics`` (``loss``, ``tokens``), no grads."""
+
+    def eval_step(params, batch):
+        with torch.no_grad():
+            _, metrics = lm.lm_loss(params, cfg, batch)
+            return metrics
+
+    return eval_step
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
 
 
 def build_prefill_step(cfg, *, batch: int, max_len: int, device="cuda"):

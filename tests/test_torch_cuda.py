@@ -60,6 +60,12 @@ logits rows and launches of the run without, still captured, with a trace
 ``tools/trace_check.py`` accepts; ``serve --torch-profile``'s trace names
 the tick phases and holds the graph replays' kernels under them.
 
+And training: the fused kernels' autograd Functions (``ops.fused_layer``,
+``stacked.fused_stack``; fp and int8 slabs, both IO dtypes) on the card
+against autograd through their plain versions, their forwards launching
+the kernel and their backwards only the linear scan; and the gradients of ``lm_loss`` on
+the card (B2, B1, B3 and an attention LM, fp32, reduced) against the CPU's.
+
 They skip, with that reason, on a machine without a CUDA device (decided in
 the ``device`` fixture, not at import) and run on the card with
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``. The
@@ -73,7 +79,7 @@ import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_rnn import fused_rnn, layout, stacked
+from repro_torch.kernels.fused_rnn import fused_rnn, layout, ops, stacked
 from repro_torch.kernels.gqa_decode import gqa_decode as gqa_kernel
 from repro_torch.kernels.gqa_decode.ops import gqa_decode
 from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref
@@ -91,6 +97,7 @@ from repro_torch.serving import (Request, Scheduler, clone_trace, poisson_trace,
                                  shared_prefix_trace)
 from repro_torch.training import graphs
 from repro_torch.training.steps import build_decode_step, build_prefill_step
+from repro_torch.tree import tree_leaves, unflatten_like
 
 # fp32: both sides compute in fp32 and differ only by summation order and a
 # few ulp of expf/tanhf/rsqrtf. bf16: the same, then one output rounding,
@@ -1629,3 +1636,115 @@ def test_annotation_names_appear_in_a_cuda_profile(device, tmp_path):
     assert split["device_ms_per_tick_by_phase"]["decode"] > 0
     assert split["device_ms_per_tick_by_phase"]["prefill"] > 0
     assert split["lost_launching_calls"] == 0 and split["unattributed_share"] < 0.5
+
+
+# ---------------------------------------------------------------------------
+# Training: the fused kernels' autograd Functions and the LM's gradients
+# ---------------------------------------------------------------------------
+
+# Gradients: the Functions' backward recomputes the plain version with its
+# recurrence through the linear scan (B3's chunked fold order against the
+# plain walk's steps); within 5e-4 (the JAX package's gradient tolerance) of
+# the largest gradient, plus a bf16 ulp of it for bf16.
+GRAD_TOL = 5e-4
+
+
+def _fn_operands(device, kind, cell, dtype, quant, T=13, B=3, H=200, L=2):
+    g = torch.Generator(device=device).manual_seed(hash((kind, cell, quant)) % 1000)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
+
+    n = 2 if cell == "qrnn" else 1
+    lead = (L,) if kind == "stack" else ()
+    taps = tuple(rnd(*lead, H, 3, H, scale=H ** -0.5) for _ in range(n))
+    kw = {"block_t": 4}
+    if quant:
+        if n == 2:
+            w0q, w1q, scale = layout.quantize_qrnn_slabs(*taps)
+            taps = (w0q, w1q)
+        else:
+            wq, scale = layout.quantize_slabs(taps[0])
+            taps = (wq,)
+        kw["sL" if kind == "stack" else "scale"] = scale
+    x = rnd(T, B, H)
+    if kind == "stack":
+        args = (x, taps, rnd(L, 3, H, scale=0.5), (1.0 + rnd(L, H, scale=0.2).float()).to(dtype),
+                rnd(L, B, H, scale=0.5), rnd(L, B, H) if cell == "qrnn" else None)
+        return stacked.fused_stack, stacked.fused_rnn_stack_plain, args, kw
+    kw["mode"] = "qrnn" if cell == "qrnn" else "sru_identity"
+    if cell == "qrnn":
+        kw["tail"] = rnd(1, B, H)
+    args = (x, taps, rnd(3, H, scale=0.5), rnd(B, H, scale=0.5))
+    return ops.fused_layer, fused_rnn.fused_rnn_layer_plain, args, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("kind", ["layer", "stack"])
+@pytest.mark.parametrize("cell", ["sru", "qrnn"])
+def test_fused_function_grads_match_plain(device, cell, kind, quant, dtype):
+    """The gradient of every floating operand through the Function equals
+    autograd through the plain version on the card; the forward launches
+    the kernel (once per layer), the backward launches none."""
+    fn, plain, args, kw = _fn_operands(device, kind, cell, dtype, quant)
+
+    def fresh():
+        one = lambda t: t if not torch.is_tensor(t) else (
+            t.detach().clone().requires_grad_(t.is_floating_point()))
+        a = [tuple(one(t) for t in x) if isinstance(x, tuple) else one(x) for x in args]
+        return a, {k: one(v) for k, v in kw.items()}
+
+    def floating(a, k):
+        flat = [t for x in a for t in (x if isinstance(x, tuple) else (x,))] + list(k.values())
+        return [t for t in flat if torch.is_tensor(t) and t.requires_grad]
+
+    a, k = fresh()
+    counter = stacked if kind == "stack" else fused_rnn
+    attr = "LAUNCHES_INT8" if quant else "LAUNCHES"
+    before, scans = getattr(counter, attr), ls_kernel.LAUNCHES
+    outs = [o for o in fn(*a, **k) if o is not None]
+    forward_launches = getattr(counter, attr) - before
+    cots = [torch.randn_like(o.float()).to(o.dtype) for o in outs]
+    got = torch.autograd.grad(outs, floating(a, k), cots)
+    layers = 2 if kind == "stack" else 1
+    assert getattr(counter, attr) - before == forward_launches == layers
+    assert ls_kernel.LAUNCHES - scans == 2 * layers  # the recompute's recurrence
+    a2, k2 = fresh()
+    want = torch.autograd.grad([o for o in plain(*a2, **k2) if o is not None],
+                               floating(a2, k2), cots)
+    assert len(got) == len(want) > 0
+    for gx, wx in zip(got, want):
+        peak = wx.float().abs().max().item()
+        tol = GRAD_TOL * (1.0 + peak) + (BF16_RTOL * peak if dtype == torch.bfloat16 else 0.0)
+        assert (gx.float() - wx.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("arch,engine", [("sru-paper-large-stacked", None),
+                                         ("qrnn-paper-large-fused", None),
+                                         ("sru-paper-large", "pallas"),
+                                         ("llama3-8b", None)])
+def test_lm_loss_grads_on_the_card_match_the_cpu(device, arch, engine):
+    """fp32, reduced width and depth: ``lm_loss`` and the gradient of every
+    param leaf on the card against the CPU's from the same params and batch
+    (a kernel output without a gradient path would leave the layer's
+    params without gradients)."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.training.steps import init_train_state
+
+    cfg = get_config(arch).reduced()
+    cfg = cfg.with_(scan_engine=engine) if engine else cfg
+    state = init_train_state(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = make_pipeline(cfg, 4, 32, seed=1).batch_at(0)
+    out = {}
+    for dev in ("cpu", device):
+        leaves = [p.detach().to(dev).requires_grad_() for p in tree_leaves(state.params)]
+        params = unflatten_like(state.params, leaves)
+        loss, _ = lm.lm_loss(params, cfg, {k: torch.from_numpy(v).to(dev)
+                                            for k, v in batch.items()})
+        out[dev if dev == "cpu" else "cuda"] = (loss, torch.autograd.grad(loss, leaves))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    assert abs(l_cpu.item() - l_gpu.item()) <= STREAM_TOL
+    for a, b in zip(g_cpu, g_gpu):
+        assert b.abs().max().item() > 0 or a.abs().max().item() == 0
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=GRAD_TOL, atol=GRAD_TOL)
