@@ -29,17 +29,20 @@ Phases, each printing one JSON line per step:
            chunk, input-tile columns); the decode attention (B5) at the
            llama3-8b and smollm-360m serve shapes (caches of 96, 1056 and
            8192 rows, ragged lengths down to 1, bf16), the full-width head
-           shapes of granite-20b (a group of 48), zamba2-7b (head dim 112)
-           and nemotron-4-340b (head dim 192) in bf16, and one fp32 case
+           shapes of granite-20b (a group of 48), zamba2-7b (head dim 112),
+           nemotron-4-340b (head dim 192), internvl2-2b (16 query heads on 8)
+           and musicgen-large (G = 1, head dim 64) in bf16, and one fp32 case
            with 32 query heads per KV head, beside PyTorch's
            ``scaled_dot_product_attention`` on the same data, with each
            instance's shared memory, registers, CTAs per SM, tiles in
            flight and split plan; the chunked
            SSD (B4) at the mamba2-2.7b serve shapes (B = 4, 80 heads, P = 64,
            N = 128, bf16: prompts 1024 and 64 from a zero state, one decode
-           step written in place over a random state, a ragged S = 100) and
-           at two grouped fp32 shapes of ``tests/test_kernels.py`` (G = 2,
-           4), with the mma chunk kernel's resources and plan; max |error|
+           step written in place over a random state, a ragged S = 100), at
+           two grouped fp32 shapes of ``tests/test_kernels.py`` (G = 2, 4)
+           and at the zamba2-7b serve shapes (112 heads, N = 64: prompt 64,
+           one decode step in place), with the mma chunk kernel's resources
+           and plan at both state sizes; max |error|
            against a stated tolerance, and kernel / plain times from CUDA
            events (decode cases and every SSD and linear-scan case also
            cold: the L2 flushed before each call); and the fused layer's
@@ -53,8 +56,12 @@ Phases, each printing one JSON line per step:
            fused configs, the base SRU/QRNN configs under ``--engine pallas``,
            ``sru-paper-large`` on its own chunked engine,
            ``lstm-paper-large``, the four ``*-int8`` configs, ``llama3-8b``
-           (prompt 64 and 1024), ``smollm-360m`` and ``mamba2-2.7b`` (prompt
-           64 and 1024), each twice: with the eager steps and with the
+           (prompt 64 and 1024), ``smollm-360m``, ``mamba2-2.7b`` (prompt
+           64 and 1024), ``granite-20b`` (MQA), the frontend stubs
+           ``internvl2-2b`` and ``musicgen-large`` (an embedding prompt; each
+           step fed its token's embedding row) and the hybrid ``zamba2-7b``
+           (81 Mamba-2 blocks, the shared attention block applied 13 times),
+           each twice: with the eager steps and with the
            steps as CUDA graphs (the default: prefill and every decode step
            a replay, ``capture_ms`` for the warm-ups and captures); each
            run's launches of each kernel instance, fp and int8 apart (counts
@@ -114,26 +121,32 @@ Phases, each printing one JSON line per step:
            stay under ``build/telemetry/`` (the profiles open in Perfetto or
            TensorBoard);
   profile  per config (the fp fused, stacked and pallas runs, the two
-           stacked int8 runs, llama3-8b, smollm-360m and mamba2-2.7b), eager
+           stacked int8 runs, llama3-8b, smollm-360m, mamba2-2.7b,
+           granite-20b and zamba2-7b), eager
            and captured, a decode step's host time and torch.profiler's
            device time by kernel, hence the device's idle share, against the
-           step's bytes bound (mamba2: its SSM state read and written too);
+           step's bytes bound (mamba2: its SSM state read and written too;
+           zamba2: also its shared block read at each application);
            the card's count of our kernels per step must equal the expected
            launches per step in both modes; the caches must keep their
            storage (written in place);
   parity   the stacked SRU and QRNN LMs, the base SRU and QRNN LMs under
            pallas, the LSTM LM, two int8 LMs (stacked SRU, fused QRNN),
-           smollm-360m (full depth), llama3-8b and mamba2-2.7b (each cut to 2
-           layers so the CPU side fits in time and host memory) at full width
+           smollm-360m (full depth), llama3-8b, mamba2-2.7b, granite-20b,
+           internvl2-2b and musicgen-large (each cut to 2 layers so the CPU
+           side fits in time and host memory) and zamba2-7b (cut to 7: a
+           group of 6 with its shared block, and a tail layer) at full width
            in fp32 compute, same params, on the card versus the plain path on
            the CPU: teacher-forced prefill logits, 8 decode steps and their
            argmax; the attention and Mamba caches keep their storage;
   train    training at full width, 8 x 256 tokens a step, 4 steps, for
            ``sru``/``qrnn-paper-large-stacked`` (B2),
-           ``qrnn-paper-large-fused`` (B1) and ``smollm-360m`` through
+           ``qrnn-paper-large-fused`` (B1), ``smollm-360m`` and
+           ``internvl2-2b`` (a frontend stub) through
            ``repro_torch.launch.train.main``, ``sru-paper-large`` on
-           ``pallas`` (B3 forward and backward) and ``mamba2-2.7b`` cut to 2
-           layers through the same loop over ``build_train_step``
+           ``pallas`` (B3 forward and backward), ``mamba2-2.7b`` cut to 2
+           layers and ``zamba2-7b`` cut to 7 through the same loop over
+           ``build_train_step``
            (``launch/train.py`` has no engine or depth flag, as in JAX):
            per config the fp32 step 0
            on the card against the CPU's (same params and batch: loss and
@@ -182,6 +195,8 @@ SERVE_RUNS = (
     ("sru-paper-large-int8", None, 64), ("qrnn-paper-large-int8", None, 64),
     ("llama3-8b", None, 64), ("llama3-8b", None, 1024), ("smollm-360m", None, 64),
     ("mamba2-2.7b", None, 64), ("mamba2-2.7b", None, 1024),
+    ("granite-20b", None, 64), ("internvl2-2b", None, 64), ("musicgen-large", None, 64),
+    ("zamba2-7b", None, 64),
 )
 # (arch, --engine override): the continuous phase's configs, one per kernel
 # on the path (B2, B1, B3, B2 int8).
@@ -243,7 +258,7 @@ PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{quantile="[0-9.]+"\})? (\
 # (arch, --engine override): the fused int8 runs are not profiled (their
 # kernels take the bf16 twins' time), nor the long prompts.
 PROFILE_RUNS = tuple(r[:2] for r in SERVE_RUNS[:6] + SERVE_RUNS[8:10] + SERVE_RUNS[12:13]
-                     + SERVE_RUNS[14:16])
+                     + SERVE_RUNS[14:16] + SERVE_RUNS[17:18] + SERVE_RUNS[20:21])
 # (arch, --engine override, config overrides).
 PARITY_RUNS = (
     ("sru-paper-large-stacked", None, {}), ("qrnn-paper-large-stacked", None, {}),
@@ -252,6 +267,9 @@ PARITY_RUNS = (
     ("sru-paper-large-stacked-int8", None, {}), ("qrnn-paper-large-int8", None, {}),
     ("smollm-360m", None, {}), ("llama3-8b", None, {"n_layers": 2}),
     ("mamba2-2.7b", None, {"n_layers": 2}),
+    ("granite-20b", None, {"n_layers": 2}), ("internvl2-2b", None, {"n_layers": 2}),
+    ("musicgen-large", None, {"n_layers": 2}),
+    ("zamba2-7b", None, {"n_layers": 7}),  # one group of 6 and its shared block, a tail layer
 )
 # Training (phase ``train``): (arch, engine override, config overrides) at
 # full width, TRAIN_BATCH x TRAIN_SEQ tokens a step, TRAIN_STEPS steps. The
@@ -264,7 +282,15 @@ TRAIN_RUNS = (
     ("qrnn-paper-large-fused", None, {}),                                          # B1
     ("sru-paper-large", "pallas", {}),                                             # B3
     ("smollm-360m", None, {}), ("mamba2-2.7b", None, {"n_layers": 2}),
+    ("internvl2-2b", None, {}),                                # frontend stub
+    ("zamba2-7b", None, {"n_layers": 7}),                      # hybrid: a group and a tail
 )
+# The fp32 step-0 check of these runs is cut to this depth (the timed run
+# keeps its own), so the host's CPU side fits in the script's time:
+# internvl2-2b's 24 layers at full width take minutes of fp32 forward and
+# backward there (2 keep the adapter, a layer pair and the 92672-column
+# head), smollm-360m's 32 about half a minute.
+TRAIN_PARITY_DEPTH = {"internvl2-2b": 2, "smollm-360m": 8}
 # A run saved at step TRAIN_STEPS // 2 and resumed ends with the
 # uninterrupted run's params: equal but for the last-ulp effect of atomics
 # in the embedding gradient on fp32 masters of magnitude < 1 (~6e-8); a lost
@@ -313,9 +339,11 @@ B4_RTOL = 2e-5
 # Decode attention (B5) cases, (name, (B, Hq, Hkv, Dh, S, lengths), dtype):
 # the llama3-8b serve shape (prompt 1024 + 32, first step), a long cache
 # with ragged lengths down to 1, smollm's shape, an fp32 case with 32 query
-# heads per KV head; then the llama3-8b serve shape at prompt 64 and the
-# full-width head shapes of granite-20b, zamba2-7b and nemotron-4-340b at a
-# 1056-row cache. ``bench_b5.py`` times the same cases.
+# heads per KV head; then the llama3-8b serve shape at prompt 64, the
+# full-width head shapes of granite-20b, zamba2-7b, nemotron-4-340b,
+# internvl2-2b and musicgen-large at a 1056-row cache, and granite-20b's
+# serve shape at prompt 64 (its decode step's B5 against SDPA).
+# ``bench_b5.py`` times the same cases.
 GQA_CASES = (
     ("llama3 B=4 Hq=32 Hkv=8 Dh=128 S=1056 len=1025",
      (4, 32, 8, 128, 1056, (1025,) * 4), "bfloat16"),
@@ -332,11 +360,17 @@ GQA_CASES = (
      (4, 32, 32, 112, 1056, (1025,) * 4), "bfloat16"),
     ("nemotron B=4 Hq=96 Hkv=8 Dh=192 S=1056 len=1025",
      (4, 96, 8, 192, 1056, (1025,) * 4), "bfloat16"),
+    ("internvl2 B=4 Hq=16 Hkv=8 Dh=128 S=1056 len=1025",
+     (4, 16, 8, 128, 1056, (1025,) * 4), "bfloat16"),
+    ("musicgen B=4 Hq=32 Hkv=32 Dh=64 S=1056 len=1025",
+     (4, 32, 32, 64, 1056, (1025,) * 4), "bfloat16"),
+    ("granite prompt 64 S=96 len=65", (4, 48, 1, 128, 96, (65,) * 4), "bfloat16"),
 )
 # Chunked SSD (B4) cases, (name, (B, S, H, P, N, G, dtype, seed), options of
 # ``_ssd_case``): the mamba2-2.7b serve shapes (prefill 1024 first: the
-# summary's main row), then the grouped fp32 shapes of test_kernels.py.
-# ``bench_b4.py`` times the same cases.
+# summary's main row), the grouped fp32 shapes of test_kernels.py, then the
+# zamba2-7b serve shapes (112 heads, N = 64). ``bench_b4.py`` times the same
+# cases.
 SSD_CASES = (
     ("mamba2 prefill B=4 S=1024 bf16", (4, 1024, 80, 64, 128, 1, "bfloat16", 500), {}),
     ("mamba2 prefill B=4 S=64 bf16", (4, 64, 80, 64, 128, 1, "bfloat16", 501), {}),
@@ -348,6 +382,9 @@ SSD_CASES = (
      {"s0": True, "model_like": False}),
     ("G=4 B=2 S=32 H=8 P=4 N=4 fp32 s0", (2, 32, 8, 4, 4, 4, "float32", 505),
      {"s0": True, "model_like": False}),
+    ("zamba2 prefill B=4 S=64 H=112 N=64 bf16", (4, 64, 112, 64, 64, 1, "bfloat16", 506), {}),
+    ("zamba2 decode B=4 S=1 H=112 N=64 bf16 in place", (4, 1, 112, 64, 64, 1, "bfloat16", 507),
+     {"s0": True, "in_place": True}),
 )
 # Linear-scan (B3) cases, (name, T, F, dtype, seed): the pallas configs'
 # prefill (first: the summary's main row) and decode step at B = 4 x H =
@@ -1069,11 +1106,13 @@ def phase_kernels():
         ssd_cases.append((str(x.dtype).split(".")[-1], x.shape[1]) + case)
     rows = _run_cases("ssd", _ssd_kernel_call, _ssd_plain_call, ssd_cases, atol=0.0,
                       rtol=B4_RTOL, cold=True)
-    heads_per_cta, grid = ssd_kernel.plan(4, 80, 1, 64, 128)
-    emit({"phase": "kernels", "kernel": "ssd", "instance": "mma chunk kernel, bf16, N = 128",
-          **ssd_kernel.instance_info(torch.bfloat16, torch.bfloat16, 128),
-          "heads_per_cta": heads_per_cta, "grid": grid, "ctas": grid[0] * grid[1] * grid[2],
-          "sm_count": torch.cuda.get_device_properties(0).multi_processor_count})
+    for arch, H, N in (("mamba2", 80, 128), ("zamba2", 112, 64)):
+        heads_per_cta, grid = ssd_kernel.plan(4, H, 1, 64, N)
+        emit({"phase": "kernels", "kernel": "ssd",
+              "instance": f"mma chunk kernel, bf16, N = {N} ({arch}, H = {H})",
+              **ssd_kernel.instance_info(torch.bfloat16, torch.bfloat16, N),
+              "heads_per_cta": heads_per_cta, "grid": grid, "ctas": grid[0] * grid[1] * grid[2],
+              "sm_count": torch.cuda.get_device_properties(0).multi_processor_count})
     summaries["ssd"] = _summary(
         "ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu", "src/repro/kernels/ssd/ssd.py:73",
         rows)
@@ -1119,6 +1158,18 @@ def _counted_run(counters, call, what):
     return stats, launches
 
 
+def _release():
+    """Free a finished run's params, caches and graph pools before the next
+    run allocates (granite-20b's 40.6 GB must not sit beside another
+    model's)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _run_cfg(arch, engine):
     from repro_torch.configs.registry import get_config
 
@@ -1132,10 +1183,14 @@ def _expected_launches(cfg, decode_steps: int) -> dict:
     engine routes to (its int8 instance under ``weight_quant == "int8"``),
     none for LSTM and the plain engines; for attention, one decode attention
     per layer per decode step (prefill attention is plain PyTorch); for
-    Mamba-2, one SSD per layer per call (the prompt's, then each step's)."""
+    Mamba-2, one SSD per layer per call (the prompt's, then each step's),
+    and for a hybrid one decode attention per application of its shared
+    block per decode step."""
     want = dict.fromkeys(KERNELS, 0)
     if cfg.ssm:
         want["ssd"] = cfg.n_layers * (1 + decode_steps)
+        if cfg.attn_every:
+            want["gqa_decode"] = cfg.n_layers // cfg.attn_every * decode_steps
         return want
     if cfg.cell is None:
         want["gqa_decode"] = cfg.n_layers * decode_steps
@@ -1173,6 +1228,7 @@ def phase_serve():
         with contextlib.redirect_stdout(io.StringIO()):
             require(serve.main(["--arch", arch, "--gen-len", "2", "--prompt-len", str(prompt_len)]
                                + extra, graphs=False) == 0, f"serve warm-up {arch} {engine}")
+        _release()
     totals = dict.fromkeys(KERNELS, 0)
     for arch, engine, prompt_len in SERVE_RUNS:
         extra = ["--engine", engine] if engine else []
@@ -1207,6 +1263,7 @@ def phase_serve():
                     and len(tokens[graphs][0]) == gen_len, f"{what}: bad tokens")
             for k, n in launches.items():
                 totals[k] += n
+            _release()
         require(tokens[True] == tokens[False],
                 f"serve {arch} {engine}: the captured steps' tokens differ from the eager ones")
     return totals
@@ -1834,6 +1891,7 @@ def _profile_steps(cfg, params, prefill, decode, inputs, steps):
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch.launch import serve
     from repro_torch.training.graphs import leaves
 
     logits, caches = prefill(params, inputs)
@@ -1843,7 +1901,7 @@ def _profile_steps(cfg, params, prefill, decode, inputs, steps):
         nonlocal logits, caches
         for _ in range(steps):
             tok = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)[:, None]
-            logits, caches = decode(params, caches, tok)
+            logits, caches = decode(params, caches, serve.step_input(cfg, params, tok))
         torch.cuda.synchronize()
 
     run()  # warm-up
@@ -1880,7 +1938,8 @@ def phase_profile():
     confirmation that each replay runs our kernels. The step's bound is the
     bytes it must move once over the HBM rate: every layer weight, the final
     norm, the logits matrix and the valid KV rows read, or for Mamba-2 its
-    SSM state and conv tails read and written."""
+    SSM state and conv tails read and written; a hybrid's shared block is
+    read once per application, with its KV rows."""
     import torch
 
     from repro_torch.launch import serve
@@ -1896,12 +1955,15 @@ def phase_profile():
         max_len = prompt_len + (2 + 2 * PROFILE_WINDOWS) * steps
         prefill = build_prefill_step(cfg, batch=4, max_len=max_len, device="cuda")
         decode = build_decode_step(cfg)
-        inputs = {"inputs": torch.zeros((4, prompt_len), dtype=torch.long, device="cuda")}
+        inputs = serve.prompt_inputs(cfg, 4, prompt_len, 0, "cuda")
         per_step = (sum(_expected_launches(cfg, 1).values())
                     - sum(_expected_launches(cfg, 0).values()))
         head = params["embed"].get("unembed", params["embed"]["embed"])
+        # a hybrid's shared block is read at each application: 13 x 0.41 GB
+        # for zamba2-7b do not stay in the 50 MB L2
+        n_shared = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
         weight_bytes = (_tree_bytes(params["layers"]) + _tree_bytes(params["final_norm"])
-                        + _tree_bytes(head))
+                        + _tree_bytes(head) + n_shared * _tree_bytes(params.get("shared_attn")))
         captured = serve.capture_batch_steps(cfg, prefill, decode, params, inputs)
         for graphs, (pre, dec) in ((False, (prefill, decode)), (True, captured)):
             wall_ms, kernels, in_place, caches, windows = _profile_steps(
@@ -1912,10 +1974,12 @@ def phase_profile():
             kv_bytes = 0
             if cfg.ssm:  # every cache leaf read and written once per step
                 kv_bytes = 2 * _tree_bytes(caches["layers"])
-            elif cfg.cell is None:  # mean valid rows over the profiled steps
+            attn_caches = n_shared if cfg.ssm else (cfg.n_layers if cfg.cell is None else 0)
+            if attn_caches:  # mean valid rows over the profiled steps, K and V read
                 rows = prompt_len + (1 + 2 * windows) * steps + (steps + 1) / 2
-                kv_bytes = (2 * cfg.n_layers * 4 * rows * cfg.n_kv_heads * cfg.d_head
-                            * caches["layers"]["k"].element_size())
+                k = caches["shared_attn" if cfg.ssm else "layers"]["k"]
+                kv_bytes += (2 * attn_caches * 4 * rows * cfg.n_kv_heads * cfg.d_head
+                             * k.element_size())
             step_bytes = weight_bytes + kv_bytes
             emit({"phase": "profile", "arch": arch,
                   "engine": cfg.scan_engine if cfg.cell in ("sru", "qrnn") else None,
@@ -1937,39 +2001,50 @@ def phase_profile():
                     f"step, expected {per_step}")
             del caches
         del params, captured
+        _release()
 
 
 def phase_parity():
     """fp32 compute, the same params (drawn on the card, copied to the host),
     card against CPU: teacher-forced prefill logits, 8 decode steps, their
-    greedy tokens and the caches; on the card the attention and Mamba cache
-    leaves keep their storage from prefill through decode."""
+    greedy tokens and the caches (a hybrid's shared-block caches among
+    them); on the card the attention and Mamba cache leaves keep their
+    storage from prefill through decode. A frontend arch's prompt is a
+    normal draw of embeddings and each forced token goes in as its
+    embedding row, as the batch path feeds it."""
     import torch
 
+    from repro_torch.launch import serve
     from repro_torch.models import lm
+    from repro_torch.training.graphs import leaves
 
     for arch, engine, overrides in PARITY_RUNS:
         cfg = _run_cfg(arch, engine).with_(compute_dtype="float32", **overrides)
         params_gpu = lm.lm_init(torch.Generator(device="cuda").manual_seed(7), cfg, device="cuda")
         params_cpu = _tree_to(params_gpu, "cpu")
         g = torch.Generator().manual_seed(8)
-        prompt = torch.randint(0, cfg.vocab, (4, 64), generator=g)
+        if cfg.frontend:
+            prompt = {"inputs_embeds": torch.randn((4, 64, cfg.d_model), generator=g)}
+        else:
+            prompt = {"inputs": torch.randint(0, cfg.vocab, (4, 64), generator=g)}
         forced = torch.randint(0, cfg.vocab, (4, 8), generator=g)
         logits, caches = {}, {}
         with torch.inference_mode():
             for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
                 c = lm.lm_init_caches(cfg, 4, 72, device=dev)
-                out, c = lm.lm_prefill(params, cfg, {"inputs": prompt.to(dev)}, c)
-                ptrs = {k: v.data_ptr() for k, v in c["layers"].items()}
+                out, c = lm.lm_prefill(params, cfg, {k: v.to(dev) for k, v in prompt.items()}, c)
+                ptrs = [t.data_ptr() for t in leaves(c)]
                 steps = [out]
                 for i in range(forced.shape[1]):
-                    out, c = lm.lm_decode_step(params, cfg, c, forced[:, i:i + 1].to(dev))
+                    step_in = serve.step_input(cfg, params, forced[:, i:i + 1].to(dev))
+                    out, c = lm.lm_decode_step(params, cfg, c, step_in)
                     steps.append(out)
-                in_place = {k: v.data_ptr() for k, v in c["layers"].items()} == ptrs
-                on = {t.device.type for t in steps + list(c["layers"].values())}
+                in_place = [t.data_ptr() for t in leaves(c)] == ptrs
+                on = {t.device.type for t in steps + leaves(c)}
                 require(on == {dev}, f"parity {arch}: the {dev} run's outputs lie on {on}")
                 logits[dev] = torch.cat(steps, dim=1).cpu()
-                caches[dev] = {k: v.cpu() for k, v in c["layers"].items()}
+                caches[dev] = {f"{group}/{k}": v.cpu() for group, tree in c.items()
+                               for k, v in tree.items()}
         err = (logits["cuda"] - logits["cpu"]).abs().max().item()
         cache_err = max((caches["cuda"][k] - caches["cpu"][k]).abs().max().item()
                         for k in caches["cpu"])
@@ -1991,6 +2066,7 @@ def phase_parity():
         require(cfg.cell is not None or in_place,
                 f"parity {arch}: decode moved the cache's storage")
         del params_gpu, params_cpu
+        _release()
 
 
 def _expected_train_launches(cfg, steps: int) -> dict:
@@ -2166,7 +2242,7 @@ def phase_train():
     for arch, engine, overrides in TRAIN_RUNS:
         cfg = _train_cfg(arch, engine, overrides)
         what = f"train {arch} {engine or ''}".strip()
-        parity = _train_parity(cfg)
+        parity = _train_parity(cfg.with_(n_layers=TRAIN_PARITY_DEPTH.get(arch, cfg.n_layers)))
         (loss_card, gn_card), (loss_cpu, gn_cpu) = parity["cuda"], parity["cpu"]
         loss_err, gn_err = abs(loss_card - loss_cpu), abs(gn_card - gn_cpu)
         require(loss_err <= PARITY_TOL and gn_err <= PARITY_TOL * gn_cpu,
@@ -2213,7 +2289,8 @@ def phase_train():
               if overrides else None, "compute": cfg.compute_dtype, "remat": cfg.remat,
               "microbatches": cfg.microbatches, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
               "losses": losses, "grad_norms": [h["grad_norm"] for h in history],
-              "step0_fp32": {"loss_card": loss_card, "loss_cpu": loss_cpu, "loss_err": loss_err,
+              "step0_fp32": {"n_layers": TRAIN_PARITY_DEPTH.get(arch, cfg.n_layers),
+                             "loss_card": loss_card, "loss_cpu": loss_cpu, "loss_err": loss_err,
                              "grad_norm_card": gn_card, "grad_norm_cpu": gn_cpu,
                              "grad_norm_err": gn_err, "tol": PARITY_TOL, "grad_norm_rtol":
                              PARITY_TOL},
@@ -2225,7 +2302,7 @@ def phase_train():
               "recompute_share": None if recompute is None else recompute / step_ms})
         for k, n in launches.items():
             totals[k] += n
-        torch.cuda.empty_cache()
+        _release()
     diff, launches = _resume_check(counters)
     emit({"phase": "train", "arch": TRAIN_RESUME_ARCH, "resume_from_step": TRAIN_STEPS // 2,
           "steps": TRAIN_STEPS, "max_abs_param_diff": diff, "tol": TRAIN_RESUME_TOL})

@@ -3,9 +3,9 @@
 One ``ArchConfig`` fully determines a model. The port keeps its own copy
 because it imports nothing of the JAX package; the fields, defaults,
 ``padded_vocab`` and ``reduced()`` are the same, so a config names the same
-model on both sides. The port serves the RNN, the dense attention and the
-SSM (Mamba-2) fields; the MoE, hybrid and frontend ones wait for the slices
-that port their models.
+model on both sides. The port serves the RNN, the dense attention, the SSM
+(Mamba-2), the hybrid (``attn_every``) and the frontend-stub fields; the MoE
+ones wait for the slice that ports ``models/moe.py`` (ROADMAP.md §A6.3).
 """
 from __future__ import annotations
 

@@ -24,6 +24,10 @@ Runs on the card unless ``--device cpu`` is given:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --reduced --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --reduced --device cpu
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-large-stacked \\
         --mode continuous --requests 16 --batch 4 --prompt-len 64 --gen-len 32
 
@@ -31,11 +35,16 @@ Runs on the card unless ``--device cpu`` is given:
         --mode continuous --headline-trace --speculative --spec-k 4
 
 The port serves every ``paper_rnn`` config (SRU/QRNN/LSTM, the ``*-int8``
-ones included), the dense GQA attention LMs ``llama3-8b`` and
-``smollm-360m``, whose decode attention runs on the CUDA port of the
-``gqa_decode`` kernel (B5), and the Mamba-2 LM ``mamba2-2.7b``, whose every
-SSD (prefill and each decode step) runs on the CUDA port of the chunked
-``ssd`` kernel (B4). Other archs are refused by ``lm_init``.
+ones included), the dense attention LMs ``llama3-8b``, ``smollm-360m`` and
+``granite-20b`` (MQA), whose decode attention runs on the CUDA port of the
+``gqa_decode`` kernel (B5), the frontend-stub LMs ``internvl2-2b`` and
+``musicgen-large`` (batch mode: the prompt is a normal draw of embeddings,
+and each decode step is fed the embedding row of the token it chose, as in
+the JAX ``run_batch``), the Mamba-2 LM ``mamba2-2.7b``, whose every SSD
+(prefill and each decode step) runs on the CUDA port of the chunked ``ssd``
+kernel (B4), and the hybrid ``zamba2-7b`` (both kernels; batch mode). The
+MoE archs are refused by ``lm_init``; ``--mode continuous`` serves the RNN
+stacks only, as in JAX.
 
 ``--engine`` overrides ``cfg.scan_engine`` with any of the six engines of
 the JAX ``launch/serve.py`` (``ENGINE_MATRIX``); an unknown one exits with
@@ -155,15 +164,38 @@ def _greedy(cfg, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)[:, None]
 
 
+def prompt_inputs(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
+    """The batch path's prompt from a generator seeded with ``seed``: token
+    ids (B, prompt_len), or with a frontend stub a normal draw of
+    ``inputs_embeds`` (B, prompt_len, d_model), as the JAX ``run_batch``
+    draws them."""
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.frontend:
+        return {"inputs_embeds": torch.randn((batch, prompt_len, cfg.d_model),
+                                             generator=gen).to(device)}
+    return {"inputs": torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen).to(device)}
+
+
+def step_input(cfg, params, tok: torch.Tensor) -> torch.Tensor:
+    """A decode step's input after the greedy ``tok`` (B, 1): the token, or
+    with a frontend stub its embedding row (B, 1, d). The JAX ``run_batch``
+    computes ``one_hot(tok) @ embed``; a product with one 1 and zeros is
+    the row itself, so the two are equal bit for bit."""
+    return params["embed"]["embed"][tok] if cfg.frontend else tok
+
+
 def capture_batch_steps(cfg, prefill_step, decode_step, params, inputs):
     """The batch path's two steps as CUDA graphs, as the JAX
     ``launch/serve.py`` jits them. Each step is warmed up eagerly first (the decode step over clones
     of the warm-up prefill's caches), then the prefill is captured at the
     run's (batch, prompt length, max_len), then the decode step over the
     caches the captured prefill outputs, which it updates in place, in the
-    prefill graph's memory pool. Returns the two ``CapturedStep``s."""
+    prefill graph's memory pool. The decode step is captured on the step's
+    input (``step_input``: a token, or with a frontend an embedding row),
+    which each replay copies into the graph's static buffer. Returns the two
+    ``CapturedStep``s."""
     logits, caches = step_graphs.warm_up(prefill_step, params, inputs)
-    token = _greedy(cfg, logits)
+    token = step_input(cfg, params, _greedy(cfg, logits))
     step_graphs.warm_up(decode_step, params, caches, token)
     del logits, caches
     prefill = step_graphs.capture(prefill_step, params, inputs)
@@ -182,9 +214,7 @@ def run_batch(cfg, params, args, device: torch.device, graphs: bool = True) -> d
     max_len = args.prompt_len + args.gen_len
     prefill = build_prefill_step(cfg, batch=args.batch, max_len=max_len, device=device)
     decode = build_decode_step(cfg)
-    gen = torch.Generator().manual_seed(args.seed)
-    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen)
-    inputs = {"inputs": prompt.to(device)}
+    inputs = prompt_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
 
     captured = graphs and device.type == "cuda"
     capture_ms = None
@@ -206,7 +236,7 @@ def run_batch(cfg, params, args, device: torch.device, graphs: bool = True) -> d
     out_tokens = [tok]
     t0 = time.perf_counter()
     for _ in range(args.gen_len - 1):
-        logits, caches = decode(params, caches, tok)
+        logits, caches = decode(params, caches, step_input(cfg, params, tok))
         tok = _greedy(cfg, logits)
         out_tokens.append(tok)
     _sync(device)

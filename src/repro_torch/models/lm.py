@@ -9,14 +9,20 @@ Entry points:
   * ``lm_prefill(params, cfg, batch, caches)``        logits of last pos + caches
   * ``lm_verify(params, cfg, batch, caches)``         every position's logits + caches
   * ``lm_decode_step(params, cfg, caches, tok)``      one-token serve step
+                                                      (an embedding row with a frontend)
 
 The params tree has the JAX package's keys and layout (``bridge.py``
 converts between the two). The port serves the paper's SRU/QRNN/LSTM LMs,
-the dense GQA attention LMs (``llama3-8b``, ``smollm-360m``) and the Mamba-2
-LM (``mamba2-2.7b``). Attention and Mamba caches are written in place
-(``models/attention.py``, ``models/mamba.py``); RNN caches are returned
-anew, as in JAX. MoE, the hybrids and the frontends wait for later slices
-(ROADMAP.md).
+the dense attention LMs (``llama3-8b``, ``smollm-360m``, ``granite-20b``),
+the frontend-stub LMs (``internvl2-2b``, ``musicgen-large``: the inputs are
+embeddings, through one ``frontend.adapter`` matrix), the Mamba-2 LM
+(``mamba2-2.7b``) and the hybrid ``zamba2-7b``: groups of ``attn_every``
+Mamba blocks, each followed by one weight-shared attention block
+(``shared_attn``) with a KV cache of its own per application; the
+``n_layers % attn_every`` tail blocks have none after them. Attention and
+Mamba caches are written in place (``models/attention.py``,
+``models/mamba.py``); RNN caches are returned anew, as in JAX. MoE waits
+for a later slice (ROADMAP.md §A6.3).
 
 The training forward (``lm_hidden`` / ``lm_forward`` / ``lm_loss``) is
 differentiated by autograd: the fused RNN kernels through their autograd
@@ -43,6 +49,7 @@ from repro_torch.models.layers import (
     logits_apply,
     mlp_apply,
     mlp_init,
+    dense_init,
     resolve_device,
     rmsnorm,
     rmsnorm_init,
@@ -57,12 +64,10 @@ def block_kind(cfg) -> str:
 
 def _require_served(cfg) -> None:
     """Refuse the families the port does not serve or train yet, naming the queue."""
-    unserved = [name for name, on in (("moe", cfg.moe), ("attn_every", cfg.attn_every),
-                                      ("frontend", cfg.frontend)) if on]
-    if unserved:
+    if cfg.moe:
         raise NotImplementedError(
-            f"{cfg.name}: the port does not run {'/'.join(unserved)} configs yet "
-            "(ROADMAP.md §A6: the other assigned archs, MoE, hybrid and frontend ones)"
+            f"{cfg.name}: the port does not run moe configs yet "
+            "(ROADMAP.md §A6: the other assigned archs, the MoE ones)"
         )
 
 
@@ -188,16 +193,31 @@ def lm_init(gen: torch.Generator, cfg, device="cuda", dtype=None) -> Dict:
     dtype = _dtype(cfg.param_dtype) if dtype is None else dtype
     quant = cfg.weight_quant == "int8"
     draw = _dtype(cfg.param_dtype) if quant else dtype
-    params: Dict = {
-        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, cfg.tie_embeddings, device)
-    }
+    params: Dict = {}
+    if cfg.frontend:
+        params["frontend"] = {"adapter": dense_init(gen, cfg.d_model, cfg.d_model, dtype, device)}
+    params["embed"] = embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, cfg.tie_embeddings,
+                                 device)
     params["layers"] = _stacked_init(lambda: _block_init(gen, cfg, draw, device), cfg.n_layers)
     if quant:
         # Weight-only int8 of the SRU/QRNN gate slabs; LSTM and every
         # non-cell leaf pass through.
         params["layers"] = layout.cast_params(layout.quantize_tree(params["layers"]), dtype)
+    if cfg.attn_every:  # one attention block, shared by every application
+        params["shared_attn"] = _attn_block_init(gen, cfg, dtype, device)
     params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, device)
     return params
+
+
+def _split_groups(cfg):
+    """(n_groups, group_size, n_tail) of a hybrid's interleave."""
+    g = cfg.attn_every
+    n_groups = cfg.n_layers // g
+    return n_groups, g, cfg.n_layers - n_groups * g
+
+
+def _stack_zeros(one: Dict, n: int) -> Dict:
+    return {k: v.new_zeros((n, *v.shape)) for k, v in one.items()}
 
 
 def lm_init_caches(cfg, batch: int, max_len: int, device="cuda"):
@@ -206,11 +226,33 @@ def lm_init_caches(cfg, batch: int, max_len: int, device="cuda"):
     ``h`` for LSTM; ``max_len`` is unused by them and by Mamba (kept for the
     JAX signature). Attention: ``k``, ``v`` (L, B, size, Hkv, Dh) and ``pos``
     (L,). Mamba: ``conv_x``, ``conv_b``, ``conv_c`` (L, B, W-1, C) and
-    ``ssm`` (L, B, H, N, P)."""
+    ``ssm`` (L, B, H, N, P). A hybrid adds ``"shared_attn"``: an attention
+    cache stacked over its ``n_layers // attn_every`` applications."""
     _require_served(cfg)
     device = resolve_device(device)
-    one = _block_cache(cfg, batch, max_len, _dtype(cfg.compute_dtype), device)
-    return {"layers": {k: v.new_zeros((cfg.n_layers, *v.shape)) for k, v in one.items()}}
+    dtype = _dtype(cfg.compute_dtype)
+    caches = {"layers": _stack_zeros(_block_cache(cfg, batch, max_len, dtype, device),
+                                     cfg.n_layers)}
+    if cfg.attn_every:
+        n_groups, _, _ = _split_groups(cfg)
+        caches["shared_attn"] = _stack_zeros(
+            attention.init_cache(cfg, batch, max_len, dtype, device), n_groups)
+    return caches
+
+
+def _embed_in(params, cfg, batch, compute) -> torch.Tensor:
+    """The first hidden states in the compute dtype: ``batch["inputs"]``
+    (B, S) token ids through the embedding table, or with a frontend stub
+    ``batch["inputs_embeds"]`` (B, S, d) through its adapter matrix."""
+    if cfg.frontend:
+        return batch["inputs_embeds"].to(compute) @ params["frontend"]["adapter"].to(compute)
+    return embed_apply(params["embed"], batch["inputs"]).to(compute)
+
+
+def _check_hybrid(cfg) -> None:
+    if cfg.attn_every and block_kind(cfg) == "rnn" and cfg.fuse_depth:
+        # the stack-level call would skip the shared attention block
+        raise ValueError("fuse_depth does not support attn_every hybrids")
 
 
 # ---------------------------------------------------------------------------
@@ -218,11 +260,14 @@ def lm_init_caches(cfg, batch: int, max_len: int, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def lm_hidden(params, cfg, batch) -> torch.Tensor:
-    """Embed -> blocks -> final norm. ``batch["inputs"]``: (B, S) token ids.
-    Returns (B, S, d) in the compute dtype."""
+    """Embed -> blocks (a hybrid's shared block after every ``attn_every``
+    of them) -> final norm. ``batch["inputs"]``: (B, S) token ids, or
+    ``batch["inputs_embeds"]`` (B, S, d) with a frontend. Returns (B, S, d)
+    in the compute dtype."""
     _require_served(cfg)
+    _check_hybrid(cfg)
     compute = _dtype(cfg.compute_dtype)
-    h = embed_apply(params["embed"], batch["inputs"]).to(compute)
+    h = _embed_in(params, cfg, batch, compute)
     B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
     layers = params["layers"]
@@ -239,8 +284,19 @@ def lm_hidden(params, cfg, batch) -> torch.Tensor:
             return _block_apply(layout.cast_params(lp, compute), cfg, x, positions)
 
         apply_block = maybe_remat(apply_block, cfg.remat)
+        shared_apply = None
+        if cfg.attn_every:
+            shared = layout.cast_params(params["shared_attn"], compute)  # once a call
+
+            def shared_apply(x):
+                return _attn_block_apply(shared, cfg, x, positions)
+
+            if cfg.remat == "block":  # as JAX checkpoints it (only under "block")
+                shared_apply = maybe_remat(shared_apply, "block")
         for l in range(cfg.n_layers):
             h = apply_block(rnn.layer_slice(layers, l), h)
+            if shared_apply is not None and (l + 1) % cfg.attn_every == 0:
+                h = shared_apply(h)
     return rmsnorm(params["final_norm"].to(compute), h)
 
 
@@ -303,19 +359,30 @@ def lm_loss(params, cfg, batch):
 def _run_layers(params, cfg, h, caches, decode: bool):
     """All layers, threading the stacked caches. Attention and Mamba layers
     write their slice of the stacked cache in place and the same ``caches``
-    is returned. RNN layers run ``rnn_block_prefill``/``rnn_block_decode`` per
-    layer (``scan_layers``), or with ``cfg.fuse_depth`` the stack-level API
-    (the depth-fused stack under ``scan_engine="fused_stack"``), and return
-    new caches."""
+    is returned; so does a hybrid's shared block, into its application's
+    slice of ``caches["shared_attn"]``. RNN layers run
+    ``rnn_block_prefill``/``rnn_block_decode`` per layer (``scan_layers``),
+    or with ``cfg.fuse_depth`` the stack-level API (the depth-fused stack
+    under ``scan_engine="fused_stack"``), and return new caches."""
+    _check_hybrid(cfg)
     layers = layout.cast_params(params["layers"], h.dtype)
     kind = block_kind(cfg)
     if kind in ("attn", "mamba"):
         fns = {"attn": (_attn_block_prefill, _attn_block_decode),
                "mamba": (_mamba_block_prefill, _mamba_block_decode)}
         fn = fns[kind][decode]
+        g = cfg.attn_every
+        if g:
+            shared = layout.cast_params(params["shared_attn"], h.dtype)
+            shared_fn = (_attn_block_prefill, _attn_block_decode)[decode]
         for l in range(cfg.n_layers):
             h, _ = fn(rnn.layer_slice(layers, l), cfg, h, rnn.layer_slice(caches["layers"], l))
+            if g and (l + 1) % g == 0:
+                h, _ = shared_fn(shared, cfg, h,
+                                 rnn.layer_slice(caches["shared_attn"], (l + 1) // g - 1))
         return h, caches
+    if cfg.attn_every:  # JAX groups them too; no config has an RNN hybrid
+        raise NotImplementedError(f"{cfg.name}: the port serves Mamba-2 hybrids only")
     if cfg.fuse_depth:
         stack_fn = rnn.rnn_stack_decode if decode else rnn.rnn_stack_prefill
         h, new = stack_fn(layers, cfg, h, caches["layers"])
@@ -332,14 +399,14 @@ def _head(params, cfg, h):
 
 
 def _prefill_layers(params, cfg, batch, caches):
-    compute = _dtype(cfg.compute_dtype)
-    h = embed_apply(params["embed"], batch["inputs"]).to(compute)
+    h = _embed_in(params, cfg, batch, _dtype(cfg.compute_dtype))
     return _run_layers(params, cfg, h, caches, decode=False)
 
 
 def lm_prefill(params, cfg, batch, caches):
-    """``batch["inputs"]``: (B, T) token ids. Returns the last position's
-    logits (B, 1, V_padded) and the new caches."""
+    """``batch["inputs"]``: (B, T) token ids, or ``batch["inputs_embeds"]``
+    (B, T, d) with a frontend. Returns the last position's logits (B, 1,
+    V_padded) and the new caches."""
     h, caches = _prefill_layers(params, cfg, batch, caches)
     return _head(params, cfg, h[:, -1:]), caches
 
@@ -353,9 +420,10 @@ def lm_verify(params, cfg, batch, caches):
     return _head(params, cfg, h), caches
 
 
-def lm_decode_step(params, cfg, caches, token):
-    """One serve step: ``token`` (B, 1) ids. Returns (logits, caches)."""
-    compute = _dtype(cfg.compute_dtype)
-    h = embed_apply(params["embed"], token).to(compute)
+def lm_decode_step(params, cfg, caches, token_or_embed):
+    """One serve step: a token (B, 1) of ids, or with a frontend an
+    embedding (B, 1, d). Returns (logits, caches)."""
+    key = "inputs_embeds" if cfg.frontend else "inputs"
+    h = _embed_in(params, cfg, {key: token_or_embed}, _dtype(cfg.compute_dtype))
     h, caches = _run_layers(params, cfg, h, caches, decode=True)
     return _head(params, cfg, h), caches

@@ -65,6 +65,9 @@ And training: the fused kernels' autograd Functions (``ops.fused_layer``,
 against autograd through their plain versions, their forwards launching
 the kernel and their backwards only the linear scan; and the gradients of ``lm_loss`` on
 the card (B2, B1, B3 and an attention LM, fp32, reduced) against the CPU's.
+And the archs served last, reduced, in fp32: granite-20b, the frontend stubs
+internvl2-2b and musicgen-large, and the hybrid zamba2-7b (also with a tail),
+their captured batch steps on the card against the eager steps on the CPU.
 
 They skip, with that reason, on a machine without a CUDA device (decided in
 the ``device`` fixture, not at import) and run on the card with
@@ -1748,3 +1751,57 @@ def test_lm_loss_grads_on_the_card_match_the_cpu(device, arch, engine):
     for a, b in zip(g_cpu, g_gpu):
         assert b.abs().max().item() > 0 or a.abs().max().item() == 0
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The frontend stubs, MQA and the hybrid, served on the card
+# ---------------------------------------------------------------------------
+
+# (arch, config overrides on its reduced config): granite-20b (MQA, gelu),
+# the two frontend stubs, the hybrid, and the hybrid with a tail of blocks
+# that no shared block follows.
+ARCH_CASES = {
+    "granite": ("granite-20b", {}),
+    "internvl2": ("internvl2-2b", {}),
+    "musicgen": ("musicgen-large", {}),
+    "zamba2": ("zamba2-7b", {}),
+    "zamba2_tail": ("zamba2-7b", {"n_layers": 5, "attn_every": 2}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ARCH_CASES))
+def test_reduced_archs_served_on_the_card_match_the_cpu(device, case):
+    """fp32, reduced: the captured batch steps on the card (a frontend's
+    decode graph fed the chosen token's embedding row through its static
+    buffer; the hybrid's shared block writing its own cache slice) against
+    the eager steps on the CPU from the same params and prompt: the same
+    greedy tokens over 8 steps, logits and every cache leaf within
+    STREAM_TOL, the card's caches kept in place."""
+    arch, overrides = ARCH_CASES[case]
+    cfg = get_config(arch).reduced().with_(**overrides)
+    params_cpu = lm.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    inputs_cpu = serve.prompt_inputs(cfg, 4, 12, 1, "cpu")
+    steps = 8
+    out = {}
+    for dev in ("cpu", device):
+        params = unflatten_like(params_cpu, [t.to(dev) for t in tree_leaves(params_cpu)])
+        inputs = {k: v.to(dev) for k, v in inputs_cpu.items()}
+        prefill = build_prefill_step(cfg, batch=4, max_len=12 + steps + 1, device=dev)
+        decode = build_decode_step(cfg)
+        if dev != "cpu":
+            prefill, decode = serve.capture_batch_steps(cfg, prefill, decode, params, inputs)
+        logits, caches = prefill(params, inputs)
+        storage = [t.data_ptr() for t in graphs.leaves(caches)]
+        outs, toks = [logits.cpu()], []
+        for _ in range(steps):
+            toks.append(serve._greedy(cfg, logits).cpu())
+            logits, caches = decode(params, caches, serve.step_input(cfg, params,
+                                                                     toks[-1].to(dev)))
+            outs.append(logits.cpu())
+        assert [t.data_ptr() for t in graphs.leaves(caches)] == storage
+        out["cpu" if dev == "cpu" else "cuda"] = (
+            torch.cat(toks, dim=1), outs, [t.cpu() for t in graphs.leaves(caches)])
+    (t_cpu, l_cpu, c_cpu), (t_gpu, l_gpu, c_gpu) = out["cpu"], out["cuda"]
+    assert torch.equal(t_cpu, t_gpu)
+    for a, b in zip(l_cpu + c_cpu, l_gpu + c_gpu, strict=True):
+        assert (a.float() - b.float()).abs().max().item() <= STREAM_TOL
