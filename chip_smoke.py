@@ -31,7 +31,9 @@ Phases, each printing one JSON line per step:
            8192 rows, ragged lengths down to 1, bf16), the full-width head
            shapes of granite-20b (a group of 48), zamba2-7b (head dim 112),
            nemotron-4-340b (head dim 192), internvl2-2b (16 query heads on 8)
-           and musicgen-large (G = 1, head dim 64) in bf16, and one fp32 case
+           and musicgen-large (G = 1, head dim 64), mixtral-8x22b's full
+           4096-slot sliding-window ring and qwen3-moe-235b-a22b's group of
+           16 in bf16, and one fp32 case
            with 32 query heads per KV head, beside PyTorch's
            ``scaled_dot_product_attention`` on the same data, with each
            instance's shared memory, registers, CTAs per SM, tiles in
@@ -61,7 +63,10 @@ Phases, each printing one JSON line per step:
            ``internvl2-2b`` and ``musicgen-large`` (an embedding prompt; each
            step fed its token's embedding row) and the hybrid ``zamba2-7b``
            (81 Mamba-2 blocks, the shared attention block applied 13 times),
-           each twice: with the eager steps and with the
+           and, through ``serve.run_batch`` (serve.main has no depth flag), the
+           configs one card holds only cut in depth (CUT_SERVE_RUNS: the MoE
+           ``mixtral-8x22b`` and ``qwen3-moe-235b-a22b`` at 8 layers,
+           ``nemotron-4-340b`` at 4), each twice: with the eager steps and with the
            steps as CUDA graphs (the default: prefill and every decode step
            a replay, ``capture_ms`` for the warm-ups and captures); each
            run's launches of each kernel instance, fp and int8 apart (counts
@@ -122,11 +127,14 @@ Phases, each printing one JSON line per step:
            TensorBoard);
   profile  per config (the fp fused, stacked and pallas runs, the two
            stacked int8 runs, llama3-8b, smollm-360m, mamba2-2.7b,
-           granite-20b and zamba2-7b), eager
+           granite-20b, zamba2-7b and the three cut configs), eager
            and captured, a decode step's host time and torch.profiler's
            device time by kernel, hence the device's idle share, against the
            step's bytes bound (mamba2: its SSM state read and written too;
-           zamba2: also its shared block read at each application);
+           zamba2: also its shared block read at each application; MoE: every
+           expert read, since the sorted schedule computes every expert's
+           slots, and a second bound over the experts one step's routing
+           touched);
            the card's count of our kernels per step must equal the expected
            launches per step in both modes; the caches must keep their
            storage (written in place);
@@ -134,8 +142,10 @@ Phases, each printing one JSON line per step:
            pallas, the LSTM LM, two int8 LMs (stacked SRU, fused QRNN),
            smollm-360m (full depth), llama3-8b, mamba2-2.7b, granite-20b,
            internvl2-2b and musicgen-large (each cut to 2 layers so the CPU
-           side fits in time and host memory) and zamba2-7b (cut to 7: a
-           group of 6 with its shared block, and a tail layer) at full width
+           side fits in time and host memory), zamba2-7b (cut to 7: a
+           group of 6 with its shared block, and a tail layer), and
+           mixtral-8x22b, qwen3-moe-235b-a22b and nemotron-4-340b cut to 1
+           (their prefill logits held at 3e-5) at full width
            in fp32 compute, same params, on the card versus the plain path on
            the CPU: teacher-forced prefill logits, 8 decode steps and their
            argmax; the attention and Mamba caches keep their storage;
@@ -145,8 +155,9 @@ Phases, each printing one JSON line per step:
            ``internvl2-2b`` (a frontend stub) through
            ``repro_torch.launch.train.main``, ``sru-paper-large`` on
            ``pallas`` (B3 forward and backward), ``mamba2-2.7b`` cut to 2
-           layers and ``zamba2-7b`` cut to 7 through the same loop over
-           ``build_train_step``
+           layers, ``zamba2-7b`` cut to 7 and ``mixtral-8x22b`` and
+           ``qwen3-moe-235b-a22b`` (bf16 moments) cut to 1 through the same
+           loop over ``build_train_step``
            (``launch/train.py`` has no engine or depth flag, as in JAX):
            per config the fp32 step 0
            on the card against the CPU's (same params and batch: loss and
@@ -198,6 +209,12 @@ SERVE_RUNS = (
     ("granite-20b", None, 64), ("internvl2-2b", None, 64), ("musicgen-large", None, 64),
     ("zamba2-7b", None, 64),
 )
+# The configs one card serves only cut in depth, (arch, layers kept): the
+# MoE LMs (8 layers of 5.0 GB in bf16) and nemotron-4-340b (4 layers of 6.9
+# GB beside its 18.9 GB embedding and head). serve.main has no depth flag
+# (nor has JAX's), so the serve and profile phases drive them through
+# serve.run_batch, the function serve.main runs, on the cut config.
+CUT_SERVE_RUNS = (("mixtral-8x22b", 8), ("qwen3-moe-235b-a22b", 8), ("nemotron-4-340b", 4))
 # (arch, --engine override): the continuous phase's configs, one per kernel
 # on the path (B2, B1, B3, B2 int8).
 CONTINUOUS_CONFIGS = (("sru-paper-large-stacked", None), ("qrnn-paper-large-fused", None),
@@ -270,7 +287,13 @@ PARITY_RUNS = (
     ("granite-20b", None, {"n_layers": 2}), ("internvl2-2b", None, {"n_layers": 2}),
     ("musicgen-large", None, {"n_layers": 2}),
     ("zamba2-7b", None, {"n_layers": 7}),  # one group of 6 and its shared block, a tail layer
+    ("mixtral-8x22b", None, {"n_layers": 1}), ("qwen3-moe-235b-a22b", None, {"n_layers": 1}),
+    ("nemotron-4-340b", None, {"n_layers": 1}),  # 51.5 GB of fp32 on the card and the host
 )
+# These runs also hold the prefill logits (the last position's, B x V) at
+# this tolerance, the JAX package's own for logits.
+PARITY_PREFILL_TOL = {"mixtral-8x22b": 3e-5, "qwen3-moe-235b-a22b": 3e-5,
+                      "nemotron-4-340b": 3e-5}
 # Training (phase ``train``): (arch, engine override, config overrides) at
 # full width, TRAIN_BATCH x TRAIN_SEQ tokens a step, TRAIN_STEPS steps. The
 # runs without overrides go through ``repro_torch.launch.train.main``; its
@@ -284,6 +307,11 @@ TRAIN_RUNS = (
     ("smollm-360m", None, {}), ("mamba2-2.7b", None, {"n_layers": 2}),
     ("internvl2-2b", None, {}),                                # frontend stub
     ("zamba2-7b", None, {"n_layers": 7}),                      # hybrid: a group and a tail
+    # MoE at full width, one layer: 2.9 B / 3.7 B params, fp32 masters, fp32
+    # / bf16 moments (about 46 / 45 GB of params, grads and moments).
+    # nemotron-4-340b cannot train on one card at any depth: its embedding
+    # and head alone are 9.4 B params, about 113 GB of train state.
+    ("mixtral-8x22b", None, {"n_layers": 1}), ("qwen3-moe-235b-a22b", None, {"n_layers": 1}),
 )
 # The fp32 step-0 check of these runs is cut to this depth (the timed run
 # keeps its own), so the host's CPU side fits in the script's time:
@@ -341,8 +369,9 @@ B4_RTOL = 2e-5
 # with ragged lengths down to 1, smollm's shape, an fp32 case with 32 query
 # heads per KV head; then the llama3-8b serve shape at prompt 64, the
 # full-width head shapes of granite-20b, zamba2-7b, nemotron-4-340b,
-# internvl2-2b and musicgen-large at a 1056-row cache, and granite-20b's
-# serve shape at prompt 64 (its decode step's B5 against SDPA).
+# internvl2-2b and musicgen-large at a 1056-row cache, granite-20b's
+# serve shape at prompt 64 (its decode step's B5 against SDPA), mixtral-8x22b's
+# sliding-window ring full (4096 slots) and qwen3-moe-235b-a22b's G = 16.
 # ``bench_b5.py`` times the same cases.
 GQA_CASES = (
     ("llama3 B=4 Hq=32 Hkv=8 Dh=128 S=1056 len=1025",
@@ -365,6 +394,10 @@ GQA_CASES = (
     ("musicgen B=4 Hq=32 Hkv=32 Dh=64 S=1056 len=1025",
      (4, 32, 32, 64, 1056, (1025,) * 4), "bfloat16"),
     ("granite prompt 64 S=96 len=65", (4, 48, 1, 128, 96, (65,) * 4), "bfloat16"),
+    ("mixtral B=4 Hq=48 Hkv=8 Dh=128 SWA ring S=4096 full",
+     (4, 48, 8, 128, 4096, (4096,) * 4), "bfloat16"),
+    ("qwen3 B=4 Hq=64 Hkv=4 Dh=128 S=1056 len=1025",
+     (4, 64, 4, 128, 1056, (1025,) * 4), "bfloat16"),
 )
 # Chunked SSD (B4) cases, (name, (B, S, H, P, N, G, dtype, seed), options of
 # ``_ssd_case``): the mamba2-2.7b serve shapes (prefill 1024 first: the
@@ -1234,7 +1267,6 @@ def phase_serve():
         extra = ["--engine", engine] if engine else []
         cfg = _run_cfg(arch, engine)
         want = _expected_launches(cfg, gen_len - 1)
-        calls = 1 + (gen_len - 1)  # one prefill, gen_len - 1 decode steps
         engine_used = cfg.scan_engine if cfg.cell in ("sru", "qrnn") else None
         tokens = {}
         for graphs in (False, True):
@@ -1250,23 +1282,84 @@ def phase_serve():
             launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
             require(rc == 0, f"{what} returned {rc}")
             line = next(x for x in buf.getvalue().splitlines() if x.startswith("serve-stats "))
-            stats = json.loads(line[len("serve-stats "):])
-            tokens[graphs] = stats.pop("tokens")
-            ok_tokens = all(0 <= t < cfg.vocab for row in tokens[graphs] for t in row)
-            emit({"phase": "serve", **stats, "prompt_len": prompt_len, "engine": engine_used,
-                  "launches": launches, "launches_per_step": sum(launches.values()) / calls,
-                  "sample_tokens": tokens[graphs][0][:8]})
-            require(stats["graphs"] == graphs, f"{what}: graphs {stats['graphs']}")
-            require(launches == want, f"{what}: launches {launches} != {want}")
-            require(stats["cache_in_place"], f"{what}: the caches moved")
-            require(ok_tokens and len(tokens[graphs]) == batch
-                    and len(tokens[graphs][0]) == gen_len, f"{what}: bad tokens")
-            for k, n in launches.items():
-                totals[k] += n
+            tokens[graphs] = _check_serve(what, cfg, graphs, json.loads(line[len("serve-stats "):]),
+                                          launches, want, totals, batch, gen_len,
+                                          prompt_len=prompt_len, engine=engine_used)
             _release()
         require(tokens[True] == tokens[False],
                 f"serve {arch} {engine}: the captured steps' tokens differ from the eager ones")
+    _serve_cut_runs(counters, totals)
     return totals
+
+
+def _check_serve(what, cfg, graphs, stats, launches, want, totals, batch, gen_len, **fields):
+    """Print one serve run's line and hold it to the mode asked for, the
+    expected launches, caches in place and ``batch`` x ``gen_len`` tokens in
+    the vocabulary; add its launches to ``totals``. Returns its tokens."""
+    tokens = stats.pop("tokens")
+    emit({"phase": "serve", **stats, **fields, "launches": launches,
+          "launches_per_step": sum(launches.values()) / gen_len,  # a prefill, gen_len - 1 steps
+          "sample_tokens": tokens[0][:8]})
+    require(stats["graphs"] == graphs, f"{what}: graphs {stats['graphs']}")
+    require(launches == want, f"{what}: launches {launches} != {want}")
+    require(stats["cache_in_place"], f"{what}: the caches moved")
+    require(all(0 <= t < cfg.vocab for row in tokens for t in row) and len(tokens) == batch
+            and len(tokens[0]) == gen_len, f"{what}: bad tokens")
+    for k, n in launches.items():
+        totals[k] += n
+    return tokens
+
+
+def _cut_cfg(arch, layers):
+    return _run_cfg(arch, None).with_(n_layers=layers)
+
+
+def _serve_cut_runs(counters, totals):
+    """CUT_SERVE_RUNS at full width through ``serve.run_batch``, the function
+    ``serve.main`` runs, with serve.main's flags and params (made once per
+    config, in the compute dtype, from seed 0): a 2-token warm-up, then the
+    eager and the captured run (``serve.capture_batch_steps``), every
+    kernel's count set to 0 just before each and read just after. Both must
+    give the expected launches (B5: layers x 31), keep the caches where they
+    lie and give the same tokens. Adds the launches to ``totals``."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.layers import _dtype
+
+    gen_len, batch, prompt_len = 32, 4, 64
+    device = torch.device("cuda")
+    for arch, layers in CUT_SERVE_RUNS:
+        cfg = _cut_cfg(arch, layers)
+        argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt_len)]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = lm.lm_init(torch.Generator(device=device).manual_seed(0), cfg, device=device,
+                            dtype=_dtype(cfg.compute_dtype))
+        torch.cuda.synchronize()
+        init_ms = (time.perf_counter() - t0) * 1e3
+        serve.run_batch(cfg, params, serve.parse_args(argv + ["--gen-len", "2"]), device,
+                        graphs=False)  # warm-up
+        want = _expected_launches(cfg, gen_len - 1)
+        tokens = {}
+        for graphs in (False, True):
+            what = f"serve {arch} ({layers} layers, {'captured' if graphs else 'eager'})"
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            stats = serve.run_batch(cfg, params, serve.parse_args(argv + ["--gen-len", str(gen_len)]),
+                                    device, graphs=graphs)
+            launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+            tokens[graphs] = _check_serve(
+                what, cfg, graphs, stats, launches, want, totals, batch, gen_len,
+                n_layers=layers, depth_cut_from=_run_cfg(arch, None).n_layers, init_ms=init_ms,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, prompt_len=prompt_len,
+                engine=None, moe_impl=cfg.moe_impl if cfg.moe else None)
+        require(tokens[True] == tokens[False],
+                f"serve {arch}: the captured steps' tokens differ from the eager ones")
+        del params
+        _release()
 
 
 def phase_continuous():
@@ -1928,6 +2021,33 @@ def _profile_steps(cfg, params, prefill, decode, inputs, steps):
     return wall_ms, kernels, in_place, caches, window
 
 
+def _touched_experts(cfg, params, prefill, decode, inputs):
+    """The experts one eager decode step (the first after the prompt) routes
+    its B tokens to, counted per layer: the router's choices recorded while
+    the step runs (a host read per layer, outside every timed run)."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+
+    counts, route = [], moe._route
+
+    def recorded(p, c, x):
+        w, ids, probs = route(p, c, x)
+        counts.append(int(torch.unique(ids).numel()))
+        return w, ids, probs
+
+    logits, caches = prefill(params, inputs)
+    tok = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)[:, None]
+    moe._route = recorded
+    try:
+        decode(params, caches, serve.step_input(cfg, params, tok))
+    finally:
+        moe._route = route
+    require(len(counts) == cfg.n_layers, f"profile {cfg.name}: {len(counts)} routings recorded")
+    return counts
+
+
 def phase_profile():
     """Where a decode step's time goes (B = 4, after a 64-token prefill), with
     the eager steps and with the steps as CUDA graphs: host clock per step
@@ -1939,7 +2059,9 @@ def phase_profile():
     bytes it must move once over the HBM rate: every layer weight, the final
     norm, the logits matrix and the valid KV rows read, or for Mamba-2 its
     SSM state and conv tails read and written; a hybrid's shared block is
-    read once per application, with its KV rows."""
+    read once per application, with its KV rows; an MoE step's bound reads
+    every expert, and a second one only the experts its routing touched.
+    The CUT_SERVE_RUNS configs run at their cut depth."""
     import torch
 
     from repro_torch.launch import serve
@@ -1948,8 +2070,9 @@ def phase_profile():
     from repro_torch.training.steps import build_decode_step, build_prefill_step
 
     steps, prompt_len = 8, 64
-    for arch, engine in PROFILE_RUNS:
-        cfg = _run_cfg(arch, engine)
+    runs = ([(arch, engine, _run_cfg(arch, engine)) for arch, engine in PROFILE_RUNS]
+            + [(arch, None, _cut_cfg(arch, layers)) for arch, layers in CUT_SERVE_RUNS])
+    for arch, engine, cfg in runs:
         params = lm.lm_init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda",
                             dtype=_dtype(cfg.compute_dtype))
         max_len = prompt_len + (2 + 2 * PROFILE_WINDOWS) * steps
@@ -1964,6 +2087,15 @@ def phase_profile():
         n_shared = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
         weight_bytes = (_tree_bytes(params["layers"]) + _tree_bytes(params["final_norm"])
                         + _tree_bytes(head) + n_shared * _tree_bytes(params.get("shared_attn")))
+        # MoE: the sorted schedule computes every expert's C slots, so the
+        # bound reads every expert weight; the second bound reads only the
+        # experts one decode step's routing touched.
+        touched = _touched_experts(cfg, params, prefill, decode, inputs) if cfg.moe else None
+        if touched is not None:
+            expert_bytes = sum(_tree_bytes(v) for k, v in params["layers"]["moe"].items()
+                               if k != "router")
+            touched_bytes = (weight_bytes - expert_bytes
+                             + sum(touched) * expert_bytes // (cfg.n_layers * cfg.n_experts))
         captured = serve.capture_batch_steps(cfg, prefill, decode, params, inputs)
         for graphs, (pre, dec) in ((False, (prefill, decode)), (True, captured)):
             wall_ms, kernels, in_place, caches, windows = _profile_steps(
@@ -1983,12 +2115,16 @@ def phase_profile():
             step_bytes = weight_bytes + kv_bytes
             emit({"phase": "profile", "arch": arch,
                   "engine": cfg.scan_engine if cfg.cell in ("sru", "qrnn") else None,
-                  "graphs": graphs, "step_ms": wall_ms, "device_ms": device_ms,
+                  "n_layers": cfg.n_layers, "graphs": graphs, "step_ms": wall_ms,
+                  "device_ms": device_ms,
                   "profile_windows": windows,
                   "device_ops_per_step": sum(k[1] for k in kernels),
                   "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms,
                   "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3, "step_bytes": step_bytes,
                   "cache_bytes_per_step": kv_bytes, "cache_in_place": in_place,
+                  "experts_touched_per_layer": touched,
+                  "step_bound_touched_experts_ms": None if touched is None
+                  else (touched_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
                   "our_kernels_us_per_step": sum(k[0] for k in ours),
                   "our_launches_per_step": ours_per_step, "expected_launches_per_step": per_step,
                   "top_kernels_us_per_step": [[round(k[0], 2), k[1], k[2][:70]]
@@ -2000,7 +2136,7 @@ def phase_profile():
                     f"profile {arch} ({mode}): the card ran {ours_per_step} of our kernels a "
                     f"step, expected {per_step}")
             del caches
-        del params, captured
+        del params, captured, head, pre, dec  # the captured steps hold the params
         _release()
 
 
@@ -2046,6 +2182,8 @@ def phase_parity():
                 caches[dev] = {f"{group}/{k}": v.cpu() for group, tree in c.items()
                                for k, v in tree.items()}
         err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        prefill_err = (logits["cuda"][:, 0] - logits["cpu"][:, 0]).abs().max().item()
+        prefill_tol = PARITY_PREFILL_TOL.get(arch, PARITY_TOL)
         cache_err = max((caches["cuda"][k] - caches["cpu"][k]).abs().max().item()
                         for k in caches["cpu"])
         same_tokens = torch.equal(logits["cuda"][..., : cfg.vocab].argmax(-1),
@@ -2057,12 +2195,15 @@ def phase_parity():
               "n_layers": cfg.n_layers, "depth_cut_from": _run_cfg(arch, engine).n_layers
               if overrides else None,
               "logits_shape": list(logits["cuda"].shape), "max_abs_err": err,
+              "prefill_max_abs_err": prefill_err, "prefill_tol": prefill_tol,
               "cache_max_abs_err": cache_err, "same_greedy_tokens": same_tokens,
               "tol": PARITY_TOL, "finite": finite,
               "cache_in_place": in_place if cfg.cell is None else None})
-        require(finite and err <= PARITY_TOL and cache_err <= PARITY_TOL and same_tokens,
-                f"parity {arch} {engine}: logits err {err}, cache err {cache_err} > "
-                f"{PARITY_TOL} or greedy tokens differ ({same_tokens})")
+        require(finite and err <= PARITY_TOL and cache_err <= PARITY_TOL and same_tokens
+                and prefill_err <= prefill_tol,
+                f"parity {arch} {engine}: logits err {err} (prefill {prefill_err}, tol "
+                f"{prefill_tol}), cache err {cache_err} > {PARITY_TOL} or greedy tokens differ "
+                f"({same_tokens})")
         require(cfg.cell is not None or in_place,
                 f"parity {arch}: decode moved the cache's storage")
         del params_gpu, params_cpu
@@ -2243,6 +2384,7 @@ def phase_train():
         cfg = _train_cfg(arch, engine, overrides)
         what = f"train {arch} {engine or ''}".strip()
         parity = _train_parity(cfg.with_(n_layers=TRAIN_PARITY_DEPTH.get(arch, cfg.n_layers)))
+        _release()  # the step-0 states before the run's own
         (loss_card, gn_card), (loss_cpu, gn_cpu) = parity["cuda"], parity["cpu"]
         loss_err, gn_err = abs(loss_card - loss_cpu), abs(gn_card - gn_cpu)
         require(loss_err <= PARITY_TOL and gn_err <= PARITY_TOL * gn_cpu,
@@ -2287,7 +2429,8 @@ def phase_train():
               "via": "launch.train.main" if engine is None and not overrides else "train loop",
               "n_layers": cfg.n_layers, "depth_cut_from": _run_cfg(arch, engine).n_layers
               if overrides else None, "compute": cfg.compute_dtype, "remat": cfg.remat,
-              "microbatches": cfg.microbatches, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "microbatches": cfg.microbatches, "moment_dtype": cfg.moment_dtype,
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
               "losses": losses, "grad_norms": [h["grad_norm"] for h in history],
               "step0_fp32": {"n_layers": TRAIN_PARITY_DEPTH.get(arch, cfg.n_layers),
                              "loss_card": loss_card, "loss_cpu": loss_cpu, "loss_err": loss_err,

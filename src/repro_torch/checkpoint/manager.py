@@ -18,9 +18,15 @@ subtree adds no leaf), dtype and shape, the step, ``data_state``,
 stored unsharded; the port runs on one device, so ``restore`` places each
 leaf on the device of the target's leaf.
 
-Left for later (ROADMAP.md §A5 follow-ups): restoring a legacy gate-major
-manifest (the JAX package migrates it on restore) and leaves numpy cannot
-hold without ``ml_dtypes`` (bf16 moments). Both raise here.
+A bfloat16 leaf (the bf16 Adam moments of ``qwen3-moe-235b-a22b`` and
+``nemotron-4-340b``) is written as the JAX package writes it, ``np.save`` of
+an ``ml_dtypes`` array: a ``.npy`` whose header reads ``'<V2'`` and whose
+payload is the raw 2-byte words, its manifest dtype ``"bfloat16"``. The
+port writes those bytes without ``ml_dtypes`` and restores by the manifest's
+dtype, reinterpreting the words as ``torch.bfloat16``.
+
+Left for later (ROADMAP.md §A5.1): restoring a legacy gate-major manifest
+(the JAX package migrates it on restore). It raises here.
 """
 from __future__ import annotations
 
@@ -37,23 +43,37 @@ from repro_torch.tree import flatten_with_paths, unflatten_like
 
 LANE_MAJOR = "lane_major"  # ``repro/kernels/fused_rnn/layout.py::LANE_MAJOR``
 _QUANT_LEAVES = ("wq", "w0q", "w1q")
-# The leaf dtypes numpy holds without ml_dtypes (a bf16 leaf is not one).
-_NUMPY_DTYPES = ("float64", "float32", "float16", "int64", "int32", "int16", "int8", "uint8",
-                 "bool")
-_LATER = "ROADMAP.md §A5 follow-ups: legacy gate-major checkpoints and bf16 checkpoint leaves"
+_LATER = "ROADMAP.md §A5.1: legacy gate-major checkpoints"
+# ``np.save``'s header descr of an ``ml_dtypes.bfloat16`` array.
+_BF16_DESCR = "<V2"
 
 
 def _weight_quant(flat) -> str:
     return "int8" if any(path.rsplit("/", 1)[-1] in _QUANT_LEAVES for path, _ in flat) else "none"
 
 
-def _to_numpy(path: str, leaf: torch.Tensor) -> np.ndarray:
-    if leaf.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"checkpoint leaf {path!r} is bfloat16, which numpy cannot hold without "
-            f"ml_dtypes; the port does not write such leaves yet ({_LATER})"
-        )
-    return leaf.detach().cpu().numpy()
+def _save_leaf(path: str, leaf: torch.Tensor) -> str:
+    """Write ``leaf`` to the ``.npy`` file ``path`` as the JAX package
+    writes it; returns the manifest's dtype."""
+    t = leaf.detach().cpu().contiguous()
+    if t.dtype != torch.bfloat16:
+        arr = t.numpy()
+        np.save(path, arr)
+        return str(arr.dtype)
+    words = t.view(torch.int16).numpy()
+    header = np.lib.format.header_data_from_array_1_0(words)
+    header["descr"] = _BF16_DESCR
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, header)
+        f.write(words.tobytes())
+    return "bfloat16"
+
+
+def _load_leaf(path: str, dtype: str) -> torch.Tensor:
+    arr = np.load(path)
+    if dtype == "bfloat16":  # numpy reads the 2-byte words as void
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 class CheckpointManager:
@@ -92,11 +112,10 @@ class CheckpointManager:
             "weight_quant": _weight_quant(flat),
         }
         for i, (path, leaf) in enumerate(flat):
-            arr = _to_numpy(path, leaf)
             fname = f"leaf_{i}.npy"
-            np.save(os.path.join(tmp, fname), arr)
+            dtype = _save_leaf(os.path.join(tmp, fname), leaf)
             manifest["leaves"].append(
-                {"path": path, "file": fname, "dtype": str(arr.dtype), "shape": list(arr.shape)}
+                {"path": path, "file": fname, "dtype": dtype, "shape": list(leaf.shape)}
             )
         with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
             json.dump(manifest, f)
@@ -134,13 +153,8 @@ class CheckpointManager:
         leaves = []
         for path, ref in flat_t:
             entry = by_path[path]
-            if entry["dtype"] not in _NUMPY_DTYPES:
-                raise NotImplementedError(
-                    f"checkpoint leaf {path!r} is {entry['dtype']}, which numpy cannot hold "
-                    f"without ml_dtypes ({_LATER})"
-                )
-            arr = np.load(os.path.join(d, entry["file"]))
-            leaves.append(torch.from_numpy(arr).to(ref.device))
+            leaf = _load_leaf(os.path.join(d, entry["file"]), entry["dtype"])
+            leaves.append(leaf.to(ref.device))
         return unflatten_like(target_tree, leaves), manifest["data_state"]
 
     # -- gc -------------------------------------------------------------------

@@ -3,9 +3,9 @@
 One ``ArchConfig`` fully determines a model. The port keeps its own copy
 because it imports nothing of the JAX package; the fields, defaults,
 ``padded_vocab`` and ``reduced()`` are the same, so a config names the same
-model on both sides. The port serves the RNN, the dense attention, the SSM
-(Mamba-2), the hybrid (``attn_every``) and the frontend-stub fields; the MoE
-ones wait for the slice that ports ``models/moe.py`` (ROADMAP.md §A6.3).
+model on both sides. The port serves every field: the RNN, the dense
+attention, the MoE (``models/moe.py``), the SSM (Mamba-2), the hybrid
+(``attn_every``) and the frontend-stub ones.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ class ArchConfig:
     moe: bool = False
     n_experts: int = 0
     top_k: int = 0
-    moe_impl: str = "einsum"          # dense | einsum | ragged
+    moe_impl: str = "einsum"          # dense | einsum | sorted | shard_map
     capacity_factor: float = 1.25
     renorm_topk: bool = True
     # --- ssm (mamba-2) ---

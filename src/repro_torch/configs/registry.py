@@ -2,20 +2,22 @@
 serves: the paper's RNN configs (``configs/paper_rnn.py``), the dense
 attention LMs (``llama3-8b``, ``smollm-360m``, the MQA ``granite-20b``), the
 frontend-stub LMs (``internvl2-2b``, ``musicgen-large``), the Mamba-2 LM
-(``mamba2-2.7b``) and the hybrid ``zamba2-7b``. The MoE archs and
-``nemotron-4-340b`` wait for their slice (ROADMAP.md §A6.3)."""
+(``mamba2-2.7b``), the hybrid ``zamba2-7b``, the MoE LMs ``mixtral-8x22b``
+and ``qwen3-moe-235b-a22b`` and the dense ``nemotron-4-340b``."""
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (granite_20b, internvl2_2b, llama3_8b, mamba2_2p7b,
-                                 musicgen_large, paper_rnn, smollm_360m, zamba2_7b)
+                                 mixtral_8x22b, musicgen_large, nemotron_4_340b, paper_rnn,
+                                 qwen3_moe_235b_a22b, smollm_360m, zamba2_7b)
 from repro_torch.configs.base import ArchConfig
 
 REGISTRY: Dict[str, ArchConfig] = {
     c.name: c for c in (*paper_rnn.CONFIGS, llama3_8b.CONFIG, smollm_360m.CONFIG,
                         mamba2_2p7b.CONFIG, granite_20b.CONFIG, internvl2_2b.CONFIG,
-                        musicgen_large.CONFIG, zamba2_7b.CONFIG)
+                        musicgen_large.CONFIG, zamba2_7b.CONFIG, mixtral_8x22b.CONFIG,
+                        qwen3_moe_235b_a22b.CONFIG, nemotron_4_340b.CONFIG)
 }
 
 

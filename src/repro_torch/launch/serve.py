@@ -42,9 +42,12 @@ ones included), the dense attention LMs ``llama3-8b``, ``smollm-360m`` and
 and each decode step is fed the embedding row of the token it chose, as in
 the JAX ``run_batch``), the Mamba-2 LM ``mamba2-2.7b``, whose every SSD
 (prefill and each decode step) runs on the CUDA port of the chunked ``ssd``
-kernel (B4), and the hybrid ``zamba2-7b`` (both kernels; batch mode). The
-MoE archs are refused by ``lm_init``; ``--mode continuous`` serves the RNN
-stacks only, as in JAX.
+kernel (B4), the hybrid ``zamba2-7b`` (both kernels; batch mode), the MoE
+LMs ``mixtral-8x22b`` and ``qwen3-moe-235b-a22b`` (``models/moe.py``) and
+the dense ``nemotron-4-340b`` (batch mode; one card holds these only cut in
+depth, which ``chip_smoke.py`` does, since this script has no depth flag,
+as JAX's has none). ``--mode continuous`` serves the RNN stacks only, as in
+JAX.
 
 ``--engine`` overrides ``cfg.scan_engine`` with any of the six engines of
 the JAX ``launch/serve.py`` (``ENGINE_MATRIX``); an unknown one exits with

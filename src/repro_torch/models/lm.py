@@ -13,7 +13,8 @@ Entry points:
 
 The params tree has the JAX package's keys and layout (``bridge.py``
 converts between the two). The port serves the paper's SRU/QRNN/LSTM LMs,
-the dense attention LMs (``llama3-8b``, ``smollm-360m``, ``granite-20b``),
+the dense attention LMs (``llama3-8b``, ``smollm-360m``, ``granite-20b``,
+``nemotron-4-340b``),
 the frontend-stub LMs (``internvl2-2b``, ``musicgen-large``: the inputs are
 embeddings, through one ``frontend.adapter`` matrix), the Mamba-2 LM
 (``mamba2-2.7b``) and the hybrid ``zamba2-7b``: groups of ``attn_every``
@@ -21,8 +22,10 @@ Mamba blocks, each followed by one weight-shared attention block
 (``shared_attn``) with a KV cache of its own per application; the
 ``n_layers % attn_every`` tail blocks have none after them. Attention and
 Mamba caches are written in place (``models/attention.py``,
-``models/mamba.py``); RNN caches are returned anew, as in JAX. MoE waits
-for a later slice (ROADMAP.md §A6.3).
+``models/mamba.py``); RNN caches are returned anew, as in JAX. With
+``cfg.moe`` an attention block's FFN is the mixture of experts of
+``models/moe.py`` (``mixtral-8x22b``, ``qwen3-moe-235b-a22b``), under the
+``moe`` key of its params.
 
 The training forward (``lm_hidden`` / ``lm_forward`` / ``lm_loss``) is
 differentiated by autograd: the fused RNN kernels through their autograd
@@ -41,7 +44,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.fused_rnn import layout
-from repro_torch.models import attention, mamba, rnn
+from repro_torch.models import attention, mamba, moe, rnn
 from repro_torch.models.layers import (
     _dtype,
     embed_apply,
@@ -62,17 +65,9 @@ def block_kind(cfg) -> str:
     return "mamba" if cfg.ssm else "attn"
 
 
-def _require_served(cfg) -> None:
-    """Refuse the families the port does not serve or train yet, naming the queue."""
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the port does not run moe configs yet "
-            "(ROADMAP.md §A6: the other assigned archs, the MoE ones)"
-        )
-
-
 # The matmul outputs remat="dots" keeps (JAX's
-# ``dots_with_no_batch_dims_saveable``: products without batch dims).
+# ``dots_with_no_batch_dims_saveable``: products without batch dims, so the
+# MoE router product is kept and the experts' batched products recomputed).
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
@@ -99,29 +94,39 @@ def maybe_remat(fn, remat: str):
 # ---------------------------------------------------------------------------
 
 def _attn_block_init(gen, cfg, dtype, device) -> Dict:
-    return {
+    p = {
         "ln1": rmsnorm_init(cfg.d_model, dtype, device),
         "attn": attention.attn_init(gen, cfg, dtype, device),
         "ln2": rmsnorm_init(cfg.d_model, dtype, device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, device),
     }
+    if cfg.moe:
+        p["moe"] = moe.moe_init(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, device)
+    return p
+
+
+def _ffn(params, cfg, h):
+    """The block's second half: pre-norm MLP or mixture of experts, plus residual."""
+    z = rmsnorm(params["ln2"], h)
+    if cfg.moe:
+        return h + moe.moe_apply(params["moe"], cfg, z)
+    return h + mlp_apply(params["mlp"], z, cfg.mlp_type)
 
 
 def _attn_block_apply(params, cfg, x, positions):
     h = x + attention.attn_train(params["attn"], cfg, rmsnorm(params["ln1"], x), positions)
-    return h + mlp_apply(params["mlp"], rmsnorm(params["ln2"], h), cfg.mlp_type)
+    return _ffn(params, cfg, h)
 
 
 def _attn_block_prefill(params, cfg, x, cache):
     a, cache = attention.attn_prefill(params["attn"], cfg, rmsnorm(params["ln1"], x), cache)
-    h = x + a
-    return h + mlp_apply(params["mlp"], rmsnorm(params["ln2"], h), cfg.mlp_type), cache
+    return _ffn(params, cfg, x + a), cache
 
 
 def _attn_block_decode(params, cfg, x, cache):
     a, cache = attention.attn_decode(params["attn"], cfg, rmsnorm(params["ln1"], x), cache)
-    h = x + a
-    return h + mlp_apply(params["mlp"], rmsnorm(params["ln2"], h), cfg.mlp_type), cache
+    return _ffn(params, cfg, x + a), cache
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +193,6 @@ def lm_init(gen: torch.Generator, cfg, device="cuda", dtype=None) -> Dict:
     into the stacked leaves one at a time, so a bf16 llama3-8b never has its
     fp32 tree on the card: the peak is the bf16 tree plus one fp32 leaf.
     int8 gate slabs are quantized from the fp32 slabs, then the rest cast."""
-    _require_served(cfg)
     device = resolve_device(device)
     dtype = _dtype(cfg.param_dtype) if dtype is None else dtype
     quant = cfg.weight_quant == "int8"
@@ -228,7 +232,6 @@ def lm_init_caches(cfg, batch: int, max_len: int, device="cuda"):
     (L,). Mamba: ``conv_x``, ``conv_b``, ``conv_c`` (L, B, W-1, C) and
     ``ssm`` (L, B, H, N, P). A hybrid adds ``"shared_attn"``: an attention
     cache stacked over its ``n_layers // attn_every`` applications."""
-    _require_served(cfg)
     device = resolve_device(device)
     dtype = _dtype(cfg.compute_dtype)
     caches = {"layers": _stack_zeros(_block_cache(cfg, batch, max_len, dtype, device),
@@ -264,7 +267,6 @@ def lm_hidden(params, cfg, batch) -> torch.Tensor:
     of them) -> final norm. ``batch["inputs"]``: (B, S) token ids, or
     ``batch["inputs_embeds"]`` (B, S, d) with a frontend. Returns (B, S, d)
     in the compute dtype."""
-    _require_served(cfg)
     _check_hybrid(cfg)
     compute = _dtype(cfg.compute_dtype)
     h = _embed_in(params, cfg, batch, compute)

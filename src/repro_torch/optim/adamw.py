@@ -68,17 +68,22 @@ def adamw_update(
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=step.device), stepf)
 
     def upd(p, g, m, v):
+        # JAX's expressions, each product and sum the same, written in place
+        # where an operand is dead, so at most four temporaries of the leaf's
+        # size live at once (a mixtral-8x22b expert leaf is 3.2 GB in fp32).
         g = g.float() * scale
-        m32 = b1 * m.float() + (1 - b1) * g
-        v32 = b2 * v.float() + (1 - b2) * g * g
-        mhat = m32 / bc1
-        vhat = v32 / bc2
-        delta = mhat / (torch.sqrt(vhat) + eps)
-        if p.dim() >= 2:  # decoupled decay on matrices only
-            delta = delta + weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
+        m32 = m.float() * b1
+        m32 += (1 - b1) * g
+        v32 = v.float() * b2
+        v32 += ((1 - b2) * g).mul_(g)
+        del g
         m.copy_(m32)
         v.copy_(v32)
+        delta = m32.div_(bc1).div_(v32.div_(bc2).sqrt_().add_(eps))  # mhat / (sqrt(vhat) + eps)
+        del v32
+        if p.dim() >= 2:  # decoupled decay on matrices only
+            delta += p.float() * weight_decay
+        p.copy_(p.float() - delta.mul_(lr))
 
     tree_map(upd, params, grads, state.m, state.v)
     state.step.copy_(step)

@@ -86,14 +86,20 @@ def build_train_step(
         if n_mb == 1:
             loss, g_sum = grads_of(batch)
         else:
+            # Summed in place, each microbatch's grads dropped before the
+            # next's exist: one fp32 copy of the params' size beside the sum.
             g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
             for i in range(n_mb):
                 loss_i, g_i = grads_of(_split_microbatch(batch, n_mb, i))
-                g_sum = [a + g for a, g in zip(g_sum, g_i)]
+                for a, g in zip(g_sum, g_i):
+                    a.add_(g)
+                del g_i
                 loss = loss + loss_i
             loss = loss / n_mb
-        grads = unflatten_like(state.params, [g / n_mb for g in g_sum] if n_mb > 1 else g_sum)
+            for g in g_sum:
+                g.div_(n_mb)
+        grads = unflatten_like(state.params, g_sum)
         grads, new_ef = compress_grads(grads, state.ef, compression)
         lr = schedule(state.opt.step)
         new_params, new_opt, opt_metrics = adamw_update(grads, state.opt, state.params, lr)

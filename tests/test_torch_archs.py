@@ -1,11 +1,15 @@
-"""The four archs the port added last against the JAX package, on their
+"""The seven archs the port added last against the JAX package, on their
 ``.reduced()`` configs with the JAX package's own params bridged across:
 ``granite-20b`` (MQA, the tanh ``gelu`` MLP), the frontend stubs
 ``internvl2-2b`` and ``musicgen-large`` (``inputs_embeds`` through the
-``frontend.adapter`` matrix) and the hybrid ``zamba2-7b`` (Mamba-2 blocks
+``frontend.adapter`` matrix), the hybrid ``zamba2-7b`` (Mamba-2 blocks
 with one shared attention block after every ``attn_every`` of them), the
 hybrid also with a tail of blocks that no shared block follows
-(``n_layers=5, attn_every=2``).
+(``n_layers=5, attn_every=2``), the MoE LMs ``mixtral-8x22b`` (a
+sliding-window ring) and ``qwen3-moe-235b-a22b`` (QK-norm, bf16 moments),
+each under the reduced config's ``dense`` schedule and its own (``sorted``;
+``shard_map``, which runs ``sorted`` on one device), and the dense
+``nemotron-4-340b`` (squared-ReLU, bf16 moments).
 
 Per arch: the config copies (full and reduced), the ``lm_init`` layout and
 the bridge round trip, a prefill then 8 greedy decode steps run as JAX's
@@ -14,8 +18,9 @@ token it chose) with logits and caches at 3e-5 and the tokens identical in
 fp32, ``lm_loss`` at 3e-5 and its gradients at 5e-4 (the tolerances of
 ``tests/test_torch_train.py``), and ``serve --reduced --device cpu``. Then
 a train state of each new family (a frontend, the hybrid) crossing both
-ways through the checkpoint managers bit for bit, ``launch.train`` on both,
-and the hybrid's refusals. The kernels run through their plain versions
+ways through the checkpoint managers bit for bit (with bf16 moments: into
+the port bit for bit and out of it byte for byte, since JAX's restore cannot
+read a bf16 leaf), ``launch.train`` on each, and the hybrid's refusals. The kernels run through their plain versions
 here; the card's half is in ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``.
 """
@@ -38,7 +43,8 @@ from repro.models import lm as jlm
 from repro.training import steps as jsteps
 from repro_torch import bridge
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import granite_20b, internvl2_2b, musicgen_large, zamba2_7b
+from repro_torch.configs import (granite_20b, internvl2_2b, mixtral_8x22b, musicgen_large,
+                                 nemotron_4_340b, qwen3_moe_235b_a22b, zamba2_7b)
 from repro_torch.configs.registry import get_config
 from repro_torch.launch import serve, train
 from repro_torch.models import lm
@@ -51,7 +57,9 @@ GRAD_TOL = 5e-4
 B, PROMPT, DECODE_STEPS, S = 3, 12, 8, 16
 
 MODULES = {"granite-20b": granite_20b, "internvl2-2b": internvl2_2b,
-           "musicgen-large": musicgen_large, "zamba2-7b": zamba2_7b}
+           "musicgen-large": musicgen_large, "zamba2-7b": zamba2_7b,
+           "mixtral-8x22b": mixtral_8x22b, "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b,
+           "nemotron-4-340b": nemotron_4_340b}
 # name -> (arch, overrides on its reduced config)
 CASES = {
     "granite": ("granite-20b", {}),
@@ -59,7 +67,16 @@ CASES = {
     "musicgen": ("musicgen-large", {}),
     "zamba2": ("zamba2-7b", {}),
     "zamba2_tail": ("zamba2-7b", dict(n_layers=5, attn_every=2)),
+    "mixtral": ("mixtral-8x22b", {}),
+    "mixtral_sorted": ("mixtral-8x22b", dict(moe_impl="sorted")),
+    "qwen3": ("qwen3-moe-235b-a22b", {}),
+    "qwen3_shard_map": ("qwen3-moe-235b-a22b", dict(moe_impl="shard_map")),
+    "nemotron": ("nemotron-4-340b", {}),
 }
+# The archs whose train states cross the checkpoint managers and run
+# ``launch.train``: a frontend, the hybrid, the MoE LMs and nemotron.
+TRAIN_ARCHS = ["internvl2-2b", "zamba2-7b", "mixtral-8x22b", "qwen3-moe-235b-a22b",
+               "nemotron-4-340b"]
 
 
 def _cfgs(arch, overrides=None):
@@ -219,18 +236,34 @@ def _jax_train_state(arch, seed):
     jcfg = jax_get_config(arch).reduced()
     state = jax.jit(lambda key: jsteps.init_train_state(key, jcfg))(jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed)  # distinct moments and a step, so a swap would show
-    noise = lambda a: jnp.asarray(rng.normal(size=a.shape).astype(np.float32))
+    noise = lambda a: jnp.asarray(rng.normal(size=a.shape).astype(np.float32)).astype(a.dtype)
     return state._replace(opt=state.opt._replace(
         step=jnp.asarray(5, jnp.int32), m=jax.tree_util.tree_map(noise, state.opt.m),
         v=jax.tree_util.tree_map(noise, state.opt.v)))
 
 
-@pytest.mark.parametrize("arch", ["internvl2-2b", "zamba2-7b"])
+def _bits(a):
+    """A leaf's bits: bf16 (torch, or numpy through ml_dtypes) as its 2-byte words."""
+    if isinstance(a, torch.Tensor):
+        return a.view(torch.int16).numpy() if a.dtype == torch.bfloat16 else a.numpy()
+    a = np.asarray(a)
+    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
+
+
+# The leaf that shows each arch's family in a train state's paths.
+FAMILY_LEAF = {"internvl2-2b": "params/frontend/adapter", "zamba2-7b": "params/shared_attn/",
+               "mixtral-8x22b": "params/layers/moe/e_gate",
+               "qwen3-moe-235b-a22b": "params/layers/moe/router",
+               "nemotron-4-340b": "params/layers/mlp/w_up"}
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_train_state_checkpoints_cross_both_ways(arch, tmp_path):
     """A JAX-saved train state restores in the port (into the port's own
-    ``init_train_state``) bit for bit, and the
-    port's save of it writes JAX's manifest and restores in JAX bit for bit;
-    ``frontend/adapter`` or ``shared_attn/*`` among the paths."""
+    ``init_train_state``) bit for bit, and the port's save of it writes
+    JAX's manifest and JAX's files byte for byte, and restores in JAX bit for
+    bit where JAX can read it back (no bf16 leaf); the family's leaves
+    (``frontend/adapter``, ``shared_attn/*``, ``moe/*``) among the paths."""
     jstate = _jax_train_state(arch, 0)
     data_state = {"kind": "synthetic", "seed": 7}
     JaxManager(str(tmp_path / "jax")).save(3, jstate, data_state)
@@ -242,20 +275,26 @@ def test_train_state_checkpoints_cross_both_ways(arch, tmp_path):
     port = flatten_with_paths(restored)
     assert len(port) == len(want)
     for (path, t), w in zip(port, want):
-        assert np.array_equal(t.numpy(), np.asarray(w)) and t.numpy().dtype == w.dtype, path
+        assert str(t.dtype).split(".")[-1] == np.asarray(w).dtype.name, path
+        assert np.array_equal(_bits(t), _bits(w)), path
     paths = [p for p, _ in port]
-    family = "params/frontend/adapter" if arch == "internvl2-2b" else "params/shared_attn/"
-    assert any(p.startswith(family) for p in paths)
+    assert any(p.startswith(FAMILY_LEAF[arch]) for p in paths)
+    bf16 = get_config(arch).moment_dtype == "bfloat16"
+    assert any(t.dtype == torch.bfloat16 for _, t in port) == bf16
 
     CheckpointManager(str(tmp_path / "port")).save(3, restored, data_state)
     manifest = lambda d: json.loads((tmp_path / d / "step_3" / "MANIFEST.json").read_text())
     assert manifest("port") == manifest("jax")
-    back, _ = JaxManager(str(tmp_path / "port")).restore(3, jax.eval_shape(lambda: jstate))
-    for a, b in zip(jax.tree_util.tree_leaves(back), want):
-        assert a.dtype == b.dtype and np.array_equal(np.asarray(a), np.asarray(b))
+    for e in manifest("port")["leaves"]:
+        assert ((tmp_path / "port" / "step_3" / e["file"]).read_bytes()
+                == (tmp_path / "jax" / "step_3" / e["file"]).read_bytes()), e["path"]
+    if not bf16:  # JAX's restore cannot read a bf16 leaf (ROADMAP.md §C)
+        back, _ = JaxManager(str(tmp_path / "port")).restore(3, jax.eval_shape(lambda: jstate))
+        for a, b in zip(jax.tree_util.tree_leaves(back), want):
+            assert a.dtype == b.dtype and np.array_equal(np.asarray(a), np.asarray(b))
 
 
-@pytest.mark.parametrize("arch", ["internvl2-2b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_launch_train_runs(arch, tmp_path, capsys):
     out = tmp_path / "m.json"
     assert train.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",

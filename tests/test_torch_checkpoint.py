@@ -6,9 +6,12 @@ saved by one framework and restored by the other, leaf for leaf bit for
 bit, with the manifests' paths, dtypes, shapes, ``cell_layout``,
 ``weight_quant`` and ``data_state`` equal; for an SRU stack (a ``None``
 ``w_skip``), the same with gradient-compression residuals, an int8 config
-and Mamba-2. Also keep-last-k, the ``.tmp`` clean-up, and what the port
-refuses for now: a gate-major manifest, a bf16 leaf, and a quantization
-mismatch.
+and Mamba-2. bf16 leaves (``qwen3-moe-235b-a22b``'s bf16 Adam moments): a
+JAX-written state restores in the port bit for bit, the port's files equal
+JAX's byte for byte (JAX's own restore cannot read them: ROADMAP.md §C), and
+the port's save restores in the port exactly. Also keep-last-k, the ``.tmp``
+clean-up, and what the port refuses: a gate-major manifest for now, and a
+quantization mismatch.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from repro.configs.registry import get_config as jax_get_config
 from repro.training import steps as jsteps
 from repro_torch import bridge
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.tree import flatten_with_paths
+from repro_torch.tree import flatten_with_paths, tree_leaves
 
 CASES = {
     "sru_stack": ("sru-paper-large-stacked", None),
@@ -42,7 +45,7 @@ def _jax_state(arch, compression, seed=0):
     state = jsteps.init_train_state(jax.random.PRNGKey(seed), jcfg, compression)
     # Distinct moments and a nonzero step, so a swapped leaf would show.
     rng = np.random.default_rng(seed)
-    noise = lambda a: jnp.asarray(rng.normal(size=a.shape).astype(np.float32))
+    noise = lambda a: jnp.asarray(rng.normal(size=a.shape).astype(np.float32)).astype(a.dtype)
     opt = state.opt._replace(step=jnp.asarray(5, jnp.int32),
                              m=jax.tree_util.tree_map(noise, state.opt.m),
                              v=jax.tree_util.tree_map(noise, state.opt.v))
@@ -54,14 +57,23 @@ def _manifest(d, step):
         return json.load(f)
 
 
+def _bits(a):
+    """A leaf's bits as numpy: a bf16 leaf (torch, or numpy through
+    ml_dtypes) as its 2-byte words, any other as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.view(torch.int16).numpy() if a.dtype == torch.bfloat16 else a.numpy()
+    a = np.asarray(a)
+    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
+
+
 def _assert_bitwise(port_state, jax_state):
     port = flatten_with_paths(port_state)
     want = jax.tree_util.tree_leaves(jax_state)
     assert len(port) == len(want)
     for (path, got), w in zip(port, want):
-        w = np.array(w)
-        assert got.dtype == torch.from_numpy(w).dtype, path
-        assert np.array_equal(got.numpy(), w), path
+        w = np.asarray(w)
+        assert str(got.dtype).split(".")[-1] == w.dtype.name, path
+        assert np.array_equal(_bits(got), _bits(w)), path
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -114,8 +126,8 @@ def test_keep_last_k_and_tmp_cleanup(tmp_path):
 
 
 def test_port_refuses_what_it_cannot_restore_yet(tmp_path):
-    """A gate-major manifest and a bf16 leaf name the ROADMAP item; a
-    quantization mismatch is refused as in JAX."""
+    """A gate-major manifest names the ROADMAP item; a quantization mismatch
+    is refused as in JAX. (bf16 leaves are restored: the tests below.)"""
     jstate = _jax_state("sru-paper-large-stacked", None)
     target = bridge.train_state_from_numpy(jax.tree_util.tree_map(np.asarray, jstate),
                                            device="cpu")
@@ -127,15 +139,85 @@ def test_port_refuses_what_it_cannot_restore_yet(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         CheckpointManager(str(tmp_path / "legacy")).restore(1, target)
 
-    jcfg = jax_get_config("sru-paper-large-stacked").reduced().with_(moment_dtype="bfloat16")
-    bf16_state = jsteps.init_train_state(jax.random.PRNGKey(0), jcfg)
-    JaxManager(str(tmp_path / "bf16")).save(1, bf16_state)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        CheckpointManager(str(tmp_path / "bf16")).restore(1, target)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        CheckpointManager(str(tmp_path / "save")).save(1, {"m": torch.zeros(2, dtype=torch.bfloat16)})
 
     int8 = _jax_state("sru-paper-large-stacked-int8", None)
     JaxManager(str(tmp_path / "int8")).save(1, int8)
     with pytest.raises(ValueError, match="weight_quant"):
         CheckpointManager(str(tmp_path / "int8")).restore(1, target)
+
+
+# ---------------------------------------------------------------------------
+# bf16 leaves (qwen3-moe-235b-a22b's bf16 Adam moments)
+# ---------------------------------------------------------------------------
+
+BF16_ARCH = "qwen3-moe-235b-a22b"
+
+
+def _bf16_paths(state):
+    return [p for p, t in flatten_with_paths(state) if t.dtype == torch.bfloat16]
+
+
+def test_jax_bf16_checkpoint_restores_bitwise_in_the_port(tmp_path):
+    """A JAX-saved reduced qwen3 train state (bf16 moments, the ``moe/*``
+    leaves among them) restores in the port into the port's own
+    ``init_train_state``: every leaf's dtype and bits."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.training import steps
+
+    jstate = _jax_state(BF16_ARCH, None)
+    JaxManager(str(tmp_path)).save(3, jstate, DATA_STATE)
+    assert any(e["dtype"] == "bfloat16" for e in _manifest(tmp_path, 3)["leaves"])
+    target = steps.init_train_state(torch.Generator().manual_seed(1),
+                                    get_config(BF16_ARCH).reduced(), device="cpu")
+    restored, data_state = CheckpointManager(str(tmp_path)).restore(3, target)
+    assert data_state == DATA_STATE
+    _assert_bitwise(restored, jstate)
+    bf16 = _bf16_paths(restored)
+    assert bf16 and all(p.startswith(("opt/m/", "opt/v/")) for p in bf16)
+    assert "opt/m/layers/moe/e_up" in bf16
+
+
+def test_port_bf16_files_equal_jax_bytes(tmp_path):
+    """The port's save of the same state writes JAX's manifest and, leaf by
+    leaf, JAX's files byte for byte: the bf16 ones with the ``'<V2'`` header
+    and the raw words."""
+    jstate = _jax_state(BF16_ARCH, None)
+    port_state = bridge.train_state_from_numpy(jax.tree_util.tree_map(np.asarray, jstate),
+                                               device="cpu")
+    assert _bf16_paths(port_state)
+    CheckpointManager(str(tmp_path / "port")).save(3, port_state, DATA_STATE)
+    JaxManager(str(tmp_path / "jax")).save(3, jstate, DATA_STATE)
+    mine, theirs = _manifest(tmp_path / "port", 3), _manifest(tmp_path / "jax", 3)
+    assert mine == theirs
+    for e in mine["leaves"]:
+        got = (tmp_path / "port" / "step_3" / e["file"]).read_bytes()
+        want = (tmp_path / "jax" / "step_3" / e["file"]).read_bytes()
+        assert got == want, e["path"]
+        if e["dtype"] == "bfloat16":
+            assert b"'descr': '<V2'" in got[:128]
+
+
+def test_port_bf16_round_trip_is_exact(tmp_path):
+    """Port save -> port restore: every leaf's dtype and bits, bf16 leaves of
+    every rank (a scalar among them) and the state's."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.training import steps
+
+    g = torch.Generator().manual_seed(2)
+    tree = {"scalar": torch.randn((), generator=g).to(torch.bfloat16),
+            "odd": torch.randn((3, 5, 7), generator=g).to(torch.bfloat16),
+            "special": torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"),
+                                     1e-40, 3.0e38], dtype=torch.bfloat16),
+            "fp32": torch.randn((4,), generator=g)}
+    state = steps.init_train_state(g, get_config(BF16_ARCH).reduced(), device="cpu")
+    for x in tree_leaves(state.opt.m) + tree_leaves(state.opt.v):  # bf16 noise, not zeros
+        x.copy_(torch.randn(x.shape, generator=g))
+    for what, obj in (("tree", tree), ("state", state)):
+        mgr = CheckpointManager(str(tmp_path / what))
+        mgr.save(1, obj)
+        back, _ = mgr.restore(1, obj)
+        pairs = list(zip(flatten_with_paths(back), flatten_with_paths(obj), strict=True))
+        assert any(a.dtype == torch.bfloat16 for (_, a), _ in pairs)
+        for (path, a), (_, b) in pairs:
+            assert a.dtype == b.dtype and a.shape == b.shape, path
+            assert np.array_equal(_bits(a), _bits(b)), path

@@ -1204,8 +1204,9 @@ def test_ssd_launcher_refuses_bad_arguments(device):
 
 # (arch, --engine override, config overrides, prompt length): one config of
 # each block kind and each engine at full width, the int8 instances of the
-# layer and the stack among them, cut to 2 layers where deeper; the second
-# pallas case has a prompt of two B3 chunks.
+# layer and the stack among them, cut to 2 layers where deeper (the MoE
+# configs and nemotron-4-340b to 1); the second pallas case has a prompt of
+# two B3 chunks.
 GRAPH_CASES = {
     "stacked_fused_stack": ("sru-paper-large-stacked", None, {"n_layers": 2}, 64),
     "fused": ("qrnn-paper-large-fused", None, {}, 64),
@@ -1220,6 +1221,9 @@ GRAPH_CASES = {
     "llama3": ("llama3-8b", None, {"n_layers": 2}, 64),
     "smollm": ("smollm-360m", None, {"n_layers": 2}, 64),
     "mamba2": ("mamba2-2.7b", None, {"n_layers": 2}, 64),
+    "mixtral": ("mixtral-8x22b", None, {"n_layers": 1}, 64),
+    "qwen3": ("qwen3-moe-235b-a22b", None, {"n_layers": 1}, 64),
+    "nemotron": ("nemotron-4-340b", None, {"n_layers": 1}, 64),
 }
 GRAPH_LOGIT_TOL = 3e-5  # fp32 logits that are not bitwise equal; bf16 must be
 

@@ -332,15 +332,28 @@ def test_serve_attention_weight_quant_leaves_every_leaf(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b"])
-def test_unserved_families_are_refused_naming_the_queue(arch):
-    """The MoE configs (the JAX package's, rebuilt as the port's
-    ``ArchConfig``) are refused by ``lm_init`` and ``lm_init_caches`` with
-    the ROADMAP queue in the message."""
-    cfg = ArchConfig(**dataclasses.asdict(JAX_REGISTRY[arch])).reduced()
-    for make in (lambda: lm.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu"),
-                 lambda: lm.lm_init_caches(cfg, 2, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A6"):
-            make()
+def test_unserved_families_are_refused_naming_the_queue(arch, capsys, monkeypatch):
+    """The MoE configs, once refused, now serve (the name is kept from the
+    refusal this test held): the JAX package's config rebuilt as the port's
+    ``ArchConfig`` is the port's own; ``serve --reduced --device cpu`` in
+    batch mode, with the reduced config keeping the full one's schedule
+    (``sorted``; ``shard_map``, which runs ``sorted`` on one device), gives
+    in-vocabulary tokens with the caches in place; and continuous mode
+    refuses them, as JAX's engine refuses every non-RNN config."""
+    assert ArchConfig(**dataclasses.asdict(JAX_REGISTRY[arch])) == get_config(arch)
+    moe_impl = get_config(arch).moe_impl
+    real = ArchConfig.reduced
+    monkeypatch.setattr(ArchConfig, "reduced", lambda self: real(self).with_(moe_impl=moe_impl))
+    assert serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "8", "--gen-len", "4"]) == 0
+    stats = json.loads(capsys.readouterr().out.split("serve-stats ", 1)[1])
+    assert stats["arch"] == arch + "-smoke" and stats["cache_in_place"]
+    vocab = get_config(arch).reduced().vocab
+    assert [len(row) for row in stats["tokens"]] == [4, 4]
+    assert all(0 <= t < vocab for row in stats["tokens"] for t in row)
+    with pytest.raises(ValueError, match="continuous batching"):
+        serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--mode", "continuous",
+                    "--requests", "2"])
 
 
 def test_serve_base_config_on_pallas_runs_as_a_module():
