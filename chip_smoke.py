@@ -166,12 +166,31 @@ Phases, each printing one JSON line per step:
            (launches equal to the expected), finite losses, ms per step,
            tokens/s, peak memory and the B1/B2 backward's recompute time;
            then a run saved half way and resumed against the uninterrupted
-           one (max |param difference|).
+           one (max |param difference|);
+  checkpoint  legacy gate-major checkpoints and the migration tool at full
+           width: for ``sru``/``qrnn-paper-large-stacked`` (B2, B3),
+           ``launch.train.main`` for 4 steps saved half way, that step
+           rewritten as a gate-major binary wrote it (the port's
+           ``tree_to_gate_major``, no ``cell_layout``), restored with the
+           migration (the same bits), migrated by the tool in a copy (the
+           lane-major step's files again) and resumed with ``--resume
+           auto``: the final leaves must equal the uninterrupted run's
+           exactly, with the expected launches; for
+           ``qrnn-paper-large-stacked-int8`` (B2 int8) and
+           ``sru-paper-large-int8`` (B1 int8), fp params from ``lm_init``
+           saved gate-major, a ``--dry-run`` (no byte changed), ``python -m
+           repro_torch.launch.migrate_checkpoint DIR --quantize int8`` as a
+           subprocess on the card, a second run (skips), the restore
+           (bitwise ``lm_init``'s int8 params) and ``serve.run_batch`` on
+           the restored params eager and captured (``lm_init``'s tokens,
+           the int8 launches). Printed: each checkpoint's bytes, the seconds
+           of save, restore, migration, quantization and the resumed run,
+           the leaves converted and the launches.
 
 Then one ``{"phase_seconds": {...}}`` line (each phase's wall time, the
 serve phase's warm-ups included), one ``{"kernels": [...]}`` line (launches
-from the serve, continuous, speculative, telemetry and train phases, eager
-and captured runs summed), the
+from the serve, continuous, speculative, telemetry, train and checkpoint
+phases, eager and captured runs summed), the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the last
 line. Without a CUDA device, or without the repository beside this file, it
@@ -184,6 +203,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -195,7 +215,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("build", "kernels", "serve", "continuous", "speculative", "telemetry", "profile",
-          "parity", "train")
+          "parity", "train", "checkpoint")
 # (arch, --engine override, --prompt-len): the runs of the serve phase.
 SERVE_RUNS = (
     ("sru-paper-large-stacked", None, 64), ("qrnn-paper-large-stacked", None, 64),
@@ -327,6 +347,17 @@ TRAIN_PARITY_DEPTH = {"internvl2-2b": 2, "smollm-360m": 8}
 TRAIN_RESUME_ARCH = "sru-paper-large-stacked"
 TRAIN_RESUME_TOL = 1e-6
 TRAIN_DIR = ROOT / "build" / "train"
+# Checkpoints (phase ``checkpoint``), at full width: (a) for the B2 configs,
+# ``launch.train.main`` saved half way, that step rewritten as a gate-major
+# binary wrote it, and resumed from it; the resumed run must end with the
+# uninterrupted run's leaves exactly, since the migration is a reshape. (b)
+# fp params of the int8 configs (B2 int8, B1 int8) saved gate-major, both
+# quantized by one run of the migration tool as a subprocess on the card,
+# restored and served eager and captured.
+CKPT_RESUME_ARCHS = ("sru-paper-large-stacked", "qrnn-paper-large-stacked")
+CKPT_QUANT_ARCHS = ("qrnn-paper-large-stacked-int8", "sru-paper-large-int8")
+CKPT_GEN_LEN = 32
+CKPT_DIR = ROOT / "build" / "checkpoint"
 # Autograd Functions of B1/B2 (kernels phase): their gradients against
 # autograd through the plain version on the card. The Functions' backward
 # recomputes the plain version with its recurrence through the linear scan
@@ -2329,13 +2360,26 @@ def _train_loop(cfg, monitor, metrics_out):
     return 0
 
 
+def _step_leaves(step_dir) -> dict:
+    """A saved step's ``{path: numpy array}`` (fp32 and integer leaves)."""
+    import numpy as np
+
+    manifest = json.loads((step_dir / "MANIFEST.json").read_text())
+    return {e["path"]: np.load(step_dir / e["file"]) for e in manifest["leaves"]}
+
+
+def _max_leaf_diff(a: dict, b: dict) -> float:
+    import numpy as np
+
+    require(a.keys() == b.keys(), "resume: the checkpoints' leaves differ")
+    return max(float(np.abs(a[p].astype(np.float64) - b[p]).max()) for p in a)
+
+
 def _resume_check(counters):
     """``launch.train.main`` on TRAIN_RESUME_ARCH: TRAIN_STEPS straight with
     a checkpoint at half way, and again from that checkpoint (a copy of it
     in a fresh directory, ``--resume auto``). Returns the max |difference|
     between the two final checkpoints' leaves, and the launches."""
-    import numpy as np
-
     from repro_torch.launch import train
 
     full, resumed = TRAIN_DIR / "resume_full", TRAIN_DIR / "resume_from_half"
@@ -2350,15 +2394,8 @@ def _resume_check(counters):
         require(train.main(base + ["--checkpoint-dir", str(resumed), "--resume", "auto"]) == 0,
                 "resume: resumed run")
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
-
-    def leaves(d):
-        manifest = json.loads((d / f"step_{TRAIN_STEPS}" / "MANIFEST.json").read_text())
-        return {e["path"]: np.load(d / f"step_{TRAIN_STEPS}" / e["file"])
-                for e in manifest["leaves"]}
-
-    a, b = leaves(full), leaves(resumed)
-    require(a.keys() == b.keys(), "resume: the checkpoints' leaves differ")
-    diff = max(float(np.abs(a[p].astype(np.float64) - b[p]).max()) for p in a)
+    diff = _max_leaf_diff(_step_leaves(full / f"step_{TRAIN_STEPS}"),
+                          _step_leaves(resumed / f"step_{TRAIN_STEPS}"))
     return diff, launches
 
 
@@ -2456,6 +2493,259 @@ def phase_train():
     return totals
 
 
+def _dir_bytes(d) -> int:
+    return sum(p.stat().st_size for p in pathlib.Path(d).rglob("*") if p.is_file())
+
+
+def _dir_snapshot(d) -> dict:
+    """Every file under ``d`` by relative path -> its bytes' digest."""
+    import hashlib
+
+    d = pathlib.Path(d)
+    return {str(p.relative_to(d)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(d.rglob("*")) if p.is_file()}
+
+
+def _drop_cell_layout(step_dir) -> None:
+    """Make a saved step's manifest look as a gate-major binary wrote it."""
+    mpath = step_dir / "MANIFEST.json"
+    manifest = json.loads(mpath.read_text())
+    del manifest["cell_layout"]
+    mpath.write_text(json.dumps(manifest))
+
+
+def _manifest_shapes(step_dir) -> dict:
+    manifest = json.loads((step_dir / "MANIFEST.json").read_text())
+    return {e["path"]: e["shape"] for e in manifest["leaves"]}
+
+
+def _same_bits(a, b) -> bool:
+    """Two trees with the same paths, and at each the same dtype, shape and
+    bytes."""
+    from repro_torch.tree import flatten_with_paths
+
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        return False
+    import torch
+
+    return all(x.dtype == y.dtype and x.shape == y.shape
+               and torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+               for (_, x), (_, y) in zip(fa, fb))
+
+
+def _checkpoint_resume(arch, counted):
+    """Part (a) for one config; returns its line."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.fused_rnn import layout
+    from repro_torch.launch import migrate_checkpoint, train
+    from repro_torch.training.steps import init_train_state
+
+    cfg = _train_cfg(arch, None, {})
+    k = TRAIN_STEPS // 2
+    full, legacy, tool = (CKPT_DIR / f"{arch}-{w}" for w in ("full", "gate-major", "tool"))
+    base = ["--arch", arch, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(TRAIN_STEPS), "--save-every", str(k), "--log-every", "1"]
+    rc, full_launches, _ = counted(lambda: train.main(base + ["--checkpoint-dir", str(full)]))
+    require(rc == 0, f"checkpoint {arch}: the uninterrupted run returned {rc}")
+    want = _expected_train_launches(cfg, TRAIN_STEPS)
+    require(full_launches == want, f"checkpoint {arch}: launches {full_launches} != {want}")
+
+    # Step k as a gate-major binary wrote it: the port's converter over the
+    # restored state, saved by the port's manager, no cell_layout.
+    target = init_train_state(torch.Generator(device="cuda").manual_seed(1), cfg, device="cuda")
+    t0 = time.perf_counter()
+    state, data_state = CheckpointManager(str(full)).restore(k, target)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    CheckpointManager(str(legacy)).save(k, layout.tree_to_gate_major(state), data_state)
+    save_s = time.perf_counter() - t0
+    _drop_cell_layout(legacy / f"step_{k}")
+    lane, gate = _manifest_shapes(full / f"step_{k}"), _manifest_shapes(legacy / f"step_{k}")
+    converted = sorted(p for p in lane if lane[p] != gate[p])
+    require(converted and lane.keys() == gate.keys(),
+            f"checkpoint {arch}: the gate-major step converts {converted}")
+    t0 = time.perf_counter()
+    migrated, migrated_data = CheckpointManager(str(legacy)).restore(k, target)
+    torch.cuda.synchronize()
+    restore_gate_major_s = time.perf_counter() - t0
+    require(migrated_data == data_state and _same_bits(migrated, state),
+            f"checkpoint {arch}: the restore-time migration changed the state")
+    del state, migrated, target
+    _release()
+
+    # The tool's persisted migration of a copy gives the lane-major files.
+    shutil.copytree(legacy / f"step_{k}", tool / f"step_{k}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = migrate_checkpoint.main([str(tool)])
+    migrate_s = time.perf_counter() - t0
+    require(rc == 0 and f"migrated {len(converted)} leaves" in out.getvalue(),
+            f"checkpoint {arch}: the migration tool said {out.getvalue()!r}")
+    mine, theirs = _dir_snapshot(tool / f"step_{k}"), _dir_snapshot(full / f"step_{k}")
+    require(mine.keys() == theirs.keys()
+            and all(mine[f] == theirs[f] for f in mine if f != "MANIFEST.json")
+            and json.loads((tool / f"step_{k}" / "MANIFEST.json").read_text())
+            == json.loads((full / f"step_{k}" / "MANIFEST.json").read_text()),
+            f"checkpoint {arch}: the migrated step's files differ from the lane-major step's")
+
+    t0 = time.perf_counter()
+    rc, launches, _ = counted(lambda: train.main(base + ["--checkpoint-dir", str(legacy),
+                                                         "--resume", "auto"]))
+    resume_run_s = time.perf_counter() - t0
+    require(rc == 0, f"checkpoint {arch}: the resumed run returned {rc}")
+    want = _expected_train_launches(cfg, TRAIN_STEPS - k)
+    require(launches == want, f"checkpoint {arch}: resumed launches {launches} != {want}")
+    diff = _max_leaf_diff(_step_leaves(full / f"step_{TRAIN_STEPS}"),
+                          _step_leaves(legacy / f"step_{TRAIN_STEPS}"))
+    require(diff == 0.0, f"checkpoint {arch}: the gate-major resume ends {diff} away")
+    return {"phase": "checkpoint", "part": "gate-major resume", "arch": arch,
+            "resume_from_step": k, "steps": TRAIN_STEPS,
+            "checkpoint_bytes": _dir_bytes(full / f"step_{k}"),
+            "gate_major_checkpoint_bytes": _dir_bytes(legacy / f"step_{k}"),
+            "leaves": len(lane), "leaves_converted": len(converted),
+            "restore_s": restore_s, "gate_major_save_s": save_s,
+            "restore_gate_major_s": restore_gate_major_s, "migrate_tool_s": migrate_s,
+            "resumed_run_s": resume_run_s, "max_abs_param_diff": diff,
+            "launches": {n: c for n, c in launches.items() if c},
+            "uninterrupted_launches": {n: c for n, c in full_launches.items() if c}}
+
+
+def _checkpoint_quantize(counted):
+    """Part (b); returns its lines."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.fused_rnn import layout
+    from repro_torch.launch import migrate_checkpoint, serve
+    from repro_torch.models import lm
+    from repro_torch.models.layers import _dtype
+
+    qdir, device = CKPT_DIR / "quantize", torch.device("cuda")
+    steps = list(enumerate(CKPT_QUANT_ARCHS, 1))
+    fp_bytes = {}
+    for step, arch in steps:  # serve.main's seed, 0; the fp32 masters
+        fp_cfg = _run_cfg(arch, None).with_(weight_quant="none")
+        params = lm.lm_init(torch.Generator(device=device).manual_seed(0), fp_cfg, device=device)
+        CheckpointManager(str(qdir)).save(step, layout.tree_to_gate_major(params))
+        _drop_cell_layout(qdir / f"step_{step}")
+        fp_bytes[arch] = _dir_bytes(qdir / f"step_{step}")
+        del params
+    fp_shapes = {step: _manifest_shapes(qdir / f"step_{step}") for step, _ in steps}
+    before = _dir_snapshot(qdir)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = migrate_checkpoint.main([str(qdir), "--quantize", "int8", "--dry-run"])
+    require(rc == 0 and out.getvalue().count("would quantize") == len(steps)
+            and _dir_snapshot(qdir) == before,
+            f"checkpoint: --dry-run changed the directory or said {out.getvalue()!r}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.migrate_checkpoint", str(qdir),
+         "--quantize", "int8"], capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    quantize_s = time.perf_counter() - t0
+    slabs = {arch: 2 if _run_cfg(arch, None).cell == "qrnn" else 1 for _, arch in steps}
+    want_lines = [f"{qdir}/step_{step}: quantized {slabs[arch]} slab leaves to int8"
+                  for step, arch in steps]
+    require(proc.returncode == 0 and proc.stdout.splitlines() == want_lines,
+            f"checkpoint: the quantization tool returned {proc.returncode}: "
+            f"{proc.stdout!r} {proc.stderr[-2000:]!r}")
+    quantized = _dir_snapshot(qdir)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = migrate_checkpoint.main([str(qdir), "--quantize", "int8"])
+    require(rc == 0 and out.getvalue().count("already weight_quant=int8, skipping") == len(steps)
+            and _dir_snapshot(qdir) == quantized,
+            f"checkpoint: a second quantization run said {out.getvalue()!r}")
+
+    lines = []
+    for step, arch in steps:
+        cfg = _run_cfg(arch, None)
+        want = lm.lm_init(torch.Generator(device=device).manual_seed(0), cfg, device=device)
+        t0 = time.perf_counter()
+        restored, _ = CheckpointManager(str(qdir)).restore(step, want)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        require(_same_bits(restored, want),
+                f"checkpoint {arch}: the quantized checkpoint != lm_init's int8 params")
+        compute = _dtype(cfg.compute_dtype)
+        served = lm.lm_init(torch.Generator(device=device).manual_seed(0), cfg, device=device,
+                            dtype=compute)  # what serve.main serves
+        restored = layout.cast_params(restored, compute)
+        require(_same_bits(restored, served), f"checkpoint {arch}: cast params differ")
+        args = serve.parse_args(["--arch", arch, "--batch", "4", "--prompt-len", "64",
+                                 "--gen-len", str(CKPT_GEN_LEN)])
+        want_launches = _expected_launches(cfg, CKPT_GEN_LEN - 1)
+        tokens, launches = {}, {}
+        for what, params, graphs in (("lm_init captured", served, True),
+                                     ("restored eager", restored, False),
+                                     ("restored captured", restored, True)):
+            stats, launches[what], _ = counted(
+                lambda: serve.run_batch(cfg, params, args, device, graphs=graphs))
+            require(launches[what] == want_launches and stats["cache_in_place"],
+                    f"checkpoint {arch} {what}: launches {launches[what]} != {want_launches} "
+                    f"or the caches moved")
+            tokens[what] = stats["tokens"]
+        require(all(t == tokens["lm_init captured"] for t in tokens.values()),
+                f"checkpoint {arch}: the restored params serve other tokens")
+        shapes = _manifest_shapes(qdir / f"step_{step}")
+        lines.append({
+            "phase": "checkpoint", "part": "quantize and serve", "arch": arch,
+            "fp_checkpoint_bytes": fp_bytes[arch],
+            "int8_checkpoint_bytes": _dir_bytes(qdir / f"step_{step}"),
+            "slab_leaves_quantized": slabs[arch],
+            "gate_major_leaves_migrated": sum(
+                1 for p, sh in shapes.items() if p in fp_shapes[step] and fp_shapes[step][p] != sh),
+            "quantize_subprocess_s": quantize_s, "restore_s": restore_s,
+            "bitwise_lm_init": True, "sample_tokens": tokens["restored captured"][0][:8],
+            "launches": {w: {n: c for n, c in ls.items() if c} for w, ls in launches.items()}})
+        del want, restored, served, params
+        _release()
+    return lines
+
+
+def phase_checkpoint():
+    """Legacy gate-major checkpoints and the migration tool on the card:
+    (a) per CKPT_RESUME_ARCHS, ``launch.train.main`` for TRAIN_STEPS steps
+    saved half way; that step restored, rewritten gate-major (the port's
+    ``tree_to_gate_major``, the port's manager, no ``cell_layout``), restored
+    again with the migration (the same bits), migrated by the tool in a copy
+    (the lane-major step's files again), and resumed with ``--resume auto``:
+    the final leaves must equal the uninterrupted run's exactly, with the
+    expected B2/B3 launches. (b) fp params of CKPT_QUANT_ARCHS saved
+    gate-major, quantized by ``python -m repro_torch.launch.migrate_checkpoint
+    DIR --quantize int8`` as a subprocess on the card (after a ``--dry-run``
+    that must change no byte; a second run must skip), restored bitwise equal
+    to ``lm_init`` of the int8 config, and served through ``serve.run_batch``
+    eager and captured with ``lm_init``'s tokens and the B2/B1 int8 launches.
+    Every kernel's count is set to 0 just before each run and read just
+    after. Returns the launches."""
+    counters = _launch_counters()
+    totals = dict.fromkeys(KERNELS, 0)
+
+    def counted(call):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            result = call()
+        launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        for k, n in launches.items():
+            totals[k] += n
+        return result, launches, out.getvalue()
+
+    if CKPT_DIR.exists():
+        shutil.rmtree(CKPT_DIR)
+    CKPT_DIR.mkdir(parents=True)
+    for arch in CKPT_RESUME_ARCHS:
+        emit(_checkpoint_resume(arch, counted))
+    for line in _checkpoint_quantize(counted):
+        emit(line)
+    emit({"phase": "checkpoint", "launches": totals})
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2497,10 +2787,11 @@ def main(argv=None) -> int:
             speculative = results.get("speculative") or {}
             telemetry = results.get("telemetry") or {}
             train = results.get("train") or {}
+            checkpoint = results.get("checkpoint") or {}
             for name, s in summaries.items():
                 s["launches"] = (launches[name] + continuous.get(name, 0)
                                  + speculative.get(name, 0) + telemetry.get(name, 0)
-                                 + train.get(name, 0))
+                                 + train.get(name, 0) + checkpoint.get(name, 0))
                 require(s["launches"] > 0, f"{name}: no launch on the main path")
             emit({"kernels": list(summaries.values())})
         smi = subprocess.run(

@@ -9,12 +9,19 @@ Guarantees, as in JAX:
     ``.tmp`` debris from interrupted saves (which is removed);
   * **bounded disk** — keep-last-k garbage collection;
   * **iterator state** — the data pipeline's state dict rides in the
-    manifest, so restart is sample-exact.
+    manifest, so restart is sample-exact;
+  * **layout versioning** — the manifest records the RNN cell-parameter
+    layout (``cell_layout``; ``kernels/fused_rnn/layout.py``). Checkpoints
+    from the flat gate-major era (no field, or ``"gate_major"``) are
+    migrated to the lane-major layout on restore, a bitwise reshape of the
+    gate slabs and biases (Adam moments included), as JAX migrates them;
+    ``launch/migrate_checkpoint.py`` rewrites a checkpoint directory with
+    the same converter, for operators who want the migration persisted.
 
 Storage is one ``.npy`` per leaf and a ``MANIFEST.json`` with each leaf's
 path (``params/layers/cell/w``, ``opt/step``, ``opt/m/...``; a ``None``
 subtree adds no leaf), dtype and shape, the step, ``data_state``,
-``cell_layout`` (always lane-major here) and ``weight_quant``. Leaves are
+``cell_layout`` (always lane-major when written) and ``weight_quant``. Leaves are
 stored unsharded; the port runs on one device, so ``restore`` places each
 leaf on the device of the target's leaf.
 
@@ -24,9 +31,6 @@ an ``ml_dtypes`` array: a ``.npy`` whose header reads ``'<V2'`` and whose
 payload is the raw 2-byte words, its manifest dtype ``"bfloat16"``. The
 port writes those bytes without ``ml_dtypes`` and restores by the manifest's
 dtype, reinterpreting the words as ``torch.bfloat16``.
-
-Left for later (ROADMAP.md §A5.1): restoring a legacy gate-major manifest
-(the JAX package migrates it on restore). It raises here.
 """
 from __future__ import annotations
 
@@ -39,11 +43,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.fused_rnn import layout
 from repro_torch.tree import flatten_with_paths, unflatten_like
 
-LANE_MAJOR = "lane_major"  # ``repro/kernels/fused_rnn/layout.py::LANE_MAJOR``
 _QUANT_LEAVES = ("wq", "w0q", "w1q")
-_LATER = "ROADMAP.md §A5.1: legacy gate-major checkpoints"
 # ``np.save``'s header descr of an ``ml_dtypes.bfloat16`` array.
 _BF16_DESCR = "<V2"
 
@@ -108,7 +111,7 @@ class CheckpointManager:
             "step": step,
             "leaves": [],
             "data_state": data_state or {},
-            "cell_layout": LANE_MAJOR,
+            "cell_layout": layout.LANE_MAJOR,
             "weight_quant": _weight_quant(flat),
         }
         for i, (path, leaf) in enumerate(flat):
@@ -130,31 +133,35 @@ class CheckpointManager:
     # -- restore --------------------------------------------------------------
     def restore(self, step: int, target_tree):
         """Restore into the structure of ``target_tree``; each leaf lands on
-        the device of the target's leaf, in the dtype it was saved in.
+        the device of the target's leaf, in the dtype it was saved in. A
+        gate-major checkpoint is migrated to lane-major on the way.
         Returns (tree, data_state)."""
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "MANIFEST.json")) as f:
             manifest = json.load(f)
-        if manifest.get("cell_layout") != LANE_MAJOR:
-            raise NotImplementedError(
-                f"checkpoint step_{step} has cell_layout="
-                f"{manifest.get('cell_layout', 'gate_major (no field)')!r}; the port does not "
-                f"migrate gate-major checkpoints yet ({_LATER}); the JAX package's "
-                "tools/migrate_checkpoint.py rewrites it as lane-major"
-            )
         by_path = {e["path"]: e for e in manifest["leaves"]}
         flat_t = flatten_with_paths(target_tree)
         saved_q, target_q = manifest.get("weight_quant", "none"), _weight_quant(flat_t)
         if saved_q != target_q:
             raise ValueError(
                 f"checkpoint step_{step} has weight_quant={saved_q!r} but the restore target "
-                f"expects {target_q!r}; restore into a matching config (ArchConfig.weight_quant)"
+                f"expects {target_q!r}; run `python -m repro_torch.launch.migrate_checkpoint "
+                "DIR --quantize int8` to quantize a checkpoint in place, or restore into a "
+                "matching config (ArchConfig.weight_quant)"
             )
-        leaves = []
-        for path, ref in flat_t:
+
+        def load(path):
             entry = by_path[path]
-            leaf = _load_leaf(os.path.join(d, entry["file"]), entry["dtype"])
-            leaves.append(leaf.to(ref.device))
+            return _load_leaf(os.path.join(d, entry["file"]), entry["dtype"])
+
+        migrated = None
+        if manifest.get("cell_layout", layout.GATE_MAJOR) != layout.LANE_MAJOR:
+            # Legacy gate-major checkpoint: a bias's gate count resolves from
+            # its sibling leaves, so only this path loads the whole mapping
+            # at once; a current checkpoint streams one leaf at a time.
+            migrated = layout.migrate_flat_leaves({path: load(path) for path, _ in flat_t})
+        leaves = [(load(path) if migrated is None else migrated[path]).to(ref.device)
+                  for path, ref in flat_t]
         return unflatten_like(target_tree, leaves), manifest["data_state"]
 
     # -- gc -------------------------------------------------------------------

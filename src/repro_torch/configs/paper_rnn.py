@@ -77,7 +77,7 @@ QRNN_LARGE_STACKED_RING = QRNN_LARGE_STACKED.with_(
 # scales and dequantize INSIDE the fused kernels, after the gate GEMM
 # accumulate — HBM weight traffic drops ~2x vs bf16 (~4x vs fp32) while the
 # fp32 carry and highway math are untouched. Quantization happens at the one
-# entry point (models/lm.py::lm_init / tools/migrate_checkpoint.py), so these
+# entry point (models/lm.py::lm_init / launch/migrate_checkpoint.py), so these
 # configs only flip the knob. The stacked variants keep ring_overlap=True:
 # under a "model" mesh the int8 slabs AND their scales live sharded at rest
 # (distribution/sharding.py rules), with zero decode-step weight collectives.

@@ -13,8 +13,8 @@
   * ``StreamState`` + ``mts_stream_step``: a live stream processed one block
     at a time with exact carry of the recurrent state across blocks.
 
-The v5e block-size policy (``auto_block_size``) is not carried over; an
-H100 form of it is later work. Layout: the public API is batch-major
+``auto_block_size`` is the JAX package's block-size policy with the H100's
+constants in place of v5e's. Layout: the public API is batch-major
 ``(B, T, d)``; internals are time-major.
 """
 from __future__ import annotations
@@ -29,6 +29,26 @@ from repro_torch.kernels.fused_rnn import layout, ops
 from repro_torch.models.layers import resolve_device
 
 FUSED_ENGINES = ("fused", "fused_stack")
+
+# H100 SXM constants of the block-size policy (NVIDIA's data sheet; PERF.md
+# §3): dense bf16 tensor-core rate and HBM bandwidth.
+H100_PEAK_FLOPS = 989e12
+H100_HBM_BW = 3.35e12
+
+
+def auto_block_size(d_model: int, *, cap: int = 256) -> int:
+    """Smallest power-of-two MTS block that makes the gate GEMM compute-bound.
+
+    The block GEMM is (T, d) x (d, 3H): its intensity is about T (the weights
+    dominate the traffic for T << d), and it turns compute-bound once T
+    passes peak / bandwidth / 2 (bf16 weights), 147.6 on the H100 (v5e's
+    120.2 gave 128). ``d_model`` is unused, as in the JAX package.
+    """
+    ridge = H100_PEAK_FLOPS / H100_HBM_BW / 2.0  # /2: bf16 weights
+    t = 1
+    while t < min(ridge, cap):
+        t *= 2
+    return t
 
 
 def _tm(x):  # batch-major <-> time-major

@@ -18,14 +18,50 @@ Lane padding (``pad_lane_operands`` / ``pad_stack_operands`` /
 edge instead of padding to a tile. The int8 normalizers hand the kernels the
 compact ``(..., 3, nb)`` scales; the kernel reads the scale of lane j at
 ``j // SCALE_BLOCK``, which is what JAX's per-lane expanded operand holds.
-``quantize_flat_leaves`` (the checkpoint converter) comes with the
-checkpoint slice.
+
+It also holds the checkpoint converters: the gate-major <-> lane-major
+reshapes (``to_lane_major``, ``to_gate_major``, the tree forms and
+``migrate_flat_leaves``), behind ``checkpoint/manager.py``'s restore-time
+migration and ``launch/migrate_checkpoint.py``, and ``quantize_flat_leaves``,
+behind that tool's ``--quantize int8``. The reshapes take numpy arrays and
+torch tensors alike (a bf16 tensor, or a bf16 leaf numpy reads as 2-byte
+void words).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+# Manifest tag of the canonical layout that ``checkpoint/manager.py`` writes.
+# Checkpoints without the field predate it and are ``gate_major``.
+LANE_MAJOR = "lane_major"
+GATE_MAJOR = "gate_major"
+
+# Gate counts per cell leaf name (the slabs; a bias's count comes from its
+# sibling leaves, since ``b`` alone is ambiguous across cells).
+SLAB_GATES = {"w": 3, "w0": 3, "w1": 3}
+
+
+# ---------------------------------------------------------------------------
+# Converters (pure reshapes: bitwise, any dtype, numpy arrays or tensors)
+# ---------------------------------------------------------------------------
+
+def to_lane_major(arr, n_gates: int):
+    """``(..., G*H) -> (..., G, H)``: split the flat gate-major trailing dim.
+    Per-gate columns are contiguous in the flat layout, so this is a reshape
+    and the round trip with :func:`to_gate_major` is bitwise."""
+    gh = arr.shape[-1]
+    if gh % n_gates != 0:
+        raise ValueError(f"trailing dim {gh} not divisible by {n_gates} gates")
+    return arr.reshape(tuple(arr.shape[:-1]) + (n_gates, gh // n_gates))
+
+
+def to_gate_major(arr):
+    """``(..., G, H) -> (..., G*H)``: inverse of :func:`to_lane_major`."""
+    if arr.ndim < 2:
+        raise ValueError(f"lane-major array needs a (G, H) tail, got {tuple(arr.shape)}")
+    return arr.reshape(tuple(arr.shape[:-2]) + (arr.shape[-2] * arr.shape[-1],))
 
 
 def cell_kind(cell_params: dict) -> Optional[str]:
@@ -43,6 +79,72 @@ def cell_kind(cell_params: dict) -> Optional[str]:
 def is_quantized(cell_params: dict) -> bool:
     """True when the cell dict carries int8 gate slabs (``wq`` / ``w0q``)."""
     return "wq" in cell_params or "w0q" in cell_params
+
+
+# gate counts of every convertible leaf, per cell kind (LSTM converts nothing)
+_CELL_LEAF_GATES = {"sru": {"w": 3, "b": 2}, "qrnn": {"w0": 3, "w1": 3, "b": 3}}
+
+
+def _convert_tree(tree, leaf_fn):
+    if isinstance(tree, dict):
+        gates = _CELL_LEAF_GATES.get(cell_kind(tree))
+        if gates is not None:
+            return {k: (leaf_fn(v, gates[k]) if k in gates and v is not None else v)
+                    for k, v in tree.items()}
+        return {k: _convert_tree(v, leaf_fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_convert_tree(v, leaf_fn) for v in tree))
+    return tree
+
+
+def tree_to_lane_major(params):
+    """Convert every SRU/QRNN cell dict of a tree to lane-major; LSTM cells
+    and non-cell leaves pass through untouched. Bitwise (reshapes only).
+    Works on one layer's or stacked ``(L, ...)`` params and, unlike the JAX
+    package's (which passes a NamedTuple through), inside NamedTuples too,
+    so a ``TrainState``'s params and Adam moments convert in one call."""
+    return _convert_tree(params, to_lane_major)
+
+
+def tree_to_gate_major(params):
+    """Inverse of :func:`tree_to_lane_major` (writes the legacy layout)."""
+    return _convert_tree(params, lambda a, g: to_gate_major(a))
+
+
+def _cell_leaf(path: str):
+    """``(prefix, name)`` of a path whose leaf sits directly under ``cell``,
+    else None."""
+    parts = path.split("/")
+    if len(parts) < 2 or parts[-2] != "cell":
+        return None
+    return "/".join(parts[:-1]), parts[-1]
+
+
+def migrate_flat_leaves(leaves: dict) -> dict:
+    """Migrate a checkpoint's flat ``{path: array}`` mapping to lane-major.
+
+    A leaf converts when ``cell`` is the path component directly above it
+    (``params/layers/cell/w``, and the Adam moments' ``opt/m/layers/cell/w``);
+    a bias's gate count comes from its siblings (``w`` => SRU, 2; ``w0`` =>
+    QRNN, 3) and an LSTM cell (a sibling ``wx``) stays flat. Returns a new
+    dict in the same order; only converted entries are re-bound.
+    """
+    out = dict(leaves)
+    for path, arr in leaves.items():
+        cell = _cell_leaf(path)
+        if cell is None:
+            continue
+        prefix, name = cell
+        if f"{prefix}/wx" in leaves:
+            continue  # LSTM stays gate-major
+        if name in SLAB_GATES:
+            out[path] = to_lane_major(arr, SLAB_GATES[name])
+        elif name == "b":
+            if f"{prefix}/w0" in leaves:
+                out[path] = to_lane_major(arr, 3)
+            elif f"{prefix}/w" in leaves:
+                out[path] = to_lane_major(arr, 2)
+    return out
 
 
 def _sru_bias(b: torch.Tensor) -> torch.Tensor:
@@ -222,6 +324,52 @@ def quantize_tree(params):
 def dequantize_tree(params):
     """Inverse of :func:`quantize_tree` (fp32 slabs back in every cell)."""
     return _map_cells(params, dequantize_cell)
+
+
+_QUANT_LEAVES = ("wq", "w0q", "w1q", SCALE_KEY)
+
+
+def quantize_flat_leaves(leaves: dict, device=None) -> dict:
+    """Quantize a checkpoint's flat ``{path: tensor}`` mapping to int8 slabs
+    (the converter behind ``launch/migrate_checkpoint.py --quantize int8``).
+
+    Every ``.../cell/w`` (SRU) and ``.../cell/w0`` + ``.../cell/w1`` (QRNN)
+    is replaced by its int8 slab(s) and a ``wq_scale``: the arrays
+    ``models/lm.py::lm_init`` makes under ``weight_quant="int8"``. LSTM cells
+    (a sibling ``wx``) and every other leaf pass through untouched. The JAX
+    package's order is kept: the removed paths are deleted and the new ones
+    appended, ``wq, wq_scale`` or ``w0q, w1q, wq_scale``. The quantization
+    runs on ``device`` (default: where the slab lies) and its results come
+    back to the host. Raises ``ValueError`` on a mapping that holds int8
+    leaves already.
+    """
+    for path in leaves:
+        cell = _cell_leaf(path)
+        if cell is not None and cell[1] in _QUANT_LEAVES:
+            raise ValueError(f"leaf {path!r} is already int8-quantized; refusing to "
+                             "re-quantize")
+
+    def on(t: torch.Tensor) -> torch.Tensor:
+        return t if device is None else t.to(device)
+
+    out = dict(leaves)
+    for path, arr in leaves.items():
+        cell = _cell_leaf(path)
+        if cell is None:
+            continue
+        prefix, name = cell
+        if f"{prefix}/wx" in leaves:
+            continue  # LSTM stays fp
+        if name == "w":
+            wq, scale = quantize_slabs(on(arr))
+            del out[path]
+            out[f"{prefix}/wq"], out[f"{prefix}/{SCALE_KEY}"] = wq.cpu(), scale.cpu()
+        elif name == "w0":
+            w0q, w1q, scale = quantize_qrnn_slabs(on(arr), on(leaves[f"{prefix}/w1"]))
+            del out[path], out[f"{prefix}/w1"]
+            out[f"{prefix}/w0q"], out[f"{prefix}/w1q"] = w0q.cpu(), w1q.cpu()
+            out[f"{prefix}/{SCALE_KEY}"] = scale.cpu()
+    return out
 
 
 def cast_params(tree, dtype, key=None):

@@ -235,3 +235,35 @@ def test_lstm_params_round_trip_through_the_bridge():
     back = params_to_numpy(tp)
     for k in jp:
         assert back[k].dtype == jp[k].dtype and np.array_equal(back[k], jp[k])
+
+
+# H100 SXM data-sheet rates (PERF.md §3): the ridge of the block GEMM with
+# bf16 weights, in time steps.
+H100_RIDGE = 989e12 / 3.35e12 / 2.0
+
+
+def test_auto_block_size_uses_the_h100_constants(monkeypatch):
+    """JAX's rule (the smallest power of two at or above min(ridge, cap))
+    with the H100's rates: 256 by default, where v5e's gave 128."""
+    assert (mts.H100_PEAK_FLOPS, mts.H100_HBM_BW) == (989e12, 3.35e12)
+    got = mts.auto_block_size(1024)
+    assert got == 256 and got & (got - 1) == 0
+    assert got >= min(H100_RIDGE, 256) / 2 and got / 2 < min(H100_RIDGE, 256)
+    assert jmts.auto_block_size(1024) == 128  # the reference's v5e constants
+    from repro_torch.core import auto_block_size
+    assert auto_block_size is mts.auto_block_size
+    monkeypatch.setattr(jmts, "V5E_PEAK_FLOPS", mts.H100_PEAK_FLOPS)
+    monkeypatch.setattr(jmts, "V5E_HBM_BW", mts.H100_HBM_BW)
+    for d_model in (64, 1024, 18432):
+        assert mts.auto_block_size(d_model) == jmts.auto_block_size(d_model)
+
+
+@pytest.mark.parametrize("cap", [1, 2, 3, 16, 64, 100, 128, 147, 148, 256, 1024])
+def test_auto_block_size_respects_cap(cap, monkeypatch):
+    got = mts.auto_block_size(1024, cap=cap)
+    assert got & (got - 1) == 0
+    bound = min(H100_RIDGE, cap)
+    assert got >= bound and (got == 1 or got / 2 < bound)
+    monkeypatch.setattr(jmts, "V5E_PEAK_FLOPS", mts.H100_PEAK_FLOPS)
+    monkeypatch.setattr(jmts, "V5E_HBM_BW", mts.H100_HBM_BW)
+    assert got == jmts.auto_block_size(1024, cap=cap)
