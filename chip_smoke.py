@@ -185,12 +185,40 @@ Phases, each printing one JSON line per step:
            the restored params eager and captured (``lm_init``'s tokens,
            the int8 launches). Printed: each checkpoint's bytes, the seconds
            of save, restore, migration, quantization and the resumed run,
-           the leaves converted and the launches.
+           the leaves converted and the launches;
+  sharded  multi-GPU serving of the fused RNN path, its ranks sharing the
+           one card over gloo (so its times are not multi-GPU speed; a line
+           says NCCL across cards was not run): B1 at a model shard's
+           shapes (width 1024 over 2, 4 and 8 ranks, bf16 and fp32, T = 64
+           and 1; int8 at H = 1000 over 8, a shard starting inside a scale
+           block; fp32 IO on bf16 slabs at width 1024 over 2) against its
+           plain version, warm and cold, with bound and instance; the
+           single-device run (fp32 compute, eager, B = 4, prompt 64, gen 32)
+           and teacher-forced logits of ``sru-paper-large-stacked``
+           (barrier), ``-stacked-ring``, ``qrnn-paper-large-fused``,
+           ``sru-paper-large-int8`` and ``qrnn-paper-large-stacked-int8``
+           (ring), and of ``sru-paper-large-stacked`` under bf16 compute;
+           two gloo ranks, (data 1, model 2), serving each through
+           ``serve.serve_mesh`` (counts set to 0 just before each run, read
+           just after): under fp32 the tokens must equal the single-device
+           run's and the logits be within SHARDED_TOL, under bf16 the logits
+           within SHARDED_BF16_TOL; every rank's launches the expected (L x
+           32 per rank: B1 on the barrier and the layer, B3 on the ring,
+           whose gate GEMM is the ring's chunk GEMMs), each rank's
+           gate-slab bytes half of the whole; a decode step of the fp32 SRU
+           barrier and ring split into each collective and the rest per
+           rank (``timed_collectives``); then one full-width
+           layer of ``mixtral-8x22b`` and ``qwen3-moe-235b-a22b`` under
+           ``_moe_shard_map`` (E/2 experts a rank) against ``sorted`` on one
+           rank at 2e-5; four ranks, (2, 2), serving
+           ``sru-paper-large-stacked`` (the data axis) with the
+           single-device tokens.
 
 Then one ``{"phase_seconds": {...}}`` line (each phase's wall time, the
 serve phase's warm-ups included), one ``{"kernels": [...]}`` line (launches
-from the serve, continuous, speculative, telemetry, train and checkpoint
-phases, eager and captured runs summed), the
+from the serve, continuous, speculative, telemetry, train, checkpoint and
+sharded phases, eager and captured runs and the sharded phase's ranks
+summed), the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the last
 line. Without a CUDA device, or without the repository beside this file, it
@@ -215,7 +243,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("build", "kernels", "serve", "continuous", "speculative", "telemetry", "profile",
-          "parity", "train", "checkpoint")
+          "parity", "train", "checkpoint", "sharded")
 # (arch, --engine override, --prompt-len): the runs of the serve phase.
 SERVE_RUNS = (
     ("sru-paper-large-stacked", None, 64), ("qrnn-paper-large-stacked", None, 64),
@@ -358,6 +386,41 @@ CKPT_RESUME_ARCHS = ("sru-paper-large-stacked", "qrnn-paper-large-stacked")
 CKPT_QUANT_ARCHS = ("qrnn-paper-large-stacked-int8", "sru-paper-large-int8")
 CKPT_GEN_LEN = 32
 CKPT_DIR = ROOT / "build" / "checkpoint"
+# The sharded phase: serving on a (1, 2) mesh of gloo ranks sharing the one
+# card, fp32 compute, against the single-device serve; (2, 2) for the data
+# axis; MoE's expert-parallel schedule at full width, one layer.
+SHARDED_RUNS = ("sru-paper-large-stacked", "sru-paper-large-stacked-ring",
+                "qrnn-paper-large-fused", "sru-paper-large-int8", "qrnn-paper-large-stacked-int8")
+SHARDED_DATA_RUN = "sru-paper-large-stacked"
+# Served once more under bf16 compute (the config's own) on (1, 2): the
+# barrier runs B1 in fp32 IO on the bf16 slabs, against the single-device
+# bf16 run (B2, whose tensor-core GEMM rounds its input to bf16).
+SHARDED_BF16_RUN = "sru-paper-large-stacked"
+# A decode step of the two fp32 SRU stacks (barrier, ring) split into the
+# collectives and the rest (launch/mesh.py::timed_collectives), per rank.
+SHARDED_SPLIT_RUNS = ("sru-paper-large-stacked", "sru-paper-large-stacked-ring")
+SHARDED_SPLIT_STEPS = 8
+# Sharded logits (4 teacher-forced steps) against the single-device run's:
+# fp32 at 5e-5 (readings at most 5.4e-6 on the H100, and 3e-5 the CPU
+# tests' limit against JAX); bf16 at twice its reading there, 0.03125, one
+# bf16 ulp of a logit in [4, 8): the single-device B2 rounds its GEMM input
+# to bf16, the sharded barrier keeps it fp32 as JAX's does.
+SHARDED_TOL = 5e-5
+SHARDED_BF16_TOL = 0.0625
+SHARDED_MOE = ("mixtral-8x22b", "qwen3-moe-235b-a22b")
+SHARDED_LOGIT_STEPS = 4
+# B1 at a model shard's shapes, (mode, H, k, shard, int8): SRU at width
+# 1024 over k = 2, 4, 8 (Hl 512, 256, 128), the sharded serving runs' QRNN
+# and int8 SRU layers (Hl 512), and the ragged int8 H = 1000 over 8 (Hl 125,
+# shard 3: its lanes start 119 lanes into a scale block and cross into the
+# next); each at T = 64 and 1, bf16 and fp32.
+SHARD_CASES = (("sru_identity", 1024, 2, 1, False), ("sru_identity", 1024, 4, 1, False),
+               ("sru_identity", 1024, 8, 1, False), ("qrnn", 1024, 2, 1, False),
+               ("sru_identity", 1024, 2, 1, True), ("sru_identity", 1000, 8, 3, True))
+# fp32 IO on bf16 slabs, the barrier's call under bf16 compute: (mode, H, k,
+# shard), T = 64 and 1.
+SHARD_MIXED_CASES = (("sru_identity", 1024, 2, 1), ("qrnn", 1024, 2, 1))
+SHARDED_DIR = ROOT / "build" / "sharded"
 # Autograd Functions of B1/B2 (kernels phase): their gradients against
 # autograd through the plain version on the card. The Functions' backward
 # recomputes the plain version with its recurrence through the linear scan
@@ -801,7 +864,8 @@ def _summary(kname, source, replaces, rows):
     }
 
 
-def _run_cases(kname, wrapper, plain, cases, atol=ATOL, rtol=0.0, library=None, cold=False):
+def _run_cases(kname, wrapper, plain, cases, atol=ATOL, rtol=0.0, library=None, cold=False,
+               phase="kernels"):
     """Each case against its plain version (computed first: a wrapper may
     write a state operand in place); decode cases (T = 1), and every case
     with ``cold``, are also timed cold, with the L2 flushed before each call
@@ -827,7 +891,7 @@ def _run_cases(kname, wrapper, plain, cases, atol=ATOL, rtol=0.0, library=None, 
         plain_ms = time_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
         b_ms, b_by = bound(rw, ops, dtype)
         row = {
-            "phase": "kernels", "kernel": kname, "case": name, "dtype": dtype, "T": T,
+            "phase": phase, "kernel": kname, "case": name, "dtype": dtype, "T": T,
             "max_abs_err": err, "tol": tol, "finite": finite,
             "max_abs_err_each": [e[0] for e in each], "tol_each": [e[1] for e in each],
             "ms": ms, "cold_ms": cold_ms,
@@ -2746,6 +2810,414 @@ def phase_checkpoint():
     return totals
 
 
+def _shard_case(name, mode, T, B, H, k, i, dtype_name, seed, quant=False, slabs=None):
+    """One model shard's B1 call: the whole layer's operands (``_layer_case``,
+    d = H) sliced to shard ``i`` of ``k`` as ``distribution/fused_sharded.py``
+    slices them: the slab's lanes, the biases and carry, the shard's lane
+    slice of the input as the skip, and for int8 the scale blocks its lanes
+    touch with ``scale_lane0``; ``slabs``: the fp slabs' dtype, if not the
+    IO's."""
+    import torch
+
+    from repro_torch.distribution import fused_sharded
+
+    _, (u, taps, b3, c0), kw, _, _ = _layer_case(name, mode, T, B, H, H, dtype_name, seed,
+                                                 quant=quant)
+    Hl = H // k
+    own = slice(i * Hl, (i + 1) * Hl)
+    taps = tuple(t[..., own].to(slabs or t.dtype).contiguous() for t in taps)
+    b3, c0 = b3[:, own].contiguous(), c0[:, own].contiguous()
+    if mode == "sru_identity":
+        kw["skip"] = u[..., own].contiguous()
+    if quant:
+        kw["scale"], kw["scale_lane0"] = fused_sharded._scale_shard(kw["scale"], i * Hl, Hl)
+    ops = 2.0 * T * B * H * len(taps) * 3 * Hl
+    out_bytes = (T * B * Hl + B * Hl) * u.element_size()
+    rw = nbytes(u, *taps, b3, c0, kw.get("tail"), kw.get("skip"), kw.get("scale")) + out_bytes
+    return name, (u, taps, b3, c0), kw, rw, ops
+
+
+def shard_cases():
+    """``(dtype, T, name, args, kw, rw, ops)`` of B1 at the shard shapes
+    (SHARD_CASES, SHARD_MIXED_CASES, B = 4), keyed by kernel family, with
+    each case's launches per rank in the (1, 2) serving runs
+    (``_served_launches``)."""
+    import torch
+
+    cases = {"fused_rnn_layer": [], "fused_rnn_layer_int8": []}
+    served = {}
+    seed = 600
+    for mode, H, k, i, quant in SHARD_CASES:
+        for T in (64, 1):
+            for dtype in ("bfloat16", "float32"):
+                seed += 1
+                name = (f"{'int8 ' if quant else ''}{mode} shard {i} Hl={H // k} of {H} T={T} "
+                        f"{dtype}")
+                cases["fused_rnn_layer" + ("_int8" if quant else "")].append(
+                    (dtype, T) + _shard_case(name, mode, T, 4, H, k, i, dtype, seed, quant=quant))
+                served[name] = _served_launches(mode, H, H // k, T, dtype, quant)
+    for mode, H, k, i in SHARD_MIXED_CASES:
+        for T in (64, 1):
+            seed += 1
+            name = f"{mode} shard {i} Hl={H // k} of {H} T={T} float32, bfloat16 slabs"
+            cases["fused_rnn_layer"].append(
+                ("float32", T) + _shard_case(name, mode, T, 4, H, k, i, "float32", seed,
+                                             slabs=torch.bfloat16))
+            served[name] = _served_launches(mode, H, H // k, T, "float32", False, bf16_slabs=True)
+    return cases, served
+
+
+def _served_launches(mode, H, Hl, T, dtype, quant, bf16_slabs=False) -> int:
+    """A rank's launches at this shape in the (1, 2) serving runs (T = 64
+    the prefill, T = 1 the 31 decode steps): SHARDED_RUNS under fp32
+    compute, and SHARDED_BF16_RUN under bf16, whose barrier runs B1 in fp32
+    IO on bf16 slabs. The ring schedule launches no B1."""
+    n = 0
+    for arch, compute in _sharded_runs():
+        cfg = _sharded_cfg(_sharded_args(arch, 2), compute)
+        ring = cfg.scan_engine == "fused_stack" and cfg.fuse_depth and cfg.ring_overlap
+        cell_mode = {"sru": "sru_identity", "qrnn": "qrnn"}[cfg.cell]
+        mixed = compute == "bfloat16" and cfg.scan_engine == "fused_stack"
+        io = "float32" if mixed else compute
+        if (not ring and dtype == io and mixed == bf16_slabs and cfg.rnn_hidden == H
+                and H // 2 == Hl and (cfg.weight_quant == "int8") == quant
+                and cell_mode == mode):
+            n += cfg.n_layers * (1 if T == 64 else 31)
+    return n
+
+
+def _sharded_runs():
+    """(arch, compute dtype) of the (1, 2) serving runs."""
+    return [(a, "float32") for a in SHARDED_RUNS] + [(SHARDED_BF16_RUN, "bfloat16")]
+
+
+def _run_key(arch, compute):
+    return arch if compute == "float32" else f"{arch} {compute}"
+
+
+def _sharded_args(arch, k, batch=4):
+    from repro_torch.launch import serve
+
+    return serve.parse_args(["--arch", arch, "--batch", str(batch), "--prompt-len", "64",
+                             "--gen-len", "32", "--model-shards", str(k),
+                             "--dist-backend", "gloo"])
+
+
+def _sharded_cfg(args, compute="float32"):
+    from repro_torch.launch import serve
+
+    return serve.config_of(args).with_(compute_dtype=compute)
+
+
+def _logit_inputs(cfg):
+    """Teacher-forced tokens: a 64-token prompt and SHARDED_LOGIT_STEPS more."""
+    import torch
+
+    g = torch.Generator().manual_seed(1)
+    return torch.randint(0, cfg.vocab, (4, 64 + SHARDED_LOGIT_STEPS), generator=g)
+
+
+def _split_steps(cfg, params, mesh, device, toks):
+    """A sharded decode step split on the host clock, after a prefill over
+    the 64-token prompt: SHARDED_SPLIT_STEPS greedy steps as served (ms a
+    step), then as many inside ``launch/mesh.py::timed_collectives``, where
+    each collective first waits for the card: ms a step in each collective,
+    by name, and the rest (the kernels and GEMMs, their launches, the host
+    work)."""
+    import torch
+
+    from repro_torch.launch.mesh import timed_collectives
+    from repro_torch.training.steps import build_decode_step, build_prefill_step
+
+    toks = toks.to(device)
+    prefill = build_prefill_step(cfg, mesh, batch=toks.shape[0], max_len=toks.shape[1],
+                                 device=device)
+    decode = build_decode_step(cfg, mesh)
+    logits, caches = prefill(params, {"inputs": toks[:, :64]})
+
+    def steps():
+        nonlocal logits, caches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SHARDED_SPLIT_STEPS):
+            tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]
+            logits, caches = decode(params, caches, tok)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / SHARDED_SPLIT_STEPS
+
+    steps()  # warm-up
+    step_ms = steps()
+    with timed_collectives(mesh) as clock:
+        timed_ms = steps()
+    coll = {k: v * 1e3 / SHARDED_SPLIT_STEPS for k, v in sorted(clock.items())}
+    return {"step_ms": step_ms, "timed_step_ms": timed_ms, "collective_ms": coll,
+            "rest_ms": timed_ms - sum(coll.values())}
+
+
+def _step_logits(cfg, params, mesh, device, toks):
+    """Every step's logits of a prefill over the prompt and
+    SHARDED_LOGIT_STEPS decode steps (this rank's rows under a mesh)."""
+    import torch
+
+    from repro_torch.training.steps import build_decode_step, build_prefill_step
+
+    toks = toks.to(device)
+    prefill = build_prefill_step(cfg, mesh, batch=4, max_len=toks.shape[1], device=device)
+    decode = build_decode_step(cfg, mesh)
+    logits, caches = prefill(params, {"inputs": toks[:, :64]})
+    out = [logits]
+    for t in range(64, toks.shape[1]):
+        logits, caches = decode(params, caches, toks[:, t:t + 1])
+        out.append(logits)
+    return torch.stack(out).cpu()
+
+
+def _moe_setup(arch, device):
+    """One full-width MoE layer of ``arch`` under the expert-parallel
+    schedule: its config, params and a (4, 64, d) input, all from seeds on
+    ``device``."""
+    import torch
+
+    from repro_torch.models import moe
+
+    cfg = _run_cfg(arch, None).with_(n_layers=1, moe_impl="shard_map")
+    params = moe.moe_init(torch.Generator(device=device).manual_seed(5), cfg, torch.float32,
+                          device)
+    x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator(device=device).manual_seed(6),
+                    device=device)
+    return cfg, params, x
+
+
+def _sharded_worker(rank, world, model_axis, init_file, plan):
+    """A gloo rank on the one card: every serve run of ``plan`` through
+    ``serve.serve_mesh`` (counts set to 0 just before, read just after) and
+    its teacher-forced logits, then the MoE layers; its results to a pickle
+    in SHARDED_DIR."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distribution import fused_sharded as fs
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm, moe
+    from repro_torch.models.lm import _dtype
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    device = torch.device("cuda", 0)
+    counters = _launch_counters()
+    results = {}
+    try:
+        for arch, compute in plan["serve"]:
+            args = _sharded_args(arch, model_axis)
+            cfg = _sharded_cfg(args, compute)
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            with contextlib.redirect_stdout(io.StringIO()) as buf:
+                stats = serve.serve_mesh(cfg, args)
+            launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+            mesh = make_local_mesh(model_axis, device=device)
+            params = lm.lm_init(torch.Generator(device=device).manual_seed(args.seed), cfg,
+                                device=device, dtype=_dtype(compute))
+            params, _ = serve.shard_params(cfg, params, mesh)
+            toks = _logit_inputs(cfg)
+            toks = shd.local_shard(toks, shd.batch_specs({"t": toks}, mesh)["t"], mesh)
+            logits = _step_logits(cfg, params, mesh, device, toks) if plan["logits"] else None
+            split = (_split_steps(cfg, params, mesh, device, toks)
+                     if compute == "float32" and arch in plan["split"] else None)
+            results[_run_key(arch, compute)] = {
+                "stats": stats, "launches": launches, "logits": logits, "split": split,
+                "lines": [x for x in buf.getvalue().splitlines()
+                          if not x.startswith("serve-stats ")]}
+            del params
+            torch.cuda.empty_cache()
+        for arch in plan["moe"]:
+            cfg, whole, x = _moe_setup(arch, device)
+            mesh = make_local_mesh(model_axis, device=device)
+            specs = fs.rank_specs(cfg, shd.param_specs(whole, mesh), mesh)
+            params = shd.map_with_paths(lambda p, t: shd.local_shard(t, shd._at(specs, p), mesh),
+                                        whole)
+            del whole
+            torch.cuda.empty_cache()
+            with shd.use_rules(mesh):
+                y = moe.moe_apply(params, cfg, x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    moe.moe_apply(params, cfg, x)
+                torch.cuda.synchronize()
+            results[arch] = {"y": y.cpu(), "ms": (time.perf_counter() - t0) / 3 * 1e3,
+                             "experts": params["e_up"].shape[0]}
+            del params, x, y
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    with open(SHARDED_DIR / f"{plan['name']}-rank{rank}.pkl", "wb") as f:
+        pickle.dump(results, f)
+
+
+def _spawn_ranks(name, world, model_axis, plan):
+    """Start ``world`` gloo ranks of ``_sharded_worker`` on the card (a
+    ``file://`` rendezvous), wait for them; returns each rank's results."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    plan = dict(plan, name=name)
+    rdv = SHARDED_DIR / f"{name}.rdv"
+    mp.start_processes(_sharded_worker, args=(world, model_axis, str(rdv), plan), nprocs=world,
+                       start_method="spawn")
+    out = []
+    for r in range(world):
+        with open(SHARDED_DIR / f"{name}-rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _expected_sharded_launches(cfg, decode_steps: int) -> dict:
+    """One rank's launches over a sharded serve: the barrier stack and the
+    fused layer run B1 per layer per call (int8: its int8 instance); the
+    ring schedule's recurrence runs B3 per layer per call (its gate GEMM is
+    the ring's chunk GEMMs)."""
+    want = dict.fromkeys(KERNELS, 0)
+    if cfg.scan_engine == "fused_stack" and cfg.fuse_depth and cfg.ring_overlap:
+        want["linear_scan"] = cfg.n_layers * (1 + decode_steps)
+    else:
+        q = "_int8" if cfg.weight_quant == "int8" else ""
+        want["fused_rnn_layer" + q] = cfg.n_layers * (1 + decode_steps)
+    return want
+
+
+def phase_sharded():
+    """Multi-GPU serving of the fused RNN path, on the one card: its ranks
+    share it over gloo, so the times are not multi-GPU speed. (a) B1 at the
+    shard shapes against its plain version (SHARD_CASES, the ragged int8
+    shard, SHARD_MIXED_CASES), warm and cold, with bound; (b) the
+    single-device run of each of SHARDED_RUNS (fp32 compute) and of
+    SHARDED_BF16_RUN (bf16), B = 4, prompt 64, gen 32, eager, and its
+    teacher-forced logits; (c) two gloo ranks, (data 1, model 2), each
+    serving every run through ``serve.serve_mesh`` and the same logits,
+    with a decode step of SHARDED_SPLIT_RUNS split into collectives and the
+    rest, then one full-width layer of each SHARDED_MOE under
+    ``_moe_shard_map`` held to ``sorted`` on one rank at 2e-5; (d) four
+    ranks, (2, 2), serving SHARDED_DATA_RUN. Under fp32 the tokens must
+    equal the single-device run's and the logits be within SHARDED_TOL;
+    under bf16 the logits within SHARDED_BF16_TOL (the tokens are
+    reported); each rank's launches the expected, each model rank's
+    gate-slab bytes 1/2 of the whole. Returns the ranks' launches."""
+    import torch
+
+    from repro_torch.kernels.fused_rnn import fused_rnn
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, moe
+    from repro_torch.models.lm import _dtype
+
+    if SHARDED_DIR.exists():
+        shutil.rmtree(SHARDED_DIR)
+    SHARDED_DIR.mkdir(parents=True)
+    n = torch.cuda.device_count()
+    emit({"phase": "sharded", "nccl": f"NCCL across cards: not run, {n} card"
+          + ("s" if n > 1 else "") + "; the ranks share cuda:0 over gloo"})
+    # (a) the shard shapes
+    cases, served = shard_cases()
+    for kname, kcases in cases.items():
+        _run_cases(kname, fused_rnn.fused_rnn_layer, fused_rnn.fused_rnn_layer_plain, kcases,
+                   cold=True, phase="sharded")
+        for dtype, _, name, args, kw, _, _ in kcases:
+            line = {"phase": "sharded", "kernel": kname, "case": name,
+                    "served_launches_per_rank": served[name]}
+            emit(dict(line, **fused_instance_info(args, kw))
+                 if args[0].dtype == torch.bfloat16 else line)
+    _release()
+    # (b) single-device references
+    single, ref_logits = {}, {}
+    for arch, compute in _sharded_runs():
+        args = _sharded_args(arch, 1)
+        cfg = _sharded_cfg(args, compute)
+        key = _run_key(arch, compute)
+        params = lm.lm_init(torch.Generator(device="cuda").manual_seed(args.seed), cfg,
+                            device="cuda", dtype=_dtype(compute))
+        with contextlib.redirect_stdout(io.StringIO()):
+            single[key] = serve.run_batch(cfg, params, args, torch.device("cuda"), graphs=False)
+        ref_logits[key] = _step_logits(cfg, params, None, torch.device("cuda"),
+                                       _logit_inputs(cfg))
+        del params
+        _release()
+    moe_ref = {}
+    for arch in SHARDED_MOE:
+        cfg, params, x = _moe_setup(arch, torch.device("cuda"))
+        moe_ref[arch] = moe.moe_apply(params, cfg.with_(moe_impl="sorted"), x).cpu()
+        del params, x
+        _release()
+    # (c) (data 1, model 2)
+    totals = dict.fromkeys(KERNELS, 0)
+    ranks = _spawn_ranks("m2", 2, 2, {"serve": _sharded_runs(), "moe": SHARDED_MOE,
+                                      "logits": True, "split": SHARDED_SPLIT_RUNS})
+    for arch, compute in _sharded_runs():
+        key = _run_key(arch, compute)
+        cfg = _sharded_cfg(_sharded_args(arch, 2), compute)
+        want = _expected_sharded_launches(cfg, 31)
+        st0 = ranks[0][key]["stats"]
+        diff = (ranks[0][key]["logits"].float() - ref_logits[key].float()).abs().max().item()
+        tol = SHARDED_TOL if compute == "float32" else SHARDED_BF16_TOL
+        same = [a == b for a, b in zip(st0["tokens"], single[key]["tokens"])]
+        emit({"phase": "sharded", "mesh": st0["mesh"], "arch": arch, "compute": compute,
+              "schedule": ("ring" if cfg.ring_overlap else "barrier")
+              if cfg.scan_engine == "fused_stack" else "layer",
+              "tokens_equal": st0["tokens"] == single[key]["tokens"],
+              "rows_with_equal_tokens": sum(same),
+              "logits_max_abs_diff": diff, "tol": tol,
+              "launches_per_rank": [r[key]["launches"] for r in ranks],
+              "slab_bytes": st0["slab_bytes"], "slab_bytes_whole": st0["slab_bytes_whole"],
+              "prefill_ms": [r[key]["stats"]["prefill_ms"] for r in ranks],
+              "decode_ms": [r[key]["stats"]["decode_ms"] for r in ranks],
+              "single_prefill_ms": single[key]["prefill_ms"],
+              "single_decode_ms": single[key]["decode_ms"],
+              "split_per_rank": [r[key]["split"] for r in ranks], "lines": ranks[0][key]["lines"]})
+        if compute == "float32":
+            require(st0["tokens"] == single[key]["tokens"],
+                    f"sharded {key}: tokens differ from the single-device run's")
+        require(all(r[key]["stats"]["tokens"] == st0["tokens"] for r in ranks),
+                f"sharded {key}: the ranks' tokens differ")
+        require(diff <= tol, f"sharded {key}: logits differ by {diff} > {tol}")
+        for r in ranks:
+            require(r[key]["launches"] == want,
+                    f"sharded {key}: launches {r[key]['launches']} != {want}")
+            for k, v in r[key]["launches"].items():
+                totals[k] += v
+        require(st0["slab_bytes"] == [st0["slab_bytes_whole"] // 2] * 2,
+                f"sharded {key}: slab bytes {st0['slab_bytes']} of {st0['slab_bytes_whole']}")
+    for arch in SHARDED_MOE:
+        err = (ranks[0][arch]["y"] - moe_ref[arch]).abs().max().item()
+        emit({"phase": "sharded", "moe": arch, "mesh": {"data": 1, "model": 2},
+              "experts_per_rank": ranks[0][arch]["experts"], "max_abs_err": err, "tol": 2e-5,
+              "ms_per_rank": [r[arch]["ms"] for r in ranks]})
+        require(all(torch.equal(r[arch]["y"], ranks[0][arch]["y"]) for r in ranks),
+                f"sharded moe {arch}: the ranks disagree")
+        require(err <= 2e-5, f"sharded moe {arch}: err {err} against sorted on one rank")
+    # (d) (data 2, model 2)
+    ranks = _spawn_ranks("d2m2", 4, 2, {"serve": [(SHARDED_DATA_RUN, "float32")], "moe": (),
+                                        "logits": False, "split": ()})
+    st = ranks[0][SHARDED_DATA_RUN]["stats"]
+    emit({"phase": "sharded", "mesh": st["mesh"], "arch": SHARDED_DATA_RUN,
+          "tokens_equal": st["tokens"] == single[SHARDED_DATA_RUN]["tokens"],
+          "launches_per_rank": [r[SHARDED_DATA_RUN]["launches"] for r in ranks],
+          "decode_ms": [r[SHARDED_DATA_RUN]["stats"]["decode_ms"] for r in ranks]})
+    require(st["tokens"] == single[SHARDED_DATA_RUN]["tokens"],
+            "sharded (2, 2): tokens differ from the single-device run's")
+    want = _expected_sharded_launches(_sharded_cfg(_sharded_args(SHARDED_DATA_RUN, 2)), 31)
+    for r in ranks:
+        require(r[SHARDED_DATA_RUN]["launches"] == want, "sharded (2, 2): launches")
+        for k, v in r[SHARDED_DATA_RUN]["launches"].items():
+            totals[k] += v
+    emit({"phase": "sharded", "launches": totals})
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2788,10 +3260,12 @@ def main(argv=None) -> int:
             telemetry = results.get("telemetry") or {}
             train = results.get("train") or {}
             checkpoint = results.get("checkpoint") or {}
+            sharded = results.get("sharded") or {}
             for name, s in summaries.items():
                 s["launches"] = (launches[name] + continuous.get(name, 0)
                                  + speculative.get(name, 0) + telemetry.get(name, 0)
-                                 + train.get(name, 0) + checkpoint.get(name, 0))
+                                 + train.get(name, 0) + checkpoint.get(name, 0)
+                                 + sharded.get(name, 0))
                 require(s["launches"] > 0, f"{name}: no launch on the main path")
             emit({"kernels": list(summaries.values())})
         smi = subprocess.run(

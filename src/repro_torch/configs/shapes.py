@@ -79,3 +79,22 @@ def cache_specs(cfg: ArchConfig, shape: ShapeSpec):
     from repro_torch.models.lm import lm_init_caches
 
     return lm_init_caches(cfg, shape.global_batch, shape.seq_len, device="meta")
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` reads ``meta``: ``lm_init`` draws
+    each leaf on its generator's device, so the params come out as meta
+    tensors, shapes and dtypes only."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def param_shapes(cfg: ArchConfig):
+    """``lm_init``'s params on the meta device (JAX's ``eval_shape`` of
+    ``lm_init``, as ``launch/dryrun.py::_param_structs`` takes it): int8
+    configs come with their int8 slabs and scales."""
+    from repro_torch.models.lm import lm_init
+
+    return lm_init(_MetaGenerator(), cfg, device="meta")

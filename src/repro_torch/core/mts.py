@@ -8,6 +8,9 @@
     (``kernels/fused_rnn``), so gate activations never reach device memory;
     ``"fused_stack"`` is the stack-level engine routed in ``models/rnn.py``,
     and a single cell, with no depth to fuse, runs the per-layer kernel here.
+    Given a ``mesh`` (``models/rnn.py`` passes
+    ``distribution/fused_sharded.py::sharding_mesh``) the fused engines run
+    the layer per rank on this rank's lane shard of ``params`` and ``c0``.
   * ``lstm_forward``: the paper's LSTM treatment — ``W·x`` time-batched,
     ``U·h`` strictly sequential (``precompute=False``: the naive baseline).
   * ``StreamState`` + ``mts_stream_step``: a live stream processed one block
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.core import cells
 from repro_torch.core.scan import linear_scan
+from repro_torch.distribution import fused_sharded
 from repro_torch.kernels.fused_rnn import layout, ops
 from repro_torch.models.layers import resolve_device
 
@@ -73,15 +77,22 @@ def mts_sru(
     *,
     engine: str = "chunked",
     block_size: int = 128,
+    mesh=None,
 ):
-    """Returns (h, c_last) with h: (B, T, H)."""
+    """Returns (h, c_last) with h: (B, T, H). ``mesh``: run the fused
+    engines per rank on it (``params`` and ``c0`` this rank's lane shards,
+    ``c_last`` its lanes); None runs the whole layer."""
     xt = _tm(x)
     if engine in FUSED_ENGINES:
         xt = xt.contiguous()
         if c0 is None:
             H = params["wq" if layout.is_quantized(params) else "w"].shape[-1]
             c0 = torch.zeros((xt.shape[1], H), dtype=xt.dtype, device=xt.device)
-        h, c_last = ops.fused_sru(params, xt, c0, block_t=block_size)
+        if mesh is not None:
+            h, c_last = fused_sharded.sharded_fused_sru(params, xt, c0, mesh=mesh,
+                                                        block_t=block_size)
+        else:
+            h, c_last = ops.fused_sru(params, xt, c0, block_t=block_size)
         return _tm(h), c_last
     _require_fp(params, engine)
     x_hat, f, r = cells.sru_gates(params, xt)  # one GEMM over all T
@@ -101,8 +112,9 @@ def mts_qrnn(
     *,
     engine: str = "chunked",
     block_size: int = 128,
+    mesh=None,
 ):
-    """Returns (h, c_last) with h: (B, T, H)."""
+    """Returns (h, c_last) with h: (B, T, H); see :func:`mts_sru`."""
     xt = _tm(x)
     tail = None if x_prev_tail is None else _tm(x_prev_tail)
     if engine in FUSED_ENGINES:
@@ -111,7 +123,11 @@ def mts_qrnn(
         if c0 is None:
             H = params["w0q" if layout.is_quantized(params) else "w0"].shape[-1]
             c0 = torch.zeros((xt.shape[1], H), dtype=xt.dtype, device=xt.device)
-        h, c_last = ops.fused_qrnn(params, xt, tail, c0, block_t=block_size)
+        if mesh is not None:
+            h, c_last = fused_sharded.sharded_fused_qrnn(params, xt, tail, c0, mesh=mesh,
+                                                         block_t=block_size)
+        else:
+            h, c_last = ops.fused_qrnn(params, xt, tail, c0, block_t=block_size)
         return _tm(h), c_last
     _require_fp(params, engine)
     x_hat, f, o = cells.qrnn_gates(params, xt, tail)

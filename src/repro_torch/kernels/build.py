@@ -28,7 +28,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 _FUSED_RNN_SRC = _PKG / "fused_rnn" / "csrc" / "fused_rnn_layer.cu"
 _FUSED_RNN_FNS = {
-    "fused_rnn_layer_launch": [_I, _I] + [_P] * 11 + [_I] * 9 + [_P],
+    "fused_rnn_layer_launch": [_I, _I] + [_P] * 11 + [_I] * 10 + [_P],
     "fused_rnn_stack_layer_launch": [_I, _I] + [_P] * 11 + [_I] * 4 + [_F, _I, _I, _P],
     "fused_rnn_info": [_I] * 12 + [_P],
     "fused_rnn_cluster_slots": [_P],

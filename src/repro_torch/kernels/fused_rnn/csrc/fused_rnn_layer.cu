@@ -204,7 +204,8 @@ struct Args {
   const void* b3;       // (3, H)
   const void* c0;       // (B, H)
   const void* tail0;    // (B, d) u_{-1} for QRNN (stack: already normed)
-  const void* skip;     // (T, B, H) highway input (skip_mode 1, layer mode)
+  const void* skip;     // (T, B, H) highway input (skip_mode 1, layer mode): u itself
+                        // when d == H, a shard's own lane slice of u otherwise
   const void* wskip;    // (d, H) highway projection (skip_mode 2)
   const void* ln_g;     // (d,) pre-norm gain (stack mode)
   void* h_out;          // (T, B, H) io dtype (layer mode)
@@ -217,7 +218,9 @@ struct Args {
   int ng;               // gate columns per lane: 3, or 4 with the skip projection
   int rg, ks, bk;       // GEMM thread split: row groups x k-splits (rg * ks = 32), k tile
   int xhat_tanh, skip_mode, prenorm;
-  int nb;               // scale blocks, ceil(H / kScaleBlock) (int8 slabs)
+  int nb;               // scale blocks, ceil((scale_lane0 + H) / kScaleBlock) (int8 slabs)
+  int scale_lane0;      // lane 0's place in wscale's block numbering (a shard's offset
+                        // into its first block; 0 for a whole layer)
   float eps;
   // Tensor-core body only (from the wrapper's plan; see Geo below).
   int cluster;          // CTAs per cluster, splitting K: 1, 2, 4 or 8
@@ -306,7 +309,8 @@ __device__ __forceinline__ Seg u_segment(const Args& a, const float* rs, int t0,
 }
 
 // NG: gate columns per lane, 3 (x_hat, f, r) or 4 (+ the skip projection).
-// TW: the gate slabs' type, TIO or int8_t (then a.wscale holds the scales).
+// TW: the gate slabs' type, TIO or int8_t (then a.wscale holds the scales), or
+// bf16 under float IO.
 template <typename TIO, typename TW, int NG>
 __global__ void __launch_bounds__(kThreads) fused_rnn_layer_kernel(Args a) {
   constexpr bool kInt8 = std::is_same<TW, int8_t>::value;
@@ -435,8 +439,9 @@ __global__ void __launch_bounds__(kThreads) fused_rnn_layer_kernel(Args a) {
           float v[8];
           if (kInt8 && seg % NG != 3) {
             unpack8_i8(rw[q], v);
-          } else {
-            unpack8(rw[q], std::is_same<TIO, float>::value, v);
+          } else {  // the skip projection in the IO dtype, the gate slabs in theirs
+            unpack8(rw[q], seg % NG == 3 ? std::is_same<TIO, float>::value
+                                         : std::is_same<TW, float>::value, v);
           }
           float* dst = w_s + (seg / NG) * kWStride + seg % NG;
 #pragma unroll
@@ -475,7 +480,7 @@ __global__ void __launch_bounds__(kThreads) fused_rnn_layer_kernel(Args a) {
         for (int g = 0; g < NG; ++g) z[g] += red[(sp * rows_p + row) * NC + g * kLanes + q];
       }
       if (kInt8) {  // dequantize the whole sum, then the bias
-        const float* sc = a.wscale + lane / kScaleBlock;
+        const float* sc = a.wscale + (a.scale_lane0 + lane) / kScaleBlock;
 #pragma unroll
         for (int g = 0; g < 3; ++g) z[g] *= __ldg(sc + g * a.nb);
       }
@@ -1044,7 +1049,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int gate = p >> lne, lane = j0 + e0 + (p & (g.ne - 1));
     float v = 0.0f;
     if (lane < H && gate < 3) v = to_f(static_cast<const bf16*>(a.b3)[gate * H + lane]);
-    if (lane < H && gate >= 3 && kInt8) v = __ldg(a.wscale + (gate - 3) * a.nb + lane / kScaleBlock);
+    if (lane < H && gate >= 3 && kInt8) {
+      v = __ldg(a.wscale + (gate - 3) * a.nb + (a.scale_lane0 + lane) / kScaleBlock);
+    }
     eb[p] = v;
   }
   if (kStack) {
@@ -1080,10 +1087,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (kStack || a.skip_mode == 1) {
       for (int p = tid; p < M * g.ne; p += kThreads) {
         const int lane = j0 + e0 + (p & (g.ne - 1));
-        const size_t off = static_cast<size_t>(t0 * B + (p >> lne)) * d + lane;  // d == H here
+        const size_t off = static_cast<size_t>(t0 * B + (p >> lne)) * H + lane;  // stack: d == H
         xl[p] = lane >= H ? 0.0f
                           : kStack ? static_cast<const float*>(a.u)[off]
-                                   : to_f(static_cast<const bf16*>(a.u)[off]);
+                                   : to_f(static_cast<const bf16*>(a.skip)[off]);
       }
     }
     if constexpr (kStack) {
@@ -1418,7 +1425,8 @@ int launch_bf16(const Args& a, cudaStream_t s, int* info) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (activations, biases, carries, w_skip);
-// wdtype: the gate slabs', the same code, or 2 = int8 with fp32 scales.
+// wdtype: the gate slabs', the same code, 2 = int8 with fp32 scales, or 1
+// (bf16 slabs) under float32 IO, widened exactly as they load.
 // float32 runs the CUDA-core body, bfloat16 the tensor-core one. The source
 // is built twice (kernels/build.py), so that the two nvcc runs go in
 // parallel: plain for the fp weight instances, with -DFUSED_RNN_INT8 for the
@@ -1430,12 +1438,13 @@ int dispatch(int dtype, int wdtype, Args a, void* stream, int* info) {
 #ifdef FUSED_RNN_INT8
   if (wdtype == 2) {
     if (a.wscale == nullptr && info == nullptr) return -1;
-    a.nb = (a.H + kScaleBlock - 1) / kScaleBlock;
+    a.nb = (a.scale_lane0 + a.H + kScaleBlock - 1) / kScaleBlock;
     if (dtype == 0 && info == nullptr) return launch_ng<float, int8_t>(a, s);
     if (dtype == 1) return launch_bf16<int8_t>(a, s, info);
   }
 #else
   if (dtype == 0 && wdtype == 0 && info == nullptr) return launch_ng<float, float>(a, s);
+  if (dtype == 0 && wdtype == 1 && info == nullptr) return launch_ng<float, bf16>(a, s);
   if (dtype == 1 && wdtype == 1) return launch_bf16<bf16>(a, s, info);
 #endif
   return -2;
@@ -1444,7 +1453,8 @@ int dispatch(int dtype, int wdtype, Args a, void* stream, int* info) {
 Args layer_args(const void* u, const void* w3, const void* w3_prev, const float* wscale,
                 const void* b3, const void* c0, const void* tail0, const void* skip,
                 const void* wskip, void* h_out, void* c_last, int T, int B, int d, int H,
-                int block_t, int xhat_tanh, int skip_mode, int cluster, int k_tile) {
+                int block_t, int xhat_tanh, int skip_mode, int cluster, int k_tile,
+                int scale_lane0) {
   Args a{};
   a.u = u; a.w3 = w3; a.w3_prev = w3_prev; a.wscale = wscale; a.b3 = b3; a.c0 = c0;
   a.tail0 = tail0;
@@ -1455,6 +1465,7 @@ Args layer_args(const void* u, const void* w3, const void* w3_prev, const float*
   a.ng = skip_mode == 2 ? 4 : 3;
   a.xhat_tanh = xhat_tanh; a.skip_mode = skip_mode; a.prenorm = 0; a.eps = 0.0f;
   a.cluster = cluster; a.k_tile = k_tile;
+  a.scale_lane0 = scale_lane0;
   return a;
 }
 
@@ -1480,9 +1491,15 @@ Args stack_args(const float* x, const void* w3, const void* w3_prev, const float
 extern "C" {
 
 // One SRU/QRNN layer (fused_rnn_pallas). dtype: 0 = float32, 1 = bfloat16
-// for every tensor but the gate slabs; wdtype: the slabs' (dtype, or 2 =
-// int8 with the (3, nb) fp32 wscale, kScaleBlock lanes per scale).
-// skip_mode: 0 none (QRNN), 1 input, 2 projection.
+// for every tensor but the gate slabs; wdtype: the slabs' (dtype, 2 = int8
+// with the (3, nb) fp32 wscale, kScaleBlock lanes per scale, or 1 = bfloat16
+// under float32 IO).
+// skip_mode: 0 none (QRNN), 1 input (skip: (T, B, H), u itself when d == H),
+// 2 projection.
+// scale_lane0: lane 0's place in wscale's block numbering, where the layer is
+// a shard of a wider one whose lanes start inside a scale block (< kScaleBlock;
+// wscale then holds the shard's blocks, ceil((scale_lane0 + H) / kScaleBlock)
+// of them a gate).
 // w3_prev / tail0 non-null selects the QRNN shifted-input contraction.
 // cluster / k_tile: the wrapper's plan for the bf16 instances (read by them
 // only; -3 when this shape cannot take it).
@@ -1492,9 +1509,11 @@ int fused_rnn_layer_launch(int dtype, int wdtype, const void* u, const void* w3,
                            const void* c0, const void* tail0, const void* skip,
                            const void* wskip, void* h_out, void* c_last, int T, int B, int d,
                            int H, int block_t, int xhat_tanh, int skip_mode, int cluster,
-                           int k_tile, void* stream) {
+                           int k_tile, int scale_lane0, void* stream) {
+  if (scale_lane0 < 0 || scale_lane0 >= kScaleBlock) return -1;
   const Args a = layer_args(u, w3, w3_prev, wscale, b3, c0, tail0, skip, wskip, h_out, c_last,
-                            T, B, d, H, block_t, xhat_tanh, skip_mode, cluster, k_tile);
+                            T, B, d, H, block_t, xhat_tanh, skip_mode, cluster, k_tile,
+                            scale_lane0);
   return dispatch(dtype, wdtype, a, stream, nullptr);
 }
 
@@ -1530,7 +1549,7 @@ int fused_rnn_info(int dtype, int wdtype, int ng, int stack, int taps, int T, in
                        : layer_args(nullptr, nullptr, tap2, nullptr, nullptr, nullptr, nullptr,
                                     nullptr, nullptr, nullptr, nullptr, T, B, d, H, block_t,
                                     taps == 2, ng == 4 ? 2 : (taps == 2 ? 0 : 1), cluster,
-                                    k_tile);
+                                    k_tile, 0);
   return dispatch(dtype, wdtype, a, nullptr, info);
 }
 

@@ -7,7 +7,9 @@ nonlinearities, the recurrence on an fp32 carry across all time chunks, and
 the highway output, so gate activations never reach device memory. Modes
 select the highway term as in the JAX kernel:
 
-  * ``sru_identity`` — skip is the layer input (d == H);
+  * ``sru_identity`` — skip is the layer input (d == H), or the explicit
+                       ``skip`` (T, B, H): a model shard's own lane slice of
+                       the input, whose width d is the whole layer's;
   * ``sru_proj``     — skip is ``u @ wskip``, computed in the kernel;
   * ``qrnn``         — no skip term, tanh on x_hat. The width-2 conv is the
                        shifted-input GEMM ``[u_t ; u_{t-1}] . [w0 ; w1]``; the
@@ -18,13 +20,18 @@ Int8 gate slabs (``scale`` given): the taps are int8 and ``scale`` is the
 compact fp32 ``(3, nb)`` ``wq_scale`` of ``layout.quantize_slabs``, shared by
 QRNN's two taps. The kernel widens each int8 weight exactly and multiplies
 the scale in after the gate GEMM's fp32 accumulate, before the bias.
-``wskip`` stays fp and unscaled.
+``wskip`` stays fp and unscaled. A model shard of a wider layer passes its
+first scale block onwards and ``scale_lane0``, the offset of its lane 0 in
+that block: lane j takes block ``(scale_lane0 + j) // 128``, so a shard may
+start inside a block (H = 1000 over 8 shards: 125 lanes each).
 
 bf16 input runs the kernel's tensor-core body: each CTA keeps its slice of
 the slabs resident in shared memory, a thread block cluster splits the
 contraction, and the gate GEMM runs on ``mma.sync``. :func:`plan` sizes it
 (lanes per CTA, cluster, input tile) and :func:`instance_info` reports the
-instance as the card sees it. fp32 input runs the CUDA-core body.
+instance as the card sees it. fp32 input runs the CUDA-core body, with fp32,
+int8 or bf16 slabs (:func:`slab_dtype`; the biases, carry, skip and output
+stay fp32).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 version (``ref.py``). ``LAUNCHES`` counts launches of the fp instances,
@@ -219,8 +226,20 @@ def weight_dtype(scale, io_code: int) -> int:
     return io_code if scale is None else INT8_CODE
 
 
+def slab_dtype(u: torch.Tensor, taps, scale) -> torch.dtype:
+    """The gate slabs' dtype a layer launch takes: int8 with scales, bf16
+    under fp32 ``u`` when the slabs are bf16 (the CUDA-core body widens them
+    as it loads: the sharded stack's layers under bf16 compute run so, on an
+    fp32 stream), else ``u``'s."""
+    if scale is not None:
+        return torch.int8
+    if u.dtype == torch.float32 and taps[0].dtype == torch.bfloat16:
+        return torch.bfloat16
+    return u.dtype
+
+
 def fused_rnn_layer_plain(u, taps, b3, c0, *, mode, tail=None, wskip=None, block_t=128,
-                          scale=None, scan=_scan):
+                          scale=None, skip=None, scale_lane0=0, scan=_scan):
     """The plain version of :func:`fused_rnn_layer` (same arguments; ``scan``:
     the recurrence, ``ref.py``)."""
     if mode == "qrnn":
@@ -228,9 +247,9 @@ def fused_rnn_layer_plain(u, taps, b3, c0, *, mode, tail=None, wskip=None, block
     else:
         w3 = taps[0]
     if scale is None:
-        return fused_rnn_ref(u, w3, b3, wskip, c0, mode=mode, scan=scan)
-    s3 = layout.expand_scales(scale, w3.shape[-1])
-    return fused_rnn_ref_q(u, w3, s3, b3, wskip, c0, mode=mode, scan=scan)
+        return fused_rnn_ref(u, w3, b3, wskip, c0, mode=mode, skip=skip, scan=scan)
+    s3 = layout.expand_scales(scale, scale_lane0 + w3.shape[-1])[:, scale_lane0:]
+    return fused_rnn_ref_q(u, w3, s3, b3, wskip, c0, mode=mode, skip=skip, scan=scan)
 
 
 def fused_rnn_layer(
@@ -244,11 +263,14 @@ def fused_rnn_layer(
     wskip: Optional[torch.Tensor] = None,  # (d, H) highway projection (sru_proj)
     block_t: int = 128,            # time steps per kernel chunk
     scale: Optional[torch.Tensor] = None,  # (3, nb) fp32: the taps are int8
+    skip: Optional[torch.Tensor] = None,   # (T, B, H) sru_identity's skip (None: u)
+    scale_lane0: int = 0,          # lane 0's offset into scale's first block
 ):
     """Returns ``(h, c_last)``: (T, B, H), (B, H) in ``u``'s dtype."""
     if u.device.type == "cpu":
         return fused_rnn_layer_plain(
-            u, taps, b3, c0, mode=mode, tail=tail, wskip=wskip, block_t=block_t, scale=scale
+            u, taps, b3, c0, mode=mode, tail=tail, wskip=wskip, block_t=block_t, scale=scale,
+            skip=skip, scale_lane0=scale_lane0,
         )
     global LAUNCHES, LAUNCHES_INT8
     T, B, d = u.shape
@@ -259,15 +281,23 @@ def fused_rnn_layer(
     if len(taps) != (2 if mode == "qrnn" else 1):
         raise ValueError(f"mode {mode!r} takes {2 if mode == 'qrnn' else 1} slab(s)")
     check_operand(u, "u", (T, B, d), u)
-    w_dtype = u.dtype if scale is None else torch.int8
+    w_dtype = slab_dtype(u, taps, scale)
     for i, w in enumerate(taps):
         check_operand(w, f"taps[{i}]", (d, 3, H), u, dtype=w_dtype)
     if scale is not None:
-        check_operand(scale, "scale", (3, layout.n_scale_blocks(H)), u, dtype=torch.float32)
+        if not 0 <= scale_lane0 < layout.SCALE_BLOCK:
+            raise ValueError(f"scale_lane0 {scale_lane0} outside [0, {layout.SCALE_BLOCK})")
+        check_operand(scale, "scale", (3, layout.n_scale_blocks(scale_lane0 + H)), u,
+                      dtype=torch.float32)
     check_operand(b3, "b3", (3, H), u)
     check_operand(c0, "c0", (B, H), u)
-    if mode == "sru_identity" and d != H:
-        raise ValueError(f"sru_identity needs d == H, got d={d}, H={H}")
+    if mode == "sru_identity":
+        if skip is None and d != H:
+            raise ValueError(f"sru_identity needs d == H or a skip, got d={d}, H={H}")
+        skip = u if skip is None else skip
+        check_operand(skip, "skip", (T, B, H), u)
+    elif skip is not None:
+        raise ValueError(f"mode {mode!r} takes no skip")
     if mode == "sru_proj":
         check_operand(wskip, "wskip", (d, H), u)
     if mode == "qrnn":
@@ -284,16 +314,17 @@ def fused_rnn_layer(
     lib = build.library("fused_rnn_layer" if scale is None else "fused_rnn_layer_int8")
     with torch.cuda.device(u.device):
         rc = lib.fused_rnn_layer_launch(
-            code, weight_dtype(scale, code), u.data_ptr(), taps[0].data_ptr(),
+            code, INT8_CODE if scale is not None else DTYPE_CODES[w_dtype], u.data_ptr(),
+            taps[0].data_ptr(),
             taps[1].data_ptr() if mode == "qrnn" else None,
             None if scale is None else scale.data_ptr(),
             b3.data_ptr(), c0.data_ptr(),
             tail.data_ptr() if mode == "qrnn" else None,
-            u.data_ptr() if mode == "sru_identity" else None,
+            skip.data_ptr() if mode == "sru_identity" else None,
             wskip.data_ptr() if mode == "sru_proj" else None,
             h.data_ptr(), c_last.data_ptr(),
             T, B, d, H, block_t, int(mode == "qrnn"), _SKIP_MODES[mode], cluster, k_tile,
-            torch.cuda.current_stream(u.device).cuda_stream,
+            scale_lane0, torch.cuda.current_stream(u.device).cuda_stream,
         )
     build.check(rc, "fused_rnn_layer")
     if scale is None:

@@ -38,14 +38,17 @@ from repro_torch.kernels.fused_rnn.fused_rnn import fused_rnn_layer, fused_rnn_l
 from repro_torch.kernels.linear_scan import ops as linear_scan_ops
 
 
-def run_layer(u, taps, b3, c0, *, mode, tail=None, wskip=None, block_t=128, scale=None):
+def run_layer(u, taps, b3, c0, *, mode, tail=None, wskip=None, block_t=128, scale=None,
+              skip=None, scale_lane0=0):
     """Dispatch one layer (the port of ``run_padded_layer`` and
     ``run_padded_layer_q``). The kernel masks the ragged lane edge, so
     nothing is padded or sliced here; the time block is the largest divisor
-    of T that is at most ``block_t``, as on the TPU."""
+    of T that is at most ``block_t``, as on the TPU. ``skip`` and
+    ``scale_lane0``: a model shard's operands (``fused_rnn_layer``)."""
     bt = largest_divisor_leq(u.shape[0], block_t)
     return fused_rnn_layer(
-        u, taps, b3, c0, mode=mode, tail=tail, wskip=wskip, block_t=bt, scale=scale
+        u, taps, b3, c0, mode=mode, tail=tail, wskip=wskip, block_t=bt, scale=scale,
+        skip=skip, scale_lane0=scale_lane0,
     )
 
 

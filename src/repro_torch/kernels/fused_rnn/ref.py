@@ -40,23 +40,24 @@ def _gates(uf, w3, s3, b3):
     return z + b3.float()
 
 
-def fused_rnn_ref(u, w3, b3, wskip, c0, *, mode: str, scan=_scan):
+def fused_rnn_ref(u, w3, b3, wskip, c0, *, mode: str, skip=None, scan=_scan):
     """u: (T, B, d); w3: (d, 3, H); b3: (3, H); c0: (B, H).
 
-    mode: ``sru_identity`` (skip = u, needs d == H), ``sru_proj``
+    mode: ``sru_identity`` (skip = u, needs d == H, or the given ``skip``
+    (T, B, H), a model shard's lane slice of u), ``sru_proj``
     (skip = u @ wskip), ``qrnn`` (tanh on x_hat, no skip term).
     Returns (h, c_last): (T, B, H), (B, H) in u's dtype.
     """
-    return _layer(u, w3, None, b3, wskip, c0, mode, scan)
+    return _layer(u, w3, None, b3, wskip, c0, mode, skip, scan)
 
 
-def fused_rnn_ref_q(u, wq, s3, b3, wskip, c0, *, mode: str, scan=_scan):
+def fused_rnn_ref_q(u, wq, s3, b3, wskip, c0, *, mode: str, skip=None, scan=_scan):
     """Int8 twin of :func:`fused_rnn_ref`. ``wq``: int8 (d, 3, H); ``s3``:
     fp32 per-lane scales (3, H). ``wskip`` stays fp and is not scaled."""
-    return _layer(u, wq, s3, b3, wskip, c0, mode, scan)
+    return _layer(u, wq, s3, b3, wskip, c0, mode, skip, scan)
 
 
-def _layer(u, w3, s3, b3, wskip, c0, mode, scan):
+def _layer(u, w3, s3, b3, wskip, c0, mode, skip, scan):
     uf = u.float()
     z = _gates(uf, w3, s3, b3)
     x_hat = z[..., 0, :]
@@ -65,7 +66,7 @@ def _layer(u, w3, s3, b3, wskip, c0, mode, scan):
     f = torch.sigmoid(z[..., 1, :])
     r = torch.sigmoid(z[..., 2, :])
     if mode == "sru_identity":
-        skip = uf
+        skip = uf if skip is None else skip.float()
     elif mode == "sru_proj":
         skip = uf @ wskip.float()
     else:

@@ -51,14 +51,42 @@ JAX.
 
 ``--engine`` overrides ``cfg.scan_engine`` with any of the six engines of
 the JAX ``launch/serve.py`` (``ENGINE_MATRIX``); an unknown one exits with
-the list (``validate_engine``, the engine and int8 checks of the JAX
-``validate_engine_mesh`` without its mesh parts). LSTM, the attention LMs
-and Mamba-2 do not consult the engine. ``--weight-quant int8`` overrides
+the list (``validate_engine_mesh``, JAX's checks and messages). LSTM, the
+attention LMs and Mamba-2 do not consult the engine. ``--weight-quant int8`` overrides
 ``cfg.weight_quant`` (the ``*-int8`` configs carry it): the SRU/QRNN gate
 slabs are quantized at init and served through the int8 forms of the fused
 kernels, on ``fused``/``fused_stack`` only; it leaves every other leaf (all
 of an attention LM) as it is, as in JAX. A config's ``ring_overlap`` changes
 nothing on one device.
+
+Multi-GPU serving of the fused RNN path: ``--model-shards N`` serves on a
+(data, model) mesh of ranks over ``torch.distributed`` (``launch/mesh.py``),
+one rank per shard. Each rank holds its lane shard of the RNN gate slabs,
+biases and carries at rest and runs the fused kernel (B1) over them
+(``distribution/fused_sharded.py``); ``--ring-overlap`` (or a config's
+``ring_overlap``) runs the sharded stack's ring schedule. What JAX shards
+through GSPMD (embedding, head, norms, attention, MLP and Mamba leaves, the
+XLA engines' slabs) is held whole on every model rank and computed the
+same; the startup line lists, in ``sharding.describe_replications``'s form,
+the large dims that this rank's layout replicates. Without an initialised process group
+the command starts its ranks itself (``torch.multiprocessing``, a
+``file://`` rendezvous in a temporary directory): under NCCL (the default on
+the card) one per card, ``--model-shards`` of them per data group, as JAX
+spreads its devices; under gloo (``--device cpu``, or ``--dist-backend
+gloo`` where ranks share a card) ``--model-shards`` ranks. Started under
+``torchrun`` (a process group initialised) it joins, and the ranks beyond
+one model group form the data axis. Rank 0 prints the mesh, the backend,
+the replicated dims, each model rank's bytes of gate slabs and the
+``serve-stats`` line. The sharded steps run eagerly (``graphs: false``):
+gloo cannot be captured. Batch mode only: ``--mode continuous`` under a
+mesh, CUDA graphs of the NCCL steps and tensor parallelism of the leaves
+held whole wait for ROADMAP §A7.2.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-large-stacked \
+        --reduced --device cpu --model-shards 2 [--ring-overlap]
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-large-stacked \
+        --model-shards 2 --dist-backend gloo   # two ranks sharing one card
 On the card every step runs as a CUDA graph, as the JAX ``launch/serve.py``
 runs each step as one jitted executable (batch: ``capture_batch_steps``;
 continuous: ``Scheduler.warmup``; the capture's time is ``capture_ms``);
@@ -84,8 +112,7 @@ the trace. ``tools/trace_check.py`` validates the trace and the rows:
     python tools/trace_check.py /tmp/t.json --metrics-jsonl /tmp/m.jsonl \
         --expect-phase decode --expect-phase fetch --expect-phase retire
 
-The mesh flags of the JAX ``launch/serve.py`` wait for a later slice
-(ROADMAP §A7). Besides the human-readable lines, a batch run prints one
+Besides the human-readable lines, a batch run prints one
 ``serve-stats {json}`` line and a continuous run one ``continuous-stats
 {json}`` line: timings, whether the steps ran as graphs, whether the caches
 kept their storage, the card's peak memory (``peak_mem_gb``, null on the
@@ -98,12 +125,20 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
+import shutil
+import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import get_config
+from repro_torch.distribution import fused_sharded, sharding
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import lm
 from repro_torch.models.layers import _dtype, resolve_device
 from repro_torch.observability import Telemetry, torch_profile, write_prometheus
@@ -112,16 +147,24 @@ from repro_torch.serving import (Scheduler, headline_poisson_trace, poisson_trac
                                  shared_prefix_trace)
 from repro_torch.training import graphs as step_graphs
 from repro_torch.training.steps import build_decode_step, build_prefill_step
+from repro_torch.tree import flatten_with_paths, tree_map
 
-# How each engine runs an SRU/QRNN layer on the card; its keys are the engines.
+# How each engine runs an SRU/QRNN layer on the card, and under a "model"
+# mesh axis; its keys are the engines.
 ENGINE_MATRIX = {
-    "sequential": "plain PyTorch; gate GEMM, then a step-by-step recurrence",
+    "sequential": "plain PyTorch; gate GEMM, then a step-by-step recurrence; "
+                  "held whole on every rank under a model axis",
     "chunked": "plain PyTorch; gate GEMM, then the MTS schedule (associative "
-               "inside blocks of mts_block_size)",
-    "associative": "plain PyTorch; gate GEMM, then a log-depth prefix scan",
-    "pallas": "gate GEMM, then the linear-scan CUDA kernel (B3)",
-    "fused": "the whole-layer CUDA kernel (B1), one launch per layer",
-    "fused_stack": "the depth-fused stack (B2; d_model == hidden)",
+               "inside blocks of mts_block_size); held whole under a model axis",
+    "associative": "plain PyTorch; gate GEMM, then a log-depth prefix scan; "
+                   "held whole under a model axis",
+    "pallas": "gate GEMM, then the linear-scan CUDA kernel (B3); not under a "
+              "model axis",
+    "fused": "the whole-layer CUDA kernel (B1), one launch per layer; per rank "
+             "over its H / model_shards lanes (requires rnn_hidden % "
+             "model_shards == 0)",
+    "fused_stack": "the depth-fused stack (B2; d_model == hidden); under a model "
+                   "axis per layer on B1 + gather, or the ring with --ring-overlap",
 }
 ENGINES = tuple(ENGINE_MATRIX)
 
@@ -131,16 +174,48 @@ def _matrix_lines() -> str:
     return f"supported engines:\n{rows}"
 
 
-def validate_engine(cfg) -> None:
-    """Fail fast on an engine the port does not serve, naming the engines,
-    and on int8 gate slabs where no kernel dequantizes them (LSTM, and every
+def validate_engine_mesh(cfg, model_shards: int, ring_overlap: bool, *, batch: int = None,
+                         data_shards: int = None) -> None:
+    """Fail fast, with JAX's messages, on an unserveable --engine /
+    --model-shards / --batch: an unknown engine (naming the engines), an
+    engine that cannot use the model axis, an indivisible hidden width, a
+    ring without a sharded stack, a batch the data axis does not divide,
+    and int8 gate slabs where no kernel dequantizes them (LSTM, and every
     engine but ``fused``/``fused_stack``)."""
+    if batch is not None and data_shards is not None and data_shards > 1:
+        if batch % data_shards:
+            raise SystemExit(
+                f"serve: --batch {batch} does not divide over the data axis "
+                f"of the mesh {{'data': {data_shards}, 'model': "
+                f"{model_shards}}}: batch lanes are the data-axis slots, so "
+                f"an indivisible batch either replicates every lane on every "
+                f"data device or dies as a GSPMD shape error deep in the "
+                f"prefill step. Pick a multiple of {data_shards} (or change "
+                f"--model-shards so the leftover device count divides it)."
+            )
     engine = cfg.scan_engine
     if engine not in ENGINES:
         raise SystemExit(
             f"serve: unknown engine {engine!r} (from --engine or the "
             f"{cfg.name!r} config)\n{_matrix_lines()}"
         )
+    is_rnn = cfg.cell in ("sru", "qrnn")
+    if model_shards > 1 and is_rnn:
+        if engine == "pallas":
+            raise SystemExit(
+                f"serve: engine 'pallas' cannot use --model-shards "
+                f"{model_shards}: the elementwise-scan kernel runs replicated "
+                f"under a model axis. Use an XLA engine (GSPMD TP) or "
+                f"fused/fused_stack (shard_map).\n{_matrix_lines()}"
+            )
+        if engine in ("fused", "fused_stack") and cfg.rnn_hidden % model_shards:
+            raise SystemExit(
+                f"serve: rnn_hidden={cfg.rnn_hidden} is not divisible by "
+                f"--model-shards {model_shards}: the fused shard_map path "
+                f"would silently fall back to the replicated kernel. Pick a "
+                f"divisor of {cfg.rnn_hidden} (or an XLA engine).\n"
+                f"{_matrix_lines()}"
+            )
     if cfg.weight_quant == "int8":
         if cfg.cell == "lstm":
             raise SystemExit(
@@ -156,6 +231,14 @@ def validate_engine(cfg) -> None:
                 f"INSIDE the fused kernels (after the gate GEMM accumulate); "
                 f"the XLA engines would need fp slabs.\n{_matrix_lines()}"
             )
+    # Only the explicit flag is validated: a config's ring_overlap (the
+    # *-stacked-ring archs) changes nothing on one device.
+    if ring_overlap and (engine != "fused_stack" or model_shards <= 1):
+        raise SystemExit(
+            "serve: --ring-overlap applies only to engine 'fused_stack' with "
+            "--model-shards > 1 (it schedules the sharded stack's inter-layer "
+            f"gathers; there is nothing to overlap otherwise).\n{_matrix_lines()}"
+        )
 
 
 def _sync(device: torch.device) -> None:
@@ -207,19 +290,25 @@ def capture_batch_steps(cfg, prefill_step, decode_step, params, inputs):
     return prefill, decode
 
 
-def run_batch(cfg, params, args, device: torch.device, graphs: bool = True) -> dict:
+def run_batch(cfg, params, args, device: torch.device, graphs: bool = True,
+              mesh=None) -> dict:
     """The lockstep path: one prefill, ``gen_len - 1`` decode steps. On a
     CUDA device with ``graphs`` both steps run as CUDA graph replays,
     captured before the timed region (``capture_batch_steps``); otherwise,
-    and always on the CPU, the eager steps run. The greedy argmax runs
-    outside the steps, as outside the jit in JAX. Returns the timings,
+    and always on the CPU or under a ``mesh``, the eager steps run. Under a
+    mesh ``params`` are this rank's shards, each rank takes its rows of the
+    prompt, and the tokens are gathered over the data axis. The greedy argmax
+    runs outside the steps, as outside the jit in JAX. Returns the timings,
     whether the caches kept their storage, and the generated tokens."""
     max_len = args.prompt_len + args.gen_len
-    prefill = build_prefill_step(cfg, batch=args.batch, max_len=max_len, device=device)
-    decode = build_decode_step(cfg)
+    prefill = build_prefill_step(cfg, mesh, batch=args.batch, max_len=max_len, device=device)
+    decode = build_decode_step(cfg, mesh)
     inputs = prompt_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
+    if mesh is not None:
+        inputs = tree_map(lambda x, spec: sharding.local_shard(x, spec, mesh), inputs,
+                          sharding.batch_specs(inputs, mesh))
 
-    captured = graphs and device.type == "cuda"
+    captured = graphs and device.type == "cuda" and mesh is None
     capture_ms = None
     if captured:
         _sync(device)
@@ -244,7 +333,10 @@ def run_batch(cfg, params, args, device: torch.device, graphs: bool = True) -> d
         out_tokens.append(tok)
     _sync(device)
     t_decode = time.perf_counter() - t0
-    tokens = torch.cat(out_tokens, dim=1).cpu()
+    tokens = torch.cat(out_tokens, dim=1)
+    if mesh is not None and fused_sharded._batch_spec(mesh, args.batch) is not None:
+        tokens = mesh.axis("data").all_gather(tokens.T).T  # the data ranks' rows, in order
+    tokens = tokens.cpu()
     n_dec = args.gen_len - 1
     return {
         "arch": cfg.name,
@@ -532,6 +624,22 @@ def parse_args(argv=None) -> argparse.Namespace:
              "card's kernels on a CUDA device) into DIR with tick-phase "
              "record_function/NVTX ranges on every step dispatch",
     )
+    ap.add_argument(
+        "--model-shards", type=int, default=1,
+        help="size of the \"model\" mesh axis (default 1 = one device); the "
+             "ranks beyond one model group form the \"data\" axis for batch DP",
+    )
+    ap.add_argument(
+        "--ring-overlap", action="store_true",
+        help="sharded fused_stack only: ring schedule that overlaps each "
+             "inter-layer gather with the next layer's gate GEMM",
+    )
+    ap.add_argument(
+        "--dist-backend", choices=("nccl", "gloo"), default=None,
+        help="torch.distributed backend of the mesh's ranks: nccl (default on "
+             "the card, one rank per card) or gloo (--device cpu, or ranks "
+             "sharing a card, only when asked for)",
+    )
     args = ap.parse_args(argv)
     if args.gen_len < 1 or args.prompt_len < 1 or args.batch < 1:
         ap.error("--batch, --prompt-len and --gen-len must be >= 1")
@@ -550,24 +658,192 @@ def parse_args(argv=None) -> argparse.Namespace:
         )
     if args.metrics_every < 1:
         ap.error("--metrics-every must be >= 1")
+    if args.model_shards < 1:
+        ap.error("--model-shards must be >= 1")
     return args
+
+
+def config_of(args):
+    """The config the flags select: ``--engine``, ``--ring-overlap`` and
+    ``--weight-quant`` over the registry's, then ``--reduced``."""
+    cfg = get_config(args.arch)
+    if args.engine:
+        cfg = cfg.with_(scan_engine=args.engine)
+    if args.ring_overlap:
+        cfg = cfg.with_(ring_overlap=True)
+    if args.weight_quant is not None:
+        # Quantize on load: lm_init quantizes the fresh gate slabs.
+        cfg = cfg.with_(weight_quant=args.weight_quant)
+    return cfg.reduced() if args.reduced else cfg
+
+
+# ---------------------------------------------------------------------------
+# Serving on a mesh of ranks
+# ---------------------------------------------------------------------------
+
+_SLAB = re.compile(r"(^|.*/)cell/(w|w0|w1|wq|w0q|w1q)$")
+_SHARED_CARD = ("serve: --model-shards {k} needs {k} cards under NCCL, one rank a card, "
+                "and {n} are here: ranks that share a card run over gloo, and only when "
+                "asked for with --dist-backend gloo")
+
+
+def slab_bytes(params) -> int:
+    """Bytes of the RNN gate slabs (fp or int8) in ``params``."""
+    return sum(t.numel() * t.element_size() for path, t in flatten_with_paths(params)
+               if _SLAB.match(path))
+
+
+def _refuse_mesh_flags(args) -> None:
+    if (args.model_shards > 1 or dist.is_initialized()) and args.mode == "continuous":
+        raise SystemExit(
+            "serve: --mode continuous with --model-shards > 1 is not served yet: the "
+            "slot-multiplexed steps under a mesh wait for ROADMAP §A7.2; serve batch mode "
+            "on the mesh, or continuous mode on one device")
+
+
+def _backend(args, device: torch.device) -> str:
+    backend = args.dist_backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend == "nccl" and device.type == "cpu":
+        raise SystemExit("serve: --dist-backend nccl runs on the card; --device cpu serves "
+                         "over gloo")
+    return backend
+
+
+def _spawned_world(args, backend: str) -> int:
+    """How many ranks serve starts: under NCCL one per card (the model axis
+    must divide them, as JAX's device count), else ``--model-shards``."""
+    k = args.model_shards
+    if backend != "nccl":
+        return k
+    n = torch.cuda.device_count()
+    if k > n:
+        raise SystemExit(_SHARED_CARD.format(k=k, n=n))
+    if n % k:
+        raise SystemExit(f"serve: --model-shards {k} must divide the device count ({n})")
+    return n
+
+
+def _rank_device(args, backend: str) -> torch.device:
+    """This rank's device: the CPU, or under NCCL its own card (refused when
+    the host's ranks outnumber its cards), under gloo cards in turn."""
+    if args.device == "cpu":
+        return torch.device("cpu")
+    resolve_device("cuda")
+    n = torch.cuda.device_count()
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    if backend == "nccl" and int(os.environ.get("LOCAL_WORLD_SIZE", dist.get_world_size())) > n:
+        raise SystemExit(_SHARED_CARD.format(k=args.model_shards, n=n))
+    device = torch.device("cuda", local % n)
+    torch.cuda.set_device(device)
+    return device
+
+
+def _rank_main(rank: int, world: int, backend: str, init_method: str, argv, cpu: bool) -> None:
+    """A rank that ``main`` started: joins the process group, serves
+    (``main`` sees the group and runs ``serve_mesh``), leaves it."""
+    if cpu:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    elif backend == "nccl":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
+    try:
+        rc = main(argv)
+    finally:
+        dist.destroy_process_group()
+    if rc:
+        raise SystemExit(rc)
+
+
+def _spawn(argv, cfg, args) -> int:
+    """Start the mesh's ranks (``torch.multiprocessing``, a ``file://``
+    rendezvous in a temporary directory, so concurrent runs never share a
+    port) and wait for them."""
+    device = resolve_device(args.device)
+    backend = _backend(args, device)
+    world = _spawned_world(args, backend)
+    validate_engine_mesh(cfg, args.model_shards, args.ring_overlap, batch=args.batch,
+                         data_shards=world // args.model_shards)
+    rdv = tempfile.mkdtemp(prefix="serve-rdv-")
+    try:
+        torch.multiprocessing.spawn(
+            _rank_main, nprocs=world,
+            args=(world, backend, f"file://{rdv}/store", argv, device.type == "cpu"))
+    finally:
+        shutil.rmtree(rdv, ignore_errors=True)
+    return 0
+
+
+def shard_params(cfg, params, mesh):
+    """This rank's shards of the whole ``params`` (``rank_specs``) and the
+    dims above 1024 they leave replicated (``describe_replications``)."""
+    rank = fused_sharded.rank_specs(cfg, fused_sharded.serving_param_specs(params, mesh), mesh)
+    return (tree_map(lambda x, spec: sharding.local_shard(x, spec, mesh), params, rank),
+            sharding.describe_replications(params, rank))
+
+
+def serve_mesh(cfg, args) -> dict:
+    """One rank of a batch-mode serve on the initialised process group: the
+    (data, model) mesh (``--model-shards`` ranks a model group), the params
+    made whole from ``--seed`` and sliced to this rank's shards at rest,
+    ``run_batch`` on them (eager), the tokens gathered. Rank 0 prints the
+    mesh, the backend, the replicated dims, each model rank's bytes of gate
+    slabs and the ``serve-stats`` line. Returns the stats on every rank."""
+    world, k, backend = dist.get_world_size(), args.model_shards, dist.get_backend()
+    if world % k:
+        raise SystemExit(f"serve: --model-shards {k} must divide the {world} ranks")
+    validate_engine_mesh(cfg, k, args.ring_overlap, batch=args.batch, data_shards=world // k)
+    device = _rank_device(args, backend)
+    mesh = make_local_mesh(k, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    params = lm.lm_init(torch.Generator(device=device).manual_seed(args.seed), cfg,
+                        device=device, dtype=_dtype(cfg.compute_dtype))
+    whole = slab_bytes(params)
+    params, replicated = shard_params(cfg, params, mesh)
+    _sync(device)
+    init_ms = (time.perf_counter() - t0) * 1e3
+    mine = torch.tensor([slab_bytes(params)], dtype=torch.int64, device=device)
+    per_rank = mesh.axis("model").all_gather(mine).tolist()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    stats = run_batch(cfg, params, args, device, graphs=False, mesh=mesh)
+    stats.update(init_ms=init_ms, mesh=mesh.shape, backend=backend, slab_bytes=per_rank,
+                 slab_bytes_whole=whole, replicated=replicated,
+                 peak_mem_gb=(torch.cuda.max_memory_allocated(device) / 1e9
+                              if device.type == "cuda" else None))
+    if dist.get_rank() == 0:
+        print(f"mesh: {mesh.shape}  engine: {cfg.scan_engine}")
+        print(mesh.describe())
+        print("replicated on every model rank: " + ("; ".join(replicated) or "nothing"))
+        print(f"gate slab bytes per model rank: {per_rank} of {whole}")
+        _print_batch(stats, args)
+    return stats
+
+
+def _print_batch(stats: dict, args) -> None:
+    print(f"prefill: {args.batch}x{args.prompt_len} in {stats['prefill_ms']:.1f}ms "
+          f"({stats['prefill_tok_s']:.0f} tok/s)")
+    print(f"decode:  {stats['decode_steps']} steps in {stats['decode_ms']:.1f}ms "
+          f"({stats['decode_tok_s']:.0f} tok/s)")
+    print("sample tokens:", stats["tokens"][0][:16])
+    print("serve-stats " + json.dumps(stats), flush=True)
 
 
 def main(argv=None, graphs: bool = True) -> int:
     """The command line; ``graphs=False`` serves with the eager steps on the
-    card too (``run_batch``, ``run_continuous``)."""
+    card too (``run_batch``, ``run_continuous``). With ``--model-shards``
+    above 1, or inside an initialised process group, it serves on a mesh of
+    ranks (``serve_mesh``), starting them itself where no group exists."""
     args = parse_args(argv)
-
-    cfg = get_config(args.arch)
-    if args.engine:
-        cfg = cfg.with_(scan_engine=args.engine)
-    if args.weight_quant is not None:
-        # Quantize on load: lm_init below quantizes the fresh gate slabs.
-        cfg = cfg.with_(weight_quant=args.weight_quant)
-    validate_engine(cfg)
+    cfg = config_of(args)
+    _refuse_mesh_flags(args)
+    if dist.is_initialized():
+        serve_mesh(cfg, args)
+        return 0
+    if args.model_shards > 1:
+        return _spawn(sys.argv[1:] if argv is None else list(argv), cfg, args)
+    validate_engine_mesh(cfg, 1, args.ring_overlap, batch=args.batch, data_shards=1)
     device = resolve_device(args.device)
-    if args.reduced:
-        cfg = cfg.reduced()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     _sync(device)
@@ -594,12 +870,7 @@ def main(argv=None, graphs: bool = True) -> int:
         _print_continuous(stats, args)
         print("continuous-stats " + json.dumps(stats))
         return 0
-    print(f"prefill: {args.batch}x{args.prompt_len} in {stats['prefill_ms']:.1f}ms "
-          f"({stats['prefill_tok_s']:.0f} tok/s)")
-    print(f"decode:  {stats['decode_steps']} steps in {stats['decode_ms']:.1f}ms "
-          f"({stats['decode_tok_s']:.0f} tok/s)")
-    print("sample tokens:", stats["tokens"][0][:16])
-    print("serve-stats " + json.dumps(stats))
+    _print_batch(stats, args)
     return 0
 
 

@@ -7,10 +7,14 @@ schedules (``cfg.moe_impl``):
   * ``sorted``    — sort-based capacity dispatch: assignments sorted stably by
                     expert, ranked, gathered into an (E, C, d) buffer per
                     sequence, the combine inverting the sort;
-  * ``shard_map`` — JAX's expert-parallel schedule. Without a mesh JAX runs
-                    ``sorted``, and so does the port: it runs on one device,
-                    and the expert-parallel form waits for the multi-GPU
-                    slice (ROADMAP.md §A7).
+  * ``shard_map`` — JAX's expert-parallel schedule (``_moe_shard_map``):
+                    under an active mesh whose model axis divides E, each
+                    model rank holds E / m experts, routes its tokens
+                    against the whole router, computes its own experts'
+                    assignments and adds its partial output to the others'
+                    with one ``all_reduce``. Without a mesh, with a model
+                    axis of 1 or an indivisible E it runs ``sorted``, as
+                    JAX's does.
 
 Capacity C = round_up_4(S * k * capacity_factor / E), at least 4, tokens per
 expert per sequence; overflow assignments are dropped, in JAX's order. The
@@ -26,6 +30,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution.sharding import activation_rules, suppress_hints
 from repro_torch.models.layers import dense_init
 
 
@@ -79,8 +84,10 @@ def moe_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
         return _moe_dense(params, cfg, x)
     if impl == "einsum":
         return _moe_einsum(params, cfg, x)
-    if impl in ("sorted", "shard_map"):  # shard_map: JAX's schedule without a mesh
+    if impl == "sorted":
         return _moe_sorted(params, cfg, x)
+    if impl == "shard_map":
+        return _moe_shard_map(params, cfg, x)
     raise ValueError(f"unknown moe_impl {impl!r}")
 
 
@@ -128,13 +135,21 @@ def _moe_einsum(params, cfg, x):
 
 def _moe_sorted(params, cfg, x):
     """Sort-based capacity dispatch (exact active FLOPs but for the dropped
-    and empty slots). JAX's scatters with ``mode="drop"`` write into a buffer
-    one slot wider here, whose last slot (the sentinel ``E*C``) is sliced
-    off."""
+    and empty slots)."""
+    w, ids, _ = _route(params, cfg, x)
+    return _dispatch_compute(params, cfg, x, w, ids)
+
+
+def _dispatch_compute(params, cfg, x, w, ids):
+    """Sort, capacity dispatch, expert GEMMs and combine, given the routing.
+    ``ids`` may hold the sentinel ``E``: those assignments sort last and are
+    dropped (the expert-parallel schedule's non-local assignments). JAX's
+    scatters with ``mode="drop"`` write into a buffer one slot wider here,
+    whose last slot (the sentinel slot ``E*C``, where every dropped
+    assignment goes) is sliced off."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity(cfg, S)
-    w, ids, _ = _route(params, cfg, x)
     dev = x.device
 
     A = S * k  # assignments per sequence, token-major
@@ -150,7 +165,7 @@ def _moe_sorted(params, cfg, x):
                         eid_s[:, 1:] != eid_s[:, :-1]], dim=1)
     group_start = torch.cummax(torch.where(change, idx, 0), dim=1).values
     rank = idx - group_start
-    slot_s = torch.where(rank < C, eid_s * C + rank, E * C)  # E*C: dropped
+    slot_s = torch.where((rank < C) & (eid_s < E), eid_s * C + rank, E * C)  # E*C: dropped
 
     tok_s = torch.gather(tok, 1, order)
     token_for_slot = torch.zeros((B, E * C + 1), dtype=torch.long, device=dev).scatter_(
@@ -172,3 +187,34 @@ def _moe_sorted(params, cfg, x):
     # combine in fp32 (JAX: preferred_element_type=float32)
     y = torch.einsum("bskd,bsk->bsd", y_a.reshape(B, S, k, d).float(), wgt.reshape(B, S, k))
     return y.to(x.dtype)
+
+
+def _moe_shard_map(params, cfg, x):
+    """JAX's expert-parallel schedule: the tokens are whole on every model
+    rank, so each routes them against the full router, keeps its own
+    experts' assignments (the rest take the sentinel ``E_loc``, sort last
+    and use no local capacity), runs ``sorted`` over its ``E_loc`` experts
+    at the global per-expert capacity (local capacity factor ``cf / (E /
+    E_loc)``) and contributes a partial (B, S, d); one ``all_reduce`` of
+    that token-shaped output is the only collective. ``params``' experts
+    are this rank's (``fused_sharded.rank_specs``)."""
+    rules = activation_rules()
+    E = cfg.n_experts
+    if rules is None:
+        return _moe_sorted(params, cfg, x)
+    mesh = rules["mesh"]
+    m = int(mesh.shape.get("model", 1))
+    if m <= 1 or E % m != 0:
+        return _moe_sorted(params, cfg, x)
+    group = mesh.axis("model")
+    E_loc = params["e_up"].shape[0]
+    lo = group.index * E_loc
+    cfg_loc = cfg.with_(n_experts=E_loc, moe_impl="sorted",
+                        capacity_factor=cfg.capacity_factor / (E // E_loc))
+    with suppress_hints():  # a per-rank region, as JAX's manual shard_map region
+        w, ids, _ = _route(params, cfg, x)
+        mine = (ids >= lo) & (ids < lo + E_loc)
+        w = torch.where(mine, w, 0.0)
+        ids = torch.where(mine, ids - lo, E_loc)
+        y_part = _dispatch_compute(params, cfg_loc, x, w, ids)
+    return group.all_reduce(y_part)

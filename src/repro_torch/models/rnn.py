@@ -14,7 +14,12 @@ as in the JAX package. Two granularities:
     ``cfg.scan_engine == "fused_stack"`` (SRU/QRNN, d_model == hidden) it
     runs the depth-fused stack (``kernels/fused_rnn/stacked.py``).
 
-The sharded branches of the JAX package wait for the multi-GPU slice.
+Under an active mesh (``distribution/sharding.py::use_rules``, entered by
+the serving step builders) whose model axis divides the hidden width
+(``distribution/fused_sharded.py::sharding_mesh``, asked once a call here),
+the fused engines run per rank on the rank's lane shards: the layer through
+``core/mts.py``'s ``mesh`` argument, the stack here, in the barrier schedule
+or, with ``cfg.ring_overlap``, the ring.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core import cells, mts
+from repro_torch.distribution import fused_sharded
 from repro_torch.kernels.fused_rnn import stacked
 from repro_torch.models.layers import rmsnorm, rmsnorm_init
 from repro_torch.tree import tree_map
@@ -43,12 +49,13 @@ def rnn_block_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
     x: (B, T, d). Differentiable on every engine: the fused kernels through
     their autograd Functions, ``pallas`` through the linear scan's."""
     h = rmsnorm(params["ln1"], x)
+    mesh = fused_sharded.sharding_mesh(cfg)
     if cfg.cell == "sru":
         out, _ = mts.mts_sru(params["cell"], h, engine=cfg.scan_engine,
-                             block_size=cfg.mts_block_size)
+                             block_size=cfg.mts_block_size, mesh=mesh)
     elif cfg.cell == "qrnn":
         out, _ = mts.mts_qrnn(params["cell"], h, engine=cfg.scan_engine,
-                              block_size=cfg.mts_block_size)
+                              block_size=cfg.mts_block_size, mesh=mesh)
     else:
         out, _ = mts.lstm_forward(params["cell"], h, precompute=True)
     return x + out
@@ -68,16 +75,17 @@ def rnn_block_prefill(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.
     """x: (B, T, d). The per-layer path rounds to ``x``'s dtype at every
     layer: the norm, the cell's ``h`` and the residual add, as in JAX."""
     h = rmsnorm(params["ln1"], x)
+    mesh = fused_sharded.sharding_mesh(cfg)
     if cfg.cell == "sru":
         out, c_last = mts.mts_sru(
             params["cell"], h, cache["c"],
-            engine=cfg.scan_engine, block_size=cfg.mts_block_size,
+            engine=cfg.scan_engine, block_size=cfg.mts_block_size, mesh=mesh,
         )
         cache = {"c": c_last}
     elif cfg.cell == "qrnn":
         out, c_last = mts.mts_qrnn(
             params["cell"], h, cache["c"], cache["x_tail"],
-            engine=cfg.scan_engine, block_size=cfg.mts_block_size,
+            engine=cfg.scan_engine, block_size=cfg.mts_block_size, mesh=mesh,
         )
         cache = {"c": c_last, "x_tail": h[:, -1:]}
     else:
@@ -129,18 +137,23 @@ def scan_layers(fn, params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.Te
 
 
 def _stack_fused(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """All L layers through the depth-fused stack. x: (B, T, d) batch-major."""
+    """All L layers through the depth-fused stack. x: (B, T, d) batch-major.
+    Under a sharding mesh, per rank on its lane shards, in the barrier
+    schedule or, with ``cfg.ring_overlap``, the ring."""
     xt = x.transpose(0, 1).contiguous()  # time-major for the kernel
+    mesh = fused_sharded.sharding_mesh(cfg)
+    sharded = mesh is not None
+    kw = {"block_t": cfg.mts_block_size}
+    if sharded:
+        kw.update(mesh=mesh, schedule="ring" if cfg.ring_overlap else "barrier")
     if cfg.cell == "sru":
-        y, c_last = stacked.fused_sru_stack(
-            params["cell"], params["ln1"], xt, cache["c"], block_t=cfg.mts_block_size
-        )
+        fn = fused_sharded.sharded_fused_sru_stack if sharded else stacked.fused_sru_stack
+        y, c_last = fn(params["cell"], params["ln1"], xt, cache["c"], **kw)
         new_cache = {"c": c_last}
     else:
-        tails = cache["x_tail"][:, :, 0, :]  # (L, B, 1, d) -> (L, B, d)
-        y, c_last, tails_last = stacked.fused_qrnn_stack(
-            params["cell"], params["ln1"], xt, tails, cache["c"], block_t=cfg.mts_block_size
-        )
+        tails = cache["x_tail"][:, :, 0, :].contiguous()  # (L, B, 1, d) -> (L, B, d)
+        fn = fused_sharded.sharded_fused_qrnn_stack if sharded else stacked.fused_qrnn_stack
+        y, c_last, tails_last = fn(params["cell"], params["ln1"], xt, tails, cache["c"], **kw)
         new_cache = {"c": c_last, "x_tail": tails_last[:, :, None, :]}
     return y.transpose(0, 1), new_cache
 

@@ -7,17 +7,29 @@ batching (``serving/engine.py``).
 Each builder closes over the config and returns a plain function. The
 serving steps run under ``torch.inference_mode()``; the train step runs
 eagerly with autograd (capturing it as a CUDA graph is later work).
+
+``build_prefill_step``, ``build_decode_step`` and ``build_cache_init`` take
+a ``mesh`` (``launch/mesh.py``), as JAX's do: each rank then allocates its
+shards of the caches (``fused_sharded.rank_cache_specs``: the RNN carries
+(L, B, H) with their lanes over "model" where the fused path runs per rank,
+the batch over "data") and runs the step under ``sharding.use_rules``, so
+the fused engines run per rank. The step's params, inputs and caches are
+this rank's shards. The lane-masked, verify and draft builders take no mesh
+(continuous batching under a mesh is ROADMAP §A7.2).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distribution import fused_sharded
+from repro_torch.distribution.sharding import local_shape, use_rules
 from repro_torch.models import lm, rnn
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, cosine_schedule
 from repro_torch.optim.compression import compress_grads, ef_init
-from repro_torch.tree import tree_leaves, unflatten_like
+from repro_torch.tree import tree_leaves, tree_map, unflatten_like
 
 
 # ---------------------------------------------------------------------------
@@ -124,13 +136,31 @@ def build_eval_step(cfg):
 # ---------------------------------------------------------------------------
 
 
-def build_prefill_step(cfg, *, batch: int, max_len: int, device="cuda"):
+def _init_caches(cfg, mesh, batch: int, max_len: int, device):
+    """Zero caches on ``device``: whole, or under ``mesh`` this rank's
+    shards of them (``fused_sharded.rank_cache_specs``)."""
+    if mesh is None:
+        return lm.lm_init_caches(cfg, batch, max_len, device=device)
+    whole = lm.lm_init_caches(cfg, batch, max_len, device="meta")
+    specs = fused_sharded.rank_cache_specs(cfg, whole, mesh)
+    return tree_map(lambda leaf, spec: torch.zeros(local_shape(leaf.shape, spec, mesh),
+                                                   dtype=leaf.dtype, device=device),
+                    whole, specs)
+
+
+def _under(mesh):
+    """``use_rules(mesh)``, or nothing without a mesh."""
+    return contextlib.nullcontext() if mesh is None else use_rules(mesh)
+
+
+def build_prefill_step(cfg, mesh=None, *, batch: int, max_len: int, device="cuda"):
     """``prefill_step(params, inputs) -> (logits, caches)``: fresh zero caches
-    on ``device``, then one MTS prefill over the prompt."""
+    on ``device`` (under ``mesh``, this rank's shards of them, for the
+    global ``batch``), then one MTS prefill over the prompt."""
 
     def prefill_step(params, inputs: Dict):
-        with torch.inference_mode():
-            caches = lm.lm_init_caches(cfg, batch, max_len, device=device)
+        with torch.inference_mode(), _under(mesh):
+            caches = _init_caches(cfg, mesh, batch, max_len, device)
             return lm.lm_prefill(params, cfg, inputs, caches)
 
     return prefill_step
@@ -144,8 +174,9 @@ def _copy_into(dst, src):
             dst[k].copy_(v)
 
 
-def build_decode_step(cfg):
-    """``decode_step(params, caches, token) -> (logits, caches)``. The caches
+def build_decode_step(cfg, mesh=None):
+    """``decode_step(params, caches, token) -> (logits, caches)`` (under
+    ``mesh``, per rank, as ``build_prefill_step``). The caches
     are updated in place and returned: the port's form of the JAX package's
     ``donate_argnums``, which keeps every cache buffer where it is. Attention
     layers write their new K/V row in place (``models/attention.py``) and
@@ -154,7 +185,7 @@ def build_decode_step(cfg):
     copied into the old buffers."""
 
     def decode_step(params, caches, token):
-        with torch.inference_mode():
+        with torch.inference_mode(), _under(mesh):
             logits, new = lm.lm_decode_step(params, cfg, caches, token)
             if new is not caches:
                 _copy_into(caches, new)
@@ -183,12 +214,13 @@ def _greedy(cfg, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)
 
 
-def build_cache_init(cfg, *, batch: int, max_len: int = 1, device="cuda"):
+def build_cache_init(cfg, mesh=None, *, batch: int, max_len: int = 1, device="cuda"):
     """Thunk returning fresh zero decode caches on ``device``: the slot
-    pool's backing store."""
+    pool's backing store; under ``mesh`` this rank's shards of them, as
+    ``build_prefill_step`` allocates them."""
 
     def cache_init():
-        return lm.lm_init_caches(cfg, batch, max_len, device=device)
+        return _init_caches(cfg, mesh, batch, max_len, device)
 
     return cache_init
 

@@ -270,12 +270,12 @@ def test_int8_stack_kernel_matches_plain(device, cell, T, H, dtype):
 
 @pytest.mark.parametrize("lib_name,own_pairs", [
     ("fused_rnn_layer", ((0, 2), (1, 2))),
-    ("fused_rnn_layer_int8", ((0, 0), (1, 1))),
+    ("fused_rnn_layer_int8", ((0, 0), (1, 1), (0, 1))),
 ])
 def test_kernel_refuses_an_unknown_weight_type(device, lib_name, own_pairs):
     """A (dtype, wdtype) pair the library has no instance for returns -2 and
     launches nothing: the output keeps its sentinel. The fp build has no int8
-    instance and the int8 build no fp one."""
+    instance and the int8 build no fp one; bf16 IO takes no fp32 slabs."""
     T, B, d, H = 2, 1, 8, 8
     u = torch.zeros((T, B, d), device=device)
     w = torch.zeros((d, 3, H), device=device)
@@ -283,11 +283,11 @@ def test_kernel_refuses_an_unknown_weight_type(device, lib_name, own_pairs):
     scale = torch.ones((3, 1), device=device)
     h, c_last = torch.full((T, B, H), 7.0, device=device), torch.empty((B, H), device=device)
     lib = build.library(lib_name)
-    for dtype, wdtype in ((0, 1), (1, 0), (2, 2), (0, 5)) + own_pairs:
+    for dtype, wdtype in ((1, 0), (2, 2), (0, 5)) + own_pairs:
         rc = lib.fused_rnn_layer_launch(
             dtype, wdtype, u.data_ptr(), w.data_ptr(), None, scale.data_ptr(), b3.data_ptr(),
             c0.data_ptr(), None, u.data_ptr(), None, h.data_ptr(), c_last.data_ptr(),
-            T, B, d, H, 2, 0, 1, 1, 16,
+            T, B, d, H, 2, 0, 1, 1, 16, 0,
             torch.cuda.current_stream(device).cuda_stream,
         )
         assert rc == -2, (dtype, wdtype, rc)
@@ -472,7 +472,7 @@ def test_mma_launcher_refuses_a_plan_it_cannot_take(device):
         rc = lib.fused_rnn_layer_launch(
             1, 1, u.data_ptr(), w.data_ptr(), None, None, b3.data_ptr(), c0.data_ptr(), None,
             u.data_ptr(), None, h.data_ptr(), c_last.data_ptr(), T, B, d, H, 2, 0, 1,
-            cluster, k_tile, torch.cuda.current_stream(device).cuda_stream,
+            cluster, k_tile, 0, torch.cuda.current_stream(device).cuda_stream,
         )
         assert rc == -3, (cluster, k_tile, rc)
     torch.cuda.synchronize()
@@ -1809,3 +1809,56 @@ def test_reduced_archs_served_on_the_card_match_the_cpu(device, case):
     assert torch.equal(t_cpu, t_gpu)
     for a, b in zip(l_cpu + c_cpu, l_gpu + c_gpu, strict=True):
         assert (a.float() - b.float()).abs().max().item() <= STREAM_TOL
+
+
+# A model shard's B1 call: (mode, H, k, shard, int8).
+SHARD_OPERAND_CASES = {
+    "skip_H64_shard2_of4": ("sru_identity", 64, 4, 2, False),
+    "int8_H200_shard3_of8": ("sru_identity", 200, 8, 3, True),
+    "int8_H200_shard7_of8": ("sru_identity", 200, 8, 7, True),
+    "int8_qrnn_H200_shard5_of8": ("qrnn", 200, 8, 5, True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "fp32_io_bf16_slabs"],
+                         ids=["fp32", "bf16", "fp32_io_bf16_slabs"])
+@pytest.mark.parametrize("case", sorted(SHARD_OPERAND_CASES))
+def test_fused_layer_shard_operands(device, case, dtype):
+    """B1 on a model shard's operands (``distribution/fused_sharded.py``):
+    the explicit skip, the shard's lane slice of an input of the whole
+    width, and an int8 shard whose lanes start inside a scale block
+    (``scale_lane0``), against the plain version on the card. The sharded
+    stack's barrier runs B1 in fp32 IO on bf16 slabs under bf16 compute."""
+    from repro_torch.distribution.fused_sharded import _scale_shard
+
+    slabs = torch.bfloat16 if dtype == "fp32_io_bf16_slabs" else dtype
+    dtype = torch.float32 if dtype == "fp32_io_bf16_slabs" else dtype
+    mode, H, k, i, quant = SHARD_OPERAND_CASES[case]
+    Hl, T, B = H // k, 13, 3
+    g = torch.Generator(device=device).manual_seed(31)
+    own = slice(i * Hl, (i + 1) * Hl)
+    u = torch.randn((T, B, H), generator=g, device=device).to(dtype)
+    taps = [torch.randn((H, 3, H), generator=g, device=device) * H ** -0.5
+            for _ in range(2 if mode == "qrnn" else 1)]
+    kw = {"mode": mode, "block_t": 4}
+    if quant:
+        if mode == "qrnn":
+            *taps, scale = layout.quantize_qrnn_slabs(*taps)
+        else:
+            wq, scale = layout.quantize_slabs(taps[0])
+            taps = [wq]
+        kw["scale"], kw["scale_lane0"] = _scale_shard(scale, i * Hl, Hl)
+        assert kw["scale_lane0"] == (i * Hl) % 128
+    else:
+        taps = [t.to(slabs) for t in taps]
+    taps = tuple(t[..., own].contiguous() for t in taps)
+    b3 = (torch.randn((3, Hl), generator=g, device=device) * 0.3).to(dtype)
+    c0 = torch.randn((B, Hl), generator=g, device=device).to(dtype)
+    if mode == "qrnn":
+        kw["tail"] = torch.randn((1, B, H), generator=g, device=device).to(dtype)
+    else:
+        kw["skip"] = u[..., own].contiguous()
+    ref = fused_rnn.fused_rnn_layer_plain(u, taps, b3, c0, **kw)
+    out = fused_rnn.fused_rnn_layer(u, taps, b3, c0, **kw)
+    torch.cuda.synchronize()
+    _close(out, ref, dtype)

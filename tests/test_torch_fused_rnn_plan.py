@@ -258,3 +258,32 @@ def test_plan_fills_the_card_at_width_1024(case, int8):
 def test_plan_refuses_a_slice_that_cannot_fit():
     with pytest.raises(ValueError, match="shared memory"):
         fused_rnn.plan(1, 4, 16384, 1024, taps=2)
+
+
+# A model shard's B1 launches (distribution/fused_sharded.py): the layer's
+# whole input width d against H / k lanes, k = 2, 4, 8 at width 1024, and
+# the ragged H = 1000 over 8 (125 lanes, a last lane block of 13 or 29).
+SHARD_SHAPES = {"Hl512": (1024, 512), "Hl256": (1024, 256), "Hl128": (1024, 128),
+                "Hl125": (1000, 125)}
+
+
+@pytest.mark.parametrize("shard", sorted(SHARD_SHAPES))
+def test_plan_serves_the_shard_shapes(shard):
+    """``plan`` gives a launch at every shard shape, bf16 and int8 slabs,
+    SRU and QRNN, decode and prefill: every lane in one epilogue, the K
+    split exact, shared memory within the card's 227 KB."""
+    d, h = SHARD_SHAPES[shard]
+    for T in (64, 1):
+        for int8 in (False, True):
+            for taps in (1, 2):
+                kw = {"int8": int8, "ng": 3, "stack": False, "taps": taps}
+                p = fused_rnn.plan(T, 4, d, h, **kw)
+                assert p.smem_bytes <= fused_rnn.SMEM_MAX, (shard, T, kw, p)
+                blocks, ne = p.grid // p.cluster, p.lanes // p.cluster
+                assert blocks == -(-h // p.lanes) and ne * p.cluster == p.lanes
+                lanes = sorted(blk * p.lanes + r * ne + q for blk in range(blocks)
+                               for r in range(p.cluster) for q in range(ne)
+                               if blk * p.lanes + r * ne + q < h)
+                assert lanes == list(range(h)), (shard, T, kw)
+                kp = taps * (-(-d // fused_rnn.BOX_K) * fused_rnn.BOX_K)
+                assert p.k_per_cta * p.cluster >= kp and p.k_per_cta % fused_rnn.BOX_K == 0
