@@ -159,7 +159,7 @@ Phases, each printing one JSON line per step:
            ``qwen3-moe-235b-a22b`` (bf16 moments) cut to 1 through the same
            loop over ``build_train_step``
            (``launch/train.py`` has no engine or depth flag, as in JAX):
-           per config the fp32 step 0
+           per config but ``mixtral-8x22b`` the fp32 step 0
            on the card against the CPU's (same params and batch: loss and
            grad norm), then the run in the config's dtypes with every
            kernel's count set to 0 just before and read just after
@@ -212,7 +212,18 @@ Phases, each printing one JSON line per step:
            ``_moe_shard_map`` (E/2 experts a rank) against ``sorted`` on one
            rank at 2e-5; four ranks, (2, 2), serving
            ``sru-paper-large-stacked`` (the data axis) with the
-           single-device tokens.
+           single-device tokens. Then training on two ranks: B1, B2 and
+           B3 (forward and backward) at the train runs' shapes against
+           their plain versions; ``build_train_step(cfg, mesh)`` for 2
+           steps of 8 x 256 tokens in fp32 of ``sru-paper-large-stacked``
+           on (1, 2) and ``qrnn-paper-large-stacked`` on (2, 1) with FSDP
+           (counts set to 0 just before, read just after), loss, grad norm
+           and params against the single-device fp32 run on the card,
+           each rank's launches the expected and one more step split into
+           collectives and the rest; ``launch.train`` under
+           ``torch.distributed.run`` on two gloo ranks to step 2, resumed
+           with ``--resume auto`` on one rank to step 4, its params within
+           5e-4 of the uninterrupted single-rank run's.
 
 Then one ``{"phase_seconds": {...}}`` line (each phase's wall time, the
 serve phase's warm-ups included), one ``{"kernels": [...]}`` line (launches
@@ -367,6 +378,11 @@ TRAIN_RUNS = (
 # backward there (2 keep the adapter, a layer pair and the 92672-column
 # head), smollm-360m's 32 about half a minute.
 TRAIN_PARITY_DEPTH = {"internvl2-2b": 2, "smollm-360m": 8}
+# The runs whose fp32 step-0 check is left out, for the script's time: each
+# MoE check takes about two minutes of the host's fp32 forward and backward
+# at full width; mixtral-8x22b runs the same `sorted` dispatch as
+# qwen3-moe-235b-a22b, which keeps its check (and mixtral its train run).
+TRAIN_PARITY_SKIP = ("mixtral-8x22b",)
 # A run saved at step TRAIN_STEPS // 2 and resumed ends with the
 # uninterrupted run's params: equal but for the last-ulp effect of atomics
 # in the embedding gradient on fp32 masters of magnitude < 1 (~6e-8); a lost
@@ -421,6 +437,24 @@ SHARD_CASES = (("sru_identity", 1024, 2, 1, False), ("sru_identity", 1024, 4, 1,
 # shard), T = 64 and 1.
 SHARD_MIXED_CASES = (("sru_identity", 1024, 2, 1), ("qrnn", 1024, 2, 1))
 SHARDED_DIR = ROOT / "build" / "sharded"
+# Sharded training (the sharded phase's last part): (arch, model axis, fsdp)
+# trained SHARDED_TRAIN_STEPS steps by two gloo ranks sharing the card, fp32
+# compute, TF32 off, TRAIN_BATCH x TRAIN_SEQ tokens a step, against the
+# single-device fp32 run on the card: the SRU stack on (1, 2) (the barrier:
+# B1 a layer and rank forward, B3 in the backward's recompute) and the QRNN
+# stack on (2, 1) with FSDP (B2 on each data rank's rows, B3).
+SHARDED_TRAIN_RUNS = (("sru-paper-large-stacked", 2, False), ("qrnn-paper-large-stacked", 1, True))
+SHARDED_TRAIN_STEPS = 2
+# The CPU tests' limits against JAX's sharded step (tests/test_torch_sharded_
+# train.py): loss 3e-5; grad norm, as a grad, and params after the steps 5e-4.
+SHARDED_TRAIN_LOSS_TOL, SHARDED_TRAIN_GRAD_TOL, SHARDED_TRAIN_PARAM_TOL = 3e-5, 5e-4, 5e-4
+# The CLI: ``torch.distributed.run`` of two gloo ranks of ``launch.train``
+# (the config's own dtypes) saving at SHARDED_CLI_SAVE steps, ``--resume
+# auto`` on one rank to SHARDED_CLI_STEPS, against the uninterrupted
+# single-rank run. Every step is in the warm-up (--warmup 20), so the
+# learning rate does not depend on --steps.
+SHARDED_CLI_ARCH = "sru-paper-large-stacked"
+SHARDED_CLI_SAVE, SHARDED_CLI_STEPS = 2, 4
 # Autograd Functions of B1/B2 (kernels phase): their gradients against
 # autograd through the plain version on the card. The Functions' backward
 # recomputes the plain version with its recurrence through the linear scan
@@ -2464,8 +2498,9 @@ def _resume_check(counters):
 
 
 def phase_train():
-    """Training at full width (TRAIN_RUNS): per config the fp32 step-0
-    parity with the CPU, then TRAIN_STEPS steps in the config's own dtypes
+    """Training at full width (TRAIN_RUNS): per config (but TRAIN_PARITY_SKIP)
+    the fp32 step-0 parity with the CPU, then TRAIN_STEPS steps in the
+    config's own dtypes
     (fp32 masters, bf16 compute) through ``launch.train.main`` (or its loop)
     with every kernel's count set to 0 just before and read just after:
     launches equal to the expected, finite losses, ms per step after the
@@ -2484,13 +2519,19 @@ def phase_train():
     for arch, engine, overrides in TRAIN_RUNS:
         cfg = _train_cfg(arch, engine, overrides)
         what = f"train {arch} {engine or ''}".strip()
-        parity = _train_parity(cfg.with_(n_layers=TRAIN_PARITY_DEPTH.get(arch, cfg.n_layers)))
-        _release()  # the step-0 states before the run's own
-        (loss_card, gn_card), (loss_cpu, gn_cpu) = parity["cuda"], parity["cpu"]
-        loss_err, gn_err = abs(loss_card - loss_cpu), abs(gn_card - gn_cpu)
-        require(loss_err <= PARITY_TOL and gn_err <= PARITY_TOL * gn_cpu,
-                f"{what}: fp32 step 0 on the card (loss {loss_card}, grad norm {gn_card}) != "
-                f"the CPU's ({loss_cpu}, {gn_cpu})")
+        step0 = None
+        if arch not in TRAIN_PARITY_SKIP:
+            depth = TRAIN_PARITY_DEPTH.get(arch, cfg.n_layers)
+            parity = _train_parity(cfg.with_(n_layers=depth))
+            _release()  # the step-0 states before the run's own
+            (loss_card, gn_card), (loss_cpu, gn_cpu) = parity["cuda"], parity["cpu"]
+            loss_err, gn_err = abs(loss_card - loss_cpu), abs(gn_card - gn_cpu)
+            require(loss_err <= PARITY_TOL and gn_err <= PARITY_TOL * gn_cpu,
+                    f"{what}: fp32 step 0 on the card (loss {loss_card}, grad norm {gn_card}) "
+                    f"!= the CPU's ({loss_cpu}, {gn_cpu})")
+            step0 = {"n_layers": depth, "loss_card": loss_card, "loss_cpu": loss_cpu,
+                     "loss_err": loss_err, "grad_norm_card": gn_card, "grad_norm_cpu": gn_cpu,
+                     "grad_norm_err": gn_err, "tol": PARITY_TOL, "grad_norm_rtol": PARITY_TOL}
 
         times = []
 
@@ -2533,11 +2574,7 @@ def phase_train():
               "microbatches": cfg.microbatches, "moment_dtype": cfg.moment_dtype,
               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
               "losses": losses, "grad_norms": [h["grad_norm"] for h in history],
-              "step0_fp32": {"n_layers": TRAIN_PARITY_DEPTH.get(arch, cfg.n_layers),
-                             "loss_card": loss_card, "loss_cpu": loss_cpu, "loss_err": loss_err,
-                             "grad_norm_card": gn_card, "grad_norm_cpu": gn_cpu,
-                             "grad_norm_err": gn_err, "tol": PARITY_TOL, "grad_norm_rtol":
-                             PARITY_TOL},
+              "step0_fp32": step0,
               "first_step_ms": times[0] * 1e3, "ms_per_step": step_ms,
               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3, "peak_mem_gb": peak_gb,
               "launches": {k: n for k, n in launches.items() if n},
@@ -3054,6 +3091,10 @@ def _sharded_worker(rank, world, model_axis, init_file, plan):
                              "experts": params["e_up"].shape[0]}
             del params, x, y
             torch.cuda.empty_cache()
+        for arch, model_k, fsdp in plan.get("train", ()):
+            results[f"train {arch}"] = _sharded_train_rank(arch, model_k, fsdp, device, counters,
+                                                           keep_params=rank == 0)
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     with open(SHARDED_DIR / f"{plan['name']}-rank{rank}.pkl", "wb") as f:
@@ -3092,6 +3133,254 @@ def _expected_sharded_launches(cfg, decode_steps: int) -> dict:
     return want
 
 
+def _sharded_train_cfg(arch):
+    """``arch`` as ``launch.train`` runs it at TRAIN_BATCH, in fp32 compute."""
+    return _train_cfg(arch, None, {}).with_(compute_dtype="float32")
+
+
+def _train_steps(cfg, step_fn, state, device, steps):
+    """``steps`` train steps on the pipeline ``launch.train`` draws (seed
+    0); returns the state, losses, grad norms and ms a step (synchronised)."""
+    import torch
+
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.train import batch_to_device
+
+    pipeline = make_pipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    losses, gnorms, ms = [], [], []
+    for step in range(steps):
+        batch = batch_to_device(pipeline.batch_at(step), device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, losses, gnorms, ms
+
+
+def _sharded_train_rank(arch, model_axis, fsdp, device, counters, keep_params):
+    """One rank's SHARDED_TRAIN_STEPS steps of ``build_train_step(cfg, mesh)``
+    on the (2 / model_axis, model_axis) mesh (each rank draws the whole
+    state from seed 0 and keeps its shards), every kernel's count set to 0
+    just before and read just after; then one more step inside
+    ``timed_collectives``, split into the collectives and the rest."""
+    import torch
+
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.launch.mesh import make_local_mesh, timed_collectives
+    from repro_torch.training import steps
+    from repro_torch.tree import flatten_with_paths, tree_leaves
+
+    cfg = _sharded_train_cfg(arch)
+    mesh = make_local_mesh(model_axis, device=device)
+    specs = steps.train_param_specs(cfg, mesh, fsdp=fsdp)
+    sspecs = steps.train_state_specs(specs)
+    state = steps.init_train_state(torch.Generator(device=device).manual_seed(0), cfg,
+                                   device=device)
+    state = steps.shard_train_state(state, sspecs, mesh)
+    step_fn = steps.build_train_step(cfg, mesh, base_lr=3e-4, warmup=20,
+                                     total_steps=SHARDED_TRAIN_STEPS, specs=specs)
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    state, losses, gnorms, ms = _train_steps(cfg, step_fn, state, device, SHARDED_TRAIN_STEPS)
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    params = {}  # every rank takes part in the gathers; one keeps the result
+    for (path, x), s in zip(flatten_with_paths(state.params), tree_leaves(specs)):
+        whole = shd.gather_shard(x, s, mesh)
+        if keep_params:
+            params[path] = whole.cpu()
+    with timed_collectives(mesh) as clock:
+        _, _, _, timed = _train_steps(cfg, step_fn, state, device, 1)
+    coll = {k: v * 1e3 for k, v in sorted(clock.items())}
+    return {"losses": losses, "grad_norms": gnorms, "step_ms": ms, "launches": launches,
+            "params": params, "mesh": mesh.shape, "fsdp": fsdp,
+            "sharded_over": sorted({a for s in tree_leaves(specs) for a in shd.spec_axes(s)}),
+            "split": {"timed_step_ms": timed[0], "collective_ms": coll,
+                      "rest_ms": timed[0] - sum(coll.values())},
+            "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+
+
+def _expected_sharded_train_launches(cfg, model_axis: int, steps: int) -> dict:
+    """One rank's launches over ``steps`` sharded train steps: the
+    single-device step's, except that on a model axis above 1 the stack runs
+    the barrier schedule, B1 a layer where one device runs B2 (the backward
+    recomputes on B3 either way)."""
+    want = _expected_train_launches(cfg, steps)
+    if model_axis > 1:
+        want["fused_rnn_layer"] += want["fused_rnn_stack"]
+        want["fused_rnn_stack"] = 0
+    return want
+
+
+def _sharded_train_kernels():
+    """The kernels of the sharded train runs at their shapes, against their
+    plain versions: B1 on a rank's lanes (the SRU stack on (1, 2): Hl 512 of
+    1024, B = 8, T = 256, fp32), B2 on a data rank's rows (the QRNN stack on
+    (2, 1): B = 4), B3 forward and backward at the recompute's F = B * Hl =
+    4096. Returns the rows."""
+    from repro_torch.kernels.fused_rnn import fused_rnn, stacked
+    from repro_torch.kernels.linear_scan import linear_scan
+
+    T = TRAIN_SEQ
+    rows = _run_cases("fused_rnn_layer", fused_rnn.fused_rnn_layer,
+                      fused_rnn.fused_rnn_layer_plain, [("float32", T) + _shard_case(
+                          f"sharded train: sru_identity shard 1 Hl=512 of 1024 T={T} B=8 float32",
+                          "sru_identity", T, 8, 1024, 2, 1, "float32", 650)],
+                      cold=True, phase="sharded")
+    rows += _run_cases("fused_rnn_stack", stacked.fused_rnn_stack, stacked.fused_rnn_stack_plain,
+                       [("float32", T) + _stack_case(
+                           f"sharded train: qrnn L=4 T={T} B=4 float32 (a data rank's rows)",
+                           "qrnn", T, 4, 1024, 4, "float32", 651)], cold=True, phase="sharded")
+    name = f"sharded train recompute: T={T} F=4096 fp32"
+    scan = [("float32", T) + _scan_case(name, T, 4096, "float32", 652)]
+    rows += _run_cases("linear_scan", linear_scan.linear_scan_kernel, _scan_chunked, scan,
+                       cold=True, phase="sharded")
+    _scan_checks(scan)
+    rows.append(_scan_backward_row(f"backward {name}", T, 4096, "float32", 653))
+    return rows
+
+
+def _sharded_cli(counters):
+    """``launch.train`` through ``torch.distributed.run``: two gloo ranks of
+    SHARDED_CLI_ARCH (the config's dtypes) to step SHARDED_CLI_SAVE, saved;
+    ``--resume auto`` on one rank to SHARDED_CLI_STEPS (in this process,
+    counts set to 0 just before and read just after); the uninterrupted
+    single-rank run. Returns the line's fields and the resumed run's
+    launches."""
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    d = SHARDED_DIR / "cli"
+    common = ["--arch", SHARDED_CLI_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+              "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "repro_torch.launch.train", *common, "--dist-backend", "gloo",
+         "--steps", str(SHARDED_CLI_SAVE), "--checkpoint-dir", str(d / "ranks"),
+         "--metrics-out", str(d / "ranks.json")],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    ranks_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"sharded train CLI: exit {proc.returncode}: "
+            f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    require(any(x.startswith("mesh: {'data': 2, 'model': 1}") for x in lines)
+            and any(x.startswith("dist: backend gloo") for x in lines),
+            f"sharded train CLI: no mesh line: {lines[:4]}")
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        require(train.main(common + ["--steps", str(SHARDED_CLI_STEPS), "--checkpoint-dir",
+                                     str(d / "ranks"), "--resume", "auto", "--metrics-out",
+                                     str(d / "resumed.json")]) == 0, "sharded train CLI: resume")
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    require(f"[resume] step {SHARDED_CLI_SAVE}" in buf.getvalue(),
+            "sharded train CLI: the one-rank run did not resume")
+    with contextlib.redirect_stdout(io.StringIO()):
+        require(train.main(common + ["--steps", str(SHARDED_CLI_STEPS), "--checkpoint-dir",
+                                     str(d / "single"), "--metrics-out",
+                                     str(d / "single.json")]) == 0, "sharded train CLI: single")
+    step = f"step_{SHARDED_CLI_STEPS}"
+    diff = _max_leaf_diff(_step_leaves(d / "ranks" / step), _step_leaves(d / "single" / step))
+    hist = {k: json.loads((d / f"{k}.json").read_text()) for k in ("ranks", "resumed", "single")}
+    ran = hist["ranks"] + hist["resumed"]
+    loss_diff = max(abs(a["loss"] - b["loss"]) for a, b in zip(ran, hist["single"]))
+    require(len(ran) == SHARDED_CLI_STEPS and diff <= SHARDED_TRAIN_PARAM_TOL,
+            f"sharded train CLI: params {diff} from the single-rank run's")
+    return {"ranks_command_s": ranks_s, "ranks_lines": [x for x in lines if not
+                                                        x.startswith("step ")][:3],
+            "losses_ranks_then_resumed": [h["loss"] for h in ran],
+            "losses_single": [h["loss"] for h in hist["single"]],
+            "loss_max_abs_diff": loss_diff, "param_max_abs_diff": diff,
+            "param_tol": SHARDED_TRAIN_PARAM_TOL,
+            "compute": _run_cfg(SHARDED_CLI_ARCH, None).compute_dtype}, launches
+
+
+def _sharded_train(totals):
+    """The sharded training runs (SHARDED_TRAIN_RUNS) on two gloo ranks
+    against the single-device fp32 run on the card, their kernels at their
+    shapes, and the CLI (``_sharded_cli``). Adds the launches to ``totals``."""
+    import torch
+
+    from repro_torch.training import steps
+
+    gloo = "gloo ranks sharing one card: the times are not multi-GPU speed"
+    t_phase = time.perf_counter()
+    _sharded_train_kernels()
+    single = {}
+    for arch, _, _ in SHARDED_TRAIN_RUNS:
+        cfg = _sharded_train_cfg(arch)
+        state = steps.init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                       device="cuda")
+        step_fn = steps.build_train_step(cfg, base_lr=3e-4, warmup=20,
+                                         total_steps=SHARDED_TRAIN_STEPS)
+        state, losses, gnorms, ms = _train_steps(cfg, step_fn, state, torch.device("cuda"),
+                                                 SHARDED_TRAIN_STEPS)
+        single[arch] = {"losses": losses, "grad_norms": gnorms, "step_ms": ms,
+                        "params": _flat_cpu(state.params)}
+        del state, step_fn
+        _release()
+    ranks = _spawn_ranks("train", 2, 2, {"serve": (), "moe": (), "logits": False, "split": (),
+                                         "train": SHARDED_TRAIN_RUNS})
+    for arch, model_k, fsdp in SHARDED_TRAIN_RUNS:
+        key, ref = f"train {arch}", single[arch]
+        cfg = _sharded_train_cfg(arch)
+        r0 = ranks[0][key]
+        want = _expected_sharded_train_launches(cfg, model_k, SHARDED_TRAIN_STEPS)
+        loss_err = max(abs(a - b) for a, b in zip(r0["losses"], ref["losses"]))
+        gn_err = max(abs(a - b) for a, b in zip(r0["grad_norms"], ref["grad_norms"]))
+        param_err = max((r0["params"][p] - ref["params"][p]).abs().max().item()
+                        for p in ref["params"])
+        emit({"phase": "sharded", "train": arch, "mesh": r0["mesh"], "fsdp": fsdp,
+              "sharded_over": r0["sharded_over"], "compute": cfg.compute_dtype,
+              "steps": SHARDED_TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "losses": r0["losses"], "single_losses": ref["losses"],
+              "grad_norms": r0["grad_norms"], "single_grad_norms": ref["grad_norms"],
+              "loss_max_abs_diff": loss_err, "loss_tol": SHARDED_TRAIN_LOSS_TOL,
+              "grad_norm_max_abs_diff": gn_err, "grad_norm_tol": SHARDED_TRAIN_GRAD_TOL,
+              "param_max_abs_diff": param_err, "param_tol": SHARDED_TRAIN_PARAM_TOL,
+              "launches_per_rank": [{k: n for k, n in r[key]["launches"].items() if n}
+                                    for r in ranks],
+              "expected_launches": {k: n for k, n in want.items() if n},
+              "step_ms_per_rank": [r[key]["step_ms"] for r in ranks],
+              "single_step_ms": ref["step_ms"],
+              "split_per_rank": [r[key]["split"] for r in ranks], "split_note": gloo,
+              "peak_mem_gb_per_rank": [r[key]["peak_mem_gb"] for r in ranks]})
+        require(all(r[key]["losses"] == r0["losses"] for r in ranks),
+                f"sharded train {arch}: the ranks' losses differ")
+        require(loss_err <= SHARDED_TRAIN_LOSS_TOL and gn_err <= SHARDED_TRAIN_GRAD_TOL
+                and param_err <= SHARDED_TRAIN_PARAM_TOL,
+                f"sharded train {arch}: loss {loss_err}, grad norm {gn_err}, params {param_err}")
+        for r in ranks:
+            require(r[key]["launches"] == want,
+                    f"sharded train {arch}: launches {r[key]['launches']} != {want}")
+            for k, v in r[key]["launches"].items():
+                totals[k] += v
+    del single
+    _release()
+    counters = _launch_counters()
+    cli, launches = _sharded_cli(counters)
+    want = _expected_train_launches(_train_cfg(SHARDED_CLI_ARCH, None, {}),
+                                    SHARDED_CLI_STEPS - SHARDED_CLI_SAVE)
+    require(launches == want, f"sharded train CLI: resumed launches {launches} != {want}")
+    for k, v in launches.items():
+        totals[k] += v
+    emit({"phase": "sharded", "train_cli": SHARDED_CLI_ARCH, "ranks": 2, "backend": "gloo",
+          "saved_at": SHARDED_CLI_SAVE, "resumed_on_one_rank_to": SHARDED_CLI_STEPS, **cli,
+          "resumed_launches": {k: n for k, n in launches.items() if n},
+          "seconds": time.perf_counter() - t_phase})
+
+
+def _flat_cpu(tree) -> dict:
+    from repro_torch.tree import flatten_with_paths
+
+    return {p: x.detach().cpu() for p, x in flatten_with_paths(tree)}
+
+
 def phase_sharded():
     """Multi-GPU serving of the fused RNN path, on the one card: its ranks
     share it over gloo, so the times are not multi-GPU speed. (a) B1 at the
@@ -3104,7 +3393,8 @@ def phase_sharded():
     with a decode step of SHARDED_SPLIT_RUNS split into collectives and the
     rest, then one full-width layer of each SHARDED_MOE under
     ``_moe_shard_map`` held to ``sorted`` on one rank at 2e-5; (d) four
-    ranks, (2, 2), serving SHARDED_DATA_RUN. Under fp32 the tokens must
+    ranks, (2, 2), serving SHARDED_DATA_RUN; (e) training on two ranks
+    (``_sharded_train``). Under fp32 the tokens must
     equal the single-device run's and the logits be within SHARDED_TOL;
     under bf16 the logits within SHARDED_BF16_TOL (the tokens are
     reported); each rank's launches the expected, each model rank's
@@ -3214,6 +3504,8 @@ def phase_sharded():
         require(r[SHARDED_DATA_RUN]["launches"] == want, "sharded (2, 2): launches")
         for k, v in r[SHARDED_DATA_RUN]["launches"].items():
             totals[k] += v
+    # (e) training on the mesh
+    _sharded_train(totals)
     emit({"phase": "sharded", "launches": totals})
     return totals
 

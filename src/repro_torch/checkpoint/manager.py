@@ -22,8 +22,17 @@ Storage is one ``.npy`` per leaf and a ``MANIFEST.json`` with each leaf's
 path (``params/layers/cell/w``, ``opt/step``, ``opt/m/...``; a ``None``
 subtree adds no leaf), dtype and shape, the step, ``data_state``,
 ``cell_layout`` (always lane-major when written) and ``weight_quant``. Leaves are
-stored unsharded; the port runs on one device, so ``restore`` places each
-leaf on the device of the target's leaf.
+stored unsharded. ``restore`` places each leaf on the device of the
+target's leaf.
+
+On a mesh of ranks (``shardings``: the port's ``(mesh, specs)``, a
+``launch/mesh.py`` mesh and a spec tree matching the state) ``save``
+gathers each leaf whole over the axes it is sharded on, and rank 0 alone
+writes the files, byte-equal to a single-device save of the same state;
+a barrier follows the rename, so no rank goes on before the step is
+published. ``restore`` with ``shardings`` is the elastic re-mesh restore:
+each rank reads the whole leaf and keeps its ``local_shard`` under the
+current mesh, whatever mesh the step was saved from.
 
 A bfloat16 leaf (the bf16 Adam moments of ``qwen3-moe-235b-a22b`` and
 ``nemotron-4-340b``) is written as the JAX package writes it, ``np.save`` of
@@ -42,9 +51,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distribution import sharding
 from repro_torch.kernels.fused_rnn import layout
-from repro_torch.tree import flatten_with_paths, unflatten_like
+from repro_torch.tree import flatten_with_paths, tree_leaves, unflatten_like
 
 _QUANT_LEAVES = ("wq", "w0q", "w1q")
 # ``np.save``'s header descr of an ``ml_dtypes.bfloat16`` array.
@@ -100,13 +111,22 @@ class CheckpointManager:
         return s[-1] if s else None
 
     # -- save ---------------------------------------------------------------
-    def save(self, step: int, tree, data_state: Optional[Dict] = None) -> str:
+    def save(self, step: int, tree, data_state: Optional[Dict] = None, shardings=None) -> str:
+        """Write ``tree`` as ``step_N``; ``shardings``: ``(mesh, specs)``
+        when ``tree`` holds this rank's shards (module docstring)."""
         final = os.path.join(self.dir, f"step_{step}")
+        flat = flatten_with_paths(tree)
+        if shardings is not None:
+            mesh, specs = shardings
+            flat = [(path, sharding.gather_shard(leaf, spec, mesh))
+                    for (path, leaf), spec in zip(flat, tree_leaves(specs))]
+            if dist.is_initialized() and dist.get_rank() != 0:
+                dist.barrier()  # rank 0 writes and publishes
+                return final
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        flat = flatten_with_paths(tree)
         manifest = {
             "step": step,
             "leaves": [],
@@ -128,14 +148,17 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.rename(tmp, final)  # atomic publish
         self._gc()
+        if shardings is not None and dist.is_initialized():
+            dist.barrier()
         return final
 
     # -- restore --------------------------------------------------------------
-    def restore(self, step: int, target_tree):
+    def restore(self, step: int, target_tree, shardings=None):
         """Restore into the structure of ``target_tree``; each leaf lands on
         the device of the target's leaf, in the dtype it was saved in. A
         gate-major checkpoint is migrated to lane-major on the way.
-        Returns (tree, data_state)."""
+        ``shardings``: ``(mesh, specs)``, this rank keeps its shard of each
+        leaf (the elastic re-mesh restore). Returns (tree, data_state)."""
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "MANIFEST.json")) as f:
             manifest = json.load(f)
@@ -160,8 +183,13 @@ class CheckpointManager:
             # its sibling leaves, so only this path loads the whole mapping
             # at once; a current checkpoint streams one leaf at a time.
             migrated = layout.migrate_flat_leaves({path: load(path) for path, _ in flat_t})
-        leaves = [(load(path) if migrated is None else migrated[path]).to(ref.device)
-                  for path, ref in flat_t]
+        specs = [()] * len(flat_t) if shardings is None else tree_leaves(shardings[1])
+        leaves = []
+        for (path, ref), spec in zip(flat_t, specs):
+            leaf = load(path) if migrated is None else migrated[path]
+            if shardings is not None:
+                leaf = sharding.local_shard(leaf, spec, shardings[0])
+            leaves.append(leaf.to(ref.device))
         return unflatten_like(target_tree, leaves), manifest["data_state"]
 
     # -- gc -------------------------------------------------------------------

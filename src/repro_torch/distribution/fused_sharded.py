@@ -48,12 +48,26 @@ routes here: the stack itself, the layer through ``core/mts.py``'s ``mesh``
 argument. With no mesh, a model axis of 1 or an indivisible width they run
 the unsharded kernels on whole params.
 
-Forward only: JAX's ``custom_vjp`` backward to the global reference
-(sharded training) waits for ROADMAP §A7.2, and a call that needs a gradient
-raises.
+Differentiable, as JAX's cores are ``custom_vjp``s whose backward is the
+global reference's VJP, which GSPMD partitions. Without GSPMD each rank
+computes its shard's part of that VJP, and the model axis sums the partial
+products: the same math in another summation order. The layer is
+:func:`launch.mesh.enter` on its whole inputs, B1 through
+``fused_ops.fused_layer`` (backward: the shard's plain layer recomputed, its
+recurrence on B3) and :func:`launch.mesh.gather` of the output. The stack is
+one Function (``_ShardedStackCore``) whose forward is either schedule and
+whose backward, shared by both, recomputes the rank's shard of the plain
+stack: the barrier schedule on the plain layer, with ``enter`` / ``gather``
+at each layer's edges (:func:`_stack_barrier`). Int8 slabs are
+straight-through, as JAX's ``_layer_bwd_rule_q`` / ``_stack_bwd_rule_q``:
+the slab gets no cotangent, the whole ``wq_scale`` gets the reference's
+(summed over the model axis). The gradients of replicated inputs come out
+equal on every model rank; each slab, bias and ``w_skip`` shard gets its
+own lanes'.
 """
 from __future__ import annotations
 
+import functools
 import re
 from typing import Optional
 
@@ -61,8 +75,11 @@ import torch
 
 from repro_torch.core import overlap
 from repro_torch.distribution import sharding as shd
+from repro_torch.kernels.common import recompute_grads
 from repro_torch.kernels.fused_rnn import layout
 from repro_torch.kernels.fused_rnn import ops as fused_ops
+from repro_torch.kernels.fused_rnn.fused_rnn import fused_rnn_layer_plain
+from repro_torch.launch import mesh as mesh_lib
 
 MODEL_AXIS = "model"
 _EPS = 1e-6  # matches models/layers.py rmsnorm and the stacked kernel
@@ -176,13 +193,6 @@ def rank_cache_specs(cfg, caches, mesh):
 # One layer per rank (engine="fused")
 # ---------------------------------------------------------------------------
 
-def _require_no_grad(*tensors) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the sharded fused RNN path serves forward only; its backward (sharded "
-            "training) waits for ROADMAP §A7.2")
-
-
 def _scale_shard(scale: torch.Tensor, lane0: int, Hl: int):
     """The shard's blocks of the whole compact scales ``(..., 3, nb)`` and
     the offset of its lane 0 in the first of them."""
@@ -192,29 +202,32 @@ def _scale_shard(scale: torch.Tensor, lane0: int, Hl: int):
 
 
 def _layer(u, taps, b3, c0, *, mode, mesh, block_t, tail=None, wskip=None, scale=None):
-    """This rank's B1 on its lanes, then the output gathered to full width.
-    Returns ``(h (T, B, H), c_last (B, Hl))``."""
+    """This rank's B1 on its lanes (``fused_ops.fused_layer``, whose
+    backward recomputes the shard's plain layer), between :func:`enter` on
+    what every model rank reads whole and :func:`gather` of the output to
+    full width. Returns ``(h (T, B, H), c_last (B, Hl))``."""
     group = mesh.axis(MODEL_AXIS)
     Hl = taps[0].shape[-1]
     lane0 = group.index * Hl
+    u, tail, scale = (mesh_lib.enter(t, group) for t in (u, tail, scale))
     # The highway skip is the rank's own lane slice of the whole input.
     skip = u[..., lane0:lane0 + Hl].contiguous() if mode == "sru_identity" else None
     scale_l, off = (None, 0) if scale is None else _scale_shard(scale, lane0, Hl)
-    h_l, c_l = fused_ops.run_layer(
+    h_l, c_l = fused_ops.fused_layer(
         u, taps, b3, c0, mode=mode, tail=tail, wskip=wskip, block_t=block_t,
         scale=scale_l, skip=skip, scale_lane0=off)
-    return group.all_gather(h_l), c_l
+    return mesh_lib.gather(h_l, group), c_l
 
 
 def sharded_fused_sru(params, x: torch.Tensor, c0: torch.Tensor, *, mesh, block_t: int = 128):
     """Whole SRU layer, fused and model-sharded: ``params`` this rank's
     shards (fp ``w``, or int8 ``wq`` with the whole ``wq_scale``), ``x``
-    (T, B, d) whole, ``c0`` (B, Hl). Returns ``(h (T, B, H), c_last (B, Hl))``."""
+    (T, B, d) whole, ``c0`` (B, Hl). Returns ``(h (T, B, H), c_last (B, Hl))``.
+    Differentiable (int8 slabs: straight-through)."""
     if layout.is_quantized(params):
         taps, scale, b3, mode, wskip = layout.sru_slabs_q(params)
     else:
         (taps, b3, mode, wskip), scale = layout.sru_slabs(params), None
-    _require_no_grad(x, c0, b3, wskip, *taps)
     return _layer(x, taps, b3, c0, mode=mode, mesh=mesh, block_t=block_t, wskip=wskip,
                   scale=scale)
 
@@ -228,7 +241,6 @@ def sharded_fused_qrnn(params, x: torch.Tensor, x_prev_tail: Optional[torch.Tens
         taps, scale, b3 = layout.qrnn_slabs_q(params)
     else:
         (taps, b3), scale = layout.qrnn_slabs(params), None
-    _require_no_grad(x, x_prev_tail, c0, b3, *taps)
     return _layer(x, taps, b3, c0, mode="qrnn", mesh=mesh, block_t=block_t, tail=x_prev_tail,
                   scale=scale)
 
@@ -237,37 +249,9 @@ def sharded_fused_qrnn(params, x: torch.Tensor, x_prev_tail: Optional[torch.Tens
 # The depth-fused stack per rank (engine="fused_stack")
 # ---------------------------------------------------------------------------
 
-def _stack_barrier(x, taps, b3L, lnL, c0L, tailsL, sL, *, qrnn, mesh, block_t):
-    """L x (norm of the replicated fp32 stream, the rank's B1 in fp32 IO,
-    gather of its fp32 output into the stream)."""
-    group = mesh.axis(MODEL_AXIS)
-    L, Hl, d = taps[0].shape[0], taps[0].shape[-1], x.shape[-1]
-    lane0 = group.index * Hl
-    xf = x.float()
-    c_lasts, new_tails = [], []
-    for l in range(L):
-        # Pre-norm over the full width: local, the stream is replicated.
-        ms = torch.sum(xf * xf, dim=-1, keepdim=True) / d
-        u = xf * torch.rsqrt(ms + _EPS) * lnL[l].float()
-        scale, off = (None, 0) if sL is None else _scale_shard(sL[l], lane0, Hl)
-        if qrnn:
-            new_tails.append(u[-1])
-            kw = {"mode": "qrnn", "tail": tailsL[l][None].float()}
-        else:
-            kw = {"mode": "sru_identity", "skip": u[..., lane0:lane0 + Hl].contiguous()}
-        h_l, c_l = fused_ops.run_layer(
-            u, tuple(t[l] for t in taps), b3L[l].float(), c0L[l].float(), block_t=block_t,
-            scale=scale, scale_lane0=off, **kw)
-        xf = xf + group.all_gather(h_l)
-        c_lasts.append(c_l)
-    tails = torch.stack(new_tails).to(x.dtype) if qrnn else None
-    return xf.to(x.dtype), torch.stack(c_lasts).to(x.dtype), tails
-
-
-def _stack_ring(x, taps, b3L, lnL, c0L, tailsL, sL, *, qrnn, mesh):
+def _stack_ring(x, taps, b3L, lnL, c0L, tailsL, sL, *, qrnn, group):
     """The chunk-resident stream: scalar all_reduce norms, ring gate GEMMs,
     B3's recurrence; one gather at the exit."""
-    group = mesh.axis(MODEL_AXIS)
     L, Hl, d = taps[0].shape[0], taps[0].shape[-1], x.shape[-1]
     lane0 = group.index * Hl
     own = slice(lane0, lane0 + Hl)
@@ -309,16 +293,83 @@ def _stack_ring(x, taps, b3L, lnL, c0L, tailsL, sL, *, qrnn, mesh):
     return y, torch.stack(c_lasts).to(x.dtype), tails
 
 
-def _stack(x, taps, b3L, lnL, c0L, tailsL, sL, *, qrnn, mesh, block_t, schedule):
+def _stack_barrier(x, b3L, lnL, c0L, tailsL, sL, *taps, group, layer):
+    """L x (norm of the replicated fp32 stream, ``layer`` on the rank's
+    lanes in fp32 IO, gather of its fp32 output into the stream). Forward,
+    ``layer`` is B1 (``fused_ops.run_layer``); in the backward it is the
+    plain layer, its recurrence on B3, and this is the rank's shard of the
+    stack's plain version, differentiable: :func:`enter` on what the rank
+    reads whole (each layer's normed input, the conv tails, the scales),
+    :func:`gather` of each layer's output, so the model ranks' gradients of
+    the replicated inputs come out equal and each slab shard gets its own."""
+    qrnn = len(taps) == 2
+    L, Hl, d = taps[0].shape[0], taps[0].shape[-1], x.shape[-1]
+    lane0 = group.index * Hl
+    tailsL, sL = mesh_lib.enter(tailsL, group), mesh_lib.enter(sL, group)
+    xf = x.float()
+    c_lasts, new_tails = [], []
+    for l in range(L):
+        # Pre-norm over the full width: local, the stream is replicated.
+        ms = torch.sum(xf * xf, dim=-1, keepdim=True) / d
+        u = xf * torch.rsqrt(ms + _EPS) * lnL[l].float()
+        if qrnn:
+            new_tails.append(u[-1])
+        u_r = mesh_lib.enter(u, group)
+        scale, off = (None, 0) if sL is None else _scale_shard(sL[l], lane0, Hl)
+        if qrnn:
+            kw = {"mode": "qrnn", "tail": tailsL[l][None].float()}
+        else:
+            kw = {"mode": "sru_identity", "skip": u_r[..., lane0:lane0 + Hl].contiguous()}
+        h_l, c_l = layer(u_r, tuple(t[l] for t in taps), b3L[l].float(), c0L[l].float(),
+                         scale=scale, scale_lane0=off, **kw)
+        xf = xf + mesh_lib.gather(h_l, group)
+        c_lasts.append(c_l)
+    tails = torch.stack(new_tails).to(x.dtype) if qrnn else None
+    return xf.to(x.dtype), torch.stack(c_lasts).to(x.dtype), tails
+
+
+class _ShardedStackCore(torch.autograd.Function):
+    """The sharded stack: ``apply(schedule, group, block_t, x, b3L, lnL, c0L,
+    tailsL, sL, *taps) -> (y, c_last[, tails_last])``. Forward: the
+    schedule's kernels (B1 a layer in the barrier, the ring's GEMMs and B3).
+    Backward, shared by both schedules as JAX's ``defvjp`` to the one
+    global reference: the barrier on the plain layer evaluated again on the
+    saved inputs and differentiated. Int8 slabs are straight-through."""
+
+    @staticmethod
+    def forward(ctx, schedule, group, block_t, x, b3L, lnL, c0L, tailsL, sL, *taps):
+        ctx.group = group
+        ctx.save_for_backward(x, b3L, lnL, c0L, tailsL, sL, *taps)
+        qrnn = len(taps) == 2
+        if schedule == "ring":
+            y, c_last, tails = _stack_ring(x, taps, b3L, lnL, c0L, tailsL, sL, qrnn=qrnn,
+                                           group=group)
+        else:
+            y, c_last, tails = _stack_barrier(x, b3L, lnL, c0L, tailsL, sL, *taps, group=group,
+                                              layer=functools.partial(fused_ops.run_layer,
+                                                                      block_t=block_t))
+        return (y, c_last) if tails is None else (y, c_last, tails)
+
+    @staticmethod
+    def backward(ctx, *grad_outs):
+        plain_layer = functools.partial(fused_rnn_layer_plain,
+                                        scan=fused_ops.linear_scan_recurrence)
+
+        def plain(*inputs):
+            return _stack_barrier(*inputs, group=ctx.group, layer=plain_layer)
+
+        grads = recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[3:], grad_outs)
+        return (None, None, None, *grads)
+
+
+def _stack(x, taps, b3L, lnL, c0L, tailsL, sL, *, mesh, block_t, schedule):
     if schedule not in ("barrier", "ring"):
         raise ValueError(f"unknown schedule {schedule!r}")
     if x.shape[-1] != taps[0].shape[-1] * model_shards(mesh):
         raise ValueError("the stack's residual needs d_model == hidden")
-    _require_no_grad(x, b3L, lnL, c0L, tailsL, *taps)
-    if schedule == "ring":
-        return _stack_ring(x, taps, b3L, lnL, c0L, tailsL, sL, qrnn=qrnn, mesh=mesh)
-    return _stack_barrier(x, taps, b3L, lnL, c0L, tailsL, sL, qrnn=qrnn, mesh=mesh,
-                          block_t=block_t)
+    out = _ShardedStackCore.apply(schedule, mesh.axis(MODEL_AXIS), block_t, x, b3L, lnL, c0L,
+                                  tailsL, sL, *taps)
+    return out if len(out) == 3 else (*out, None)
 
 
 def sharded_fused_sru_stack(params, ln_g: torch.Tensor, x: torch.Tensor, c0: torch.Tensor, *,
@@ -334,8 +385,8 @@ def sharded_fused_sru_stack(params, ln_g: torch.Tensor, x: torch.Tensor, c0: tor
         taps, sL, b3L, _, _ = layout.sru_slabs_q(params)
     else:
         (taps, b3L, _, _), sL = layout.sru_slabs(params), None
-    y, c_last, _ = _stack(x, taps, b3L, ln_g, c0, None, sL, qrnn=False, mesh=mesh,
-                          block_t=block_t, schedule=schedule)
+    y, c_last, _ = _stack(x, taps, b3L, ln_g, c0, None, sL, mesh=mesh, block_t=block_t,
+                          schedule=schedule)
     return y, c_last
 
 
@@ -349,5 +400,5 @@ def sharded_fused_qrnn_stack(params, ln_g: torch.Tensor, x: torch.Tensor, tails:
         taps, sL, b3L = layout.qrnn_slabs_q(params)
     else:
         (taps, b3L), sL = layout.qrnn_slabs(params), None
-    return _stack(x, taps, b3L, ln_g, c0, tails, sL, qrnn=True, mesh=mesh, block_t=block_t,
+    return _stack(x, taps, b3L, ln_g, c0, tails, sL, mesh=mesh, block_t=block_t,
                   schedule=schedule)

@@ -10,7 +10,10 @@ by the mesh-axis group's size; otherwise it is replicated, and
 ``describe_replications`` lists it.
 
 :func:`local_shard` is the port's ``device_put`` of a spec: this rank's
-slice of a whole leaf. The rank holds only that slice at rest.
+slice of a whole leaf. The rank holds only that slice at rest, and
+:func:`gather_shard` makes the leaf whole again. :func:`spec_axes` names the
+mesh axes a spec shards over: the train step reduces a leaf's gradient, norm
+and absmax over exactly those (a leaf replicated on an axis counts once).
 
 Activation hints: ``use_rules`` installs the mesh for the enclosed region,
 as in JAX, and the sharded dispatch (``fused_sharded.active_mesh``, MoE's
@@ -296,3 +299,25 @@ def local_shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
             raise ValueError(f"dim {dim} of size {n} does not split over {_axes(s)}")
         out = out.narrow(dim, i * (n // k), n // k)
     return x if out is x else out.clone(memory_format=torch.contiguous_format)
+
+
+def spec_axes(spec) -> tuple:
+    """The mesh axes ``spec`` shards over, in dim order."""
+    return tuple(a for e in spec for a in _axes(e))
+
+
+def replicated_on(spec, axis: str) -> bool:
+    """True when a leaf under ``spec`` is whole on every rank of ``axis``."""
+    return axis not in spec_axes(spec)
+
+
+def gather_shard(x: torch.Tensor, spec, mesh, axes: Optional[Sequence[str]] = None):
+    """The whole leaf from this rank's shard ``x`` under ``spec`` (the
+    inverse of :func:`local_shard`): gathered along each sharded dim over
+    its axes (only those in ``axes``, when given), the innermost first.
+    Every rank of those axes must call it, leaf for leaf in one order."""
+    for dim, entry in enumerate(spec):
+        for a in reversed(_axes(entry)):
+            if (axes is None or a in axes) and mesh.shape[a] > 1:
+                x = mesh.axis(a).all_gather(x, dim)
+    return x

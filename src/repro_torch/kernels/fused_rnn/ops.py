@@ -65,31 +65,36 @@ def linear_scan_recurrence(x_hat, f, r, skip, c0):
 
 
 class _FusedCore(torch.autograd.Function):
-    """One layer: ``apply(mode, block_t, u, b3, wskip, c0, tail, scale, *taps)
-    -> (h, c_last)``; ``scale`` is None for fp slabs, ``wskip`` and ``tail``
-    may be None."""
+    """One layer: ``apply(mode, block_t, scale_lane0, u, b3, wskip, c0, tail,
+    scale, skip, *taps) -> (h, c_last)``; ``scale`` is None for fp slabs,
+    ``wskip``, ``tail`` and ``skip`` may be None (``skip``, ``scale_lane0``:
+    a model shard's operands, ``fused_rnn_layer``)."""
 
     @staticmethod
-    def forward(ctx, mode, block_t, u, b3, wskip, c0, tail, scale, *taps):
-        ctx.mode = mode
-        ctx.save_for_backward(u, b3, wskip, c0, tail, scale, *taps)
+    def forward(ctx, mode, block_t, scale_lane0, u, b3, wskip, c0, tail, scale, skip, *taps):
+        ctx.mode, ctx.scale_lane0 = mode, scale_lane0
+        ctx.save_for_backward(u, b3, wskip, c0, tail, scale, skip, *taps)
         return run_layer(u, taps, b3, c0, mode=mode, tail=tail, wskip=wskip, block_t=block_t,
-                         scale=scale)
+                         scale=scale, skip=skip, scale_lane0=scale_lane0)
 
     @staticmethod
     def backward(ctx, g_h, g_c):
-        def plain(u, b3, wskip, c0, tail, scale, *taps):
+        def plain(u, b3, wskip, c0, tail, scale, skip, *taps):
             return fused_rnn_layer_plain(u, taps, b3, c0, mode=ctx.mode, tail=tail,
-                                         wskip=wskip, scale=scale, scan=linear_scan_recurrence)
+                                         wskip=wskip, scale=scale, skip=skip,
+                                         scale_lane0=ctx.scale_lane0,
+                                         scan=linear_scan_recurrence)
 
-        grads = recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[2:], (g_h, g_c))
-        return (None, None, *grads)
+        grads = recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[3:], (g_h, g_c))
+        return (None, None, None, *grads)
 
 
-def fused_layer(u, taps, b3, c0, *, mode, tail=None, wskip=None, block_t=128, scale=None):
+def fused_layer(u, taps, b3, c0, *, mode, tail=None, wskip=None, block_t=128, scale=None,
+                skip=None, scale_lane0=0):
     """:func:`run_layer` through ``_FusedCore``: differentiable (int8 slabs:
     straight-through)."""
-    return _FusedCore.apply(mode, block_t, u, b3, wskip, c0, tail, scale, *taps)
+    return _FusedCore.apply(mode, block_t, scale_lane0, u, b3, wskip, c0, tail, scale, skip,
+                            *taps)
 
 
 def fused_sru(

@@ -18,7 +18,20 @@ The collectives of JAX's ``shard_map`` bodies are methods of the axis group
   * ``lax.ppermute`` to the ring neighbour -> :meth:`AxisGroup.shift`
     (``dist.batch_isend_irecv``, started before the caller's compute and
     waited for after it);
-  * ``lax.axis_index`` -> :attr:`AxisGroup.index`.
+  * ``lax.axis_index`` -> :attr:`AxisGroup.index`;
+  * FSDP's gradient reduction -> :meth:`AxisGroup.reduce_scatter` (the sum
+    over the axis, this rank's block along one dim).
+
+Two autograd Functions stand at the edges of a per-rank region (a
+``shard_map`` body, whose backward JAX derives by transposing it): each
+model rank computes its shard's part of the region from inputs replicated
+over the axis, and every rank computes the same replicated loss from the
+gathered outputs. :func:`enter` is the identity forward and sums the
+cotangent over the axis backward (the rank's partial products of the
+replicated input's gradient); :func:`gather` is the tiled ``all_gather``
+forward and takes this rank's lane slice of the (replicated) cotangent
+backward; :func:`combine` (a ``psum`` of partial outputs) passes the
+cotangent through unchanged.
 
 Under the gloo backend a collective that gloo does not run on CUDA tensors
 (``GLOO_STAGED``) goes through pinned host memory: the operand is copied
@@ -37,10 +50,12 @@ import torch
 import torch.distributed as dist
 
 # The collectives gloo does not run on CUDA tensors. On the H100 machine
-# (PyTorch 2.11, CUDA 12.8) gloo's all_reduce, all_gather, broadcast and
-# all_gather_into_tensor take CUDA tensors; a point-to-point send of one
-# hands the device pointer to the socket and the process aborts.
+# (PyTorch 2.11, CUDA 12.8) gloo's all_reduce (sum and max), all_gather,
+# broadcast, all_gather_into_tensor and reduce_scatter_tensor take CUDA
+# tensors; a point-to-point send of one hands the device pointer to the
+# socket and the process aborts.
 GLOO_STAGED = ("shift",)
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 class AxisGroup:
@@ -82,26 +97,41 @@ class AxisGroup:
             return host.copy_(x)
         return x.contiguous()
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The axis's pieces of ``x`` side by side along the last dim, in
-        axis order: JAX's ``all_gather(x, axis, axis=-1, tiled=True)``."""
+    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The axis's pieces of ``x`` side by side along ``dim`` (default the
+        last), in axis order: JAX's ``all_gather(x, axis, axis=dim,
+        tiled=True)``."""
         if self.size == 1:
             return x
         with self._timed("all_gather", x):
             src = self._stage("all_gather", x)
             parts = [torch.empty_like(src) for _ in self.ranks]
             dist.all_gather(parts, src, group=self.group)
-            return torch.cat(parts, dim=-1).to(x.device)
+            return torch.cat(parts, dim=dim).to(x.device)
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the axis (JAX's ``psum``), a new tensor."""
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (``op="max"``: the maximum) of ``x`` over the axis (JAX's
+        ``psum`` / ``pmax``), a new tensor."""
         if self.size == 1:
             return x
         with self._timed("all_reduce", x):
             buf = self._stage("all_reduce", x)
             buf = buf.clone() if buf is x else buf
-            dist.all_reduce(buf, group=self.group)
+            dist.all_reduce(buf, op=_OPS[op], group=self.group)
             return buf.to(x.device)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The sum of ``x`` over the axis, of which this rank keeps its block
+        along ``dim`` (``x.shape[dim]`` divides by the axis size): FSDP's
+        gradient reduction, a new tensor."""
+        if self.size == 1:
+            return x
+        with self._timed("reduce_scatter", x):
+            src = self._stage("reduce_scatter", x.movedim(dim, 0))
+            out = torch.empty((src.shape[0] // self.size,) + src.shape[1:], dtype=src.dtype,
+                              device=src.device, pin_memory=src.is_pinned())
+            dist.reduce_scatter_tensor(out, src, group=self.group)
+            return out.to(x.device).movedim(0, dim).contiguous()
 
     def shift(self, x: torch.Tensor):
         """Send ``x`` to the next rank on the ring and receive the previous
@@ -129,6 +159,59 @@ class AxisGroup:
         return wait
 
 
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.contiguous()), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.width = group, x.shape[-1]
+        return group.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        lane0 = ctx.group.index * ctx.width
+        return g[..., lane0:lane0 + ctx.width].contiguous(), None
+
+
+class _Combine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def enter(x: Optional[torch.Tensor], group: AxisGroup) -> Optional[torch.Tensor]:
+    """``x``, replicated over ``group``'s axis, as read inside a per-rank
+    region: the identity forward, the cotangent summed over the axis
+    backward (each rank's is its own partial product). None passes."""
+    return x if x is None or group.size == 1 else _Enter.apply(x, group)
+
+
+def gather(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+    """This rank's lanes of a region's output gathered to full width along
+    the last dim (:meth:`AxisGroup.all_gather`); backward, this rank's lane
+    slice of the cotangent, which every rank holds whole: no collective."""
+    return x if group.size == 1 else _Gather.apply(x, group)
+
+
+def combine(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+    """The sum of the ranks' partial outputs over the axis; backward, the
+    (replicated) cotangent unchanged."""
+    return x if group.size == 1 else _Combine.apply(x, group)
+
+
 class Mesh:
     """``shape``: axis name -> size, in mesh order. A mesh of live ranks
     also has this rank's ``coords`` and an :class:`AxisGroup` per axis
@@ -136,11 +219,13 @@ class Mesh:
     neither, and serves ``distribution/sharding.py``'s spec functions."""
 
     def __init__(self, shape: Dict[str, int], coords: Optional[Dict[str, int]] = None,
-                 groups: Optional[Dict[str, AxisGroup]] = None, backend: Optional[str] = None):
+                 groups: Optional[Dict[str, AxisGroup]] = None, backend: Optional[str] = None,
+                 host_group=None):
         self.shape = dict(shape)
         self.coords = coords
         self.groups = groups or {}
         self.backend = backend
+        self.host_group = host_group  # gloo group of every rank (None: the world's)
 
     @property
     def axis_names(self) -> tuple:
@@ -154,6 +239,16 @@ class Mesh:
         if name not in self.groups:
             raise ValueError(f"mesh {self.shape} has no live axis {name!r}")
         return self.groups[name]
+
+    def host_all_reduce(self, value: float, op: str = "sum") -> float:
+        """A host number (a flag, a count) reduced over every rank of the
+        mesh, as a CPU tensor through gloo: the world group under gloo, a
+        gloo group of the same ranks under NCCL. No card work is waited for."""
+        if self.size == 1:
+            return value
+        t = torch.tensor([value], dtype=torch.float64)
+        dist.all_reduce(t, op=_OPS[op], group=self.host_group)
+        return float(t[0])
 
     def describe(self) -> str:
         """The startup line of a live mesh: backend, ranks and the
@@ -214,7 +309,8 @@ def make_local_mesh(model_axis: int = 1, *, device: Optional[torch.device] = Non
             pg = dist.new_group(ranks) if len(ranks) > 1 else None
             if rank in ranks:
                 groups[name] = AxisGroup(ranks, ranks.index(rank), pg, staged)
-    return Mesh({"data": data, "model": model_axis}, coords, groups, backend)
+    host = dist.new_group(backend="gloo") if backend not in (None, "gloo") else None
+    return Mesh({"data": data, "model": model_axis}, coords, groups, backend, host)
 
 
 def dp_axes(mesh: Mesh) -> tuple:

@@ -37,6 +37,8 @@ JAX. ``cfg.remat`` recomputes each block (``"block"``:
 """
 from __future__ import annotations
 
+import contextvars
+
 from typing import Dict
 
 import torch
@@ -80,13 +82,20 @@ def _save_dots():
 
 def maybe_remat(fn, remat: str):
     """none: save everything; block: recompute everything in the backward;
-    dots: recompute all but matmul outputs."""
-    if remat == "block":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-    if remat == "dots":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
-                                        context_fn=_save_dots)
-    return fn
+    dots: recompute all but matmul outputs. The recompute runs in a copy of
+    the forward's context: on the card the backward runs on the autograd
+    engine's device thread, where the forward's context variables (the
+    mesh of ``sharding.use_rules``) are not set."""
+    if remat not in ("block", "dots"):
+        return fn
+    kw = {"context_fn": _save_dots} if remat == "dots" else {}
+
+    def run(*args):
+        ctx = contextvars.copy_context()
+        return checkpoint(lambda *a: ctx.run(fn, *a), *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -318,17 +327,20 @@ def _ce_terms(cfg, logits, targets):
     return logz, ll
 
 
-def lm_loss(params, cfg, batch):
+def lm_loss(params, cfg, batch, denom=None):
     """Cross-entropy over targets. ``batch``: inputs, targets, mask.
     Returns ``(loss, {"loss", "tokens"})``. With ``cfg.loss_chunk > 0`` the
     (tokens, V) logits are never materialized: the final hidden states go
     through the head ``loss_chunk`` tokens at a time, each chunk under
-    checkpoint."""
+    checkpoint. ``denom``: the token count the NLL sum is divided by
+    (default the batch's own, at least 1); a data-parallel rank passes the
+    whole microbatch's, so the ranks' losses add up to its loss."""
     targets = batch["targets"]
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
-    denom = torch.clamp(torch.sum(mask), min=1.0)
+    if denom is None:
+        denom = torch.clamp(torch.sum(mask), min=1.0)
 
     if not cfg.loss_chunk:
         logz, ll = _ce_terms(cfg, lm_forward(params, cfg, batch), targets)

@@ -31,7 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distribution.sharding import activation_rules, suppress_hints
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.layers import dense_init
+
+_EXPERT_LEAVES = ("e_gate", "e_up", "e_down")
 
 
 def moe_init(gen, cfg, dtype, device) -> Dict:
@@ -197,7 +200,14 @@ def _moe_shard_map(params, cfg, x):
     at the global per-expert capacity (local capacity factor ``cf / (E /
     E_loc)``) and contributes a partial (B, S, d); one ``all_reduce`` of
     that token-shaped output is the only collective. ``params``' experts
-    are this rank's (``fused_sharded.rank_specs``)."""
+    are this rank's (``fused_sharded.rank_specs``).
+
+    Differentiable as a per-rank region: ``x`` and the router, read whole
+    by every model rank, pass :func:`launch.mesh.enter` (their gradients are
+    summed over the axis), and the output's ``all_reduce`` is
+    :func:`launch.mesh.combine` (the cotangent passes back unchanged), so
+    each rank's expert leaves get their own experts' gradients and the rest
+    the single-device ones on every rank."""
     rules = activation_rules()
     E = cfg.n_experts
     if rules is None:
@@ -211,10 +221,13 @@ def _moe_shard_map(params, cfg, x):
     lo = group.index * E_loc
     cfg_loc = cfg.with_(n_experts=E_loc, moe_impl="sorted",
                         capacity_factor=cfg.capacity_factor / (E // E_loc))
+    x = mesh_lib.enter(x, group)
+    params = {k: v if k in _EXPERT_LEAVES else mesh_lib.enter(v, group)
+              for k, v in params.items()}
     with suppress_hints():  # a per-rank region, as JAX's manual shard_map region
         w, ids, _ = _route(params, cfg, x)
         mine = (ids >= lo) & (ids < lo + E_loc)
         w = torch.where(mine, w, 0.0)
         ids = torch.where(mine, ids - lo, E_loc)
         y_part = _dispatch_compute(params, cfg_loc, x, w, ids)
-    return group.all_reduce(y_part)
+    return mesh_lib.combine(y_part, group)

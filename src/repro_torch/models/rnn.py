@@ -162,7 +162,11 @@ def rnn_stack_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
     """Train: the whole stack from a zero state. x: (B, T, d)."""
     if _depth_fusible(cfg):
         one = rnn_init_cache(cfg, x.shape[0], x.dtype, x.device)
-        cache = {k: v.new_zeros((cfg.n_layers, *v.shape)) for k, v in one.items()}
+        # Under a sharding mesh the carries are this rank's lanes.
+        k = fused_sharded.model_shards(fused_sharded.sharding_mesh(cfg))
+        cache = {name: v.new_zeros((cfg.n_layers, *v.shape[:-1],
+                                    v.shape[-1] // k if name == "c" else v.shape[-1]))
+                 for name, v in one.items()}
         y, _ = _stack_fused(params, cfg, x, cache)
         return y
     for l in range(cfg.n_layers):

@@ -15,6 +15,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distribution.sharding import spec_axes
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -39,9 +40,26 @@ def adamw_init(params, moment_dtype: str = "float32") -> AdamWState:
     )
 
 
-def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """The L2 norm of the whole tree. Under ``mesh`` the leaves are this
+    rank's shards under ``specs``: each leaf's sum of squares is summed over
+    the axes it is sharded on (:func:`sharding.spec_axes`), so a replicated
+    leaf counts once and the norm is JAX's over the whole tree. Leaves
+    sharded on the same axes are reduced together, one collective a set."""
+    if mesh is None:
+        leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    by_axes: Dict[tuple, list] = {}
+    for x, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+        axes = tuple(a for a in spec_axes(spec) if mesh.shape[a] > 1)
+        by_axes.setdefault(axes, []).append(torch.sum(torch.square(x.float())))
+    total = 0.0
+    for axes in sorted(by_axes):
+        part = torch.sum(torch.stack(by_axes[axes]))
+        for a in axes:
+            part = mesh.axis(a).all_reduce(part)
+        total = total + part
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -56,11 +74,15 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     clip_norm: float = 1.0,
+    mesh=None,
+    specs=None,
 ) -> Tuple[Dict, AdamWState, Dict]:
     """One step. ``params``, ``state.m``, ``state.v`` and ``state.step`` are
-    updated in place and returned with the metrics ``grad_norm`` and ``lr``."""
+    updated in place and returned with the metrics ``grad_norm`` and ``lr``.
+    Under ``mesh`` every tree holds this rank's shards under ``specs``: the
+    update is elementwise, and only the clip's norm crosses ranks."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
 
     stepf = step.float()

@@ -7,6 +7,9 @@ batching (``serving/engine.py``).
 Each builder closes over the config and returns a plain function. The
 serving steps run under ``torch.inference_mode()``; the train step runs
 eagerly with autograd (capturing it as a CUDA graph is later work).
+``build_train_step`` and ``build_eval_step`` take a ``mesh`` too, as JAX's:
+data parallelism, FSDP and the model axis's per-rank fused RNN and MoE
+layers (:func:`build_train_step`).
 
 ``build_prefill_step``, ``build_decode_step`` and ``build_cache_init`` take
 a ``mesh`` (``launch/mesh.py``), as JAX's do: each rank then allocates its
@@ -24,7 +27,9 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.configs import shapes
 from repro_torch.distribution import fused_sharded
+from repro_torch.distribution import sharding as shd
 from repro_torch.distribution.sharding import local_shape, use_rules
 from repro_torch.models import lm, rnn
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, cosine_schedule
@@ -58,13 +63,97 @@ def _split_microbatch(batch: Dict, n_mb: int, i: int) -> Dict:
     return {k: one(v) for k, v in batch.items()}
 
 
+# ---------------------------------------------------------------------------
+# Training on a mesh of ranks
+# ---------------------------------------------------------------------------
+
+def train_param_specs(cfg, mesh, *, fsdp: bool = False):
+    """The specs a train state's params are held under on ``mesh``: JAX's
+    ``param_specs`` (``fsdp``: the ``fsdp_opt`` dims over ``data``) with
+    the model axis kept only where the port computes per rank
+    (``fused_sharded.rank_specs``); every other leaf is whole on each model
+    rank."""
+    whole = shapes.param_shapes(cfg)
+    return fused_sharded.rank_specs(cfg, shd.param_specs(whole, mesh, fsdp=fsdp), mesh)
+
+
+def train_state_specs(param_specs, compression: Optional[str] = None) -> TrainState:
+    """The spec tree of a whole train state: the moments and the
+    error-feedback state are held as the params are, the step whole."""
+    ef = param_specs if compression not in (None, "none") else None
+    return TrainState(params=param_specs, opt=AdamWState(step=(), m=param_specs, v=param_specs),
+                      ef=ef)
+
+
+def shard_train_state(state: TrainState, specs: TrainState, mesh) -> TrainState:
+    """This rank's shards of a whole train state under ``specs``
+    (:func:`train_state_specs`)."""
+    return unflatten_like(state, [shd.local_shard(x, s, mesh) for x, s in
+                                  zip(tree_leaves(state), tree_leaves(specs))])
+
+
+def _data_dim(spec) -> Optional[int]:
+    """The dim ``spec`` shards over ``data``, or None."""
+    for dim, entry in enumerate(spec):
+        if "data" in shd.spec_axes((entry,)):
+            if entry != "data":
+                raise ValueError(f"spec {spec}: the train step shards a dim over 'data' alone")
+            return dim
+    return None
+
+
+def _token_count(batch) -> torch.Tensor:
+    """The tokens ``lm_loss`` counts in ``batch``: its mask's sum, or every
+    target without a mask."""
+    mask = batch.get("mask")
+    if mask is None:
+        return torch.tensor(batch["targets"].numel(), dtype=torch.float32,
+                            device=batch["targets"].device)
+    return torch.sum(mask)
+
+
+def _rank_rows(mesh, mb: int):
+    """This rank's rows ``[lo, hi)`` of each microbatch of ``mb`` rows, or
+    None when every data rank computes the whole microbatch (no data axis,
+    or ``mb`` does not divide by it: JAX's divisibility fallback)."""
+    D = 1 if mesh is None else mesh.shape.get("data", 1)
+    if D == 1 or mb % D:
+        return None
+    r = mesh.coords["data"]
+    return r * mb // D, (r + 1) * mb // D
+
+
+def _reduce_over_data(g_sum, spec_list, mesh, split: bool):
+    """The microbatch-summed grads of the whole params -> this rank's
+    shards of the data-parallel sum: replicated leaves all-reduced in one
+    flat buffer, data-sharded (FSDP) leaves reduce-scattered to the shard;
+    without a split only the FSDP leaves are sliced to the shard."""
+    out = list(g_sum)
+    dims = [_data_dim(s) for s in spec_list]
+    if mesh.shape.get("data", 1) == 1:
+        return out
+    data = mesh.axis("data")
+    for i, dim in enumerate(dims):
+        if dim is not None:
+            out[i] = (data.reduce_scatter(out[i], dim) if split else
+                      shd.local_shard(out[i], (None,) * dim + ("data",), mesh))
+    whole = [i for i, dim in enumerate(dims) if dim is None]
+    if split and whole:
+        flat = data.all_reduce(torch.cat([out[i].reshape(-1) for i in whole]))
+        for i, piece in zip(whole, torch.split(flat, [out[i].numel() for i in whole])):
+            out[i] = piece.view_as(out[i])
+    return out
+
+
 def build_train_step(
     cfg,
+    mesh=None,
     *,
     base_lr: float = 3e-4,
     warmup: int = 100,
     total_steps: int = 10000,
     compression: Optional[str] = None,
+    specs=None,
 ):
     """``train_step(state, batch) -> (state, metrics)``: microbatched
     gradient accumulation (a Python loop, fp32 sums: JAX's ``lax.scan``),
@@ -73,6 +162,33 @@ def build_train_step(
     ``schedule(opt.step)``. The params, moments and step are updated in
     place and the same tensors returned (the port's ``donate_argnums``).
     ``metrics``: ``loss``, ``grad_norm``, ``lr`` (tensors on the device).
+
+    Under ``mesh`` (a live ``launch/mesh.py`` mesh) the step runs under
+    ``use_rules(mesh, sp=cfg.sequence_parallel)``, as JAX's, and the state
+    holds this rank's shards under ``specs`` (a param spec tree,
+    :func:`train_param_specs`; default the params whole on every data rank).
+    ``batch`` is the global batch, the same on every rank, and the function
+    is JAX's:
+
+      * data: microbatch i is the global rows ``[i mb, (i+1) mb)``, of which
+        data rank r computes its ``mb / D``; it divides its rows' NLL sum by
+        the whole microbatch's token count (every rank holds the global
+        mask), so the grads summed over ``data`` are JAX's under a ragged
+        mask too. Where ``mb`` does not divide by D every data rank computes
+        the whole microbatch and nothing is summed.
+      * FSDP (specs with ``data`` on a dim, ``train_param_specs(fsdp=True)``):
+        the params and moments are data shards at rest. This is the simple
+        form: the step gathers the whole params at once before the forward
+        (not layer by layer) and frees them after the backward; the grads
+        are reduce-scattered to the shards and AdamW runs on the shard.
+      * model: the sharded fused RNN path and MoE's expert-parallel layer
+        run per rank through their autograd Functions
+        (``distribution/fused_sharded.py``); the leaves held whole on every
+        model rank get equal grads there, and nothing is reduced over
+        ``model``.
+
+    The clip norm and int8 compression's absmax are taken over whole leaves
+    (``optim/``).
 
     Int8 weight-quantized configs are refused, as the JAX package's step
     refuses them (``jax.grad`` of int8 gate slabs is a ``TypeError``)."""
@@ -83,14 +199,32 @@ def build_train_step(
             "either); train the fp config and quantize at init"
         )
     schedule = cosine_schedule(base_lr, warmup, total_steps)
+    if mesh is not None and specs is None:
+        specs = train_param_specs(cfg, mesh)
 
     def train_step(state: TrainState, batch: Dict):
+        with _under(mesh, cfg.sequence_parallel):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Dict):
         n_mb = cfg.microbatches
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(state.params)]
+        spec_list = None if mesh is None else tree_leaves(specs)
+        whole = tree_leaves(state.params)
+        if mesh is not None:  # FSDP: the whole params, freed after the backward
+            whole = [shd.gather_shard(p, s, mesh, axes=("data",))
+                     for p, s in zip(whole, spec_list)]
+        leaves = [p.detach().requires_grad_() for p in whole]
+        del whole
         params = unflatten_like(state.params, leaves)
+        mb_rows = next(iter(batch.values())).shape[0] // n_mb
+        rows = _rank_rows(mesh, mb_rows)
 
         def grads_of(mb):
-            loss, _ = lm.lm_loss(params, cfg, mb)
+            denom = None
+            if rows is not None:
+                denom = torch.clamp(_token_count(mb), min=1.0)
+                mb = {k: v[rows[0]:rows[1]] for k, v in mb.items()}
+            loss, _ = lm.lm_loss(params, cfg, mb, denom=denom)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             return loss.detach(), [torch.zeros_like(p, dtype=torch.float32) if g is None
                                    else g.float() for p, g in zip(leaves, grads)]
@@ -111,22 +245,45 @@ def build_train_step(
             loss = loss / n_mb
             for g in g_sum:
                 g.div_(n_mb)
+        del params, leaves
+        if mesh is not None:
+            g_sum = _reduce_over_data(g_sum, spec_list, mesh, rows is not None)
+            if rows is not None:
+                loss = mesh.axis("data").all_reduce(loss)
         grads = unflatten_like(state.params, g_sum)
-        grads, new_ef = compress_grads(grads, state.ef, compression)
+        grads, new_ef = compress_grads(grads, state.ef, compression, mesh=mesh, specs=specs)
         lr = schedule(state.opt.step)
-        new_params, new_opt, opt_metrics = adamw_update(grads, state.opt, state.params, lr)
+        new_params, new_opt, opt_metrics = adamw_update(grads, state.opt, state.params, lr,
+                                                        mesh=mesh, specs=specs)
         return TrainState(params=new_params, opt=new_opt, ef=new_ef), {"loss": loss, **opt_metrics}
 
     return train_step
 
 
-def build_eval_step(cfg):
-    """``eval_step(params, batch) -> metrics`` (``loss``, ``tokens``), no grads."""
+def build_eval_step(cfg, mesh=None, *, specs=None):
+    """``eval_step(params, batch) -> metrics`` (``loss``, ``tokens``), no
+    grads. Under ``mesh``, as :func:`build_train_step`: the params this
+    rank's shards under ``specs`` (gathered whole over ``data`` for the
+    call), ``batch`` the global batch, each data rank its rows when they
+    divide, the loss summed over ``data``."""
+    if mesh is not None and specs is None:
+        specs = train_param_specs(cfg, mesh)
 
     def eval_step(params, batch):
-        with torch.no_grad():
-            _, metrics = lm.lm_loss(params, cfg, batch)
-            return metrics
+        with torch.no_grad(), _under(mesh, cfg.sequence_parallel):
+            if mesh is None:
+                _, metrics = lm.lm_loss(params, cfg, batch)
+                return metrics
+            params = tree_map(lambda p, s: shd.gather_shard(p, s, mesh, axes=("data",)),
+                              params, specs)
+            tokens = _token_count(batch)
+            rows = _rank_rows(mesh, batch["targets"].shape[0])
+            if rows is None:
+                return lm.lm_loss(params, cfg, batch)[1]
+            loss, _ = lm.lm_loss(params, cfg, {k: v[rows[0]:rows[1]] for k, v in batch.items()},
+                                 denom=torch.clamp(tokens, min=1.0))
+            loss = mesh.axis("data").all_reduce(loss)
+            return {"loss": loss, "tokens": tokens}
 
     return eval_step
 
@@ -148,9 +305,9 @@ def _init_caches(cfg, mesh, batch: int, max_len: int, device):
                     whole, specs)
 
 
-def _under(mesh):
-    """``use_rules(mesh)``, or nothing without a mesh."""
-    return contextlib.nullcontext() if mesh is None else use_rules(mesh)
+def _under(mesh, sp: bool = False):
+    """``use_rules(mesh, sp=sp)``, or nothing without a mesh."""
+    return contextlib.nullcontext() if mesh is None else use_rules(mesh, sp=sp)
 
 
 def build_prefill_step(cfg, mesh=None, *, batch: int, max_len: int, device="cuda"):

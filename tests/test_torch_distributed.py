@@ -551,18 +551,6 @@ def test_continuous_mode_under_a_mesh_is_refused():
                     "--mode", "continuous", "--model-shards", "2"])
 
 
-def test_sharded_call_that_needs_a_gradient_is_refused():
-    mesh = mesh_lib.Mesh({"data": 1, "model": 2}, {"data": 0, "model": 0})
-    p = {"w": torch.zeros((8, 3, 4), requires_grad=True), "b": torch.zeros((2, 4)),
-         "w_skip": None}
-    with pytest.raises(NotImplementedError, match="§A7.2"):
-        fs.sharded_fused_sru(p, torch.zeros((2, 1, 8)), torch.zeros((1, 4)), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="§A7.2"):
-        fs.sharded_fused_sru_stack({"w": p["w"][None], "b": p["b"][None], "w_skip": None},
-                                   torch.ones((1, 8)), torch.zeros((2, 1, 8)),
-                                   torch.zeros((1, 1, 4)), mesh=mesh)
-
-
 def test_ranks_sharing_a_card_need_gloo_asked_for(monkeypatch):
     """NCCL takes one rank a card: more shards than cards is refused, naming
     ``--dist-backend gloo``, and nothing moves to another backend."""
