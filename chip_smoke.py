@@ -135,7 +135,8 @@ Phases, each printing one JSON line per step:
            expert read, since the sorted schedule computes every expert's
            slots, and a second bound over the experts one step's routing
            touched);
-           the card's count of our kernels per step must equal the expected
+           the card's count of our kernels per step, over profiled steps
+           that kept all their device events, must equal the expected
            launches per step in both modes; the caches must keep their
            storage (written in place);
   parity   the stacked SRU and QRNN LMs, the base SRU and QRNN LMs under
@@ -378,11 +379,11 @@ TRAIN_RUNS = (
 # backward there (2 keep the adapter, a layer pair and the 92672-column
 # head), smollm-360m's 32 about half a minute.
 TRAIN_PARITY_DEPTH = {"internvl2-2b": 2, "smollm-360m": 8}
-# The runs whose fp32 step-0 check is left out, for the script's time: each
-# MoE check takes about two minutes of the host's fp32 forward and backward
-# at full width; mixtral-8x22b runs the same `sorted` dispatch as
-# qwen3-moe-235b-a22b, which keeps its check (and mixtral its train run).
-TRAIN_PARITY_SKIP = ("mixtral-8x22b",)
+# The fp32 step-0 check of these runs takes only the first rows of the batch
+# on both sides (and as many microbatches at most), for the script's time:
+# at all 8 rows each MoE check took about two minutes of the host's fp32
+# forward and backward at full width.
+TRAIN_PARITY_ROWS = {"mixtral-8x22b": 2, "qwen3-moe-235b-a22b": 2}
 # A run saved at step TRAIN_STEPS // 2 and resumed ends with the
 # uninterrupted run's params: equal but for the last-ulp effect of atomics
 # in the embedding gradient on fp32 masters of magnitude < 1 (~6e-8); a lost
@@ -455,6 +456,25 @@ SHARDED_TRAIN_LOSS_TOL, SHARDED_TRAIN_GRAD_TOL, SHARDED_TRAIN_PARAM_TOL = 3e-5, 
 # learning rate does not depend on --steps.
 SHARDED_CLI_ARCH = "sru-paper-large-stacked"
 SHARDED_CLI_SAVE, SHARDED_CLI_STEPS = 2, 4
+# (f) Continuous serving on gloo ranks sharing the card, fp32 compute, through
+# serve.serve_mesh's continuous branch: run -> (arch, trace, oracle draft),
+# each on (1, 2), and SHARDED_CONT_DATA_RUNS on (2, 2) too (the shared
+# prefix there broadcasts each lane snapshot over "data" from the rank that
+# holds the lane and injects on that rank alone). B = 4 slots, chunk
+# 32, SHARDED_CONT_REQUESTS requests all arriving at t = 0 (admission then
+# follows ticks, not clocks), prompts of 32 ("prefix": a 64-token prefix
+# every request shares plus 16, the prefix cache on at async depth 2), 32
+# tokens each; the oracle draft is the target itself, k = 4. The barrier
+# stack runs B1 a layer and rank at T = 32 (prefill), 1 (decode) and 4
+# (verify); the int8 QRNN's config carries the ring (chunk GEMMs, B3).
+SHARDED_CONT_RUNS = {"plain": ("sru-paper-large-stacked", "plain", False),
+                     "prefix": ("sru-paper-large-stacked", "prefix", False),
+                     "oracle": ("sru-paper-large-stacked", "plain", True),
+                     "qrnn-int8": ("qrnn-paper-large-stacked-int8", "plain", False)}
+SHARDED_CONT_DATA_RUNS = ("plain", "prefix")
+SHARDED_CONT_REQUESTS, SHARDED_CONT_GEN = 16, 32
+# Served once more inside timed_collectives: ms a tick in the collectives.
+SHARDED_CONT_SPLIT = ("plain",)
 # Autograd Functions of B1/B2 (kernels phase): their gradients against
 # autograd through the plain version on the card. The Functions' backward
 # recomputes the plain version with its recurrence through the linear scan
@@ -584,9 +604,14 @@ B3_GRAD_RTOL = 2e-5
 # each window's steps follow steps traced in the same session; the window's
 # device events are those launched by the runtime calls inside its
 # record_function range on the host, matched by correlation id
-# (``profile_split``); and a window that shows lost events (a launching call
-# without device events, or replays of the decode graph with unequal event
-# counts) is profiled again (``_profile_steps``).
+# (``profile_split``). Each step of a window has its own range, and a step
+# that shows lost events (a launching call without device events, or a
+# replay of the decode graph with fewer events than the window's fullest) is
+# left out; windows are profiled until a window's worth of complete steps is
+# in (``_profile_steps``): on the H100, zamba2-7b's captured decode has shown
+# lost events in three windows running (the last at 93.875 of our 94 kernels
+# a step), which failed the phase; a graph replays all of its kernels every
+# time, so the shortfall was the profiler's.
 PROFILE_WINDOWS = 3
 PROFILE_WINDOW = "chip_smoke.window"
 # Parity (phase 4): fp32 LM on the card vs the CPU, through up to 32 layers
@@ -1825,7 +1850,11 @@ def profile_split(doc, ticks, phases=TICK_PHASES):
       per-phase device times are the complete instances' mean times the
       instances a tick. The device events of each phase's graph replays are
       counted per replay (``graph_launch_device_events``: the distinct
-      counts; replays of one graph that lost none agree).
+      counts; replays of one graph that lost none agree). A phase instance
+      is complete when it has no launching call without device events and
+      no graph replay with fewer device events than the phase's fullest
+      replay (each phase replays one graph); ``complete_instances`` and
+      ``device_us_by_name_complete`` count those instances alone.
 
     Returns a dict of ms per tick (and each phase's device us and events by
     name, over the run), or None when the trace has no phase annotation."""
@@ -1876,6 +1905,7 @@ def profile_split(doc, ticks, phases=TICK_PHASES):
         close(frames.pop())
 
     dev_us, inst_us, by_name, per_corr, outside = {}, {}, {}, {}, 0
+    inst_names = {}    # (phase, instance) -> {name: [us, events]}
     for e in ev:
         if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
@@ -1887,14 +1917,28 @@ def profile_split(doc, ticks, phases=TICK_PHASES):
         phase, inst = corr_of[corr]
         dev_us[phase] = dev_us.get(phase, 0.0) + e["dur"]
         inst_us[(phase, inst)] = inst_us.get((phase, inst), 0.0) + e["dur"]
-        us_n = by_name.setdefault(phase, {}).setdefault(e["name"], [0.0, 0])
-        us_n[0] += e["dur"]
-        us_n[1] += 1
+        for table in (by_name.setdefault(phase, {}), inst_names.setdefault((phase, inst), {})):
+            us_n = table.setdefault(e["name"], [0.0, 0])
+            us_n[0] += e["dur"]
+            us_n[1] += 1
     lost = [(c, p, i) for c, p, i in launches if c not in per_corr]
     graph_counts = {}
     for c, p, _ in graph_launches:
         graph_counts.setdefault(p, set()).add(per_corr.get(c, 0))
     lost_inst = {(p, i) for _, p, i in lost}
+    fullest = {p: max(n) for p, n in graph_counts.items()}
+    partial = {(p, i) for c, p, i in graph_launches if per_corr.get(c, 0) < fullest[p]}
+    complete, by_name_complete = {}, {}
+    for phase, n in instances.items():
+        for i in range(n):
+            if (phase, i) in lost_inst or (phase, i) in partial:
+                continue
+            complete[phase] = complete.get(phase, 0) + 1
+            table = by_name_complete.setdefault(phase, {})
+            for name, (us, k) in inst_names.get((phase, i), {}).items():
+                us_n = table.setdefault(name, [0.0, 0])
+                us_n[0] += us
+                us_n[1] += k
     per_tick = 1e3 * max(ticks, 1)
     device_by_phase = {}
     for phase, n in instances.items():
@@ -1924,7 +1968,8 @@ def profile_split(doc, ticks, phases=TICK_PHASES):
             "first_lost_call_at": (launches.index(lost[0]) if lost else None),
             "last_lost_call_at": (launches.index(lost[-1]) if lost else None),
             "graph_launch_device_events": {p: sorted(n) for p, n in graph_counts.items()},
-            "device_events_before_the_run": outside, "device_us_by_name": by_name}
+            "device_events_before_the_run": outside, "device_us_by_name": by_name,
+            "complete_instances": complete, "device_us_by_name_complete": by_name_complete}
 
 
 def phase_telemetry():
@@ -2045,7 +2090,7 @@ def phase_telemetry():
         split = profile_split(doc, stats["ticks"])
         require(split is not None and split["device_ms_per_tick"] > 0,
                 f"{what}: no device time attributed to the run")
-        del split["device_us_by_name"]  # by kernel: in the profile, not in the line
+        del split["device_us_by_name"], split["device_us_by_name_complete"]  # in the profile
         busy = stats["busy_s"] / max(stats["ticks"], 1) * 1e3
         in_ops = sum(h["ms_per_tick"] for h in split["host_ms_per_tick_by_phase"].values())
         profile = {"requests": len(trace), "ticks": stats["ticks"], "ms_per_tick_profiled": busy,
@@ -2103,13 +2148,14 @@ def _tree_to(tree, device):
 def _profile_steps(cfg, params, prefill, decode, inputs, steps):
     """One prefill, then ``steps`` decode steps untimed, ``steps`` timed on
     the host clock and, in one torch.profiler session, ``steps`` more
-    traced and dropped, then the window: ``steps`` inside a
-    ``record_function`` (PROFILE_WINDOW), whose device events are the ones
-    launched inside it (``profile_split``); again, up to PROFILE_WINDOWS
-    windows, while a window shows lost device events. Returns (host ms per
-    step, [(device us per step, events per step, name)] of the device-side
-    events, whether the caches kept their storage, the caches, the windows
-    profiled)."""
+    traced and dropped, then the window: ``steps`` steps, each inside its
+    own ``record_function`` (PROFILE_WINDOW), whose device events are the
+    ones launched inside it (``profile_split``). A step that lost device
+    events is left out; windows are profiled until ``steps`` complete
+    steps are in, at most PROFILE_WINDOWS. Returns (host ms per step,
+    [(device us per step, events per step, name)] of the complete steps'
+    device-side events, whether the caches kept their storage, the caches,
+    the windows profiled, the complete steps)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -2119,11 +2165,14 @@ def _profile_steps(cfg, params, prefill, decode, inputs, steps):
     logits, caches = prefill(params, inputs)
     ptrs = [t.data_ptr() for t in leaves(caches)]
 
-    def run():
+    def step():
         nonlocal logits, caches
+        tok = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)[:, None]
+        logits, caches = decode(params, caches, serve.step_input(cfg, params, tok))
+
+    def run():
         for _ in range(steps):
-            tok = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)[:, None]
-            logits, caches = decode(params, caches, serve.step_input(cfg, params, tok))
+            step()
         torch.cuda.synchronize()
 
     run()  # warm-up
@@ -2132,22 +2181,29 @@ def _profile_steps(cfg, params, prefill, decode, inputs, steps):
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     path = ROOT / "build" / "profile_window.pt.trace.json"
     path.parent.mkdir(parents=True, exist_ok=True)
+    by_name, complete = {}, 0
     for window in range(1, PROFILE_WINDOWS + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
-            with record_function(PROFILE_WINDOW):
-                run()
+            for _ in range(steps):
+                with record_function(PROFILE_WINDOW):
+                    step()
+            torch.cuda.synchronize()
         prof.export_chrome_trace(str(path))
-        split = profile_split(json.loads(path.read_text()), steps, phases=(PROFILE_WINDOW,))
+        split = profile_split(json.loads(path.read_text()), steps, phases=(PROFILE_WINDOW,)) or {}
         path.unlink()
-        by_name = (split or {}).get("device_us_by_name", {}).get(PROFILE_WINDOW, {})
-        graph_counts = (split or {}).get("graph_launch_device_events", {}).get(PROFILE_WINDOW, [])
-        if by_name and split["lost_launching_calls"] == 0 and len(graph_counts) <= 1:
+        complete += split.get("complete_instances", {}).get(PROFILE_WINDOW, 0)
+        window_names = split.get("device_us_by_name_complete", {}).get(PROFILE_WINDOW, {})
+        for name, (us, n) in window_names.items():
+            us_n = by_name.setdefault(name, [0.0, 0])
+            us_n[0] += us
+            us_n[1] += n
+        if complete >= steps:
             break
-    kernels = [(us / steps, n / steps, name) for name, (us, n) in by_name.items() if us > 0]
+    kernels = [(us / complete, n / complete, name) for name, (us, n) in by_name.items() if us > 0]
     in_place = [t.data_ptr() for t in leaves(caches)] == ptrs
     kernels.sort(reverse=True)
-    return wall_ms, kernels, in_place, caches, window
+    return wall_ms, kernels, in_place, caches, window, complete
 
 
 def _touched_experts(cfg, params, prefill, decode, inputs):
@@ -2182,9 +2238,10 @@ def phase_profile():
     the eager steps and with the steps as CUDA graphs: host clock per step
     without the profiler, then torch.profiler's device time per step by
     kernel. Idle share = 1 - device time / step time. The device counts the
-    launches of our kernels per step (``OUR_KERNEL_SYMBOLS``), which must be
-    the wrappers' expected launches per step in both modes: the card's own
-    confirmation that each replay runs our kernels. The step's bound is the
+    launches of our kernels per step (``OUR_KERNEL_SYMBOLS``) over the
+    profiled steps that kept all their device events, at least ``steps`` of
+    them, which must be the wrappers' expected launches per step in both
+    modes: the card's own confirmation that each replay runs our kernels. The step's bound is the
     bytes it must move once over the HBM rate: every layer weight, the final
     norm, the logits matrix and the valid KV rows read, or for Mamba-2 its
     SSM state and conv tails read and written; a hybrid's shared block is
@@ -2227,7 +2284,7 @@ def phase_profile():
                              + sum(touched) * expert_bytes // (cfg.n_layers * cfg.n_experts))
         captured = serve.capture_batch_steps(cfg, prefill, decode, params, inputs)
         for graphs, (pre, dec) in ((False, (prefill, decode)), (True, captured)):
-            wall_ms, kernels, in_place, caches, windows = _profile_steps(
+            wall_ms, kernels, in_place, caches, windows, complete = _profile_steps(
                 cfg, params, pre, dec, inputs, steps)
             device_ms = sum(k[0] for k in kernels) / 1e3 if kernels else None
             ours = [k for k in kernels if any(n in k[2] for n in OUR_KERNEL_SYMBOLS)]
@@ -2246,7 +2303,7 @@ def phase_profile():
                   "engine": cfg.scan_engine if cfg.cell in ("sru", "qrnn") else None,
                   "n_layers": cfg.n_layers, "graphs": graphs, "step_ms": wall_ms,
                   "device_ms": device_ms,
-                  "profile_windows": windows,
+                  "profile_windows": windows, "profiled_complete_steps": complete,
                   "device_ops_per_step": sum(k[1] for k in kernels),
                   "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms,
                   "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3, "step_bytes": step_bytes,
@@ -2261,6 +2318,8 @@ def phase_profile():
             mode = "captured" if graphs else "eager"
             require(in_place, f"profile {arch} ({mode}): the decode step moved the cache")
             require(device_ms is not None, f"profile {arch} ({mode}): no device time traced")
+            require(complete >= steps, f"profile {arch} ({mode}): {complete} profiled steps "
+                    f"kept all their device events in {windows} windows, expected {steps}")
             require(ours_per_step == per_step,
                     f"profile {arch} ({mode}): the card ran {ours_per_step} of our kernels a "
                     f"step, expected {per_step}")
@@ -2368,29 +2427,45 @@ def _train_cfg(arch, engine, overrides):
     return cfg.with_(microbatches=min(cfg.microbatches, max(1, TRAIN_BATCH // 2)))
 
 
-def _train_parity(cfg):
-    """Step 0 in fp32 compute on the card and on the CPU: the params
-    ``launch.train.main`` draws (seed 0, drawn on the card, copied to the
-    host) and its first batch. Returns (loss, grad norm) per device."""
+def _step0(cfg, params, batch):
+    """Step 0's loss and grad norm: ``build_train_step``'s loss and grads
+    (``steps.step_grads``) and the norm its AdamW clips by, without the
+    update (not compared, and on the host half of a full-width MoE check)."""
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.training.steps import step_grads
+
+    loss, grads = step_grads(cfg, params, batch)
+    return loss.item(), global_norm(grads).item()
+
+
+def _train_parity(cfg, rows=None):
+    """Step 0 in fp32 compute on the card and on the CPU (``_step0``): the
+    params ``launch.train.main`` draws (seed 0, drawn on the card, copied to
+    the host) and its first batch (its first ``rows`` rows, where given, in
+    at most as many microbatches). Returns (loss, grad norm) per device and
+    each side's seconds."""
     import torch
 
     from repro_torch.data import make_pipeline
     from repro_torch.launch.train import batch_to_device
-    from repro_torch.optim.adamw import AdamWState
-    from repro_torch.training.steps import TrainState, build_train_step, init_train_state
+    from repro_torch.models import lm
 
     cfg32 = cfg.with_(compute_dtype="float32")
-    card = init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg32,
-                            device="cuda")
-    host = TrainState(params=_tree_to(card.params, "cpu"), opt=AdamWState(
-        step=card.opt.step.cpu(), m=_tree_to(card.opt.m, "cpu"),
-        v=_tree_to(card.opt.v, "cpu")), ef=None)  # before the card's step updates in place
+    if rows is not None:
+        cfg32 = cfg32.with_(microbatches=min(cfg32.microbatches, rows))
+    card = lm.lm_init(torch.Generator(device="cuda").manual_seed(0), cfg32, device="cuda")
     batch = make_pipeline(cfg32, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(0)
+    if rows is not None:
+        batch = {k: v[:rows] for k, v in batch.items()}
     out = {}
-    for dev, state in (("cuda", card), ("cpu", host)):
-        step = build_train_step(cfg32, base_lr=3e-4, warmup=20, total_steps=TRAIN_STEPS)
-        _, m = step(state, batch_to_device(batch, dev))
-        out[dev] = (m["loss"].item(), m["grad_norm"].item())
+    for dev, params in (("cuda", card), ("cpu", None)):
+        t0 = time.perf_counter()
+        if params is None:
+            params = _tree_to(card, "cpu")
+            del card
+        out[dev] = _step0(cfg32, params, batch_to_device(batch, dev))
+        out[f"{dev}_s"] = time.perf_counter() - t0
+        del params
     return out
 
 
@@ -2498,8 +2573,8 @@ def _resume_check(counters):
 
 
 def phase_train():
-    """Training at full width (TRAIN_RUNS): per config (but TRAIN_PARITY_SKIP)
-    the fp32 step-0 parity with the CPU, then TRAIN_STEPS steps in the
+    """Training at full width (TRAIN_RUNS): per config the fp32 step-0
+    parity with the CPU (TRAIN_PARITY_ROWS: on the first rows), then TRAIN_STEPS steps in the
     config's own dtypes
     (fp32 masters, bf16 compute) through ``launch.train.main`` (or its loop)
     with every kernel's count set to 0 just before and read just after:
@@ -2519,19 +2594,19 @@ def phase_train():
     for arch, engine, overrides in TRAIN_RUNS:
         cfg = _train_cfg(arch, engine, overrides)
         what = f"train {arch} {engine or ''}".strip()
-        step0 = None
-        if arch not in TRAIN_PARITY_SKIP:
-            depth = TRAIN_PARITY_DEPTH.get(arch, cfg.n_layers)
-            parity = _train_parity(cfg.with_(n_layers=depth))
-            _release()  # the step-0 states before the run's own
-            (loss_card, gn_card), (loss_cpu, gn_cpu) = parity["cuda"], parity["cpu"]
-            loss_err, gn_err = abs(loss_card - loss_cpu), abs(gn_card - gn_cpu)
-            require(loss_err <= PARITY_TOL and gn_err <= PARITY_TOL * gn_cpu,
-                    f"{what}: fp32 step 0 on the card (loss {loss_card}, grad norm {gn_card}) "
-                    f"!= the CPU's ({loss_cpu}, {gn_cpu})")
-            step0 = {"n_layers": depth, "loss_card": loss_card, "loss_cpu": loss_cpu,
-                     "loss_err": loss_err, "grad_norm_card": gn_card, "grad_norm_cpu": gn_cpu,
-                     "grad_norm_err": gn_err, "tol": PARITY_TOL, "grad_norm_rtol": PARITY_TOL}
+        depth = TRAIN_PARITY_DEPTH.get(arch, cfg.n_layers)
+        rows = TRAIN_PARITY_ROWS.get(arch)
+        parity = _train_parity(cfg.with_(n_layers=depth), rows)
+        _release()  # the step-0 states before the run's own
+        (loss_card, gn_card), (loss_cpu, gn_cpu) = parity["cuda"], parity["cpu"]
+        loss_err, gn_err = abs(loss_card - loss_cpu), abs(gn_card - gn_cpu)
+        require(loss_err <= PARITY_TOL and gn_err <= PARITY_TOL * gn_cpu,
+                f"{what}: fp32 step 0 on the card (loss {loss_card}, grad norm {gn_card}) "
+                f"!= the CPU's ({loss_cpu}, {gn_cpu})")
+        step0 = {"n_layers": depth, "rows": rows or TRAIN_BATCH, "loss_card": loss_card,
+                 "loss_cpu": loss_cpu, "loss_err": loss_err, "grad_norm_card": gn_card,
+                 "grad_norm_cpu": gn_cpu, "grad_norm_err": gn_err, "tol": PARITY_TOL,
+                 "grad_norm_rtol": PARITY_TOL, "host_s": parity["cpu_s"]}
 
         times = []
 
@@ -3009,6 +3084,98 @@ def _step_logits(cfg, params, mesh, device, toks):
     return torch.stack(out).cpu()
 
 
+def _cont_args(run, k):
+    """The serve flags of continuous run ``run`` of SHARDED_CONT_RUNS on
+    ``k`` model ranks."""
+    from repro_torch.launch import serve
+
+    arch, trace, oracle = SHARDED_CONT_RUNS[run]
+    flags = ["--arch", arch, "--mode", "continuous", "--batch", "4", "--chunk", "32",
+             "--requests", str(SHARDED_CONT_REQUESTS), "--prompt-len", "32", "--gen-len",
+             str(SHARDED_CONT_GEN), "--model-shards", str(k), "--dist-backend", "gloo"]
+    if trace == "prefix":
+        flags += ["--prefix-cache-mb", "64", "--async-depth", "2"]
+    if oracle:
+        flags += ["--speculative", "--spec-k", "4"]
+    return serve.parse_args(flags)
+
+
+def _cont_trace(cfg, run):
+    """The requests of continuous run ``run``, made from seed 0."""
+    from repro_torch.serving import poisson_trace, shared_prefix_trace
+
+    mix = ((SHARDED_CONT_GEN, 1.0),)
+    if SHARDED_CONT_RUNS[run][1] == "prefix":
+        return shared_prefix_trace(SHARDED_CONT_REQUESTS, rate=0.0, prefix_len=64, prompt_len=80,
+                                   share=1.0, gen_mix=mix, vocab=cfg.vocab, seed=0)
+    return poisson_trace(SHARDED_CONT_REQUESTS, rate=0.0, prompt_lens=(32,), gen_mix=mix,
+                         vocab=cfg.vocab, seed=0)
+
+
+def _cont_single(run):
+    """Continuous run ``run`` on the card alone, eager: the reference."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    args = _cont_args(run, 1)
+    cfg = _sharded_cfg(args)
+    dev = torch.device("cuda")
+    params = lm.lm_init(torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev,
+                        dtype=torch.float32)
+    oracle = SHARDED_CONT_RUNS[run][2]
+    with contextlib.redirect_stdout(io.StringIO()):
+        return serve.run_continuous(cfg, params, args, dev, graphs=False,
+                                    draft_cfg=cfg if oracle else None,
+                                    draft_params=params if oracle else None,
+                                    trace=_cont_trace(cfg, run))
+
+
+def _cont_rank(run, model_axis, device, counters, split):
+    """One rank of continuous run ``run`` through ``serve.serve_mesh`` (the
+    counts set to 0 just before and read just after), then, with ``split``,
+    the same run inside ``timed_collectives``: the collectives' ms."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_local_mesh, timed_collectives
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    args = _cont_args(run, model_axis)
+    cfg = _sharded_cfg(args)
+    draft = None
+    if SHARDED_CONT_RUNS[run][2]:  # the oracle: the target's params, whole
+        draft = cfg, lm.lm_init(torch.Generator(device=device).manual_seed(args.seed), cfg,
+                                device=device, dtype=torch.float32)
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        stats = serve.serve_mesh(cfg, args, trace=_cont_trace(cfg, run), draft=draft)
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    del draft
+    timed = None
+    if split:
+        mesh = make_local_mesh(model_axis, device=device)
+        params = lm.lm_init(torch.Generator(device=device).manual_seed(args.seed), cfg,
+                            device=device, dtype=torch.float32)
+        params, _ = serve.shard_params(cfg, params, mesh)
+        with timed_collectives(mesh) as clock, contextlib.redirect_stdout(io.StringIO()):
+            rep = serve.run_continuous(cfg, params, args, device, trace=_cont_trace(cfg, run),
+                                       mesh=mesh)
+        ticks = max(rep["ticks"], 1)
+        coll = {k: v * 1e3 / ticks for k, v in sorted(clock.items())}
+        timed = {"tick_ms": rep["busy_s"] * 1e3 / ticks, "collective_ms": coll,
+                 "collective_share": sum(coll.values()) / (rep["busy_s"] * 1e3 / ticks)}
+        del params
+    torch.cuda.empty_cache()
+    return {"stats": stats, "launches": launches, "timed": timed,
+            "seconds": time.perf_counter() - t0,
+            "lines": [x for x in buf.getvalue().splitlines()
+                      if not x.startswith("continuous-stats ")][:4]}
+
+
 def _moe_setup(arch, device):
     """One full-width MoE layer of ``arch`` under the expert-parallel
     schedule: its config, params and a (4, 64, d) input, all from seeds on
@@ -3038,13 +3205,14 @@ def _sharded_worker(rank, world, model_axis, init_file, plan):
     from repro_torch.distribution import fused_sharded as fs
     from repro_torch.distribution import sharding as shd
     from repro_torch.launch import serve
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.mesh import GROUP_TIMEOUT, make_local_mesh
     from repro_torch.models import lm, moe
     from repro_torch.models.lm import _dtype
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world,
+                            timeout=GROUP_TIMEOUT)
     device = torch.device("cuda", 0)
     counters = _launch_counters()
     results = {}
@@ -3091,6 +3259,9 @@ def _sharded_worker(rank, world, model_axis, init_file, plan):
                              "experts": params["e_up"].shape[0]}
             del params, x, y
             torch.cuda.empty_cache()
+        for run in plan.get("continuous", ()):
+            results[f"continuous {run}"] = _cont_rank(run, model_axis, device, counters,
+                                                      run in SHARDED_CONT_SPLIT)
         for arch, model_k, fsdp in plan.get("train", ()):
             results[f"train {arch}"] = _sharded_train_rank(arch, model_k, fsdp, device, counters,
                                                            keep_params=rank == 0)
@@ -3131,6 +3302,80 @@ def _expected_sharded_launches(cfg, decode_steps: int) -> dict:
         q = "_int8" if cfg.weight_quant == "int8" else ""
         want["fused_rnn_layer" + q] = cfg.n_layers * (1 + decode_steps)
     return want
+
+
+def _sharded_continuous(single, m2, d2m2, ref_s, totals):
+    """(f): each continuous run on (1, 2) (``m2``, the ranks' results) and
+    SHARDED_CONT_DATA_RUNS on (2, 2) (``d2m2``) against the single-device
+    eager run (``single``): every request's tokens, the prefix hits and
+    rollbacks, each rank's launches of each kernel, its pool carry's shape
+    (L, B/D, H/k), the pools in place, and the ranks' admissions alike. Adds
+    the launches to ``totals``; returns the part's seconds."""
+    gloo = "gloo ranks sharing one card: the times are not multi-GPU speed"
+    seconds = ref_s
+    for ranks, runs in ((m2, SHARDED_CONT_RUNS), (d2m2, SHARDED_CONT_DATA_RUNS)):
+        seconds += sum(max(r[f"continuous {run}"]["seconds"] for r in ranks) for run in runs)
+        for run in runs:
+            key, ref = f"continuous {run}", single[run]
+            mine = [r[key] for r in ranks]
+            st = mine[0]["stats"]
+            D, k = st["mesh"]["data"], st["mesh"]["model"]
+            what = f"sharded continuous {run} on ({D}, {k})"
+            cfg = _sharded_cfg(_cont_args(run, k))
+            steps = (st["prefill_chunks"] + st["decode_steps"] + st["verify_steps"]
+                     + (st["prefill_chunks"] + st["draft_steps"] if SHARDED_CONT_RUNS[run][2]
+                        else 0))
+            want = _expected_sharded_launches(cfg, steps - 1)
+            carry = [cfg.n_layers, 4 // D, cfg.rnn_hidden // k]
+            same = sum(st["tokens"][rid] == ref["tokens"][rid] for rid in ref["tokens"])
+            emit({"phase": "sharded", "continuous": run, "arch": cfg.name, "mesh": st["mesh"],
+                  "compute": cfg.compute_dtype,
+                  "schedule": "ring" if cfg.ring_overlap else "barrier",
+                  "requests": st["requests"], "completed": st["completed"],
+                  "tokens_equal": st["tokens"] == ref["tokens"], "streams_equal": same,
+                  "prefix_hits": st["prefix_hits"], "single_prefix_hits": ref["prefix_hits"],
+                  "rollbacks": st["spec_rollbacks"], "single_rollbacks": ref["spec_rollbacks"],
+                  "ticks": st["ticks"], "prefill_chunks": st["prefill_chunks"],
+                  "decode_steps": st["decode_steps"], "verify_steps": st["verify_steps"],
+                  "draft_steps": st["draft_steps"],
+                  "launches_per_rank": [{n: c for n, c in m["launches"].items() if c}
+                                        for m in mine],
+                  "expected_launches": {n: c for n, c in want.items() if c},
+                  "pool_carry_shape_per_rank": [m["stats"]["pool_carry_shape"] for m in mine],
+                  "tick_ms_per_rank": [m["stats"]["busy_s"] * 1e3 / max(m["stats"]["ticks"], 1)
+                                       for m in mine],
+                  "single_tick_ms": ref["busy_s"] * 1e3 / max(ref["ticks"], 1),
+                  "tpot_p50_ms": st["tpot_s"]["p50"] * 1e3,
+                  "single_tpot_p50_ms": ref["tpot_s"]["p50"] * 1e3,
+                  "timed_per_rank": [m["timed"] for m in mine], "note": gloo,
+                  "lines": mine[0]["lines"]})
+            require(st["completed"] == st["requests"] == SHARDED_CONT_REQUESTS,
+                    f"{what}: {st['completed']}/{st['requests']} completed")
+            require(st["tokens"] == ref["tokens"],
+                    f"{what}: {len(ref['tokens']) - same} streams differ from the single device's")
+            require((st["prefix_hits"], st["spec_rollbacks"])
+                    == (ref["prefix_hits"], ref["spec_rollbacks"]),
+                    f"{what}: hits/rollbacks {st['prefix_hits']}/{st['spec_rollbacks']} != "
+                    f"{ref['prefix_hits']}/{ref['spec_rollbacks']}")
+            require(SHARDED_CONT_RUNS[run][1] != "prefix" or st["prefix_hits"] > 0,
+                    f"{what}: no prefix hit")
+            require(not SHARDED_CONT_RUNS[run][2] or (st["verify_steps"] > 0
+                                                     and st["spec_rollbacks"] == 0),
+                    f"{what}: the oracle draft: {st['verify_steps']} verify steps, "
+                    f"{st['spec_rollbacks']} rollbacks")
+            for m in mine:
+                ms = m["stats"]
+                require(ms["tokens"] == st["tokens"] and ms["admissions"] == st["admissions"],
+                        f"{what}: the ranks' tokens or admissions differ")
+                require(ms["pool_carry_shape"] == carry and ms["cache_in_place"]
+                        and ms["graphs"] is False,
+                        f"{what}: pool carry {ms['pool_carry_shape']} (want {carry}), in place "
+                        f"{ms['cache_in_place']}, graphs {ms['graphs']}")
+                require(m["launches"] == want, f"{what}: launches {m['launches']} != {want}")
+                for n, c in m["launches"].items():
+                    totals[n] += c
+    emit({"phase": "sharded", "continuous_seconds": seconds})
+    return seconds
 
 
 def _sharded_train_cfg(arch):
@@ -3393,7 +3638,8 @@ def phase_sharded():
     with a decode step of SHARDED_SPLIT_RUNS split into collectives and the
     rest, then one full-width layer of each SHARDED_MOE under
     ``_moe_shard_map`` held to ``sorted`` on one rank at 2e-5; (d) four
-    ranks, (2, 2), serving SHARDED_DATA_RUN; (e) training on two ranks
+    ranks, (2, 2), serving SHARDED_DATA_RUN; (f) continuous serving on
+    those two meshes (``_sharded_continuous``); (e) training on two ranks
     (``_sharded_train``). Under fp32 the tokens must
     equal the single-device run's and the logits be within SHARDED_TOL;
     under bf16 the logits within SHARDED_BF16_TOL (the tokens are
@@ -3437,6 +3683,10 @@ def phase_sharded():
                                        _logit_inputs(cfg))
         del params
         _release()
+    t_cont = time.perf_counter()
+    cont_single = {run: _cont_single(run) for run in SHARDED_CONT_RUNS}
+    _release()
+    cont_ref_s = time.perf_counter() - t_cont
     moe_ref = {}
     for arch in SHARDED_MOE:
         cfg, params, x = _moe_setup(arch, torch.device("cuda"))
@@ -3446,7 +3696,9 @@ def phase_sharded():
     # (c) (data 1, model 2)
     totals = dict.fromkeys(KERNELS, 0)
     ranks = _spawn_ranks("m2", 2, 2, {"serve": _sharded_runs(), "moe": SHARDED_MOE,
-                                      "logits": True, "split": SHARDED_SPLIT_RUNS})
+                                      "logits": True, "split": SHARDED_SPLIT_RUNS,
+                                      "continuous": tuple(SHARDED_CONT_RUNS)})
+    cont_m2 = ranks
     for arch, compute in _sharded_runs():
         key = _run_key(arch, compute)
         cfg = _sharded_cfg(_sharded_args(arch, 2), compute)
@@ -3491,7 +3743,8 @@ def phase_sharded():
         require(err <= 2e-5, f"sharded moe {arch}: err {err} against sorted on one rank")
     # (d) (data 2, model 2)
     ranks = _spawn_ranks("d2m2", 4, 2, {"serve": [(SHARDED_DATA_RUN, "float32")], "moe": (),
-                                        "logits": False, "split": ()})
+                                        "logits": False, "split": (),
+                                        "continuous": SHARDED_CONT_DATA_RUNS})
     st = ranks[0][SHARDED_DATA_RUN]["stats"]
     emit({"phase": "sharded", "mesh": st["mesh"], "arch": SHARDED_DATA_RUN,
           "tokens_equal": st["tokens"] == single[SHARDED_DATA_RUN]["tokens"],
@@ -3504,6 +3757,8 @@ def phase_sharded():
         require(r[SHARDED_DATA_RUN]["launches"] == want, "sharded (2, 2): launches")
         for k, v in r[SHARDED_DATA_RUN]["launches"].items():
             totals[k] += v
+    # (f) continuous serving on the mesh
+    _sharded_continuous(cont_single, cont_m2, ranks, cont_ref_s, totals)
     # (e) training on the mesh
     _sharded_train(totals)
     emit({"phase": "sharded", "launches": totals})

@@ -20,7 +20,18 @@ The collectives of JAX's ``shard_map`` bodies are methods of the axis group
     waited for after it);
   * ``lax.axis_index`` -> :attr:`AxisGroup.index`;
   * FSDP's gradient reduction -> :meth:`AxisGroup.reduce_scatter` (the sum
-    over the axis, this rank's block along one dim).
+    over the axis, this rank's block along one dim);
+  * one rank's tensor to the rest of the axis (a lane snapshot taken on the
+    data rank that owns the lane) -> :meth:`AxisGroup.broadcast`.
+
+The continuous-batching engine runs one ``Scheduler`` per rank, and every
+rank must take the same decision on the same tick: :meth:`Mesh.host_broadcast`
+gives every rank rank 0's reading of a host number (the tick's clock), as
+:meth:`Mesh.host_all_reduce` reduces one, through gloo on the host.
+
+Every process group the port starts has a timeout of ``GROUP_TIMEOUT``
+(300 s): ranks that stop calling the same collectives fail with an error
+instead of waiting for ever.
 
 Two autograd Functions stand at the edges of a per-rank region (a
 ``shard_map`` body, whose backward JAX derives by transposing it): each
@@ -42,7 +53,9 @@ which collectives are staged. NCCL and CPU tensors are never staged.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import math
+import os
 import time
 from typing import Dict, Optional, Sequence
 
@@ -55,6 +68,10 @@ import torch.distributed as dist
 # tensors; a point-to-point send of one hands the device pointer to the
 # socket and the process aborts.
 GLOO_STAGED = ("shift",)
+# The timeout of every process group the port starts (init_process_group,
+# the mesh's axis groups): a collective that some rank never joins raises
+# after it.
+GROUP_TIMEOUT = datetime.timedelta(seconds=300)
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
@@ -132,6 +149,22 @@ class AxisGroup:
                               device=src.device, pin_memory=src.is_pinned())
             dist.reduce_scatter_tensor(out, src, group=self.group)
             return out.to(x.device).movedim(0, dim).contiguous()
+
+    def broadcast(self, x: Optional[torch.Tensor], src: int, like: torch.Tensor = None
+                  ) -> torch.Tensor:
+        """Rank ``src``'s (an axis index) ``x`` on every rank of the axis: the
+        source passes its tensor, the others None and ``like``, a tensor of
+        the shape and dtype to receive (on the device it is wanted on). A
+        new tensor on the source too (on an axis of one rank, ``x``
+        itself)."""
+        if self.size == 1:
+            return x
+        ref = x if self.index == src else like
+        with self._timed("broadcast", ref):
+            buf = (self._stage("broadcast", x).clone() if self.index == src else
+                   self._stage("broadcast", torch.empty_like(like)))
+            dist.broadcast(buf, src=self.ranks[src], group=self.group)
+            return buf.to(ref.device)
 
     def shift(self, x: torch.Tensor):
         """Send ``x`` to the next rank on the ring and receive the previous
@@ -250,6 +283,16 @@ class Mesh:
         dist.all_reduce(t, op=_OPS[op], group=self.host_group)
         return float(t[0])
 
+    def host_broadcast(self, value: float, src: int = 0) -> float:
+        """Rank ``src``'s host number on every rank of the mesh (through
+        gloo on the host, as :meth:`host_all_reduce`): what lets the ranks'
+        engines take every decision on one clock reading."""
+        if self.size == 1:
+            return value
+        t = torch.tensor([value], dtype=torch.float64)
+        dist.broadcast(t, src=src, group=self.host_group)
+        return float(t[0])
+
     def describe(self) -> str:
         """The startup line of a live mesh: backend, ranks and the
         collectives staged through host memory."""
@@ -306,11 +349,17 @@ def make_local_mesh(model_axis: int = 1, *, device: Optional[torch.device] = Non
     groups = {}
     for name in ("data", "model"):
         for ranks in lines[name]:
-            pg = dist.new_group(ranks) if len(ranks) > 1 else None
+            pg = dist.new_group(ranks, timeout=GROUP_TIMEOUT) if len(ranks) > 1 else None
             if rank in ranks:
                 groups[name] = AxisGroup(ranks, ranks.index(rank), pg, staged)
-    host = dist.new_group(backend="gloo") if backend not in (None, "gloo") else None
+    host = (dist.new_group(backend="gloo", timeout=GROUP_TIMEOUT)
+            if backend not in (None, "gloo") else None)
     return Mesh({"data": data, "model": model_axis}, coords, groups, backend, host)
+
+
+def torchrun_world() -> int:
+    """The world size ``torchrun`` gave this process (1 outside it)."""
+    return int(os.environ.get("WORLD_SIZE", "1")) if "RANK" in os.environ else 1
 
 
 def dp_axes(mesh: Mesh) -> tuple:

@@ -73,17 +73,23 @@ the command starts its ranks itself (``torch.multiprocessing``, a
 ``file://`` rendezvous in a temporary directory): under NCCL (the default on
 the card) one per card, ``--model-shards`` of them per data group, as JAX
 spreads its devices; under gloo (``--device cpu``, or ``--dist-backend
-gloo`` where ranks share a card) ``--model-shards`` ranks. Started under
-``torchrun`` (a process group initialised) it joins, and the ranks beyond
-one model group form the data axis. Rank 0 prints the mesh, the backend,
-the replicated dims, each model rank's bytes of gate slabs and the
-``serve-stats`` line. The sharded steps run eagerly (``graphs: false``):
-gloo cannot be captured. Batch mode only: ``--mode continuous`` under a
-mesh, CUDA graphs of the NCCL steps and tensor parallelism of the leaves
-held whole wait for ROADMAP §A7.2.
+gloo`` where ranks share a card) ``--model-shards`` ranks. Inside an
+initialised process group, or under ``torchrun`` (its ``env://``
+rendezvous), it joins, and the ranks beyond one model group form the data
+axis. Rank 0 prints the mesh, the backend, the replicated dims, each model
+rank's bytes of gate slabs and the ``serve-stats`` (``continuous-stats``)
+line. The sharded steps run eagerly (``graphs: false``): gloo cannot be
+captured. ``--mode continuous`` runs the ``Scheduler`` on the mesh (one a
+rank over its lane shards, every decision on rank 0's clock; see
+``serving/engine.py``), the ``--speculative`` draft sliced as the target,
+the telemetry sinks written by rank 0. CUDA graphs of the NCCL steps and
+tensor parallelism of the leaves held whole are not ported yet.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-large-stacked \
         --reduced --device cpu --model-shards 2 [--ring-overlap]
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-large-stacked \
+        --reduced --device cpu --mode continuous --model-shards 2
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-large-stacked \
         --model-shards 2 --dist-backend gloo   # two ranks sharing one card
@@ -138,7 +144,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.registry import get_config
 from repro_torch.distribution import fused_sharded, sharding
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import GROUP_TIMEOUT, make_local_mesh, torchrun_world
 from repro_torch.models import lm
 from repro_torch.models.layers import _dtype, resolve_device
 from repro_torch.observability import Telemetry, torch_profile, write_prometheus
@@ -408,16 +414,18 @@ def draft_model(cfg, args, device: torch.device):
 
 
 def run_continuous(cfg, params, args, device: torch.device, graphs: bool = True,
-                   draft_cfg=None, draft_params=None, trace=None) -> dict:
+                   draft_cfg=None, draft_params=None, trace=None, mesh=None) -> dict:
     """The continuous-batching path (JAX ``run_continuous``): the flags'
     open-loop trace (or ``trace``, a list of ``Request``s, where given)
     served by a ``Scheduler`` over ``--batch`` slots, with the draft
     ``draft_cfg``/``draft_params`` if given (speculative decode in blocks of
     ``--spec-k``), its steps captured as CUDA graphs on the card before the
-    run (``graphs``). Returns the engine's metrics report with
+    run (``graphs``; never under ``mesh``, where ``params`` and the draft's
+    are this rank's shards). Returns the engine's metrics report with
     the capture time, whether the steps ran as graphs and the caches (the
-    draft's too) kept their storage, the prefix cache's report, the draft
-    and k, each request's tokens, and what the telemetry sinks recorded.
+    draft's too) kept their storage, this rank's shape of the pool's
+    carry, the admissions, the prefix cache's report, the draft and k, each
+    request's tokens, and what the telemetry sinks recorded.
 
     The telemetry flags work as in the JAX ``run_continuous``: any of them
     adds a ``StepMonitor``; ``--torch-profile`` wraps the engine's
@@ -436,7 +444,7 @@ def run_continuous(cfg, params, args, device: torch.device, graphs: bool = True,
             cfg, params, batch=args.batch, chunk=args.chunk, queue_capacity=args.queue_cap,
             prefix_cache_mb=args.prefix_cache_mb, async_depth=args.async_depth,
             draft_cfg=draft_cfg, draft_params=draft_params, spec_k=args.spec_k,
-            telemetry=tel, device=device, graphs=graphs)
+            telemetry=tel, device=device, graphs=graphs, mesh=mesh)
         if trace is None:
             trace = continuous_trace(cfg, args, engine.chunk)
         engine.warmup()
@@ -462,7 +470,8 @@ def run_continuous(cfg, params, args, device: torch.device, graphs: bool = True,
     rep.update(
         arch=cfg.name, device=str(device), graphs=engine.captured,
         capture_ms=engine.capture_ms, cache_in_place=engine.cache_in_place,
-        chunk=engine.chunk, async_depth=args.async_depth, requests=len(trace),
+        pool_carry_shape=list(engine.pool.caches["layers"]["c"].shape),
+        admissions=engine.admission_log, chunk=engine.chunk, async_depth=args.async_depth, requests=len(trace),
         prefix_cache=engine.prefix_cache.report() if engine.prefix_cache else None,
         speculative={"draft": draft_cfg.name, "k": engine.spec_k} if draft_cfg else None,
         stragglers=len(tel.monitor.events) if tel.monitor is not None else None,
@@ -693,14 +702,6 @@ def slab_bytes(params) -> int:
                if _SLAB.match(path))
 
 
-def _refuse_mesh_flags(args) -> None:
-    if (args.model_shards > 1 or dist.is_initialized()) and args.mode == "continuous":
-        raise SystemExit(
-            "serve: --mode continuous with --model-shards > 1 is not served yet: the "
-            "slot-multiplexed steps under a mesh wait for ROADMAP §A7.2; serve batch mode "
-            "on the mesh, or continuous mode on one device")
-
-
 def _backend(args, device: torch.device) -> str:
     backend = args.dist_backend or ("nccl" if device.type == "cuda" else "gloo")
     if backend == "nccl" and device.type == "cpu":
@@ -745,7 +746,8 @@ def _rank_main(rank: int, world: int, backend: str, init_method: str, argv, cpu:
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     elif backend == "nccl":
         torch.cuda.set_device(rank % torch.cuda.device_count())
-    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world,
+                            timeout=GROUP_TIMEOUT)
     try:
         rc = main(argv)
     finally:
@@ -781,13 +783,20 @@ def shard_params(cfg, params, mesh):
             sharding.describe_replications(params, rank))
 
 
-def serve_mesh(cfg, args) -> dict:
-    """One rank of a batch-mode serve on the initialised process group: the
-    (data, model) mesh (``--model-shards`` ranks a model group), the params
-    made whole from ``--seed`` and sliced to this rank's shards at rest,
-    ``run_batch`` on them (eager), the tokens gathered. Rank 0 prints the
-    mesh, the backend, the replicated dims, each model rank's bytes of gate
-    slabs and the ``serve-stats`` line. Returns the stats on every rank."""
+def serve_mesh(cfg, args, *, trace=None, draft=None) -> dict:
+    """One rank of a serve on the initialised process group: the (data,
+    model) mesh (``--model-shards`` ranks a model group), the params made
+    whole from ``--seed`` and sliced to this rank's shards at rest, then
+    ``run_batch`` on them (eager), the tokens gathered, or with ``--mode
+    continuous`` ``run_continuous`` on the mesh (the draft of
+    ``--speculative`` sliced the same way, the trace made from ``--seed``
+    alike on every rank; the telemetry sinks are rank 0's alone). ``trace``
+    (``Request``s) replaces the flags' trace and ``draft`` (a config and its
+    whole params on this rank's device) the ``--speculative`` draft, as
+    ``run_continuous`` takes them. Rank 0 prints the mesh, the backend, the
+    replicated dims, each model rank's bytes of gate slabs and the
+    ``serve-stats`` (``continuous-stats``) line. Returns the stats on every
+    rank."""
     world, k, backend = dist.get_world_size(), args.model_shards, dist.get_backend()
     if world % k:
         raise SystemExit(f"serve: --model-shards {k} must divide the {world} ranks")
@@ -806,21 +815,37 @@ def serve_mesh(cfg, args) -> dict:
     per_rank = mesh.axis("model").all_gather(mine).tolist()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    stats = run_batch(cfg, params, args, device, graphs=False, mesh=mesh)
+    rank0 = dist.get_rank() == 0
+    if args.mode == "continuous":
+        draft_cfg, draft_params = draft or draft_model(cfg, args, device)
+        if draft_params is not None:
+            draft_params, _ = shard_params(draft_cfg, draft_params, mesh)
+        sinks = args if rank0 else argparse.Namespace(**dict(
+            vars(args), trace_out=None, metrics_jsonl=None, prom_out=None, torch_profile=None))
+        stats = run_continuous(cfg, params, sinks, device, draft_cfg=draft_cfg,
+                               draft_params=draft_params, trace=trace, mesh=mesh)
+    else:
+        stats = run_batch(cfg, params, args, device, graphs=False, mesh=mesh)
     stats.update(init_ms=init_ms, mesh=mesh.shape, backend=backend, slab_bytes=per_rank,
                  slab_bytes_whole=whole, replicated=replicated,
                  peak_mem_gb=(torch.cuda.max_memory_allocated(device) / 1e9
                               if device.type == "cuda" else None))
-    if dist.get_rank() == 0:
+    if rank0:
         print(f"mesh: {mesh.shape}  engine: {cfg.scan_engine}")
         print(mesh.describe())
         print("replicated on every model rank: " + ("; ".join(replicated) or "nothing"))
         print(f"gate slab bytes per model rank: {per_rank} of {whole}")
-        _print_batch(stats, args)
+        _print_stats(stats, args)
     return stats
 
 
-def _print_batch(stats: dict, args) -> None:
+def _print_stats(stats: dict, args) -> None:
+    """The run's human-readable lines and its ``serve-stats`` (batch) or
+    ``continuous-stats`` line."""
+    if args.mode == "continuous":
+        _print_continuous(stats, args)
+        print("continuous-stats " + json.dumps(stats), flush=True)
+        return
     print(f"prefill: {args.batch}x{args.prompt_len} in {stats['prefill_ms']:.1f}ms "
           f"({stats['prefill_tok_s']:.0f} tok/s)")
     print(f"decode:  {stats['decode_steps']} steps in {stats['decode_ms']:.1f}ms "
@@ -832,13 +857,24 @@ def _print_batch(stats: dict, args) -> None:
 def main(argv=None, graphs: bool = True) -> int:
     """The command line; ``graphs=False`` serves with the eager steps on the
     card too (``run_batch``, ``run_continuous``). With ``--model-shards``
-    above 1, or inside an initialised process group, it serves on a mesh of
-    ranks (``serve_mesh``), starting them itself where no group exists."""
+    above 1, inside an initialised process group, or under ``torchrun``
+    (whose ``env://`` rendezvous it joins), it serves on a mesh of ranks
+    (``serve_mesh``), starting them itself where no group exists."""
     args = parse_args(argv)
     cfg = config_of(args)
-    _refuse_mesh_flags(args)
     if dist.is_initialized():
         serve_mesh(cfg, args)
+        return 0
+    if torchrun_world() > 1:
+        device = resolve_device(args.device)
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                                  % torch.cuda.device_count())
+        dist.init_process_group(_backend(args, device), timeout=GROUP_TIMEOUT)  # env://
+        try:
+            serve_mesh(cfg, args)
+        finally:
+            dist.destroy_process_group()
         return 0
     if args.model_shards > 1:
         return _spawn(sys.argv[1:] if argv is None else list(argv), cfg, args)
@@ -866,11 +902,7 @@ def main(argv=None, graphs: bool = True) -> int:
     stats["init_ms"] = init_ms
     stats["peak_mem_gb"] = (torch.cuda.max_memory_allocated(device) / 1e9
                             if device.type == "cuda" else None)
-    if args.mode == "continuous":
-        _print_continuous(stats, args)
-        print("continuous-stats " + json.dumps(stats))
-        return 0
-    _print_batch(stats, args)
+    _print_stats(stats, args)
     return 0
 
 

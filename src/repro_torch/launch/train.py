@@ -51,7 +51,7 @@ import torch.distributed as dist
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.registry import get_config
 from repro_torch.data import make_pipeline
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import GROUP_TIMEOUT, make_local_mesh, torchrun_world
 from repro_torch.models.layers import resolve_device
 from repro_torch.runtime import PreemptionHandler, StepMonitor
 from repro_torch.training.steps import (build_train_step, init_train_state, shard_train_state,
@@ -132,7 +132,8 @@ def _rank_main(rank: int, world: int, backend: str, init_method: str, argv) -> N
     """A rank that ``main`` started, one a card: joins the group, trains
     (``main`` sees the group), leaves it."""
     torch.cuda.set_device(rank)
-    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world,
+                            timeout=GROUP_TIMEOUT)
     try:
         rc = main(argv)
     finally:
@@ -154,11 +155,6 @@ def _spawn(argv, args, world: int) -> int:
     return 0
 
 
-def _torchrun_world() -> int:
-    """The world size ``torchrun`` gave this process (1 outside it)."""
-    return int(os.environ.get("WORLD_SIZE", "1")) if "RANK" in os.environ else 1
-
-
 def main(argv=None) -> int:
     """The command line (module docstring). Inside an initialised process
     group, or under ``torchrun``, every rank trains on the data-parallel
@@ -167,14 +163,14 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if dist.is_initialized():
         return _train(args, _rank_device(args, dist.get_backend()))
-    if _torchrun_world() > 1:
+    if torchrun_world() > 1:
         backend = _backend(args, torch.device(args.device))
         if args.device != "cpu":
-            _check_cards(backend, int(os.environ.get("LOCAL_WORLD_SIZE", _torchrun_world())))
+            _check_cards(backend, int(os.environ.get("LOCAL_WORLD_SIZE", torchrun_world())))
             resolve_device("cuda")
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
                                   % torch.cuda.device_count())
-        dist.init_process_group(backend)  # torchrun's env:// rendezvous
+        dist.init_process_group(backend, timeout=GROUP_TIMEOUT)  # torchrun's env:// rendezvous
         try:
             return _train(args, _rank_device(args, backend))
         finally:

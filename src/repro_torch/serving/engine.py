@@ -81,9 +81,31 @@ and the target's verify step is one more. The pre-block snapshots stay on
 the device: each is copied, right behind the snapshot replay that made it,
 into a rollback buffer allocated once per lane and per pool (at most one
 block per lane is in flight), and a rollback injects from that buffer.
+
+**On a mesh of ranks** (``mesh``, a live ``launch/mesh.py`` mesh, as JAX's
+``Scheduler(..., mesh=mesh)``) every rank runs one Scheduler over its
+shards: both pools are this rank's lanes over "data" and H / k of each
+carry over "model" where the fused path runs per rank (a draft whose width
+the model axis does not divide is held and run whole on every model rank),
+and every step is the mesh step of ``training/steps.py``. JAX's engine is
+one controller; here every rank must take every decision (admission,
+backpressure, retirement, acceptance, rollback) alike on the same tick, or
+its next collective pairs with another step's. Two things make it so. The
+clock: each pass of ``run`` reads rank 0's clock, broadcast on the host
+(``Mesh.host_broadcast``), so admission by arrival time is rank 0's on
+every rank (a tick's own reading feeds only the metrics). The tokens, by
+construction: every step gathers its sampled tokens over "data", and every
+model rank samples them from the same gathered residual stream with the
+same whole head, so the (B,) ids and the verify block's argmax that the
+host acts on are the same bits on every rank; no token is broadcast. A
+lane's snapshot is broadcast over "data" from the rank that holds it, so
+the prefix cache and the rollback buffers are alike on every rank. The
+steps run eagerly under a mesh (gloo steps cannot be captured): ``graphs``
+is then off and the report says so.
 """
 from __future__ import annotations
 
+import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -92,6 +114,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distribution import fused_sharded
+from repro_torch.distribution import sharding as shd
 from repro_torch.models import lm
 from repro_torch.models.layers import resolve_device
 from repro_torch.models.rnn import tree_map
@@ -116,6 +140,17 @@ from repro_torch.training.steps import (
 SRC_HOST = 0     # host-known int (prompt tail token, BOS seed, retired token)
 SRC_DECODE = 1   # previous dispatched decode step's (B,) output, on the device
 SRC_PREFILL = 2  # this tick's chunk-prefill (B,) output (prompt ended at chunk)
+
+
+def lane_state_shards(cfg, mesh, batch: int):
+    """How many shards each leaf of one lane's state is split into on
+    ``mesh`` (``rank_cache_specs`` without the batch dim), a tree shaped as
+    the state: the prefix cache counts a snapshot's whole bytes, as JAX's
+    counts a sharded array's, from this rank's shard."""
+    whole = lm.lm_init_caches(cfg, batch, 1, device="meta")
+    return shd.map_with_paths(
+        lambda _, spec: math.prod(mesh.shape[a] for a in shd.spec_axes(spec[:1] + spec[2:])),
+        fused_sharded.rank_cache_specs(cfg, whole, mesh))
 
 
 @dataclass
@@ -195,6 +230,7 @@ class Scheduler:
         clock=time.perf_counter,
         device="cuda",
         graphs: bool = True,
+        mesh=None,
     ):
         if lm.block_kind(cfg) != "rnn" or cfg.attn_every:
             raise ValueError(
@@ -212,6 +248,7 @@ class Scheduler:
         self.cfg = cfg
         self.params = params
         self.batch = batch
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.chunk = int(chunk or cfg.mts_block_size)
         if self.chunk < 1:
@@ -225,29 +262,36 @@ class Scheduler:
         self._t0: Optional[float] = None
         self.tel = telemetry if telemetry is not None else NULL_TELEMETRY
         self._tick_serial = 0
+        # (tick, rid, lane) of every admission: under a mesh, equal on every rank
+        self.admission_log: List[Tuple[int, int, int]] = []
 
         self.queue = RequestQueue(queue_capacity)
         self.metrics = EngineMetrics(batch, trace=self.tel.trace, rolling=self.tel.rolling)
-        self.pool = SlotPool(build_cache_init(cfg, batch=batch, device=self.device)(), batch)
+        self.pool = SlotPool(build_cache_init(cfg, mesh, batch=batch, device=self.device)(),
+                             batch)
         self.prefix_cache: Optional[PrefixCache] = (
-            PrefixCache(chunk=self.chunk, budget_bytes=int(prefix_cache_mb * 2**20))
+            PrefixCache(chunk=self.chunk, budget_bytes=int(prefix_cache_mb * 2**20),
+                        shards=None if mesh is None else lane_state_shards(cfg, mesh, batch))
             if prefix_cache_mb > 0
             else None
         )
         self._inflight: deque = deque()
         self._fb_dec: Optional[torch.Tensor] = None  # last dispatched decode's next tokens
-        self._lanes = torch.arange(batch, device=self.device)  # lane ids as device scalars
+        # Lane ids: device scalars, so one captured snapshot/inject serves
+        # every lane; under a mesh host ints (the step reads the owner rank).
+        self._lanes = (torch.arange(batch, device=self.device) if mesh is None
+                       else list(range(batch)))
         # The fixed-shape steps, eager until ``warmup`` captures them (on a
-        # CUDA device with ``graphs``). Each updates the pool's caches in
-        # place; the snapshot only reads them.
-        self.graphs = bool(graphs) and self.device.type == "cuda"
+        # CUDA device with ``graphs``, and no mesh). Each updates the pool's
+        # caches in place; the snapshot only reads them.
+        self.graphs = bool(graphs) and self.device.type == "cuda" and mesh is None
         self.captured = False
         self.capture_ms: Optional[float] = None
-        self._reset = build_lane_reset(cfg)
-        self._prefill = build_chunk_prefill_step(cfg, chunk=self.chunk)
-        self._decode = build_masked_decode_step(cfg)
-        self._snapshot = build_lane_snapshot(cfg)
-        self._inject = build_lane_inject(cfg)
+        self._reset = build_lane_reset(cfg, mesh)
+        self._prefill = build_chunk_prefill_step(cfg, mesh, chunk=self.chunk)
+        self._decode = build_masked_decode_step(cfg, mesh)
+        self._snapshot = build_lane_snapshot(cfg, mesh, batch=batch)
+        self._inject = build_lane_inject(cfg, mesh, batch=batch)
 
         # Speculative decode: a draft pool with its own fixed-shape steps (the
         # draft is another architecture; the oracle draft, the target as its
@@ -279,14 +323,15 @@ class Scheduler:
                     "exclusive: a hit-injected target state has no draft-side "
                     "counterpart, so the draft could not mirror the stream"
                 )
-            self.draft_caches = build_cache_init(draft_cfg, batch=batch, device=self.device)()
-            self._d_reset = build_lane_reset(draft_cfg)
-            self._d_prefill = build_chunk_prefill_step(draft_cfg, chunk=self.chunk)
-            self._d_decode = build_masked_decode_step(draft_cfg)
-            self._d_snapshot = build_lane_snapshot(draft_cfg)
-            self._d_inject = build_lane_inject(draft_cfg)
-            self._d_block = build_draft_block_step(draft_cfg, k=self.spec_k)
-            self._verify = build_verify_step(cfg, chunk=self.spec_k)
+            self.draft_caches = build_cache_init(draft_cfg, mesh, batch=batch,
+                                                 device=self.device)()
+            self._d_reset = build_lane_reset(draft_cfg, mesh)
+            self._d_prefill = build_chunk_prefill_step(draft_cfg, mesh, chunk=self.chunk)
+            self._d_decode = build_masked_decode_step(draft_cfg, mesh)
+            self._d_snapshot = build_lane_snapshot(draft_cfg, mesh, batch=batch)
+            self._d_inject = build_lane_inject(draft_cfg, mesh, batch=batch)
+            self._d_block = build_draft_block_step(draft_cfg, mesh, k=self.spec_k)
+            self._verify = build_verify_step(cfg, mesh, chunk=self.spec_k)
             # Rollback buffers: one pre-block state per lane and per pool,
             # written right behind each snapshot.
             self._rollback = [self._lane_buffer(self.pool.caches) for _ in range(batch)]
@@ -348,6 +393,13 @@ class Scheduler:
     def _now(self) -> float:
         self.start()
         return self._clock() - self._t0
+
+    def _agreed_now(self) -> float:
+        """The engine clock as every rank reads it: under a mesh, rank 0's
+        reading, broadcast on the host (the decisions taken on it are then
+        rank 0's on every rank)."""
+        now = self._now()
+        return now if self.mesh is None else self.mesh.host_broadcast(now)
 
     # -- public API ----------------------------------------------------------
 
@@ -503,7 +555,7 @@ class Scheduler:
         t0 = self._clock()
         finished: List[Request] = []
         with tr.span("tick", serial=serial):
-            work = self._dispatch()
+            work = self._dispatch(self._now(), serial)
             if work is not None:
                 work.serial = serial
                 self._inflight.append(work)
@@ -545,14 +597,16 @@ class Scheduler:
         """The emitting lanes' logits rows, on their way to the host: the
         last position's, or (``last=False``, a verify block) every one."""
         rows = self._to_device(np.asarray([e[0].lane for e in emits], np.int64))
+        if self.mesh is not None and self.mesh.shape.get("data", 1) > 1 \
+                and logits.shape[0] != self.batch:
+            logits = self.mesh.axis("data").all_gather(logits, dim=0)  # every lane's rows
         picked = logits.index_select(0, rows)
         return self._to_host((picked[:, -1] if last else picked).float())
 
-    def _dispatch(self) -> Optional[_TickWork]:
+    def _dispatch(self, now: float, serial: int) -> Optional[_TickWork]:
         """Host -> device half of a tick: admission and step dispatch, no
         waits on the device. Returns the in-flight record, or None if nothing
         retirable was dispatched."""
-        now = self._now()
         tr = self.tel.trace
         work = _TickWork()
         with tr.span("recycle"):
@@ -573,6 +627,7 @@ class Scheduler:
                 slot = self.pool.slots[lane]
                 slot.assign(req)
                 self.metrics.on_admit(req, now)
+                self.admission_log.append((serial, req.rid, lane))
                 if self.spec_enabled and req.speculative is not False:
                     slot.spec = SpecLane()
                     d_admit_mask[lane] = True
@@ -935,7 +990,7 @@ class Scheduler:
         finished: List[Request] = []
         ticks = 0
         while True:
-            now = self._now()
+            now = self._agreed_now()
             while pending and pending[0].arrival <= now:
                 if self.submit(pending[0]):
                     pending.popleft()

@@ -56,11 +56,17 @@ def _leaves(tree):
     return [tree]
 
 
-def state_nbytes(state) -> int:
-    """Host byte footprint of one snapshot: the sum of its leaves' sizes,
-    tensors and numpy arrays alike."""
-    return sum(leaf.numel() * leaf.element_size() if isinstance(leaf, torch.Tensor)
-               else int(np.asarray(leaf).nbytes) for leaf in _leaves(state))
+def state_nbytes(state, shards=None) -> int:
+    """Byte footprint of one snapshot: the sum of its leaves' sizes, tensors
+    and numpy arrays alike. Under a mesh a rank holds each leaf's shard;
+    ``shards`` (a tree shaped as ``state``: each leaf's shard count, the
+    engine's ``lane_state_shards``) makes it the whole state's bytes, which
+    JAX's ``np.asarray`` of a sharded array counts, so the LRU budget
+    evicts at JAX's entry and alike on every rank."""
+    counts = _leaves(shards) if shards is not None else None
+    return sum((leaf.numel() * leaf.element_size() if isinstance(leaf, torch.Tensor)
+                else int(np.asarray(leaf).nbytes)) * (1 if counts is None else counts[i])
+               for i, leaf in enumerate(_leaves(state)))
 
 
 class _Node:
@@ -79,10 +85,11 @@ class _Node:
 class PrefixCache:
     """LRU byte-budgeted trie of chunk-boundary stack-state snapshots."""
 
-    def __init__(self, *, chunk: int, budget_bytes: int):
+    def __init__(self, *, chunk: int, budget_bytes: int, shards=None):
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
         self.chunk = int(chunk)
+        self.shards = shards  # under a mesh: each state leaf's shard count
         self.budget_bytes = int(budget_bytes)
         self.used_bytes = 0
         self.hits = 0
@@ -155,7 +162,7 @@ class PrefixCache:
         prefix = np.asarray(prefix, dtype=np.int32)
         if prefix.size == 0 or prefix.size % self.chunk:
             return False
-        nbytes = state_nbytes(state)
+        nbytes = state_nbytes(state, self.shards)
         if nbytes > self.budget_bytes:
             return False
         node = self._root

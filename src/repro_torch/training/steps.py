@@ -1,8 +1,8 @@
 """Train and serving steps, from ``repro/training/steps.py``: the train
-step (``TrainState``, ``init_train_state``, ``build_train_step``,
-``build_eval_step``), the batch path's ``build_prefill_step`` and
-``build_decode_step``, and the fixed-shape lane-masked steps of continuous
-batching (``serving/engine.py``).
+step (``TrainState``, ``init_train_state``, ``build_train_step`` and its
+first half ``step_grads``, ``build_eval_step``), the batch path's
+``build_prefill_step`` and ``build_decode_step``, and the fixed-shape
+lane-masked steps of continuous batching (``serving/engine.py``).
 
 Each builder closes over the config and returns a plain function. The
 serving steps run under ``torch.inference_mode()``; the train step runs
@@ -11,14 +11,18 @@ eagerly with autograd (capturing it as a CUDA graph is later work).
 data parallelism, FSDP and the model axis's per-rank fused RNN and MoE
 layers (:func:`build_train_step`).
 
-``build_prefill_step``, ``build_decode_step`` and ``build_cache_init`` take
-a ``mesh`` (``launch/mesh.py``), as JAX's do: each rank then allocates its
-shards of the caches (``fused_sharded.rank_cache_specs``: the RNN carries
-(L, B, H) with their lanes over "model" where the fused path runs per rank,
-the batch over "data") and runs the step under ``sharding.use_rules``, so
-the fused engines run per rank. The step's params, inputs and caches are
-this rank's shards. The lane-masked, verify and draft builders take no mesh
-(continuous batching under a mesh is ROADMAP §A7.2).
+Every serving builder takes a ``mesh`` (``launch/mesh.py``), as JAX's do:
+each rank then allocates its shards of the caches
+(``fused_sharded.rank_cache_specs``: the RNN carries (L, B, H) with their
+lanes over "model" where the fused path runs per rank, the batch over
+"data") and runs the step under ``sharding.use_rules``, so the fused
+engines run per rank. The batch path's steps (``build_prefill_step``,
+``build_decode_step``) take this rank's shards of the inputs. The
+lane-masked steps of continuous batching take the global (B,) lane mask and
+(B, .) tokens, slice them to the rank's lanes, and gather the sampled
+tokens over "data", so the engine on every rank sees the same B token ids;
+a lane snapshot is broadcast over "data" from the rank that holds the lane,
+and an inject writes only there.
 """
 from __future__ import annotations
 
@@ -145,6 +149,65 @@ def _reduce_over_data(g_sum, spec_list, mesh, split: bool):
     return out
 
 
+def step_grads(cfg, params, batch: Dict, mesh=None, specs=None):
+    """The train step's loss and grads: ``(loss, grads)``, the
+    microbatches' mean loss and mean fp32 grads (a tree like ``params``),
+    as :func:`build_train_step`'s step computes them before compression
+    and AdamW. Under ``mesh`` as that step: ``params`` this rank's shards
+    under ``specs`` (default :func:`train_param_specs`), ``batch`` the
+    global batch, the grads this rank's shards of the sum over ``data``."""
+    if mesh is not None and specs is None:
+        specs = train_param_specs(cfg, mesh)
+    with _under(mesh, cfg.sequence_parallel):
+        return _step_grads(cfg, params, batch, mesh, specs)
+
+
+def _step_grads(cfg, params, batch: Dict, mesh, specs):
+    n_mb = cfg.microbatches
+    spec_list = None if mesh is None else tree_leaves(specs)
+    whole = tree_leaves(params)
+    if mesh is not None:  # FSDP: the whole params, freed after the backward
+        whole = [shd.gather_shard(p, s, mesh, axes=("data",)) for p, s in zip(whole, spec_list)]
+    leaves = [p.detach().requires_grad_() for p in whole]
+    del whole
+    tree = unflatten_like(params, leaves)
+    mb_rows = next(iter(batch.values())).shape[0] // n_mb
+    rows = _rank_rows(mesh, mb_rows)
+
+    def grads_of(mb):
+        denom = None
+        if rows is not None:
+            denom = torch.clamp(_token_count(mb), min=1.0)
+            mb = {k: v[rows[0]:rows[1]] for k, v in mb.items()}
+        loss, _ = lm.lm_loss(tree, cfg, mb, denom=denom)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p, dtype=torch.float32) if g is None
+                               else g.float() for p, g in zip(leaves, grads)]
+
+    if n_mb == 1:
+        loss, g_sum = grads_of(batch)
+    else:
+        # Summed in place, each microbatch's grads dropped before the
+        # next's exist: one fp32 copy of the params' size beside the sum.
+        g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+        loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for i in range(n_mb):
+            loss_i, g_i = grads_of(_split_microbatch(batch, n_mb, i))
+            for a, g in zip(g_sum, g_i):
+                a.add_(g)
+            del g_i
+            loss = loss + loss_i
+        loss = loss / n_mb
+        for g in g_sum:
+            g.div_(n_mb)
+    del tree, leaves
+    if mesh is not None:
+        g_sum = _reduce_over_data(g_sum, spec_list, mesh, rows is not None)
+        if rows is not None:
+            loss = mesh.axis("data").all_reduce(loss)
+    return loss, unflatten_like(params, g_sum)
+
+
 def build_train_step(
     cfg,
     mesh=None,
@@ -204,57 +267,11 @@ def build_train_step(
 
     def train_step(state: TrainState, batch: Dict):
         with _under(mesh, cfg.sequence_parallel):
-            return _step(state, batch)
-
-    def _step(state: TrainState, batch: Dict):
-        n_mb = cfg.microbatches
-        spec_list = None if mesh is None else tree_leaves(specs)
-        whole = tree_leaves(state.params)
-        if mesh is not None:  # FSDP: the whole params, freed after the backward
-            whole = [shd.gather_shard(p, s, mesh, axes=("data",))
-                     for p, s in zip(whole, spec_list)]
-        leaves = [p.detach().requires_grad_() for p in whole]
-        del whole
-        params = unflatten_like(state.params, leaves)
-        mb_rows = next(iter(batch.values())).shape[0] // n_mb
-        rows = _rank_rows(mesh, mb_rows)
-
-        def grads_of(mb):
-            denom = None
-            if rows is not None:
-                denom = torch.clamp(_token_count(mb), min=1.0)
-                mb = {k: v[rows[0]:rows[1]] for k, v in mb.items()}
-            loss, _ = lm.lm_loss(params, cfg, mb, denom=denom)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            return loss.detach(), [torch.zeros_like(p, dtype=torch.float32) if g is None
-                                   else g.float() for p, g in zip(leaves, grads)]
-
-        if n_mb == 1:
-            loss, g_sum = grads_of(batch)
-        else:
-            # Summed in place, each microbatch's grads dropped before the
-            # next's exist: one fp32 copy of the params' size beside the sum.
-            g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
-            loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-            for i in range(n_mb):
-                loss_i, g_i = grads_of(_split_microbatch(batch, n_mb, i))
-                for a, g in zip(g_sum, g_i):
-                    a.add_(g)
-                del g_i
-                loss = loss + loss_i
-            loss = loss / n_mb
-            for g in g_sum:
-                g.div_(n_mb)
-        del params, leaves
-        if mesh is not None:
-            g_sum = _reduce_over_data(g_sum, spec_list, mesh, rows is not None)
-            if rows is not None:
-                loss = mesh.axis("data").all_reduce(loss)
-        grads = unflatten_like(state.params, g_sum)
-        grads, new_ef = compress_grads(grads, state.ef, compression, mesh=mesh, specs=specs)
-        lr = schedule(state.opt.step)
-        new_params, new_opt, opt_metrics = adamw_update(grads, state.opt, state.params, lr,
-                                                        mesh=mesh, specs=specs)
+            loss, grads = _step_grads(cfg, state.params, batch, mesh, specs)
+            grads, new_ef = compress_grads(grads, state.ef, compression, mesh=mesh, specs=specs)
+            lr = schedule(state.opt.step)
+            new_params, new_opt, opt_metrics = adamw_update(grads, state.opt, state.params, lr,
+                                                            mesh=mesh, specs=specs)
         return TrainState(params=new_params, opt=new_opt, ef=new_ef), {"loss": loss, **opt_metrics}
 
     return train_step
@@ -382,41 +399,87 @@ def build_cache_init(cfg, mesh=None, *, batch: int, max_len: int = 1, device="cu
     return cache_init
 
 
-def build_masked_decode_step(cfg):
+def _pool_lanes(mesh, batch: int):
+    """This rank's lanes ``[lo, hi)`` of a ``batch``-lane pool under
+    ``mesh``, where ``fused_sharded._batch_spec`` shards the batch over
+    "data"; None when the rank holds every lane (no mesh, a data axis of
+    one rank, or a batch the data axis does not divide)."""
+    if mesh is None:
+        return None
+    spec = fused_sharded._batch_spec(mesh, batch)
+    if spec is None:
+        return None
+    i, k = shd.shard_index(spec, mesh)
+    if k == 1:
+        return None
+    n = batch // k
+    return i * n, (i + 1) * n
+
+
+def _mine(x: torch.Tensor, lanes) -> torch.Tensor:
+    """This rank's rows of a global (B, ...) host input."""
+    return x if lanes is None else x[lanes[0]:lanes[1]]
+
+
+def _all_lanes(x: torch.Tensor, mesh, lanes) -> torch.Tensor:
+    """The data ranks' (B/D, ...) results side by side along dim 0, in axis
+    order: the global (B, ...) result on every rank."""
+    return x if lanes is None else mesh.axis("data").all_gather(x, dim=0)
+
+
+def _masked_decode(cfg, params, caches, token, lane_mask):
+    """One lane-masked token step on the lanes the caches hold."""
+    logits, new = lm.lm_decode_step(params, cfg, caches, token)
+    _copy_into(caches, rnn.rnn_cache_merge_lanes(caches, new, lane_mask))
+    return _greedy(cfg, logits), logits
+
+
+def build_masked_decode_step(cfg, mesh=None):
     """Lane-masked one-token step: ``(params, caches, token (B, 1) int64,
-    lane_mask (B,) bool) -> (next_tok (B,), logits (B, 1, V), caches)``.
-    Lanes outside the mask run on placeholder tokens; the merge discards
-    their compute and their cache bits stay as they were."""
+    lane_mask (B,) bool) -> (next_tok (B,), logits, caches)``. Lanes outside
+    the mask run on placeholder tokens; the merge discards their compute and
+    their cache bits stay as they were.
+
+    Under ``mesh`` (as every lane-masked builder here) the step runs under
+    ``use_rules``: ``params`` and ``caches`` are this rank's shards
+    (``fused_sharded.rank_cache_specs``: lanes over "data", H over "model"
+    where the fused path runs per rank), ``token`` and ``lane_mask`` the
+    global arrays, of which the rank takes its lanes; ``next_tok`` is
+    gathered over "data" into the global (B,) array, the same on every rank.
+    ``logits`` are this rank's lanes' (B/D, 1, V)."""
 
     def decode_step(params, caches, token, lane_mask):
-        with torch.inference_mode():
-            logits, new = lm.lm_decode_step(params, cfg, caches, token)
-            _copy_into(caches, rnn.rnn_cache_merge_lanes(caches, new, lane_mask))
-            return _greedy(cfg, logits), logits, caches
+        with torch.inference_mode(), _under(mesh):
+            lanes = _pool_lanes(mesh, lane_mask.shape[0])
+            nxt, logits = _masked_decode(cfg, params, caches, _mine(token, lanes),
+                                         _mine(lane_mask, lanes))
+            return _all_lanes(nxt, mesh, lanes), logits, caches
 
     return decode_step
 
 
-def build_chunk_prefill_step(cfg, *, chunk: int):
+def build_chunk_prefill_step(cfg, mesh=None, *, chunk: int):
     """Slot-targeted chunked prefill into the existing caches: ``(params,
     caches, tokens (B, chunk) int64, lane_mask (B,) bool) -> (next_tok (B,),
-    logits (B, 1, V), caches)``. A prompt is consumed ``chunk`` tokens a call
-    with exact carry (the MTS schedule for the paper's RNNs) while resident
-    lanes stay as they are under the mask. ``next_tok`` means something only
-    for lanes whose prompt ends at this chunk's last position."""
+    logits, caches)``. A prompt is consumed ``chunk`` tokens a call with
+    exact carry (the MTS schedule for the paper's RNNs) while resident lanes
+    stay as they are under the mask. ``next_tok`` means something only for
+    lanes whose prompt ends at this chunk's last position. Under ``mesh``
+    as :func:`build_masked_decode_step`."""
 
     def prefill_step(params, caches, tokens, lane_mask):
         if tokens.shape[-1] != chunk:
             raise ValueError(f"chunk prefill: tokens {tuple(tokens.shape)}, chunk {chunk}")
-        with torch.inference_mode():
-            logits, new = lm.lm_prefill(params, cfg, {"inputs": tokens}, caches)
-            _copy_into(caches, rnn.rnn_cache_merge_lanes(caches, new, lane_mask))
-            return _greedy(cfg, logits), logits, caches
+        with torch.inference_mode(), _under(mesh):
+            lanes = _pool_lanes(mesh, lane_mask.shape[0])
+            logits, new = lm.lm_prefill(params, cfg, {"inputs": _mine(tokens, lanes)}, caches)
+            _copy_into(caches, rnn.rnn_cache_merge_lanes(caches, new, _mine(lane_mask, lanes)))
+            return _all_lanes(_greedy(cfg, logits), mesh, lanes), logits, caches
 
     return prefill_step
 
 
-def build_verify_step(cfg, *, chunk: int):
+def build_verify_step(cfg, mesh=None, *, chunk: int):
     """Speculative-block verification: ``(params, caches, tokens (B, chunk)
     int64, lane_mask (B,) bool) -> (per_pos_tok (B, chunk), logits (B, chunk,
     V), caches)``. The drafted block rides the chunk-prefill path
@@ -424,20 +487,24 @@ def build_verify_step(cfg, *, chunk: int):
     is the greedy sample after ``tokens[:, : i + 1]``, so acceptance is
     decided from one (B, chunk) array. Masked lanes keep their cache bits; a
     rejected lane is restored from its pre-block snapshot
-    (``build_lane_snapshot`` / ``build_lane_inject``)."""
+    (``build_lane_snapshot`` / ``build_lane_inject``). Under ``mesh`` as
+    :func:`build_masked_decode_step`: ``per_pos_tok`` global, ``logits``
+    this rank's lanes'."""
 
     def verify_step(params, caches, tokens, lane_mask):
         if tokens.shape[-1] != chunk:
             raise ValueError(f"verify: tokens {tuple(tokens.shape)}, chunk {chunk}")
-        with torch.inference_mode():
-            logits, new = lm.lm_verify(params, cfg, {"inputs": tokens}, caches)
-            _copy_into(caches, rnn.rnn_cache_merge_lanes(caches, new, lane_mask))
-            return torch.argmax(logits[..., : cfg.vocab], dim=-1), logits, caches
+        with torch.inference_mode(), _under(mesh):
+            lanes = _pool_lanes(mesh, lane_mask.shape[0])
+            logits, new = lm.lm_verify(params, cfg, {"inputs": _mine(tokens, lanes)}, caches)
+            _copy_into(caches, rnn.rnn_cache_merge_lanes(caches, new, _mine(lane_mask, lanes)))
+            toks = torch.argmax(logits[..., : cfg.vocab], dim=-1)
+            return _all_lanes(toks, mesh, lanes), logits, caches
 
     return verify_step
 
 
-def build_draft_block_step(cfg, *, k: int):
+def build_draft_block_step(cfg, mesh=None, *, k: int):
     """The draft half of a speculative block as one step: ``(params, caches,
     host_toks (B, k) int64, host_src (B, k) bool, lane_mask (B,) bool) ->
     block (B, k) int64``. It runs k masked one-token steps of the draft; the
@@ -446,57 +513,103 @@ def build_draft_block_step(cfg, *, k: int):
     step before, chosen on the device. ``block`` holds the k tokens the
     draft consumed: the verify chunk's input. The JAX Scheduler runs these
     k steps one by one (``repro/serving/engine.py::_dispatch_spec``); as
-    one step they are one CUDA graph on the card."""
-    decode = build_masked_decode_step(cfg)
+    one step they are one CUDA graph on the card. Under ``mesh`` each rank
+    runs its lanes' k steps and ``block`` is gathered over "data" once."""
 
     def draft_block_step(params, caches, host_toks, host_src, lane_mask):
         if host_toks.shape[-1] != k:
             raise ValueError(f"draft block: tokens {tuple(host_toks.shape)}, k {k}")
-        with torch.inference_mode():
+        with torch.inference_mode(), _under(mesh):
+            lanes = _pool_lanes(mesh, lane_mask.shape[0])
+            host_toks, host_src = _mine(host_toks, lanes), _mine(host_src, lanes)
+            lane_mask = _mine(lane_mask, lanes)
             prev = torch.zeros_like(host_toks[:, 0])
             cols = []
             for p in range(k):
                 col = torch.where(host_src[:, p], host_toks[:, p], prev)
                 cols.append(col)
-                prev, _, _ = decode(params, caches, col[:, None], lane_mask)
-            return torch.stack(cols, dim=1)
+                prev, _ = _masked_decode(cfg, params, caches, col[:, None], lane_mask)
+            return _all_lanes(torch.stack(cols, dim=1), mesh, lanes)
 
     return draft_block_step
 
 
-def build_lane_reset(cfg):
+def build_lane_reset(cfg, mesh=None):
     """Lane-masked cache reset: ``(caches, lane_mask) -> caches`` with the
-    masked lanes zeroed (a freshly admitted stream) and the rest bitwise."""
+    masked lanes zeroed (a freshly admitted stream) and the rest bitwise.
+    Under ``mesh`` each rank resets its own lanes of the global mask."""
 
     def reset_step(caches, lane_mask):
         with torch.inference_mode():
-            _copy_into(caches, rnn.rnn_cache_reset_lanes(caches, lane_mask))
+            lanes = _pool_lanes(mesh, lane_mask.shape[0])
+            _copy_into(caches, rnn.rnn_cache_reset_lanes(caches, _mine(lane_mask, lanes)))
             return caches
 
     return reset_step
 
 
-def build_lane_snapshot(cfg):
+def _need_batch(mesh, batch) -> None:
+    if mesh is not None and batch is None:
+        raise ValueError("a lane snapshot or inject under a mesh needs the pool's batch")
+
+
+def _owner(mesh, lanes, lane):
+    """(the data index that holds global lane ``lane``, its index there)."""
+    n = lanes[1] - lanes[0]
+    lane = int(lane)
+    return lane // n, lane % n
+
+
+def build_lane_snapshot(cfg, mesh=None, *, batch: Optional[int] = None):
     """Chunk-boundary state capture: ``(caches, lane) -> state``, every leaf
     (L, B, ...) -> (L, ...). ``lane`` is a 0-dim int64 tensor on the caches'
     device, so one captured snapshot serves every lane. The caches are only
-    read; a captured snapshot's ``state`` is overwritten by its next replay."""
+    read; a captured snapshot's ``state`` is overwritten by its next replay.
+
+    Under ``mesh`` (``batch``: the pool's global lane count) ``lane`` is
+    global (an int, or a tensor read on the host): the data rank that holds
+    it takes the snapshot of its shard and broadcasts it over "data", so
+    every rank returns the same state, whole over "data" and its shard over
+    "model" (the prefix cache and the rollback buffers are then alike on
+    every rank)."""
+    _need_batch(mesh, batch)
 
     def snapshot_step(caches, lane):
         with torch.inference_mode():
-            return rnn.rnn_cache_extract_lane(caches, lane)
+            lanes = None if mesh is None else _pool_lanes(mesh, batch)
+            if lanes is None:
+                return rnn.rnn_cache_extract_lane(caches, lane)
+            src, local = _owner(mesh, lanes, lane)
+            data = mesh.axis("data")
+            return tree_map(
+                lambda leaf: data.broadcast(leaf[:, local] if data.index == src else None, src,
+                                            like=leaf[:, 0]), caches)
 
     return snapshot_step
 
 
-def build_lane_inject(cfg):
+def build_lane_inject(cfg, mesh=None, *, batch: Optional[int] = None):
     """Prefix-hit admission: ``(caches, lane, state) -> caches`` with
     ``state`` (a ``build_lane_snapshot`` result) written into ``lane`` and
-    every other lane bitwise."""
+    every other lane bitwise. Under ``mesh`` (``batch`` as for the
+    snapshot) only the data rank that holds the global ``lane`` writes; the
+    others leave their lanes as they are."""
+    _need_batch(mesh, batch)
 
     def inject_step(caches, lane, state):
         with torch.inference_mode():
-            _copy_into(caches, rnn.rnn_cache_inject_lane(caches, lane, state))
+            _inject(caches, lane, state, mesh, batch)
             return caches
 
     return inject_step
+
+
+def _inject(caches, lane, state, mesh, batch) -> None:
+    """``state`` into ``lane`` of the caches, in place; under ``mesh`` only
+    on the data rank that holds the global ``lane``."""
+    lanes = None if mesh is None else _pool_lanes(mesh, batch)
+    if lanes is not None:
+        src, lane = _owner(mesh, lanes, lane)
+        if mesh.axis("data").index != src:
+            return
+    _copy_into(caches, rnn.rnn_cache_inject_lane(caches, lane, state))

@@ -313,7 +313,7 @@ def _rank_cases(mesh, cases) -> dict:
 def _worker(rank, world, model_axis, init_file, cases_path, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=mesh_lib.GROUP_TIMEOUT)
     try:
         mesh = mesh_lib.make_local_mesh(model_axis, device=torch.device("cpu"))
         with open(cases_path, "rb") as f:
@@ -543,12 +543,6 @@ def test_serve_joins_an_initialised_group(runs, shape, capsys):
     assert serve.main(_serve_argv(*JOIN_CASE)) == 0
     single = json.loads(capsys.readouterr().out.split("serve-stats ", 1)[1])
     assert stats["tokens"] == single["tokens"]
-
-
-def test_continuous_mode_under_a_mesh_is_refused():
-    with pytest.raises(SystemExit, match="continuous.*ROADMAP §A7.2"):
-        serve.main(["--arch", "sru-paper-large-stacked", "--reduced", "--device", "cpu",
-                    "--mode", "continuous", "--model-shards", "2"])
 
 
 def test_ranks_sharing_a_card_need_gloo_asked_for(monkeypatch):

@@ -598,3 +598,30 @@ def test_profile_split_attributes_device_time_by_correlation():
     assert only["device_events_before_the_run"] == 5
     assert only["device_us_by_name"] == {"decode": {"k_decode": [20, 2]}}
     assert only["lost_launching_calls"] == 1 and "prefill" not in only["host_ms_per_tick_by_phase"]
+    # the complete instances: decode's instance 0 lost its kernels
+    assert split["complete_instances"] == {"prefill": 1, "decode": 2}
+    assert split["device_us_by_name_complete"] == {
+        "prefill": {"Memcpy HtoD": [2, 1], "k_prefill_a": [30, 1], "k_prefill_b": [10, 1]},
+        "decode": {"k_decode": [20, 2]}}
+
+
+def test_profile_split_leaves_out_a_partial_graph_replay():
+    """A replay of the phase's graph with fewer device events than its
+    fullest replay lost some to the profiler: its instance is not complete,
+    and the complete instances' events are counted alone; an eager launch
+    without device events leaves its instance out as well."""
+    cs = _chip_smoke()
+    ev = [_x("user_annotation", "w", 0, 10), _x("cuda_runtime", "cudaGraphLaunch", 1, 5, corr=1),
+          _x("user_annotation", "w", 20, 10), _x("cuda_runtime", "cudaGraphLaunch", 21, 5, corr=2),
+          _x("user_annotation", "w", 40, 10), _x("cuda_runtime", "cudaGraphLaunch", 41, 5, corr=3),
+          _x("cuda_runtime", "cudaLaunchKernel", 46, 2, corr=4),     # lost: no device event
+          _x("user_annotation", "w", 60, 10), _x("cuda_runtime", "cudaGraphLaunch", 61, 5, corr=5)]
+    for corr, names in ((1, "ab"), (2, "a"), (3, "ab"), (5, "ab")):  # replay 2 lost its b
+        ev += [_x("kernel", f"k_{n}", 100 * corr + j, 4, tid=9, corr=corr)
+               for j, n in enumerate(names)]
+    split = cs.profile_split({"traceEvents": ev}, ticks=4, phases=("w",))
+    assert split["graph_launch_device_events"] == {"w": [1, 2]}
+    assert split["lost_launching_calls"] == 1
+    assert split["complete_instances"] == {"w": 2}
+    assert split["device_us_by_name_complete"] == {"w": {"k_a": [8, 2], "k_b": [8, 2]}}
+    assert split["device_us_by_name"] == {"w": {"k_a": [16, 4], "k_b": [12, 3]}}

@@ -82,6 +82,9 @@ TRAIN_CASES = {
 }
 ELASTIC_ARCHS = ("mamba2-2.7b", "sru-paper-large-stacked")
 ELASTIC_STEP, DATA_STATE = 7, {"step": 7, "seed": 0}
+# The elastic resume: (2, 1) FSDP ranks train to RESUME_SAVE and save; one
+# device restores and trains on to RESUME_STEPS (fp32 compute).
+RESUME_ARCH, RESUME_SAVE, RESUME_STEPS, RESUME_LR = "sru-paper-large-stacked", 2, 4, 1e-2
 OWN_ARCH = "qrnn-paper-large-stacked"
 CLI_ARGS = ["--arch", "sru-paper-large-stacked", "--reduced", "--device", "cpu", "--batch", "8",
             "--seq", "16", "--log-every", "1"]
@@ -455,6 +458,42 @@ def _elastic_restore(mesh, ckpt_root):
     return res
 
 
+def _resume_batches(cfg):
+    rng = np.random.default_rng(11)
+    return [{k: torch.tensor(rng.integers(0, cfg.vocab, (8, 32)).astype(np.int32))
+             for k in ("inputs", "targets")} for _ in range(RESUME_STEPS)]
+
+
+def _resume_step(cfg, mesh=None, specs=None):
+    return steps.build_train_step(cfg, mesh, base_lr=RESUME_LR, warmup=1,
+                                  total_steps=RESUME_STEPS, specs=specs)
+
+
+def _whole_leaves(state, sspecs, mesh):
+    return [(path, shd.gather_shard(x, s, mesh).clone()) for (path, x), s in
+            zip(flatten_with_paths(state), tree_leaves(sspecs))]
+
+
+def _resume_ranks(mesh, ckpt):
+    """The (2, 1) FSDP ranks train RESUME_ARCH to RESUME_SAVE, save their
+    shards, and go on uninterrupted to RESUME_STEPS; the saved state and
+    the final one, whole."""
+    cfg = get_config(RESUME_ARCH).reduced()
+    whole = steps.init_train_state(torch.Generator().manual_seed(0), cfg, device="cpu")
+    specs = steps.train_param_specs(cfg, mesh, fsdp=True)
+    sspecs = steps.train_state_specs(specs)
+    state = steps.shard_train_state(whole, sspecs, mesh)
+    fn, batches = _resume_step(cfg, mesh, specs), _resume_batches(cfg)
+    for i in range(RESUME_SAVE):
+        state, _ = fn(state, batches[i])
+    CheckpointManager(str(ckpt)).save(RESUME_SAVE, state, shardings=(mesh, sspecs))
+    saved = _whole_leaves(state, sspecs, mesh)
+    for i in range(RESUME_SAVE, RESUME_STEPS):
+        state, _ = fn(state, batches[i])
+    return {"saved": saved, "final": _whole_leaves(state, sspecs, mesh),
+            "sharded_over": sorted({a for s in tree_leaves(sspecs) for a in shd.spec_axes(s)})}
+
+
 def _cli(argv):
     with contextlib.redirect_stdout(io.StringIO()) as out:
         assert train.main(argv) == 0
@@ -489,7 +528,7 @@ def _preempted_cli(tmp: Path):
 def _worker(rank, world, model_axis, init_file, cases_path, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=mesh_lib.GROUP_TIMEOUT)
     try:
         mesh = mesh_lib.make_local_mesh(model_axis, device=torch.device("cpu"))
         shape = (world // model_axis, model_axis)
@@ -518,6 +557,7 @@ def _worker(rank, world, model_axis, init_file, cases_path, out_dir):
             res["elastic"] = _elastic_restore(mesh, tmp / "elastic")
         if shape == (2, 1):
             res["preempted"] = _preempted_cli(tmp)
+            res["resume"] = _resume_ranks(mesh, tmp / "resume")
         if rank == 0 or shape == (1, 2):
             with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
                 pickle.dump(res, f)
@@ -723,6 +763,39 @@ def test_elastic_restore_onto_another_mesh(runs, arch, tmp_path):
     assert data_state == DATA_STATE
     for a, b in zip(jax.tree_util.tree_leaves(restored), tree_leaves(whole)):
         assert np.array_equal(np.asarray(a), b.numpy())
+
+
+def test_elastic_resume_on_one_device_matches_the_ranks_run(runs):
+    """fp32, the reduced SRU stack: two FSDP ranks (2, 1) train to step 2
+    and save their shards; one device restores the state bit for bit
+    (params, both moments, the step) and trains on to step 4, ending no
+    farther from the single device's uninterrupted run than the two ranks'
+    uninterrupted run is (plus 1e-6): the save and restore add nothing to
+    the two reduction orders' difference."""
+    got = runs["ranks"][(2, 1)]["resume"]
+    assert got["sharded_over"] == ["data"]
+    cfg = get_config(RESUME_ARCH).reduced()
+    assert cfg.compute_dtype == "float32"
+    fresh = steps.init_train_state(torch.Generator().manual_seed(0), cfg, device="cpu")
+    restored, _ = CheckpointManager(str(runs["tmp"] / "resume")).restore(RESUME_SAVE, fresh)
+    leaves = flatten_with_paths(restored)
+    assert [p for p, _ in leaves] == [p for p, _ in got["saved"]]
+    assert {p.split("/")[1] for p, _ in leaves if p.startswith("opt/")} >= {"m", "v", "step"}
+    for (path, a), (_, b) in zip(leaves, got["saved"]):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+    fn, batches = _resume_step(cfg), _resume_batches(cfg)
+    state = restored
+    for i in range(RESUME_SAVE, RESUME_STEPS):
+        state, _ = fn(state, batches[i])
+    single = fresh
+    for i in range(RESUME_STEPS):
+        single, _ = fn(single, batches[i])
+    resumed, ranks = dict(flatten_with_paths(state.params)), dict(got["final"])
+    gap_ranks = gap_resumed = 0.0
+    for path, x in flatten_with_paths(single.params):
+        gap_ranks = max(gap_ranks, (ranks["params/" + path] - x).abs().max().item())
+        gap_resumed = max(gap_resumed, (resumed[path] - x).abs().max().item())
+    assert gap_resumed <= gap_ranks + 1e-6, (gap_resumed, gap_ranks)
 
 
 def test_train_cli_on_an_initialised_group(runs, tmp_path):

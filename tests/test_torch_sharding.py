@@ -104,7 +104,7 @@ print("JAX-OK")
 def _ring_worker(rank, world, model_axis, init_file, ring_path, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=mesh_lib.GROUP_TIMEOUT)
     try:
         mesh = mesh_lib.make_local_mesh(model_axis, device=torch.device("cpu"))
         g = mesh.axis("model")

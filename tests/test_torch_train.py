@@ -243,6 +243,29 @@ def test_train_steps_match_jax(case):
         np.testing.assert_allclose(g, w, rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=path)
 
 
+@pytest.mark.parametrize("case", ["sru_stack", "mamba2_microbatched"])
+def test_step_grads_is_the_train_steps_first_half(case):
+    """``steps.step_grads`` and the global norm of its grads give the train
+    step's ``loss`` and ``grad_norm`` bit for bit (one microbatch and two),
+    and JAX's jitted step's at 3e-5 and 5e-4."""
+    from repro_torch.optim.adamw import global_norm
+
+    arch, overrides, _ = TRAIN_CASES[case]
+    jcfg, cfg = _cfgs(arch, overrides)
+    jstate = jsteps.init_train_state(jax.random.PRNGKey(2), jcfg)
+    batch = jpipeline.make_pipeline(jcfg, 4, S, seed=0).batch_at(0)
+    _, jm = jax.jit(jsteps.build_train_step(jcfg, None))(
+        jstate, jax.tree_util.tree_map(jnp.asarray, batch))
+    state = bridge.train_state_from_numpy(_np_tree(jstate), device="cpu")
+    loss, grads = steps.step_grads(cfg, state.params, _torch_batch(batch))
+    norm = global_norm(grads)
+    assert [g.dtype for g in tree_leaves(grads)] == [torch.float32] * len(tree_leaves(grads))
+    _, m = steps.build_train_step(cfg)(state, _torch_batch(batch))
+    assert torch.equal(loss, m["loss"]) and torch.equal(norm, m["grad_norm"])
+    _close(loss, jm["loss"], LOSS_TOL)
+    _close(norm, jm["grad_norm"], GRAD_TOL)
+
+
 def test_microbatches_do_not_change_the_math():
     """Microbatches 1 and 4 give the same params after three steps, within
     the JAX package's own test's tolerance."""
