@@ -213,11 +213,21 @@ Phases, each printing one JSON line per step:
            ``_moe_shard_map`` (E/2 experts a rank) against ``sorted`` on one
            rank at 2e-5; four ranks, (2, 2), serving
            ``sru-paper-large-stacked`` (the data axis) with the
-           single-device tokens. Then training on two ranks: B1, B2 and
+           single-device tokens. Every run's vocab leaves are a block of
+           the padded vocab a model rank (half the bytes each). Part (g),
+           on the same (1, 2) ranks: ``sru-paper-large``,
+           ``qrnn-paper-large`` and ``lstm-paper-large`` on their own
+           ``chunked`` engine (tensor parallelism of the gate GEMM, the
+           LSTM's columns and the vocab leaves; no kernel of ours), B = 4,
+           prompt 64, gen 8, against the single-device tokens and logits,
+           half the slab and vocab bytes a rank, a decode step split into
+           collectives and the rest. Then training on two ranks: B1, B2 and
            B3 (forward and backward) at the train runs' shapes against
            their plain versions; ``build_train_step(cfg, mesh)`` for 2
            steps of 8 x 256 tokens in fp32 of ``sru-paper-large-stacked``
-           on (1, 2) and ``qrnn-paper-large-stacked`` on (2, 1) with FSDP
+           on (1, 2), ``qrnn-paper-large-stacked`` on (2, 1) with FSDP and
+           ``sru-paper-large --engine pallas`` on (1, 2) (B3 per rank on
+           its lanes, forward and one-launch backward)
            (counts set to 0 just before, read just after), loss, grad norm
            and params against the single-device fp32 run on the card,
            each rank's launches the expected and one more step split into
@@ -438,13 +448,18 @@ SHARD_CASES = (("sru_identity", 1024, 2, 1, False), ("sru_identity", 1024, 4, 1,
 # shard), T = 64 and 1.
 SHARD_MIXED_CASES = (("sru_identity", 1024, 2, 1), ("qrnn", 1024, 2, 1))
 SHARDED_DIR = ROOT / "build" / "sharded"
-# Sharded training (the sharded phase's last part): (arch, model axis, fsdp)
-# trained SHARDED_TRAIN_STEPS steps by two gloo ranks sharing the card, fp32
-# compute, TF32 off, TRAIN_BATCH x TRAIN_SEQ tokens a step, against the
-# single-device fp32 run on the card: the SRU stack on (1, 2) (the barrier:
-# B1 a layer and rank forward, B3 in the backward's recompute) and the QRNN
-# stack on (2, 1) with FSDP (B2 on each data rank's rows, B3).
-SHARDED_TRAIN_RUNS = (("sru-paper-large-stacked", 2, False), ("qrnn-paper-large-stacked", 1, True))
+# Sharded training (the sharded phase's last part): (arch, engine, model
+# axis, fsdp) trained SHARDED_TRAIN_STEPS steps by two gloo ranks sharing the
+# card, fp32 compute, TF32 off, TRAIN_BATCH x TRAIN_SEQ tokens a step, against
+# the single-device fp32 run on the card: the SRU stack on (1, 2) (the
+# barrier: B1 a layer and rank forward, B3 in the backward's recompute), the
+# QRNN stack on (2, 1) with FSDP (B2 on each data rank's rows, B3), and the
+# SRU layer under pallas on (1, 2) (part (g): the gate GEMM on the rank's
+# lanes, B3 forward and its one-launch backward per rank, the vocab leaves
+# vocab-parallel).
+SHARDED_TRAIN_RUNS = (("sru-paper-large-stacked", None, 2, False),
+                      ("qrnn-paper-large-stacked", None, 1, True),
+                      ("sru-paper-large", "pallas", 2, False))
 SHARDED_TRAIN_STEPS = 2
 # The CPU tests' limits against JAX's sharded step (tests/test_torch_sharded_
 # train.py): loss 3e-5; grad norm, as a grad, and params after the steps 5e-4.
@@ -467,6 +482,17 @@ SHARDED_CLI_SAVE, SHARDED_CLI_STEPS = 2, 4
 # tokens each; the oracle draft is the target itself, k = 4. The barrier
 # stack runs B1 a layer and rank at T = 32 (prefill), 1 (decode) and 4
 # (verify); the int8 QRNN's config carries the ring (chunk GEMMs, B3).
+# (g) Tensor parallelism of what JAX shards through GSPMD, on the (1, 2)
+# ranks of (c): each of SHARDED_TP_RUNS on its own engine (chunked; the
+# LSTM's own step) at full width, B = 4, prompt 64, SHARDED_TP_GEN tokens,
+# fp32: the gate GEMM on the rank's lanes (the LSTM's 4H / k columns and one
+# gather of z_t a step) and the vocab leaves a block of the padded vocab a
+# rank. Against the single-device run: tokens equal, SHARDED_LOGIT_STEPS
+# teacher-forced logits at SHARDED_TOL, half the slab and vocab bytes a rank;
+# a decode step split into the collectives and the rest. The path launches
+# none of our kernels; the pallas train run of SHARDED_TRAIN_RUNS runs B3.
+SHARDED_TP_RUNS = ("sru-paper-large", "qrnn-paper-large", "lstm-paper-large")
+SHARDED_TP_GEN = 8
 SHARDED_CONT_RUNS = {"plain": ("sru-paper-large-stacked", "plain", False),
                      "prefix": ("sru-paper-large-stacked", "prefix", False),
                      "oracle": ("sru-paper-large-stacked", "plain", True),
@@ -3007,11 +3033,11 @@ def _run_key(arch, compute):
     return arch if compute == "float32" else f"{arch} {compute}"
 
 
-def _sharded_args(arch, k, batch=4):
+def _sharded_args(arch, k, batch=4, gen=32):
     from repro_torch.launch import serve
 
     return serve.parse_args(["--arch", arch, "--batch", str(batch), "--prompt-len", "64",
-                             "--gen-len", "32", "--model-shards", str(k),
+                             "--gen-len", str(gen), "--model-shards", str(k),
                              "--dist-backend", "gloo"])
 
 
@@ -3176,6 +3202,91 @@ def _cont_rank(run, model_axis, device, counters, split):
                       if not x.startswith("continuous-stats ")][:4]}
 
 
+def _tp_rank(arch, model_axis, device, counters):
+    """(g) One rank of SHARDED_TP_RUNS' ``arch`` on its own engine: the
+    serve through ``serve.serve_mesh`` (every count set to 0 just before,
+    read just after), then its teacher-forced logits and a decode step
+    split into the collectives and the rest."""
+    import torch
+
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    args = _sharded_args(arch, model_axis, gen=SHARDED_TP_GEN)
+    cfg = _sharded_cfg(args)
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        stats = serve.serve_mesh(cfg, args)
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    mesh = make_local_mesh(model_axis, device=device)
+    params = lm.lm_init(torch.Generator(device=device).manual_seed(args.seed), cfg,
+                        device=device, dtype=torch.float32)
+    params, _ = serve.shard_params(cfg, params, mesh)
+    toks = _logit_inputs(cfg)
+    toks = shd.local_shard(toks, shd.batch_specs({"t": toks}, mesh)["t"], mesh)
+    logits = _step_logits(cfg, params, mesh, device, toks)
+    split = _split_steps(cfg, params, mesh, device, toks)
+    del params
+    return {"stats": stats, "launches": launches, "logits": logits, "split": split,
+            "seconds": time.perf_counter() - t0,
+            "lines": [x for x in buf.getvalue().splitlines() if not x.startswith("serve-stats ")]}
+
+
+def _sharded_tp(single, ref_logits, ranks, totals):
+    """(g): each of SHARDED_TP_RUNS on the (1, 2) ranks against the
+    single-device run: the tokens equal, the logits within SHARDED_TOL, the
+    ranks alike, half the slab and vocab bytes a model rank, no launch of
+    our kernels (the chunked engine and the LSTM are plain PyTorch). Emits a
+    line each; returns the part's seconds on the ranks."""
+    gloo = "gloo ranks sharing one card: the times are not multi-GPU speed"
+    seconds = 0.0
+    for arch in SHARDED_TP_RUNS:
+        key = f"tp {arch}"
+        mine = [r[key] for r in ranks]
+        st = mine[0]["stats"]
+        cfg = _sharded_cfg(_sharded_args(arch, 2, gen=SHARDED_TP_GEN))
+        diff = (mine[0]["logits"] - ref_logits[arch]).abs().max().item()
+        seconds += max(m["seconds"] for m in mine)
+        split = [m["split"] for m in mine]
+        emit({"phase": "sharded", "tp": arch, "engine": cfg.scan_engine, "cell": cfg.cell,
+              "mesh": st["mesh"], "compute": cfg.compute_dtype,
+              "tokens_equal": st["tokens"] == single[arch]["tokens"],
+              "logits_max_abs_diff": diff, "tol": SHARDED_TOL,
+              "launches_per_rank": [{n: c for n, c in m["launches"].items() if c} for m in mine],
+              "slab_bytes": st["slab_bytes"], "slab_bytes_whole": st["slab_bytes_whole"],
+              "vocab_bytes": st["vocab_bytes"], "vocab_bytes_whole": st["vocab_bytes_whole"],
+              "prefill_ms": [m["stats"]["prefill_ms"] for m in mine],
+              "decode_ms_per_step": [m["stats"]["decode_ms"] / m["stats"]["decode_steps"]
+                                     for m in mine],
+              "single_prefill_ms": single[arch]["prefill_ms"],
+              "single_decode_ms_per_step": (single[arch]["decode_ms"]
+                                            / single[arch]["decode_steps"]),
+              "split_per_rank": split,
+              "collective_share_per_rank": [sum(x["collective_ms"].values()) / x["timed_step_ms"]
+                                            for x in split],
+              "seconds_per_rank": [m["seconds"] for m in mine], "note": gloo,
+              "lines": mine[0]["lines"]})
+        require(st["tokens"] == single[arch]["tokens"],
+                f"sharded tp {arch}: tokens differ from the single-device run's")
+        require(all(m["stats"]["tokens"] == st["tokens"] for m in mine),
+                f"sharded tp {arch}: the ranks' tokens differ")
+        require(diff <= SHARDED_TOL, f"sharded tp {arch}: logits differ by {diff}")
+        for field in ("slab_bytes", "vocab_bytes"):
+            require(st[field] == [st[f"{field}_whole"] // 2] * 2 and st[field][0] > 0,
+                    f"sharded tp {arch}: {field} {st[field]} of {st[f'{field}_whole']}")
+        for m in mine:
+            require(not any(m["launches"].values()),
+                    f"sharded tp {arch}: launches {m['launches']} on a plain path")
+            for n, c in m["launches"].items():
+                totals[n] += c
+    emit({"phase": "sharded", "tp_seconds": seconds})
+    return seconds
+
+
 def _moe_setup(arch, device):
     """One full-width MoE layer of ``arch`` under the expert-parallel
     schedule: its config, params and a (4, 64, d) input, all from seeds on
@@ -3259,12 +3370,15 @@ def _sharded_worker(rank, world, model_axis, init_file, plan):
                              "experts": params["e_up"].shape[0]}
             del params, x, y
             torch.cuda.empty_cache()
+        for arch in plan.get("tp", ()):
+            results[f"tp {arch}"] = _tp_rank(arch, model_axis, device, counters)
+            torch.cuda.empty_cache()
         for run in plan.get("continuous", ()):
             results[f"continuous {run}"] = _cont_rank(run, model_axis, device, counters,
                                                       run in SHARDED_CONT_SPLIT)
-        for arch, model_k, fsdp in plan.get("train", ()):
-            results[f"train {arch}"] = _sharded_train_rank(arch, model_k, fsdp, device, counters,
-                                                           keep_params=rank == 0)
+        for arch, engine, model_k, fsdp in plan.get("train", ()):
+            results[f"train {arch}"] = _sharded_train_rank(arch, engine, model_k, fsdp, device,
+                                                           counters, keep_params=rank == 0)
             torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
@@ -3378,9 +3492,10 @@ def _sharded_continuous(single, m2, d2m2, ref_s, totals):
     return seconds
 
 
-def _sharded_train_cfg(arch):
-    """``arch`` as ``launch.train`` runs it at TRAIN_BATCH, in fp32 compute."""
-    return _train_cfg(arch, None, {}).with_(compute_dtype="float32")
+def _sharded_train_cfg(arch, engine=None):
+    """``arch`` (on ``engine``) as ``launch.train`` runs it at TRAIN_BATCH,
+    in fp32 compute."""
+    return _train_cfg(arch, engine, {}).with_(compute_dtype="float32")
 
 
 def _train_steps(cfg, step_fn, state, device, steps):
@@ -3405,7 +3520,7 @@ def _train_steps(cfg, step_fn, state, device, steps):
     return state, losses, gnorms, ms
 
 
-def _sharded_train_rank(arch, model_axis, fsdp, device, counters, keep_params):
+def _sharded_train_rank(arch, engine, model_axis, fsdp, device, counters, keep_params):
     """One rank's SHARDED_TRAIN_STEPS steps of ``build_train_step(cfg, mesh)``
     on the (2 / model_axis, model_axis) mesh (each rank draws the whole
     state from seed 0 and keeps its shards), every kernel's count set to 0
@@ -3418,7 +3533,7 @@ def _sharded_train_rank(arch, model_axis, fsdp, device, counters, keep_params):
     from repro_torch.training import steps
     from repro_torch.tree import flatten_with_paths, tree_leaves
 
-    cfg = _sharded_train_cfg(arch)
+    cfg = _sharded_train_cfg(arch, engine)
     mesh = make_local_mesh(model_axis, device=device)
     specs = steps.train_param_specs(cfg, mesh, fsdp=fsdp)
     sspecs = steps.train_state_specs(specs)
@@ -3557,8 +3672,8 @@ def _sharded_train(totals):
     t_phase = time.perf_counter()
     _sharded_train_kernels()
     single = {}
-    for arch, _, _ in SHARDED_TRAIN_RUNS:
-        cfg = _sharded_train_cfg(arch)
+    for arch, engine, _, _ in SHARDED_TRAIN_RUNS:
+        cfg = _sharded_train_cfg(arch, engine)
         state = steps.init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg,
                                        device="cuda")
         step_fn = steps.build_train_step(cfg, base_lr=3e-4, warmup=20,
@@ -3571,16 +3686,17 @@ def _sharded_train(totals):
         _release()
     ranks = _spawn_ranks("train", 2, 2, {"serve": (), "moe": (), "logits": False, "split": (),
                                          "train": SHARDED_TRAIN_RUNS})
-    for arch, model_k, fsdp in SHARDED_TRAIN_RUNS:
+    for arch, engine, model_k, fsdp in SHARDED_TRAIN_RUNS:
         key, ref = f"train {arch}", single[arch]
-        cfg = _sharded_train_cfg(arch)
+        cfg = _sharded_train_cfg(arch, engine)
         r0 = ranks[0][key]
         want = _expected_sharded_train_launches(cfg, model_k, SHARDED_TRAIN_STEPS)
         loss_err = max(abs(a - b) for a, b in zip(r0["losses"], ref["losses"]))
         gn_err = max(abs(a - b) for a, b in zip(r0["grad_norms"], ref["grad_norms"]))
         param_err = max((r0["params"][p] - ref["params"][p]).abs().max().item()
                         for p in ref["params"])
-        emit({"phase": "sharded", "train": arch, "mesh": r0["mesh"], "fsdp": fsdp,
+        emit({"phase": "sharded", "train": arch, "engine": cfg.scan_engine,
+              "mesh": r0["mesh"], "fsdp": fsdp,
               "sharded_over": r0["sharded_over"], "compute": cfg.compute_dtype,
               "steps": SHARDED_TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
               "losses": r0["losses"], "single_losses": ref["losses"],
@@ -3639,12 +3755,14 @@ def phase_sharded():
     rest, then one full-width layer of each SHARDED_MOE under
     ``_moe_shard_map`` held to ``sorted`` on one rank at 2e-5; (d) four
     ranks, (2, 2), serving SHARDED_DATA_RUN; (f) continuous serving on
-    those two meshes (``_sharded_continuous``); (e) training on two ranks
-    (``_sharded_train``). Under fp32 the tokens must
+    those two meshes (``_sharded_continuous``); (g) on the ranks of (c),
+    SHARDED_TP_RUNS on their own engine (``_sharded_tp``); (e) training on
+    two ranks (``_sharded_train``), the pallas run of (g) among them. Under fp32 the tokens must
     equal the single-device run's and the logits be within SHARDED_TOL;
     under bf16 the logits within SHARDED_BF16_TOL (the tokens are
     reported); each rank's launches the expected, each model rank's
-    gate-slab bytes 1/2 of the whole. Returns the ranks' launches."""
+    gate-slab and vocab bytes 1/2 of the whole. Returns the ranks'
+    launches."""
     import torch
 
     from repro_torch.kernels.fused_rnn import fused_rnn
@@ -3683,6 +3801,19 @@ def phase_sharded():
                                        _logit_inputs(cfg))
         del params
         _release()
+    tp_single, tp_logits = {}, {}
+    for arch in SHARDED_TP_RUNS:
+        args = _sharded_args(arch, 1, gen=SHARDED_TP_GEN)
+        cfg = _sharded_cfg(args)
+        params = lm.lm_init(torch.Generator(device="cuda").manual_seed(args.seed), cfg,
+                            device="cuda", dtype=torch.float32)
+        with contextlib.redirect_stdout(io.StringIO()):
+            tp_single[arch] = serve.run_batch(cfg, params, args, torch.device("cuda"),
+                                              graphs=False)
+        tp_logits[arch] = _step_logits(cfg, params, None, torch.device("cuda"),
+                                       _logit_inputs(cfg))
+        del params
+        _release()
     t_cont = time.perf_counter()
     cont_single = {run: _cont_single(run) for run in SHARDED_CONT_RUNS}
     _release()
@@ -3697,6 +3828,7 @@ def phase_sharded():
     totals = dict.fromkeys(KERNELS, 0)
     ranks = _spawn_ranks("m2", 2, 2, {"serve": _sharded_runs(), "moe": SHARDED_MOE,
                                       "logits": True, "split": SHARDED_SPLIT_RUNS,
+                                      "tp": SHARDED_TP_RUNS,
                                       "continuous": tuple(SHARDED_CONT_RUNS)})
     cont_m2 = ranks
     for arch, compute in _sharded_runs():
@@ -3733,6 +3865,10 @@ def phase_sharded():
                 totals[k] += v
         require(st0["slab_bytes"] == [st0["slab_bytes_whole"] // 2] * 2,
                 f"sharded {key}: slab bytes {st0['slab_bytes']} of {st0['slab_bytes_whole']}")
+        require(st0["vocab_bytes"] == [st0["vocab_bytes_whole"] // 2] * 2,
+                f"sharded {key}: vocab bytes {st0['vocab_bytes']} of {st0['vocab_bytes_whole']}")
+    # (g) tensor parallelism of the chunked engine, the LSTM and the vocab
+    _sharded_tp(tp_single, tp_logits, ranks, totals)
     for arch in SHARDED_MOE:
         err = (ranks[0][arch]["y"] - moe_ref[arch]).abs().max().item()
         emit({"phase": "sharded", "moe": arch, "mesh": {"data": 1, "model": 2},

@@ -130,7 +130,12 @@ def lstm_x_proj(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def lstm_step(params: Params, xproj_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
-    z = xproj_t + h @ params["uh"]
+    return lstm_update(xproj_t + h @ params["uh"], c)
+
+
+def lstm_update(z: torch.Tensor, c: torch.Tensor):
+    """The elementwise half of a step from the whole pre-activations ``z``
+    (B, 4H): the gates, then the new ``(h, c)``."""
     H = z.shape[-1] // 4
     f = torch.sigmoid(z[..., :H])
     i = torch.sigmoid(z[..., H:2 * H])

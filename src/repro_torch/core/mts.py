@@ -8,11 +8,16 @@
     (``kernels/fused_rnn``), so gate activations never reach device memory;
     ``"fused_stack"`` is the stack-level engine routed in ``models/rnn.py``,
     and a single cell, with no depth to fuse, runs the per-layer kernel here.
-    Given a ``mesh`` (``models/rnn.py`` passes
-    ``distribution/fused_sharded.py::sharding_mesh``) the fused engines run
-    the layer per rank on this rank's lane shard of ``params`` and ``c0``.
+    The non-fused layer is ``distribution/tensor_parallel.py``'s
+    ``sru_layer`` / ``qrnn_layer``. Given a ``mesh`` (``models/rnn.py``
+    passes ``distribution/fused_sharded.py::sharding_mesh``) every engine
+    runs the layer per rank on this rank's lane shard of ``params`` and
+    ``c0``: the fused ones in ``distribution/fused_sharded.py``, the others
+    in those two.
   * ``lstm_forward``: the paper's LSTM treatment — ``W·x`` time-batched,
-    ``U·h`` strictly sequential (``precompute=False``: the naive baseline).
+    ``U·h`` strictly sequential (``precompute=False``: the naive baseline),
+    in ``tensor_parallel.lstm_layer``; given a ``mesh``, on this rank's
+    4H / k columns of the weights.
   * ``StreamState`` + ``mts_stream_step``: a live stream processed one block
     at a time with exact carry of the recurrent state across blocks.
 
@@ -26,9 +31,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core import cells
-from repro_torch.core.scan import linear_scan
-from repro_torch.distribution import fused_sharded
+from repro_torch.distribution import fused_sharded, tensor_parallel
 from repro_torch.kernels.fused_rnn import layout, ops
 from repro_torch.models.layers import resolve_device
 
@@ -79,9 +82,9 @@ def mts_sru(
     block_size: int = 128,
     mesh=None,
 ):
-    """Returns (h, c_last) with h: (B, T, H). ``mesh``: run the fused
-    engines per rank on it (``params`` and ``c0`` this rank's lane shards,
-    ``c_last`` its lanes); None runs the whole layer."""
+    """Returns (h, c_last) with h: (B, T, H). ``mesh``: run the layer per
+    rank on it (``params`` and ``c0`` this rank's lane shards, ``c_last``
+    its lanes); None runs the whole layer."""
     xt = _tm(x)
     if engine in FUSED_ENGINES:
         xt = xt.contiguous()
@@ -95,13 +98,9 @@ def mts_sru(
             h, c_last = ops.fused_sru(params, xt, c0, block_t=block_size)
         return _tm(h), c_last
     _require_fp(params, engine)
-    x_hat, f, r = cells.sru_gates(params, xt)  # one GEMM over all T
-    if c0 is None:
-        c0 = torch.zeros(x_hat.shape[1:], dtype=x_hat.dtype, device=x_hat.device)
-    a, b = cells.sru_recurrence_coeffs(x_hat, f)
-    c = linear_scan(a, b, c0, engine=engine, block_size=block_size)
-    h = cells.sru_output(params, r, c, xt)
-    return _tm(h), c[-1]
+    h, c_last = tensor_parallel.sru_layer(params, xt, c0, engine=engine, block_size=block_size,
+                                          mesh=mesh)
+    return _tm(h), c_last
 
 
 def mts_qrnn(
@@ -130,12 +129,9 @@ def mts_qrnn(
             h, c_last = ops.fused_qrnn(params, xt, tail, c0, block_t=block_size)
         return _tm(h), c_last
     _require_fp(params, engine)
-    x_hat, f, o = cells.qrnn_gates(params, xt, tail)
-    if c0 is None:
-        c0 = torch.zeros(x_hat.shape[1:], dtype=x_hat.dtype, device=x_hat.device)
-    c = linear_scan(f, (1.0 - f) * x_hat, c0, engine=engine, block_size=block_size)
-    h = cells.qrnn_output(params, o, c)
-    return _tm(h), c[-1]
+    h, c_last = tensor_parallel.qrnn_layer(params, xt, c0, tail, engine=engine,
+                                           block_size=block_size, mesh=mesh)
+    return _tm(h), c_last
 
 
 def lstm_forward(
@@ -145,23 +141,15 @@ def lstm_forward(
     c0: Optional[torch.Tensor] = None,  # (B, H)
     *,
     precompute: bool = True,
+    mesh=None,
 ):
     """Paper Sec. 3.1: only the W·x half parallelizes over time.
-    Returns (h, c_last) with h: (B, T, H)."""
-    xt = _tm(x)
-    T, B, _ = xt.shape
-    H = params["uh"].shape[0]
-    if h0 is None:
-        h0 = torch.zeros((B, H), dtype=xt.dtype, device=xt.device)
-    if c0 is None:
-        c0 = torch.zeros((B, H), dtype=xt.dtype, device=xt.device)
-    xproj = cells.lstm_x_proj(params, xt) if precompute else None  # (T, B, 4H): one GEMM
-    h, c, hs = h0, c0, []
-    for t in range(T):
-        xp_t = xproj[t] if precompute else cells.lstm_x_proj(params, xt[t][None])[0]
-        h, c = cells.lstm_step(params, xp_t, h, c)
-        hs.append(h)
-    return _tm(torch.stack(hs)), c
+    Returns (h, c_last) with h: (B, T, H). ``mesh``: per rank on its
+    columns of ``params`` (``h0`` / ``c0`` whole or this rank's lanes), ``h``
+    and ``c_last`` whole."""
+    h, c_last = tensor_parallel.lstm_layer(params, _tm(x), h0, c0, mesh=mesh,
+                                           precompute=precompute)
+    return _tm(h), c_last
 
 
 # ---------------------------------------------------------------------------

@@ -34,19 +34,23 @@ sharded stack is L per-layer evaluations, in one of two schedules:
     launches no B1. One gather remains, at the stack exit.
 
 Params and caches are this rank's shards at rest (:func:`rank_specs`,
-:func:`rank_cache_specs`): each gate slab, bias and ``w_skip`` holds its
-lanes ``[j H/k, (j+1) H/k)`` of every gate, the (L, B, H) carries their
-lanes, so no weight crosses ranks in a step. The compact int8 scales
-``wq_scale`` (3 x ceil(H/128) fp32 a layer) are held whole: a shard's lanes
-may start inside a scale block (H = 1000 over 8 ranks), and the kernel takes
-the shard's blocks with its offset into the first (``scale_lane0``).
+:func:`rank_cache_specs`, JAX's specs for every leaf the port computes per
+rank): each gate slab, bias and ``w_skip`` holds its lanes ``[j H/k, (j+1)
+H/k)`` of every gate, the (L, B, H) carries their lanes, so no weight
+crosses ranks in a step. The compact int8 scales ``wq_scale`` (3 x
+ceil(H/128) fp32 a layer) are held whole: a shard's lanes may start inside a
+scale block (H = 1000 over 8 ranks), and the kernel takes the shard's blocks
+with its offset into the first (``scale_lane0``). The other engines' cells,
+the LSTM and the vocab leaves are sharded as JAX shards them too, and run
+per rank in ``distribution/tensor_parallel.py``.
 
 Dispatch: ``models/rnn.py`` decides once a call, by :func:`sharding_mesh`
-(the mesh installed by ``sharding.use_rules``, which the serving step
-builders enter, when :func:`can_shard_fused` holds for the config), and
-routes here: the stack itself, the layer through ``core/mts.py``'s ``mesh``
-argument. With no mesh, a model axis of 1 or an indivisible width they run
-the unsharded kernels on whole params.
+(the mesh installed by ``sharding.use_rules``, which the step builders
+enter, when the config's cells shard there: :func:`can_shard_fused` for the
+fused engines, ``tensor_parallel.lane_sharded`` for the others), and routes
+here or there: the stack itself, the layer through ``core/mts.py``'s
+``mesh`` argument. With no mesh, a model axis of 1 or an indivisible width
+they run the unsharded kernels on whole params.
 
 Differentiable, as JAX's cores are ``custom_vjp``s whose backward is the
 global reference's VJP, which GSPMD partitions. Without GSPMD each rank
@@ -75,29 +79,20 @@ import torch
 
 from repro_torch.core import overlap
 from repro_torch.distribution import sharding as shd
+from repro_torch.distribution import tensor_parallel as tp
+from repro_torch.distribution.sharding import MODEL_AXIS, active_mesh, model_shards
 from repro_torch.kernels.common import recompute_grads
 from repro_torch.kernels.fused_rnn import layout
 from repro_torch.kernels.fused_rnn import ops as fused_ops
 from repro_torch.kernels.fused_rnn.fused_rnn import fused_rnn_layer_plain
 from repro_torch.launch import mesh as mesh_lib
 
-MODEL_AXIS = "model"
 _EPS = 1e-6  # matches models/layers.py rmsnorm and the stacked kernel
 
 
 # ---------------------------------------------------------------------------
 # Dispatch predicates
 # ---------------------------------------------------------------------------
-
-def active_mesh():
-    """The mesh installed by ``sharding.use_rules`` (None outside serving)."""
-    rules = shd.activation_rules()
-    return rules["mesh"] if rules else None
-
-
-def model_shards(mesh) -> int:
-    return 1 if mesh is None else int(mesh.shape.get(MODEL_AXIS, 1))
-
 
 def can_shard_fused(hidden: int, mesh) -> bool:
     """True when the fused path runs per rank on ``mesh``: a model axis
@@ -124,7 +119,11 @@ def serving_param_specs(params, mesh, *, fsdp: bool = False):
     return shd.param_specs(params, mesh, fsdp=fsdp)
 
 
-_CELL_LEAF = re.compile(r"(^|.*/)cell/(w|w0|w1|wq|w0q|w1q|w_skip|b)$")
+# The leaves held as JAX's specs give them: the RNN cells' slabs, biases and
+# skip projection (every engine; the LSTM's flat wx, uh and b), the vocab
+# leaves and, under MoE's shard_map schedule, the experts.
+_CELL_LEAF = re.compile(r"(^|.*/)cell/(w|w0|w1|wq|w0q|w1q|w_skip|b|wx|uh)$")
+_VOCAB_LEAF = re.compile(r"(^|.*/)embed/(embed|unembed)$")
 _EXPERT_LEAF = re.compile(r"(^|.*/)(e_gate|e_up|e_down)$")
 
 
@@ -147,10 +146,11 @@ def _fused_sharded(cfg, mesh) -> bool:
 
 def sharding_mesh(cfg):
     """The mesh ``cfg``'s RNN layers run per rank on: the active mesh when
-    its fused engine shards there (:func:`can_shard_fused` of the whole
-    hidden width), else None (the unsharded kernels, on whole params)."""
+    its cells shard there (the fused engines: :func:`can_shard_fused` of the
+    whole hidden width; the others and the LSTM:
+    ``tensor_parallel.lane_sharded``), else None (whole params)."""
     mesh = active_mesh()
-    return mesh if _fused_sharded(cfg, mesh) else None
+    return mesh if _fused_sharded(cfg, mesh) or tp.lane_sharded(cfg, mesh) else None
 
 
 def _experts_sharded(cfg, mesh) -> bool:
@@ -161,16 +161,22 @@ def _experts_sharded(cfg, mesh) -> bool:
 def rank_specs(cfg, specs, mesh):
     """The specs the port holds params at rest by: ``specs``
     (:func:`serving_param_specs`) with the model axis kept where the port
-    computes per rank (the fused engines' RNN cell leaves under
-    :func:`can_shard_fused`, and the experts of MoE's ``shard_map``
-    schedule when the model axis divides their count) and dropped elsewhere.
-    Those other leaves (embedding, head, norms, attention, MLP, Mamba, the
-    XLA engines' slabs, ``wq_scale``) are held whole on every model rank and
-    computed whole, where JAX's GSPMD computes them sharded."""
-    fused, experts = _fused_sharded(cfg, mesh), _experts_sharded(cfg, mesh)
+    computes per rank and dropped elsewhere. Kept: the RNN cell leaves of
+    every engine and the LSTM's (their specs already fall back to whole
+    where the width does not divide, as :func:`sharding_mesh` does),
+    ``embed`` / ``unembed`` over the padded vocab, and the experts of MoE's
+    ``shard_map`` schedule when the model axis divides their count. Those
+    other leaves (norms, attention, MLP, Mamba, ``wq_scale``) are held whole
+    on every model rank and computed whole, where JAX's GSPMD computes them
+    sharded. For the paper configs this is JAX's ``param_specs`` but for
+    ``wq_scale``. A model axis of one rank is dropped everywhere: it
+    shards nothing."""
+    split = model_shards(mesh) > 1
+    rnn, experts = split and cfg.cell is not None, _experts_sharded(cfg, mesh)
 
     def one(path, spec):
-        keep = (fused and _CELL_LEAF.match(path)) or (experts and _EXPERT_LEAF.match(path))
+        keep = ((rnn and _CELL_LEAF.match(path)) or (split and _VOCAB_LEAF.match(path))
+                or (experts and _EXPERT_LEAF.match(path)))
         return spec if keep else _without_model(spec)
 
     return shd.map_with_paths(one, specs)
@@ -178,12 +184,13 @@ def rank_specs(cfg, specs, mesh):
 
 def rank_cache_specs(cfg, caches, mesh):
     """The decode caches' specs at rest: ``sharding.cache_specs``, with the
-    model axis kept only on the RNN carries the sharded fused path keeps per
-    rank; every other cache leaf is held whole on each model rank."""
-    fused = _fused_sharded(cfg, mesh)
+    model axis kept only on the RNN carries ``c`` / ``h`` (the lanes a rank
+    keeps, of every engine and of the LSTM; whole where H does not divide);
+    every other cache leaf is held whole on each model rank."""
+    rnn = cfg.cell is not None and model_shards(mesh) > 1
 
     def one(path, spec):
-        keep = fused and path.rsplit("/", 1)[-1] in ("c", "h")
+        keep = rnn and path.rsplit("/", 1)[-1] in ("c", "h")
         return spec if keep else _without_model(spec)
 
     return shd.map_with_paths(one, shd.cache_specs(caches, mesh))

@@ -16,7 +16,7 @@ mesh axes a spec shards over: the train step reduces a leaf's gradient, norm
 and absmax over exactly those (a leaf replicated on an axis counts once).
 
 Activation hints: ``use_rules`` installs the mesh for the enclosed region,
-as in JAX, and the sharded dispatch (``fused_sharded.active_mesh``, MoE's
+as in JAX, and the sharded dispatch (:func:`active_mesh`, MoE's
 ``_moe_shard_map``) reads it. Without GSPMD there is no sharding constraint
 to place, so :func:`shard_hint` returns its input and
 :func:`suppress_hints` only clears the rules.
@@ -66,6 +66,20 @@ def use_rules(mesh, logical: Optional[dict] = None, sp: bool = False):
 
 def activation_rules() -> Optional[dict]:
     return _rules_var.get()
+
+
+MODEL_AXIS = "model"
+
+
+def active_mesh():
+    """The mesh installed by :func:`use_rules` (None outside it)."""
+    rules = _rules_var.get()
+    return rules["mesh"] if rules else None
+
+
+def model_shards(mesh) -> int:
+    """The size of ``mesh``'s model axis (1 without a mesh or the axis)."""
+    return 1 if mesh is None else int(mesh.shape.get(MODEL_AXIS, 1))
 
 
 @contextlib.contextmanager

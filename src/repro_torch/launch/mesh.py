@@ -225,18 +225,20 @@ class _Combine(torch.autograd.Function):
         return g, None
 
 
-def enter(x: Optional[torch.Tensor], group: AxisGroup) -> Optional[torch.Tensor]:
+def enter(x: Optional[torch.Tensor], group: Optional[AxisGroup]) -> Optional[torch.Tensor]:
     """``x``, replicated over ``group``'s axis, as read inside a per-rank
     region: the identity forward, the cotangent summed over the axis
-    backward (each rank's is its own partial product). None passes."""
-    return x if x is None or group.size == 1 else _Enter.apply(x, group)
+    backward (each rank's is its own partial product). None passes; no
+    group (one device) is the identity."""
+    return x if x is None or group is None or group.size == 1 else _Enter.apply(x, group)
 
 
-def gather(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+def gather(x: torch.Tensor, group: Optional[AxisGroup]) -> torch.Tensor:
     """This rank's lanes of a region's output gathered to full width along
     the last dim (:meth:`AxisGroup.all_gather`); backward, this rank's lane
-    slice of the cotangent, which every rank holds whole: no collective."""
-    return x if group.size == 1 else _Gather.apply(x, group)
+    slice of the cotangent, which every rank holds whole: no collective.
+    No group (one device) is the identity."""
+    return x if group is None or group.size == 1 else _Gather.apply(x, group)
 
 
 def combine(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:

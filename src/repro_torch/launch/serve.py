@@ -59,16 +59,21 @@ kernels, on ``fused``/``fused_stack`` only; it leaves every other leaf (all
 of an attention LM) as it is, as in JAX. A config's ``ring_overlap`` changes
 nothing on one device.
 
-Multi-GPU serving of the fused RNN path: ``--model-shards N`` serves on a
-(data, model) mesh of ranks over ``torch.distributed`` (``launch/mesh.py``),
-one rank per shard. Each rank holds its lane shard of the RNN gate slabs,
-biases and carries at rest and runs the fused kernel (B1) over them
-(``distribution/fused_sharded.py``); ``--ring-overlap`` (or a config's
-``ring_overlap``) runs the sharded stack's ring schedule. What JAX shards
-through GSPMD (embedding, head, norms, attention, MLP and Mamba leaves, the
-XLA engines' slabs) is held whole on every model rank and computed the
-same; the startup line lists, in ``sharding.describe_replications``'s form,
-the large dims that this rank's layout replicates. Without an initialised process group
+Multi-GPU serving: ``--model-shards N`` serves on a (data, model) mesh of
+ranks over ``torch.distributed`` (``launch/mesh.py``), one rank per shard.
+Each rank holds its lane shard of the RNN gate slabs, biases and carries at
+rest and runs its layers over them: the fused kernel (B1) under the fused
+engines (``distribution/fused_sharded.py``; ``--ring-overlap``, or a
+config's ``ring_overlap``, runs the sharded stack's ring schedule), and
+under the other engines and for the LSTM the gate GEMM on the rank's
+columns, the recurrence on its lanes and a gather of the output
+(``distribution/tensor_parallel.py``). ``embed`` and ``unembed`` hold the
+rank's block of the padded vocab: the lookup and the logits run
+vocab-parallel, and the logits are gathered before the greedy argmax. What
+else JAX shards through GSPMD (norms, attention, MLP and Mamba leaves) is
+held whole on every model rank and computed the same; the startup line
+lists, in ``sharding.describe_replications``'s form, the large dims that
+this rank's layout replicates. Without an initialised process group
 the command starts its ranks itself (``torch.multiprocessing``, a
 ``file://`` rendezvous in a temporary directory): under NCCL (the default on
 the card) one per card, ``--model-shards`` of them per data group, as JAX
@@ -77,13 +82,15 @@ gloo`` where ranks share a card) ``--model-shards`` ranks. Inside an
 initialised process group, or under ``torchrun`` (its ``env://``
 rendezvous), it joins, and the ranks beyond one model group form the data
 axis. Rank 0 prints the mesh, the backend, the replicated dims, each model
-rank's bytes of gate slabs and the ``serve-stats`` (``continuous-stats``)
-line. The sharded steps run eagerly (``graphs: false``): gloo cannot be
-captured. ``--mode continuous`` runs the ``Scheduler`` on the mesh (one a
+rank's bytes of gate slabs and of vocab leaves and the ``serve-stats``
+(``continuous-stats``) line. The sharded steps run eagerly (``graphs:
+false``): gloo cannot be captured. ``--mode continuous`` runs the ``Scheduler`` on the mesh (one a
 rank over its lane shards, every decision on rank 0's clock; see
 ``serving/engine.py``), the ``--speculative`` draft sliced as the target,
 the telemetry sinks written by rank 0. CUDA graphs of the NCCL steps and
-tensor parallelism of the leaves held whole are not ported yet.
+tensor parallelism of the attention, MLP, Mamba and MoE ``ff`` leaves are
+not ported yet. ``--engine pallas`` is refused under a model axis, with
+JAX's message, as JAX refuses it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-large-stacked \
         --reduced --device cpu --model-shards 2 [--ring-overlap]
@@ -143,7 +150,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.registry import get_config
-from repro_torch.distribution import fused_sharded, sharding
+from repro_torch.distribution import fused_sharded, sharding, tensor_parallel
 from repro_torch.launch.mesh import GROUP_TIMEOUT, make_local_mesh, torchrun_world
 from repro_torch.models import lm
 from repro_torch.models.layers import _dtype, resolve_device
@@ -159,13 +166,14 @@ from repro_torch.tree import flatten_with_paths, tree_map
 # mesh axis; its keys are the engines.
 ENGINE_MATRIX = {
     "sequential": "plain PyTorch; gate GEMM, then a step-by-step recurrence; "
-                  "held whole on every rank under a model axis",
+                  "under a model axis per rank over its H / model_shards lanes",
     "chunked": "plain PyTorch; gate GEMM, then the MTS schedule (associative "
-               "inside blocks of mts_block_size); held whole under a model axis",
+               "inside blocks of mts_block_size); per rank over its lanes under "
+               "a model axis",
     "associative": "plain PyTorch; gate GEMM, then a log-depth prefix scan; "
-                   "held whole under a model axis",
-    "pallas": "gate GEMM, then the linear-scan CUDA kernel (B3); not under a "
-              "model axis",
+                   "per rank over its lanes under a model axis",
+    "pallas": "gate GEMM, then the linear-scan CUDA kernel (B3); not served "
+              "under a model axis (the train step runs it per rank)",
     "fused": "the whole-layer CUDA kernel (B1), one launch per layer; per rank "
              "over its H / model_shards lanes (requires rnn_hidden % "
              "model_shards == 0)",
@@ -268,12 +276,15 @@ def prompt_inputs(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
     return {"inputs": torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen).to(device)}
 
 
-def step_input(cfg, params, tok: torch.Tensor) -> torch.Tensor:
+def step_input(cfg, params, tok: torch.Tensor, mesh=None) -> torch.Tensor:
     """A decode step's input after the greedy ``tok`` (B, 1): the token, or
-    with a frontend stub its embedding row (B, 1, d). The JAX ``run_batch``
-    computes ``one_hot(tok) @ embed``; a product with one 1 and zeros is
-    the row itself, so the two are equal bit for bit."""
-    return params["embed"]["embed"][tok] if cfg.frontend else tok
+    with a frontend stub its embedding row (B, 1, d), under ``mesh`` looked
+    up in this rank's block of the vocab. The JAX ``run_batch`` computes
+    ``one_hot(tok) @ embed``; a product with one 1 and zeros is the row
+    itself, so the two are equal bit for bit."""
+    if not cfg.frontend:
+        return tok
+    return tensor_parallel.embed(params["embed"], tok, tensor_parallel.vocab_group(cfg, mesh))
 
 
 def capture_batch_steps(cfg, prefill_step, decode_step, params, inputs):
@@ -334,7 +345,7 @@ def run_batch(cfg, params, args, device: torch.device, graphs: bool = True,
     out_tokens = [tok]
     t0 = time.perf_counter()
     for _ in range(args.gen_len - 1):
-        logits, caches = decode(params, caches, step_input(cfg, params, tok))
+        logits, caches = decode(params, caches, step_input(cfg, params, tok, mesh))
         tok = _greedy(cfg, logits)
         out_tokens.append(tok)
     _sync(device)
@@ -690,16 +701,27 @@ def config_of(args):
 # Serving on a mesh of ranks
 # ---------------------------------------------------------------------------
 
-_SLAB = re.compile(r"(^|.*/)cell/(w|w0|w1|wq|w0q|w1q)$")
+_SLAB = re.compile(r"(^|.*/)cell/(w|w0|w1|wq|w0q|w1q|wx|uh)$")
+_VOCAB = re.compile(r"(^|.*/)embed/(embed|unembed)$")
 _SHARED_CARD = ("serve: --model-shards {k} needs {k} cards under NCCL, one rank a card, "
                 "and {n} are here: ranks that share a card run over gloo, and only when "
                 "asked for with --dist-backend gloo")
 
 
-def slab_bytes(params) -> int:
-    """Bytes of the RNN gate slabs (fp or int8) in ``params``."""
+def _bytes(params, pattern) -> int:
     return sum(t.numel() * t.element_size() for path, t in flatten_with_paths(params)
-               if _SLAB.match(path))
+               if pattern.match(path))
+
+
+def slab_bytes(params) -> int:
+    """Bytes of the RNN gate slabs (fp or int8; the LSTM's ``wx`` and
+    ``uh``) in ``params``."""
+    return _bytes(params, _SLAB)
+
+
+def vocab_bytes(params) -> int:
+    """Bytes of the vocab leaves (``embed``, ``unembed``) in ``params``."""
+    return _bytes(params, _VOCAB)
 
 
 def _backend(args, device: torch.device) -> str:
@@ -794,9 +816,9 @@ def serve_mesh(cfg, args, *, trace=None, draft=None) -> dict:
     (``Request``s) replaces the flags' trace and ``draft`` (a config and its
     whole params on this rank's device) the ``--speculative`` draft, as
     ``run_continuous`` takes them. Rank 0 prints the mesh, the backend, the
-    replicated dims, each model rank's bytes of gate slabs and the
-    ``serve-stats`` (``continuous-stats``) line. Returns the stats on every
-    rank."""
+    replicated dims, each model rank's bytes of gate slabs and of vocab
+    leaves and the ``serve-stats`` (``continuous-stats``) line. Returns the
+    stats on every rank."""
     world, k, backend = dist.get_world_size(), args.model_shards, dist.get_backend()
     if world % k:
         raise SystemExit(f"serve: --model-shards {k} must divide the {world} ranks")
@@ -807,12 +829,13 @@ def serve_mesh(cfg, args, *, trace=None, draft=None) -> dict:
     t0 = time.perf_counter()
     params = lm.lm_init(torch.Generator(device=device).manual_seed(args.seed), cfg,
                         device=device, dtype=_dtype(cfg.compute_dtype))
-    whole = slab_bytes(params)
+    whole, vocab_whole = slab_bytes(params), vocab_bytes(params)
     params, replicated = shard_params(cfg, params, mesh)
     _sync(device)
     init_ms = (time.perf_counter() - t0) * 1e3
-    mine = torch.tensor([slab_bytes(params)], dtype=torch.int64, device=device)
-    per_rank = mesh.axis("model").all_gather(mine).tolist()
+    mine = torch.tensor([[slab_bytes(params)], [vocab_bytes(params)]], dtype=torch.int64,
+                        device=device)
+    per_rank, vocab_per_rank = mesh.axis("model").all_gather(mine).tolist()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     rank0 = dist.get_rank() == 0
@@ -827,7 +850,8 @@ def serve_mesh(cfg, args, *, trace=None, draft=None) -> dict:
     else:
         stats = run_batch(cfg, params, args, device, graphs=False, mesh=mesh)
     stats.update(init_ms=init_ms, mesh=mesh.shape, backend=backend, slab_bytes=per_rank,
-                 slab_bytes_whole=whole, replicated=replicated,
+                 slab_bytes_whole=whole, vocab_bytes=vocab_per_rank,
+                 vocab_bytes_whole=vocab_whole, replicated=replicated,
                  peak_mem_gb=(torch.cuda.max_memory_allocated(device) / 1e9
                               if device.type == "cuda" else None))
     if rank0:
@@ -835,6 +859,7 @@ def serve_mesh(cfg, args, *, trace=None, draft=None) -> dict:
         print(mesh.describe())
         print("replicated on every model rank: " + ("; ".join(replicated) or "nothing"))
         print(f"gate slab bytes per model rank: {per_rank} of {whole}")
+        print(f"vocab leaf bytes per model rank: {vocab_per_rank} of {vocab_whole}")
         _print_stats(stats, args)
     return stats
 

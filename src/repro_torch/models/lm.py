@@ -34,6 +34,12 @@ through its own (``kernels/linear_scan/ops.py``), attention through
 ``chunked_attention`` and Mamba through ``core/ssd.py::ssd_chunked``, as in
 JAX. ``cfg.remat`` recomputes each block (``"block"``:
 ``torch.utils.checkpoint``) or all but its matmul outputs (``"dots"``).
+
+Under a mesh whose model axis divides the padded vocab (the step builders'
+``sharding.use_rules``) ``embed`` and ``unembed`` are this rank's blocks of
+it: the lookup and the head run vocab-parallel
+(``distribution/tensor_parallel.py``), and the logits come back gathered
+to the whole vocab on every rank.
 """
 from __future__ import annotations
 
@@ -45,13 +51,12 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distribution import tensor_parallel
 from repro_torch.kernels.fused_rnn import layout
 from repro_torch.models import attention, mamba, moe, rnn
 from repro_torch.models.layers import (
     _dtype,
-    embed_apply,
     embed_init,
-    logits_apply,
     mlp_apply,
     mlp_init,
     dense_init,
@@ -254,11 +259,13 @@ def lm_init_caches(cfg, batch: int, max_len: int, device="cuda"):
 
 def _embed_in(params, cfg, batch, compute) -> torch.Tensor:
     """The first hidden states in the compute dtype: ``batch["inputs"]``
-    (B, S) token ids through the embedding table, or with a frontend stub
-    ``batch["inputs_embeds"]`` (B, S, d) through its adapter matrix."""
+    (B, S) token ids through the embedding table (vocab-parallel under a
+    sharding mesh), or with a frontend stub ``batch["inputs_embeds"]`` (B,
+    S, d) through its adapter matrix."""
     if cfg.frontend:
         return batch["inputs_embeds"].to(compute) @ params["frontend"]["adapter"].to(compute)
-    return embed_apply(params["embed"], batch["inputs"]).to(compute)
+    group = tensor_parallel.vocab_group(cfg)
+    return tensor_parallel.embed(params["embed"], batch["inputs"], group).to(compute)
 
 
 def _check_hybrid(cfg) -> None:
@@ -313,7 +320,8 @@ def lm_hidden(params, cfg, batch) -> torch.Tensor:
 
 def lm_forward(params, cfg, batch) -> torch.Tensor:
     h = lm_hidden(params, cfg, batch)
-    return logits_apply(layout.cast_params(params["embed"], h.dtype), h)
+    return tensor_parallel.logits(layout.cast_params(params["embed"], h.dtype), h,
+                                  tensor_parallel.vocab_group(cfg))
 
 
 def _ce_terms(cfg, logits, targets):
@@ -352,10 +360,11 @@ def lm_loss(params, cfg, batch, denom=None):
     n = max(S // cfg.loss_chunk, 1)
     C = S // n
     embed_c = layout.cast_params(params["embed"], h.dtype)
+    group = tensor_parallel.vocab_group(cfg)  # read here: the recompute runs outside the context
     hc, tc, mc = h.reshape(B, n, C, d), targets.reshape(B, n, C), mask.reshape(B, n, C)
 
     def chunk_nll(hx, tx, mx):
-        logz, ll = _ce_terms(cfg, logits_apply(embed_c, hx), tx)
+        logz, ll = _ce_terms(cfg, tensor_parallel.logits(embed_c, hx, group), tx)
         return torch.sum((logz - ll) * mx)
 
     total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -409,7 +418,8 @@ def _run_layers(params, cfg, h, caches, decode: bool):
 def _head(params, cfg, h):
     compute = h.dtype
     h = rmsnorm(params["final_norm"].to(compute), h)
-    return logits_apply(layout.cast_params(params["embed"], compute), h)
+    return tensor_parallel.logits(layout.cast_params(params["embed"], compute), h,
+                                  tensor_parallel.vocab_group(cfg))
 
 
 def _prefill_layers(params, cfg, batch, caches):

@@ -15,11 +15,15 @@ as in the JAX package. Two granularities:
     runs the depth-fused stack (``kernels/fused_rnn/stacked.py``).
 
 Under an active mesh (``distribution/sharding.py::use_rules``, entered by
-the serving step builders) whose model axis divides the hidden width
+the step builders) whose model axis divides the hidden width
 (``distribution/fused_sharded.py::sharding_mesh``, asked once a call here),
-the fused engines run per rank on the rank's lane shards: the layer through
-``core/mts.py``'s ``mesh`` argument, the stack here, in the barrier schedule
-or, with ``cfg.ring_overlap``, the ring.
+every engine runs per rank on the rank's lane shards: the layer through
+``core/mts.py``'s ``mesh`` argument (the fused engines in
+``distribution/fused_sharded.py``, the others in
+``distribution/tensor_parallel.py``), the depth-fused stack here, in the
+barrier schedule or, with ``cfg.ring_overlap``, the ring. The LSTM runs on
+the rank's columns of its gate-major weights when the model axis divides 4H,
+and keeps its lanes of the carries when it divides H.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core import cells, mts
-from repro_torch.distribution import fused_sharded
+from repro_torch.distribution import fused_sharded, tensor_parallel
 from repro_torch.kernels.fused_rnn import stacked
 from repro_torch.models.layers import rmsnorm, rmsnorm_init
 from repro_torch.tree import tree_map
@@ -57,7 +61,7 @@ def rnn_block_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
         out, _ = mts.mts_qrnn(params["cell"], h, engine=cfg.scan_engine,
                               block_size=cfg.mts_block_size, mesh=mesh)
     else:
-        out, _ = mts.lstm_forward(params["cell"], h, precompute=True)
+        out, _ = mts.lstm_forward(params["cell"], h, precompute=True, mesh=mesh)
     return x + out
 
 
@@ -89,8 +93,10 @@ def rnn_block_prefill(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.
         )
         cache = {"c": c_last, "x_tail": h[:, -1:]}
     else:
-        out, c_last = mts.lstm_forward(params["cell"], h, cache["h"], cache["c"])
-        cache = {"c": c_last, "h": out[:, -1]}
+        out, c_last = mts.lstm_forward(params["cell"], h, cache["h"], cache["c"], mesh=mesh)
+        width = cache["c"].shape[-1]  # this rank's lanes of the carries at rest
+        cache = {"c": tensor_parallel.own_lanes(c_last, width, mesh),
+                 "h": tensor_parallel.own_lanes(out[:, -1], width, mesh)}
     return x + out, cache
 
 

@@ -85,7 +85,9 @@ block per lane is in flight), and a rollback injects from that buffer.
 **On a mesh of ranks** (``mesh``, a live ``launch/mesh.py`` mesh, as JAX's
 ``Scheduler(..., mesh=mesh)``) every rank runs one Scheduler over its
 shards: both pools are this rank's lanes over "data" and H / k of each
-carry over "model" where the fused path runs per rank (a draft whose width
+carry over "model" wherever the model axis divides H, every engine's and
+the LSTM's (``fused_sharded.rank_cache_specs``; the default draft
+``sru-paper-draft``, chunked, is sharded the same way; a draft whose width
 the model axis does not divide is held and run whole on every model rank),
 and every step is the mesh step of ``training/steps.py``. JAX's engine is
 one controller; here every rank must take every decision (admission,
@@ -96,8 +98,9 @@ clock: each pass of ``run`` reads rank 0's clock, broadcast on the host
 every rank (a tick's own reading feeds only the metrics). The tokens, by
 construction: every step gathers its sampled tokens over "data", and every
 model rank samples them from the same gathered residual stream with the
-same whole head, so the (B,) ids and the verify block's argmax that the
-host acts on are the same bits on every rank; no token is broadcast. A
+same head (its vocab columns gathered to the whole vocab before the
+argmax), so the (B,) ids and the verify block's argmax that the host acts
+on are the same bits on every rank; no token is broadcast. A
 lane's snapshot is broadcast over "data" from the rank that holds it, so
 the prefix cache and the rollback buffers are alike on every rank. The
 steps run eagerly under a mesh (gloo steps cannot be captured): ``graphs``

@@ -8,15 +8,15 @@ Each builder closes over the config and returns a plain function. The
 serving steps run under ``torch.inference_mode()``; the train step runs
 eagerly with autograd (capturing it as a CUDA graph is later work).
 ``build_train_step`` and ``build_eval_step`` take a ``mesh`` too, as JAX's:
-data parallelism, FSDP and the model axis's per-rank fused RNN and MoE
-layers (:func:`build_train_step`).
+data parallelism, FSDP and the model axis's per-rank RNN layers, vocab
+leaves and MoE experts (:func:`build_train_step`).
 
 Every serving builder takes a ``mesh`` (``launch/mesh.py``), as JAX's do:
 each rank then allocates its shards of the caches
 (``fused_sharded.rank_cache_specs``: the RNN carries (L, B, H) with their
-lanes over "model" where the fused path runs per rank, the batch over
-"data") and runs the step under ``sharding.use_rules``, so the fused
-engines run per rank. The batch path's steps (``build_prefill_step``,
+lanes over "model" where H divides, the batch over "data") and runs the
+step under ``sharding.use_rules``, so the RNN layers and the vocab leaves
+run per rank. The batch path's steps (``build_prefill_step``,
 ``build_decode_step``) take this rank's shards of the inputs. The
 lane-masked steps of continuous batching take the global (B,) lane mask and
 (B, .) tokens, slice them to the rank's lanes, and gather the sampled
@@ -75,8 +75,11 @@ def train_param_specs(cfg, mesh, *, fsdp: bool = False):
     """The specs a train state's params are held under on ``mesh``: JAX's
     ``param_specs`` (``fsdp``: the ``fsdp_opt`` dims over ``data``) with
     the model axis kept only where the port computes per rank
-    (``fused_sharded.rank_specs``); every other leaf is whole on each model
-    rank."""
+    (``fused_sharded.rank_specs``: the RNN cells, the vocab leaves, MoE's
+    experts); every other leaf is whole on each model rank. A leaf's grad
+    is then this rank's shard of it, and the clip norm and int8
+    compression's absmax reduce over the axes its spec names
+    (``sharding.spec_axes``)."""
     whole = shapes.param_shapes(cfg)
     return fused_sharded.rank_specs(cfg, shd.param_specs(whole, mesh, fsdp=fsdp), mesh)
 
@@ -244,11 +247,13 @@ def build_train_step(
         form: the step gathers the whole params at once before the forward
         (not layer by layer) and frees them after the backward; the grads
         are reduce-scattered to the shards and AdamW runs on the shard.
-      * model: the sharded fused RNN path and MoE's expert-parallel layer
-        run per rank through their autograd Functions
-        (``distribution/fused_sharded.py``); the leaves held whole on every
-        model rank get equal grads there, and nothing is reduced over
-        ``model``.
+      * model: the RNN layers (``distribution/fused_sharded.py`` for the
+        fused engines, ``distribution/tensor_parallel.py`` for the others,
+        ``pallas`` on B3 per rank, and the LSTM), the vocab leaves and MoE's
+        expert-parallel layer run per rank through ``launch/mesh.py``'s
+        autograd collectives; each model-sharded leaf gets its own shard's
+        grad, the leaves held whole on every model rank get equal grads
+        there, and nothing is reduced over ``model``.
 
     The clip norm and int8 compression's absmax are taken over whole leaves
     (``optim/``).

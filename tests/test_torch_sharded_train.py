@@ -722,12 +722,12 @@ def test_train_step_matches_jax_sharded_step(runs, name):
     the same mesh shape and FSDP setting: loss, ``grad_norm``, and every
     param and moment leaf (and the error-feedback state under int8
     compression, whose absmax is over the whole leaf). ``llama3``'s
-    attention leaves are held whole over ``model``: FSDP and data
-    parallelism alone."""
+    attention leaves are held whole over ``model``; every config's vocab
+    leaves are sharded over it."""
     arch, shape, fsdp, comp = TRAIN_CASES[name]
     got, ref = runs["ranks"][shape][f"train/{name}"], runs["ref"][f"train/{name}"]
     assert ("data" in got["sharded_over"]) == fsdp
-    assert ("model" in got["sharded_over"]) == (arch != "llama3-8b" and shape[1] > 1)
+    assert ("model" in got["sharded_over"]) == (shape[1] > 1)
     assert abs(got["metrics"]["loss"] - ref["metrics"]["loss"]) <= LOSS_TOL
     assert abs(got["metrics"]["grad_norm"] - ref["metrics"]["grad_norm"]) <= LOSS_TOL
     assert got["metrics"]["lr"] == pytest.approx(ref["metrics"]["lr"], rel=1e-6)
@@ -739,8 +739,8 @@ def test_train_step_matches_jax_sharded_step(runs, name):
 @pytest.mark.parametrize("arch", ELASTIC_ARCHS)
 def test_elastic_restore_onto_another_mesh(runs, arch, tmp_path):
     """A state saved from (2, 1) FSDP shards restores bit for bit onto
-    (1, 2) (the SRU stack's cell leaves then sharded over ``model``); the
-    files and manifest are byte-equal to a single-device save of the same
+    (1, 2) (the vocab leaves then sharded over ``model``, and the SRU
+    stack's cell leaves); the files and manifest are byte-equal to a single-device save of the same
     state, and JAX's ``CheckpointManager`` restores them."""
     import jax
 
@@ -748,7 +748,8 @@ def test_elastic_restore_onto_another_mesh(runs, arch, tmp_path):
 
     got = runs["ranks"][(1, 2)]["elastic"][arch]
     assert got["equal"] and got["data_state"] == DATA_STATE
-    assert (got["sharded"] > 0) == (arch == "sru-paper-large-stacked")
+    # embed and unembed (and the SRU's w and b), in the params and both moments
+    assert got["sharded"] == 3 * {"mamba2-2.7b": 2, "sru-paper-large-stacked": 4}[arch]
     whole = steps.init_train_state(torch.Generator().manual_seed(0), get_config(arch).reduced(),
                                    device="cpu")
     CheckpointManager(str(tmp_path)).save(ELASTIC_STEP, whole, DATA_STATE)

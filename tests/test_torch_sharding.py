@@ -292,18 +292,16 @@ def test_each_rank_holds_its_share_of_the_gate_slabs(name, shape):
 @pytest.mark.parametrize("name", ["sru-paper-large-stacked", "qrnn-paper-large-stacked-int8"])
 def test_startup_lists_the_dims_a_rank_replicates(name):
     """``serve.shard_params``'s startup lines are ``describe_replications``
-    of the rank's at-rest specs at full shape: the embedding and head JAX
-    shards over the model axis and the port holds whole, never a gate slab
-    the rank holds its lanes of."""
+    of the rank's at-rest specs at full shape, which are JAX's: neither the
+    vocab leaves nor a gate slab the rank holds its lanes of is listed."""
     cfg = get_config(name)
     params = shapes.param_shapes(cfg)
     mesh = mesh_lib.Mesh({"data": 1, "model": 2}, {"data": 0, "model": 1})
     _, lines = serve.shard_params(cfg, params, mesh)
     specs = fs.serving_param_specs(params, mesh)
     assert lines == shd.describe_replications(params, fs.rank_specs(cfg, specs, mesh))
-    assert f"embed/embed[dim0={cfg.vocab}] replicated" in lines
-    assert not any("/cell/" in line for line in lines)
-    assert len(lines) > len(shd.describe_replications(params, specs))
+    assert not any("embed/" in line or "/cell/" in line for line in lines)
+    assert lines == shd.describe_replications(params, specs)
 
 
 def test_rank_specs_keep_the_model_axis_only_where_the_port_shards():
@@ -313,25 +311,61 @@ def test_rank_specs_keep_the_model_axis_only_where_the_port_shards():
     rank = fs.rank_specs(cfg, fs.serving_param_specs(params, mesh), mesh)
     assert rank["layers"]["cell"]["w"] == (None, None, None, "model")
     assert rank["layers"]["cell"]["b"] == (None, None, "model")
-    assert rank["embed"]["embed"] == (None, None)
+    assert rank["embed"]["embed"] == ("model", None)
+    assert rank["embed"]["unembed"] == (None, "model")
     xla = cfg.with_(scan_engine="chunked")
     assert fs.rank_specs(xla, fs.serving_param_specs(params, mesh), mesh)["layers"]["cell"][
-        "w"] == (None, None, None, None)
+        "w"] == (None, None, None, "model")
     odd = cfg.with_(rnn_hidden=1000, d_model=1000)
     p_odd = shapes.param_shapes(odd)
     mesh3 = mesh_lib.Mesh({"data": 1, "model": 3})
-    assert fs.rank_specs(odd, fs.serving_param_specs(p_odd, mesh3), mesh3)["layers"]["cell"][
-        "w"] == (None, None, None, None)
+    r_odd = fs.rank_specs(odd, fs.serving_param_specs(p_odd, mesh3), mesh3)
+    assert r_odd["layers"]["cell"]["w"] == (None, None, None, None)
+    assert r_odd["embed"]["embed"] == (None, None)  # 8192 does not divide by 3
+    lstm = get_config("lstm-paper-large")
+    r_lstm = fs.rank_specs(lstm, fs.serving_param_specs(shapes.param_shapes(lstm), mesh), mesh)
+    assert r_lstm["layers"]["cell"]["wx"] == (None, None, "model")
+    assert r_lstm["layers"]["cell"]["b"] == (None, "model")
     moe = get_config("qwen3-moe-235b-a22b")
     p_moe = shapes.param_shapes(moe)
     r = fs.rank_specs(moe, fs.serving_param_specs(p_moe, mesh), mesh)
     assert r["layers"]["moe"]["e_up"] == (None, "model", None, None)  # 128 experts over 4
+    assert r["layers"]["attn"]["w_q"] == (None, None, None)  # attention: whole
     assert fs.rank_specs(moe.with_(moe_impl="sorted"), fs.serving_param_specs(p_moe, mesh),
                          mesh)["layers"]["moe"]["e_up"] == (None, None, None, None)
+    one = mesh_lib.Mesh({"data": 2, "model": 1})  # a model axis of one rank shards nothing
+    assert fs.rank_specs(cfg, fs.serving_param_specs(params, one), one)["embed"]["embed"] == (
+        None, None)
     caches = lm.lm_init_caches(cfg, 8, 1, device="meta")
     cs = fs.rank_cache_specs(cfg, caches, mesh)
     assert cs["layers"]["c"] == (None, "data", "model")
-    assert fs.rank_cache_specs(xla, caches, mesh)["layers"]["c"] == (None, "data", None)
+    assert fs.rank_cache_specs(xla, caches, mesh)["layers"]["c"] == (None, "data", "model")
+    assert fs.rank_cache_specs(cfg, caches, one)["layers"]["c"] == (None, "data", None)
+
+
+PAPER = sorted(n for n in REGISTRY if get_config(n).cell is not None)
+
+
+def _without_wq_scale(flat: dict) -> dict:
+    return {k: v for k, v in flat.items() if not k.endswith("wq_scale")}
+
+
+@pytest.mark.parametrize("mname", ["2x4", "prod"])
+@pytest.mark.parametrize("name", PAPER)
+def test_paper_configs_rest_as_jax_places_them(runs, name, mname):
+    """For every paper config on (2, 4) and the 16 x 16 production shape the
+    port's at-rest specs are JAX's ``param_specs`` leaf for leaf (but for
+    ``wq_scale``, held whole: ROADMAP §C) and JAX's ``cache_specs``."""
+    want = runs["specs"][f"{name}/{mname}"]
+    mesh = mesh_lib.make_production_mesh() if mname == "prod" else mesh_lib.Mesh(
+        MESH_SHAPES[mname])
+    cfg = get_config(name)
+    params, caches, _ = _full_shapes(name)
+    rank = _flat(fs.rank_specs(cfg, shd.param_specs(params, mesh), mesh))
+    assert _without_wq_scale(rank) == _without_wq_scale(want["param"])
+    assert _flat(fs.rank_cache_specs(cfg, caches, mesh)) == want["cache"]
+    scales = [k for k in rank if k.endswith("wq_scale")]
+    assert all(rank[k] == [None] * len(rank[k]) for k in scales)
 
 
 # ---------------------------------------------------------------------------
