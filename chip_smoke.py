@@ -37,7 +37,10 @@ Phases, each printing one JSON line per step:
            with 32 query heads per KV head, beside PyTorch's
            ``scaled_dot_product_attention`` on the same data, with each
            instance's shared memory, registers, CTAs per SM, tiles in
-           flight and split plan; the chunked
+           flight and split plan; B5's log-sum-exp form (the rank's slots
+           of a sequence-sharded cache) at granite-20b's head shape on a
+           full shard, an empty one (lengths 0: out 0, lse -inf) and ragged
+           lanes, bf16 and fp32; the chunked
            SSD (B4) at the mamba2-2.7b serve shapes (B = 4, 80 heads, P = 64,
            N = 128, bf16: prompts 1024 and 64 from a zero state, one decode
            step written in place over a random state, a ragged S = 100), at
@@ -221,6 +224,15 @@ Phases, each printing one JSON line per step:
            LSTM's columns and the vocab leaves; no kernel of ours), B = 4,
            prompt 64, gen 8, against the single-device tokens and logits,
            half the slab and vocab bytes a rank, a decode step split into
+           collectives and the rest. Part (h), on the same ranks:
+           ``llama3-8b``, ``granite-20b`` and ``mamba2-2.7b`` cut to 2
+           layers and ``zamba2-7b`` to 7 at full width, B = 4, prompt 64,
+           gen 8 (tensor parallelism of the attention, dense MLP and Mamba
+           leaves: B4 on each rank's Mamba heads, B5 on its KV heads or, for
+           granite's one KV head, its log-sum-exp form on the rank's half
+           of the cache's slots), against the single-device tokens and
+           logits, each rank's attention/MLP/Mamba leaf bytes about half of
+           the whole, each rank's launches, a decode step split into
            collectives and the rest. Then training on two ranks: B1, B2 and
            B3 (forward and backward) at the train runs' shapes against
            their plain versions; ``build_train_step(cfg, mesh)`` for 2
@@ -493,6 +505,22 @@ SHARDED_CLI_SAVE, SHARDED_CLI_STEPS = 2, 4
 # none of our kernels; the pallas train run of SHARDED_TRAIN_RUNS runs B3.
 SHARDED_TP_RUNS = ("sru-paper-large", "qrnn-paper-large", "lstm-paper-large")
 SHARDED_TP_GEN = 8
+# (h) Tensor parallelism of the attention, dense MLP and Mamba leaves, on the
+# (1, 2) ranks of (c): each of SHARDED_LM_RUNS, (arch, layers kept), at full
+# width cut in depth (zamba2-7b to 7: a group of 6 Mamba blocks, its shared
+# attention block once, a tail block), B = 4, prompt 64, SHARDED_TP_GEN
+# tokens, fp32: the rank's q heads, K/V from the gathered w_kv columns, the
+# w_o and w_down rows summed over the axis, the MLP's and the Mamba mixer's
+# "ff" columns, B4 on the rank's H/2 Mamba heads, and at decode B5 on the
+# rank's KV heads (llama3-8b, zamba2-7b) or its log-sum-exp form on the
+# rank's slots of the sequence-sharded cache (granite-20b's one KV head).
+# Against the single-device run: tokens equal, SHARDED_LOGIT_STEPS
+# teacher-forced logits at SHARDED_TOL, each rank's attention/MLP/Mamba leaf
+# bytes at most SHARDED_LM_BYTES of the whole (the Mamba mixer's in_b, in_c,
+# in_dt, B/C convs, A_log, D, dt_bias and the norms stay whole), each rank's
+# launches the expected; a decode step split into the collectives and the rest.
+SHARDED_LM_RUNS = (("llama3-8b", 2), ("granite-20b", 2), ("mamba2-2.7b", 2), ("zamba2-7b", 7))
+SHARDED_LM_BYTES = 0.55
 SHARDED_CONT_RUNS = {"plain": ("sru-paper-large-stacked", "plain", False),
                      "prefix": ("sru-paper-large-stacked", "prefix", False),
                      "oracle": ("sru-paper-large-stacked", "plain", True),
@@ -511,7 +539,7 @@ SHARDED_CONT_SPLIT = ("plain",)
 GRAD_RTOL = 5e-4
 # Each kernel instance family with its launch counter (module attribute).
 KERNELS = ("fused_rnn_layer", "fused_rnn_stack", "linear_scan",
-           "fused_rnn_layer_int8", "fused_rnn_stack_int8", "gqa_decode", "ssd")
+           "fused_rnn_layer_int8", "fused_rnn_stack_int8", "gqa_decode", "gqa_decode_lse", "ssd")
 OUR_KERNEL_SYMBOLS = ("fused_rnn_layer_kernel", "fused_rnn_mma_kernel",  # device symbol names
                       "linear_scan_kernel", "linear_scan_bwd_kernel",
                       "gqa_decode_mma_kernel", "gqa_decode_split_kernel",
@@ -572,6 +600,22 @@ GQA_CASES = (
      (4, 48, 8, 128, 4096, (4096,) * 4), "bfloat16"),
     ("qwen3 B=4 Hq=64 Hkv=4 Dh=128 S=1056 len=1025",
      (4, 64, 4, 128, 1056, (1025,) * 4), "bfloat16"),
+)
+# B5's log-sum-exp form (a rank's slots of a sequence-sharded KV cache, part
+# (h)'s granite-20b: MQA, its one KV head over 2 ranks) at granite's head
+# shape, (name, (B, Hq, Hkv, Dh, S, lengths), dtype): the rank's 36 slots of
+# a 72-slot cache (prompt 64 + 8) full, empty (a rank whose slots hold no
+# valid row yet), and ragged lanes with an empty one, in bf16 and fp32. The
+# output is held as B5's; the lse within B5_ATOL where the length is above
+# 0, exactly -inf where it is 0.
+GQA_LSE_CASES = (
+    ("granite lse B=4 Hq=48 Hkv=1 Dh=128 S=36 len=36", (4, 48, 1, 128, 36, (36,) * 4),
+     "bfloat16"),
+    ("granite lse S=36 len=0 (empty shard)", (4, 48, 1, 128, 36, (0,) * 4), "bfloat16"),
+    ("granite lse S=36 len=(36,0,17,1) fp32", (4, 48, 1, 128, 36, (36, 0, 17, 1)), "float32"),
+    ("granite lse S=36 len=0 (empty shard) fp32", (4, 48, 1, 128, 36, (0,) * 4), "float32"),
+    ("granite lse S=528 len=(528,0,300,1)", (4, 48, 1, 128, 528, (528, 0, 300, 1)),
+     "bfloat16"),
 )
 # Chunked SSD (B4) cases, (name, (B, S, H, P, N, G, dtype, seed), options of
 # ``_ssd_case``): the mamba2-2.7b serve shapes (prefill 1024 first: the
@@ -859,6 +903,34 @@ def _gqa_case(name, B, Hq, Hkv, Dh, S, lengths, dtype_name, seed):
     return name, (q, k, v, lens), {}, rw, ops
 
 
+def _gqa_lse_call(q, k, v, lens):
+    """B5's log-sum-exp form: ``(out, lse)``."""
+    from repro_torch.kernels.gqa_decode.ops import gqa_decode
+
+    return gqa_decode(q, k, v, lens, return_lse=True)
+
+
+def _gqa_lse_plain(q, k, v, lens):
+    from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref
+
+    return gqa_decode_ref(q, k, v, lens, return_lse=True)
+
+
+def _gqa_lse_view(outs, args):
+    """The lse form's outputs as compared (not timed): the lse is -inf
+    exactly where the length is 0, and an empty lane's output 0; those lse
+    entries are then set to 0."""
+    import torch
+
+    out, lse = outs
+    lens = args[3]
+    empty = (lens == 0)[:, None].expand_as(lse)
+    require(bool(torch.equal(torch.isneginf(lse), empty)),
+            "gqa_decode_lse: lse is -inf exactly where the length is 0")
+    require(bool((out[lens == 0] == 0).all()), "gqa_decode_lse: an empty lane's out is 0")
+    return out, torch.where(empty, torch.zeros_like(lse), lse)
+
+
 def _sdpa(q, k, v, lens):
     """The library yardstick of B5: one ``scaled_dot_product_attention``
     call on the same data, never on the port's path. It takes the cache as
@@ -874,6 +946,47 @@ def _sdpa(q, k, v, lens):
     def call():
         return torch.nn.functional.scaled_dot_product_attention(
             q4, kt, vt, attn_mask=mask, enable_gqa=True)[:, :, 0, :]
+
+    return call
+
+
+def _varlen_lse(q, k, v, lens):
+    """The library yardstick of B5's log-sum-exp form: one
+    ``torch.nn.attention.varlen.varlen_attn`` call (flash attention) on the
+    same data, never on the port's path: one query a lane, the lse asked
+    for; returns ``(out, lse)`` with the lse as (B, Hq) (a transposed view
+    where the call gives (Hq, B)). Where the call takes ``seqused_k`` the
+    cache is flattened to (B S, Hkv, Dh) (a view) with the lengths as
+    ``seqused_k``; else each lane's valid rows are packed outside the timed
+    call and delimited by ``cu_seq_k``. ``enable_gqa`` is passed where the
+    call has it (older ones take the KV heads as they are). The call
+    refuses fp32 operands."""
+    import inspect
+
+    import torch
+    from torch.nn.attention.varlen import AuxRequest, varlen_attn
+
+    B, S, Hkv, Dh = k.shape
+    takes = inspect.signature(varlen_attn).parameters
+    kw = {"return_aux": AuxRequest(lse=True)}
+    if "enable_gqa" in takes:
+        kw["enable_gqa"] = True
+    cu_q = torch.arange(B + 1, dtype=torch.int32, device=q.device)
+    if "seqused_k" in takes:
+        kf, vf = k.reshape(B * S, Hkv, Dh), v.reshape(B * S, Hkv, Dh)
+        cu_k, max_k = cu_q * S, S
+        kw["seqused_k"] = lens
+    else:
+        n = lens.tolist()
+        kf = torch.cat([k[b, :n[b]] for b in range(B)])
+        vf = torch.cat([v[b, :n[b]] for b in range(B)])
+        cu_k = torch.zeros(B + 1, dtype=torch.int32, device=q.device)
+        cu_k[1:] = torch.cumsum(lens, 0).to(torch.int32)
+        max_k = max(n)
+
+    def call():
+        out, lse = varlen_attn(q, kf, vf, cu_q, cu_k, 1, max_k, **kw)
+        return out, (lse if lse.shape == (B, q.shape[1]) else lse.t())
 
     return call
 
@@ -949,15 +1062,43 @@ def _summary(kname, source, replaces, rows):
     }
 
 
+def _library_row(library, args, plain_outs) -> dict:
+    """``library_ms`` and the library call's errors against the plain
+    version's outputs (see :func:`_run_cases`)."""
+    import torch
+
+    try:
+        call = library(*args)
+        got = call()
+        torch.cuda.synchronize()
+    except (RuntimeError, ValueError, TypeError) as e:  # the call refuses this case
+        return {"library_ms": None,
+                "library_refused": f"{type(e).__name__}: {(str(e).strip().splitlines() or [''])[0]}"}
+    got = got if isinstance(got, tuple) else (got,)
+    err, mismatched = 0.0, 0
+    for a, b in zip(got, plain_outs):
+        a, b = a.float(), b.float()
+        fin = torch.isfinite(b)
+        if bool(fin.any()):
+            err = max(err, (a[fin] - b[fin]).abs().max().item())
+        mismatched += int((~fin & (a != b)).sum().item())
+    return {"library_ms": time_ms(call, iters=50), "library_max_abs_err": err,
+            "library_nonfinite_mismatched": mismatched}
+
+
 def _run_cases(kname, wrapper, plain, cases, atol=ATOL, rtol=0.0, library=None, cold=False,
-               phase="kernels"):
+               phase="kernels", view=None):
     """Each case against its plain version (computed first: a wrapper may
     write a state operand in place); decode cases (T = 1), and every case
     with ``cold``, are also timed cold, with the L2 flushed before each call
     (``cold_ms``).
     ``library(*args)`` gives the one PyTorch call that computes the same
     function, timed as ``library_ms`` (with its max |error| against the
-    plain version, not checked)."""
+    plain version where that is finite, and the count of non-finite plain
+    entries it does not match, not checked); a case the call refuses
+    (raises) has ``library_ms`` None and the refusal's first line.
+    ``view(outs, args)``, where given, checks and maps both sides' outputs
+    before the comparison, outside the timed calls."""
     import torch
 
     l2 = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -967,6 +1108,9 @@ def _run_cases(kname, wrapper, plain, cases, atol=ATOL, rtol=0.0, library=None, 
         out = wrapper(*args, **kw)
         torch.cuda.synchronize()
         out, ref = (x if isinstance(x, tuple) else (x,) for x in (out, ref))
+        plain_outs = ref
+        if view is not None:
+            out, ref = view(out, args), view(ref, args)
         err, tol, finite = compare(out, ref, atol, rtol)
         each = errors(out, ref, atol, rtol)  # before the timed calls, which may write out
         ms = time_ms(lambda: wrapper(*args, **kw), iters=50)
@@ -984,9 +1128,7 @@ def _run_cases(kname, wrapper, plain, cases, atol=ATOL, rtol=0.0, library=None, 
             "bound_fp32_simt_ms": bound(rw, ops, "float32")[0],
         }
         if library is not None:
-            call = library(*args)
-            row["library_ms"] = time_ms(call, iters=50)
-            row["library_max_abs_err"] = (call().float() - ref[0].float()).abs().max().item()
+            row.update(_library_row(library, args, plain_outs))
         emit(row)
         require(finite and err <= tol, f"{kname} [{name}]: err {err} > tol {tol}")
         rows.append(row)
@@ -1266,6 +1408,11 @@ def phase_kernels():
                   for name, T, F, dtype, seed in SCAN_CASES]
     gqa_cases = [(dtype, 1) + _gqa_case(name, *shape, dtype, 400 + i)
                  for i, (name, shape, dtype) in enumerate(GQA_CASES)]
+    lse_cases = []
+    for i, (name, shape, dtype) in enumerate(GQA_LSE_CASES):
+        case = _gqa_case(name, *shape, dtype, 450 + i)
+        B_, Hq = shape[0], shape[1]
+        lse_cases.append((dtype, 1) + case[:3] + (case[3] + B_ * Hq * 4, case[4]))
 
     fused_src = "src/repro_torch/kernels/fused_rnn/csrc/fused_rnn_layer.cu"
     summaries = {}
@@ -1310,6 +1457,13 @@ def phase_kernels():
     summaries["gqa_decode"] = _summary(
         "gqa_decode", "src/repro_torch/kernels/gqa_decode/csrc/gqa_decode.cu",
         "src/repro/kernels/gqa_decode/gqa_decode.py:66", rows)
+    # B5's log-sum-exp form: bytes one lse more (B x Hq fp32) than B5's; the
+    # library yardstick is flash attention's varlen call with the lse.
+    rows = _run_cases("gqa_decode_lse", _gqa_lse_call, _gqa_lse_plain, lse_cases,
+                      atol=B5_ATOL, view=_gqa_lse_view, library=_varlen_lse)
+    summaries["gqa_decode_lse"] = _summary(
+        "gqa_decode_lse", "src/repro_torch/kernels/gqa_decode/csrc/gqa_decode.cu",
+        "src/repro/kernels/gqa_decode/gqa_decode.py:66", rows)
 
     # Chunked SSD: SSD_CASES, each also timed cold.
     ssd_cases = []
@@ -1348,6 +1502,7 @@ def _launch_counters():
             "fused_rnn_layer_int8": (fused_rnn, "LAUNCHES_INT8"),
             "fused_rnn_stack_int8": (stacked, "LAUNCHES_INT8"),
             "gqa_decode": (gqa_decode, "LAUNCHES"),
+            "gqa_decode_lse": (gqa_decode, "LAUNCHES_LSE"),
             "ssd": (ssd, "LAUNCHES")}
 
 
@@ -3070,7 +3225,7 @@ def _split_steps(cfg, params, mesh, device, toks):
     toks = toks.to(device)
     prefill = build_prefill_step(cfg, mesh, batch=toks.shape[0], max_len=toks.shape[1],
                                  device=device)
-    decode = build_decode_step(cfg, mesh)
+    decode = build_decode_step(cfg, mesh, max_len=toks.shape[1])
     logits, caches = prefill(params, {"inputs": toks[:, :64]})
 
     def steps():
@@ -3101,7 +3256,7 @@ def _step_logits(cfg, params, mesh, device, toks):
 
     toks = toks.to(device)
     prefill = build_prefill_step(cfg, mesh, batch=4, max_len=toks.shape[1], device=device)
-    decode = build_decode_step(cfg, mesh)
+    decode = build_decode_step(cfg, mesh, max_len=toks.shape[1])
     logits, caches = prefill(params, {"inputs": toks[:, :64]})
     out = [logits]
     for t in range(64, toks.shape[1]):
@@ -3202,11 +3357,20 @@ def _cont_rank(run, model_axis, device, counters, split):
                       if not x.startswith("continuous-stats ")][:4]}
 
 
-def _tp_rank(arch, model_axis, device, counters):
-    """(g) One rank of SHARDED_TP_RUNS' ``arch`` on its own engine: the
-    serve through ``serve.serve_mesh`` (every count set to 0 just before,
-    read just after), then its teacher-forced logits and a decode step
-    split into the collectives and the rest."""
+def _lm_cfg(arch, k, layers=None):
+    """(g), (h): the serve flags of ``arch`` on ``k`` model ranks and its
+    fp32 config, cut to ``layers`` when given."""
+    args = _sharded_args(arch, k, gen=SHARDED_TP_GEN)
+    cfg = _sharded_cfg(args)
+    return args, (cfg if layers is None else cfg.with_(n_layers=layers))
+
+
+def _tp_rank(arch, model_axis, device, counters, layers=None):
+    """(g), (h) One rank of ``arch`` (SHARDED_TP_RUNS on its own engine, or
+    SHARDED_LM_RUNS cut to ``layers``): the serve through
+    ``serve.serve_mesh`` (every count set to 0 just before, read just
+    after), then its teacher-forced logits and a decode step split into the
+    collectives and the rest."""
     import torch
 
     from repro_torch.distribution import sharding as shd
@@ -3215,8 +3379,7 @@ def _tp_rank(arch, model_axis, device, counters):
     from repro_torch.models import lm
 
     t0 = time.perf_counter()
-    args = _sharded_args(arch, model_axis, gen=SHARDED_TP_GEN)
-    cfg = _sharded_cfg(args)
+    args, cfg = _lm_cfg(arch, model_axis, layers)
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     with contextlib.redirect_stdout(io.StringIO()) as buf:
@@ -3284,6 +3447,78 @@ def _sharded_tp(single, ref_logits, ranks, totals):
             for n, c in m["launches"].items():
                 totals[n] += c
     emit({"phase": "sharded", "tp_seconds": seconds})
+    return seconds
+
+
+def _expected_lm_launches(cfg, k: int, decode_steps: int) -> dict:
+    """(h) One rank's launches: the single device's (B4 a layer a call, B5 a
+    layer (a hybrid: a shared block's application) a decode step), B5 in its
+    log-sum-exp form where the KV heads do not divide the model axis."""
+    want = _expected_launches(cfg, decode_steps)
+    if cfg.n_kv_heads and cfg.n_kv_heads % k:
+        want["gqa_decode_lse"], want["gqa_decode"] = want["gqa_decode"], 0
+    return want
+
+
+def _sharded_lm(single, ref_logits, ranks, totals):
+    """(h): each of SHARDED_LM_RUNS on the (1, 2) ranks against the
+    single-device run: the tokens equal, the logits within SHARDED_TOL, the
+    ranks alike, each rank's attention/MLP/Mamba leaf bytes at most
+    SHARDED_LM_BYTES of the whole and half the vocab bytes, each rank's
+    launches the expected. Emits a line each; returns the part's seconds on
+    the ranks."""
+    gloo = "gloo ranks sharing one card: the times are not multi-GPU speed"
+    seconds = 0.0
+    for arch, layers in SHARDED_LM_RUNS:
+        key = f"lm {arch}"
+        mine = [r[key] for r in ranks]
+        st = mine[0]["stats"]
+        _, cfg = _lm_cfg(arch, 2, layers)
+        want = _expected_lm_launches(cfg, 2, st["decode_steps"])
+        diff = (mine[0]["logits"] - ref_logits[key]).abs().max().item()
+        seconds += max(m["seconds"] for m in mine)
+        split = [m["split"] for m in mine]
+        emit({"phase": "sharded", "lm": arch, "layers": layers, "mesh": st["mesh"],
+              "compute": cfg.compute_dtype, "kv_cache": (
+                  None if not cfg.n_kv_heads else "heads" if cfg.n_kv_heads % 2 == 0
+                  else "sequence"),
+              "tokens_equal": st["tokens"] == single[key]["tokens"],
+              "logits_max_abs_diff": diff, "tol": SHARDED_TOL,
+              "launches_per_rank": [{n: c for n, c in m["launches"].items() if c} for m in mine],
+              "launches_expected": {n: c for n, c in want.items() if c},
+              "block_bytes": st["block_bytes"], "block_bytes_whole": st["block_bytes_whole"],
+              "block_share": [b / st["block_bytes_whole"] for b in st["block_bytes"]],
+              "vocab_bytes": st["vocab_bytes"], "vocab_bytes_whole": st["vocab_bytes_whole"],
+              "replicated": st["replicated"],
+              "prefill_ms": [m["stats"]["prefill_ms"] for m in mine],
+              "decode_ms_per_step": [m["stats"]["decode_ms"] / m["stats"]["decode_steps"]
+                                     for m in mine],
+              "single_prefill_ms": single[key]["prefill_ms"],
+              "single_decode_ms_per_step": (single[key]["decode_ms"]
+                                            / single[key]["decode_steps"]),
+              "split_per_rank": split,
+              "collective_share_per_rank": [sum(x["collective_ms"].values()) / x["timed_step_ms"]
+                                            for x in split],
+              "peak_mem_gb_per_rank": [m["stats"]["peak_mem_gb"] for m in mine],
+              "seconds_per_rank": [m["seconds"] for m in mine], "note": gloo,
+              "lines": mine[0]["lines"]})
+        require(st["tokens"] == single[key]["tokens"],
+                f"sharded lm {arch}: tokens differ from the single-device run's")
+        require(all(m["stats"]["tokens"] == st["tokens"] for m in mine),
+                f"sharded lm {arch}: the ranks' tokens differ")
+        require(diff <= SHARDED_TOL, f"sharded lm {arch}: logits differ by {diff}")
+        require(all(0 < b <= SHARDED_LM_BYTES * st["block_bytes_whole"]
+                    for b in st["block_bytes"]),
+                f"sharded lm {arch}: block bytes {st['block_bytes']} of "
+                f"{st['block_bytes_whole']}")
+        require(st["vocab_bytes"] == [st["vocab_bytes_whole"] // 2] * 2,
+                f"sharded lm {arch}: vocab bytes {st['vocab_bytes']}")
+        for m in mine:
+            require(m["launches"] == want,
+                    f"sharded lm {arch}: launches {m['launches']} != {want}")
+            for n, c in m["launches"].items():
+                totals[n] += c
+    emit({"phase": "sharded", "lm_seconds": seconds})
     return seconds
 
 
@@ -3372,6 +3607,9 @@ def _sharded_worker(rank, world, model_axis, init_file, plan):
             torch.cuda.empty_cache()
         for arch in plan.get("tp", ()):
             results[f"tp {arch}"] = _tp_rank(arch, model_axis, device, counters)
+            torch.cuda.empty_cache()
+        for arch, layers in plan.get("lm", ()):
+            results[f"lm {arch}"] = _tp_rank(arch, model_axis, device, counters, layers)
             torch.cuda.empty_cache()
         for run in plan.get("continuous", ()):
             results[f"continuous {run}"] = _cont_rank(run, model_axis, device, counters,
@@ -3756,8 +3994,10 @@ def phase_sharded():
     ``_moe_shard_map`` held to ``sorted`` on one rank at 2e-5; (d) four
     ranks, (2, 2), serving SHARDED_DATA_RUN; (f) continuous serving on
     those two meshes (``_sharded_continuous``); (g) on the ranks of (c),
-    SHARDED_TP_RUNS on their own engine (``_sharded_tp``); (e) training on
-    two ranks (``_sharded_train``), the pallas run of (g) among them. Under fp32 the tokens must
+    SHARDED_TP_RUNS on their own engine (``_sharded_tp``); (h) on the same
+    ranks SHARDED_LM_RUNS, the attention, MLP and Mamba leaves per rank
+    (``_sharded_lm``); (e) training on two ranks (``_sharded_train``), the
+    pallas run of (g) among them. Under fp32 the tokens must
     equal the single-device run's and the logits be within SHARDED_TOL;
     under bf16 the logits within SHARDED_BF16_TOL (the tokens are
     reported); each rank's launches the expected, each model rank's
@@ -3814,6 +4054,17 @@ def phase_sharded():
                                        _logit_inputs(cfg))
         del params
         _release()
+    for arch, layers in SHARDED_LM_RUNS:
+        args, cfg = _lm_cfg(arch, 1, layers)
+        params = lm.lm_init(torch.Generator(device="cuda").manual_seed(args.seed), cfg,
+                            device="cuda", dtype=torch.float32)
+        with contextlib.redirect_stdout(io.StringIO()):
+            tp_single[f"lm {arch}"] = serve.run_batch(cfg, params, args, torch.device("cuda"),
+                                                      graphs=False)
+        tp_logits[f"lm {arch}"] = _step_logits(cfg, params, None, torch.device("cuda"),
+                                               _logit_inputs(cfg))
+        del params
+        _release()
     t_cont = time.perf_counter()
     cont_single = {run: _cont_single(run) for run in SHARDED_CONT_RUNS}
     _release()
@@ -3828,7 +4079,7 @@ def phase_sharded():
     totals = dict.fromkeys(KERNELS, 0)
     ranks = _spawn_ranks("m2", 2, 2, {"serve": _sharded_runs(), "moe": SHARDED_MOE,
                                       "logits": True, "split": SHARDED_SPLIT_RUNS,
-                                      "tp": SHARDED_TP_RUNS,
+                                      "tp": SHARDED_TP_RUNS, "lm": SHARDED_LM_RUNS,
                                       "continuous": tuple(SHARDED_CONT_RUNS)})
     cont_m2 = ranks
     for arch, compute in _sharded_runs():
@@ -3869,6 +4120,8 @@ def phase_sharded():
                 f"sharded {key}: vocab bytes {st0['vocab_bytes']} of {st0['vocab_bytes_whole']}")
     # (g) tensor parallelism of the chunked engine, the LSTM and the vocab
     _sharded_tp(tp_single, tp_logits, ranks, totals)
+    # (h) tensor parallelism of the attention, dense MLP and Mamba leaves
+    _sharded_lm(tp_single, tp_logits, ranks, totals)
     for arch in SHARDED_MOE:
         err = (ranks[0][arch]["y"] - moe_ref[arch]).abs().max().item()
         emit({"phase": "sharded", "moe": arch, "mesh": {"data": 1, "model": 2},

@@ -42,7 +42,9 @@ ceil(H/128) fp32 a layer) are held whole: a shard's lanes may start inside a
 scale block (H = 1000 over 8 ranks), and the kernel takes the shard's blocks
 with its offset into the first (``scale_lane0``). The other engines' cells,
 the LSTM and the vocab leaves are sharded as JAX shards them too, and run
-per rank in ``distribution/tensor_parallel.py``.
+per rank in ``distribution/tensor_parallel.py``; the attention, dense MLP
+and Mamba leaves and their caches in ``models/attention.py``,
+``lm._mlp`` and ``models/mamba.py``.
 
 Dispatch: ``models/rnn.py`` decides once a call, by :func:`sharding_mesh`
 (the mesh installed by ``sharding.use_rules``, which the step builders
@@ -119,11 +121,11 @@ def serving_param_specs(params, mesh, *, fsdp: bool = False):
     return shd.param_specs(params, mesh, fsdp=fsdp)
 
 
-# The leaves held as JAX's specs give them: the RNN cells' slabs, biases and
-# skip projection (every engine; the LSTM's flat wx, uh and b), the vocab
-# leaves and, under MoE's shard_map schedule, the experts.
-_CELL_LEAF = re.compile(r"(^|.*/)cell/(w|w0|w1|wq|w0q|w1q|w_skip|b|wx|uh)$")
-_VOCAB_LEAF = re.compile(r"(^|.*/)embed/(embed|unembed)$")
+# The leaves held otherwise than JAX's specs give them: the compact int8
+# scales (whole; ``scale_lane0``), and the experts wherever MoE does not run
+# expert-parallel (the ``ff_moe`` fallback of an expert count that does not
+# divide the model axis, and every schedule but ``shard_map``).
+_SCALE_LEAF = re.compile(r"(^|.*/)wq_scale$")
 _EXPERT_LEAF = re.compile(r"(^|.*/)(e_gate|e_up|e_down)$")
 
 
@@ -160,40 +162,38 @@ def _experts_sharded(cfg, mesh) -> bool:
 
 def rank_specs(cfg, specs, mesh):
     """The specs the port holds params at rest by: ``specs``
-    (:func:`serving_param_specs`) with the model axis kept where the port
-    computes per rank and dropped elsewhere. Kept: the RNN cell leaves of
-    every engine and the LSTM's (their specs already fall back to whole
-    where the width does not divide, as :func:`sharding_mesh` does),
-    ``embed`` / ``unembed`` over the padded vocab, and the experts of MoE's
-    ``shard_map`` schedule when the model axis divides their count. Those
-    other leaves (norms, attention, MLP, Mamba, ``wq_scale``) are held whole
-    on every model rank and computed whole, where JAX's GSPMD computes them
-    sharded. For the paper configs this is JAX's ``param_specs`` but for
-    ``wq_scale``. A model axis of one rank is dropped everywhere: it
-    shards nothing."""
+    (:func:`serving_param_specs`, JAX's ``param_specs``) with the model axis
+    kept on every leaf the port computes per rank: the RNN cell leaves of
+    every engine and the LSTM's, ``embed`` / ``unembed`` over the padded
+    vocab, the attention projections (``w_q``, ``w_kv``, ``w_o``), the dense
+    MLP's and the Mamba mixer's ``ff`` leaves
+    (``models/attention.py``, ``mamba.py``) and the experts of MoE's
+    ``shard_map`` schedule when the model axis divides their count. Each
+    already falls back to whole where its dim does not divide, as the
+    per-rank code does. Two kinds are held whole where JAX shards them:
+    ``wq_scale``, and the expert leaves wherever MoE does not run
+    expert-parallel (the ``ff_moe`` fallback and the other schedules). A
+    model axis of one rank is dropped everywhere: it shards nothing."""
     split = model_shards(mesh) > 1
-    rnn, experts = split and cfg.cell is not None, _experts_sharded(cfg, mesh)
+    experts = _experts_sharded(cfg, mesh)
 
     def one(path, spec):
-        keep = ((rnn and _CELL_LEAF.match(path)) or (split and _VOCAB_LEAF.match(path))
-                or (experts and _EXPERT_LEAF.match(path)))
-        return spec if keep else _without_model(spec)
+        whole = (not split or _SCALE_LEAF.match(path)
+                 or (_EXPERT_LEAF.match(path) and not experts))
+        return _without_model(spec) if whole else spec
 
     return shd.map_with_paths(one, specs)
 
 
 def rank_cache_specs(cfg, caches, mesh):
-    """The decode caches' specs at rest: ``sharding.cache_specs``, with the
-    model axis kept only on the RNN carries ``c`` / ``h`` (the lanes a rank
-    keeps, of every engine and of the LSTM; whole where H does not divide);
-    every other cache leaf is held whole on each model rank."""
-    rnn = cfg.cell is not None and model_shards(mesh) > 1
-
-    def one(path, spec):
-        keep = rnn and path.rsplit("/", 1)[-1] in ("c", "h")
-        return spec if keep else _without_model(spec)
-
-    return shd.map_with_paths(one, shd.cache_specs(caches, mesh))
+    """The decode caches' specs at rest: JAX's ``sharding.cache_specs``
+    (the RNN carries ``c`` / ``h`` over their lanes, the KV caches over
+    their heads, or their sequence where the heads do not divide, the SSM
+    state over its heads and the ``conv_x`` tail over its channels), with a
+    model axis of one rank dropped."""
+    specs = shd.cache_specs(caches, mesh)
+    return specs if model_shards(mesh) > 1 else shd.map_with_paths(
+        lambda path, spec: _without_model(spec), specs)
 
 
 # ---------------------------------------------------------------------------

@@ -82,6 +82,13 @@ def model_shards(mesh) -> int:
     return 1 if mesh is None else int(mesh.shape.get(MODEL_AXIS, 1))
 
 
+def model_group():
+    """The active mesh's model-axis group (``launch/mesh.py::AxisGroup``),
+    or None: no mesh, or a model axis of one rank."""
+    mesh = active_mesh()
+    return mesh.axis(MODEL_AXIS) if model_shards(mesh) > 1 else None
+
+
 @contextlib.contextmanager
 def suppress_hints():
     """Clear the rules inside a manual (per-rank) region, as JAX's does

@@ -8,7 +8,11 @@
 //   out[g]  = sum_r softmax_r(s[g])[r] * v[r]    fp32, stored in q's dtype
 // with q (B, Hq = Hkv * G, Dh), k and v (B, S, Hkv, Dh) and lengths (B,)
 // int32, read from device memory. Rows at or past the length take no part.
-// Any G >= 1 and any Dh that is a multiple of 8 up to 256.
+// Any G >= 1 and any Dh that is a multiple of 8 up to 256. With an lse
+// operand (B, Hq) fp32 the kernel also stores each (lane, query head)'s
+// log-sum-exp of its scaled scores, m + log(l), for a shard of a cache's
+// rows whose partial outputs are combined outside; a length of 0 is then
+// taken (a shard holding no valid row yet): out 0, lse -inf.
 //
 // Bound. Bytes: every valid K and V row is read once (no reuse beyond the
 // G heads of a group), plus q and out. At the llama3-8b serve shape (B = 4,
@@ -57,7 +61,8 @@
 //   with a running max, out = sum_i exp(m_i - M) acc_i / sum_i exp(m_i - M)
 //   l_i over the splits with l_i > 0, every load independent of the others,
 //   and sets the counter back to 0 for the next call. With one split the
-//   CTA stores the output directly.
+//   CTA stores the output directly. A lane with no valid row (l = 0 in
+//   every split) stores 0, never 0 / 0.
 // Softmax in expf (not __expf), the final division as the TPU kernel's
 // acc / l; no fast-math flags.
 //
@@ -107,19 +112,27 @@ __device__ __forceinline__ float warp_sum(float x) {
 // The CTA's result -> the output, or a split's partial and the last-CTA
 // combine. res_ml (n_h, 2) holds (m, l) and res_acc (n_h, n_dh) the
 // unnormalised acc of this CTA's heads g_lo .. g_lo + n_h - 1, in shared
-// memory. out_bh points at out[b, h * G + g_lo]; part_* are
-// (B, Hkv, n_split, G, 2) and (B, Hkv, n_split, G, Dh); bh = b * Hkv + h.
+// memory. out_bh points at out[b, h * G + g_lo] and lse_bh (or null) at
+// lse[b, h * G + g_lo]; part_* are (B, Hkv, n_split, G, 2) and
+// (B, Hkv, n_split, G, Dh); bh = b * Hkv + h.
 // ---------------------------------------------------------------------------
 
 template <typename T>
 __device__ void finish(const float* res_ml, const float* res_acc, int n_h, int g_lo, int n_dh,
-                       int n_g, int64_t bh, T* out_bh, float* part_ml, float* part_acc,
-                       int* counter) {
+                       int n_g, int64_t bh, T* out_bh, float* lse_bh, float* part_ml,
+                       float* part_acc, int* counter) {
   __shared__ int s_last;
   const int tid = threadIdx.x, n_split = gridDim.x, split = blockIdx.x;
   if (n_split == 1) {  // the output directly: acc / l, as the TPU kernel
     for (int i = tid; i < n_h * n_dh; i += kThreads) {
-      out_bh[i] = from_f<T>(res_acc[i] / res_ml[2 * (i / n_dh) + 1]);
+      const float l = res_ml[2 * (i / n_dh) + 1];
+      out_bh[i] = from_f<T>(l > 0.f ? res_acc[i] / l : 0.f);
+    }
+    if (lse_bh != nullptr) {
+      for (int j = tid; j < n_h; j += kThreads) {
+        const float l = res_ml[2 * j + 1];
+        lse_bh[j] = l > 0.f ? res_ml[2 * j] + logf(l) : -INFINITY;
+      }
     }
     return;
   }
@@ -167,11 +180,13 @@ __device__ void finish(const float* res_ml, const float* res_acc, int n_h, int g
       num.w = fmaf(a.w, w, num.w * corr);
       mx = m_new;
     }
+    const bool any = den > 0.f;  // no valid row in any split: 0
     T* o = out_bh + j * n_dh + c;
-    o[0] = from_f<T>(num.x / den);
-    o[1] = from_f<T>(num.y / den);
-    o[2] = from_f<T>(num.z / den);
-    o[3] = from_f<T>(num.w / den);
+    o[0] = from_f<T>(any ? num.x / den : 0.f);
+    o[1] = from_f<T>(any ? num.y / den : 0.f);
+    o[2] = from_f<T>(any ? num.z / den : 0.f);
+    o[3] = from_f<T>(any ? num.w / den : 0.f);
+    if (lse_bh != nullptr && c == 0) lse_bh[j] = any ? mx + logf(den) : -INFINITY;
   }
   if (tid == 0) *counter = 0;  // ready for the next call
 }
@@ -261,8 +276,9 @@ template <int kDh, int kMB>
 __global__ void __launch_bounds__(kThreads)
 gqa_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const int* __restrict__ lengths,
-                      bf16* __restrict__ out, float* __restrict__ part_ml,
-                      float* __restrict__ part_acc, int* __restrict__ counters, int n_s,
+                      bf16* __restrict__ out, float* __restrict__ lse,
+                      float* __restrict__ part_ml, float* __restrict__ part_acc,
+                      int* __restrict__ counters, int n_s,
                       int n_kv, int n_g, int n_dh, int rows_per_split, float scale) {
   using Sh = MmaShape<kDh, kMB>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -516,7 +532,8 @@ gqa_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncthreads();
   finish<bf16>(&res_ml[0][0], res_acc, n_h, g_lo, n_dh, n_g, bh, out + (bh * n_g + g_lo) * n_dh,
-               part_ml, part_acc, counters + (static_cast<int64_t>(b) * gridDim.y + blockIdx.y));
+               lse == nullptr ? nullptr : lse + bh * n_g + g_lo, part_ml, part_acc,
+               counters + (static_cast<int64_t>(b) * gridDim.y + blockIdx.y));
 }
 
 // ---------------------------------------------------------------------------
@@ -550,7 +567,8 @@ template <int kDh, int kG>
 __global__ void __launch_bounds__(kThreads)
 gqa_decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const int* __restrict__ lengths,
-                        float* __restrict__ out, float* __restrict__ part_ml,
+                        float* __restrict__ out, float* __restrict__ lse,
+                        float* __restrict__ part_ml,
                         float* __restrict__ part_acc, int* __restrict__ counters, int n_s,
                         int n_kv, int n_g, int n_dh, int rows_per_split, float scale) {
   using Sh = SimtShape<kDh, kG>;
@@ -712,7 +730,8 @@ gqa_decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
   __syncthreads();
   finish<float>(ml_s, res_acc, n_h, g_lo, n_dh, n_g, bh, out + (bh * n_g + g_lo) * n_dh,
-                part_ml, part_acc, counters + (static_cast<int64_t>(b) * gridDim.y + blockIdx.y));
+                lse == nullptr ? nullptr : lse + bh * n_g + g_lo, part_ml, part_acc,
+                counters + (static_cast<int64_t>(b) * gridDim.y + blockIdx.y));
 }
 
 // ---------------------------------------------------------------------------
@@ -725,7 +744,7 @@ struct Args {
   const void *q, *k, *v;
   const int* lengths;
   void* out;
-  float *part_ml, *part_acc;
+  float *lse, *part_ml, *part_acc;
   int* counters;
   int n_b, n_s, n_kv, n_g, n_dh, n_split, rows_per_split;
   cudaStream_t stream;
@@ -762,7 +781,8 @@ int launch_kernel(K kernel, bool& smem_set, const Args& a, int* info, int smem, 
   const dim3 grid(a.n_split, a.n_kv * n_hb, a.n_b);
   kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.lengths, static_cast<T*>(a.out), a.part_ml, a.part_acc, a.counters, a.n_s, a.n_kv, a.n_g,
+      a.lengths, static_cast<T*>(a.out), a.lse, a.part_ml, a.part_acc, a.counters, a.n_s, a.n_kv,
+      a.n_g,
       a.n_dh, a.rows_per_split, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -827,12 +847,13 @@ extern "C" {
 
 // q (B, Hkv * G, Dh), k and v (B, S, Hkv, Dh), out like q: contiguous,
 // 16-byte aligned, one dtype (0 = float32, 1 = bfloat16). lengths (B,) int32
-// on the device. part_ml (B, Hkv, n_split, G, 2) and part_acc
+// on the device, each in [1, S], or in [0, S] with lse: (B, Hkv * G) fp32 or
+// null. part_ml (B, Hkv, n_split, G, 2) and part_acc
 // (B, Hkv, n_split, G, Dh) fp32 scratch and counters (B * Hkv * head blocks)
 // int32, zero before the first call and left zero by each, all unused when
 // n_split == 1.
 int gqa_decode_launch(int dtype, const void* q, const void* k, const void* v,
-                      const void* lengths, void* out, void* part_ml, void* part_acc,
+                      const void* lengths, void* out, void* lse, void* part_ml, void* part_acc,
                       void* counters, int n_b, int n_s, int n_kv, int n_g, int n_dh, int n_split,
                       int rows_per_split, void* stream) {
   if (n_b < 1 || n_s < 1 || n_kv < 1 || n_split < 1 || rows_per_split < 1 ||
@@ -844,9 +865,10 @@ int gqa_decode_launch(int dtype, const void* q, const void* k, const void* v,
       !aligned16(part_acc)) {
     return -4;
   }
-  const Args a{q, k, v, static_cast<const int*>(lengths), out, static_cast<float*>(part_ml),
-               static_cast<float*>(part_acc), static_cast<int*>(counters), n_b, n_s, n_kv, n_g,
-               n_dh, n_split, rows_per_split, static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, static_cast<const int*>(lengths), out, static_cast<float*>(lse),
+               static_cast<float*>(part_ml), static_cast<float*>(part_acc),
+               static_cast<int*>(counters), n_b, n_s, n_kv, n_g, n_dh, n_split, rows_per_split,
+               static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, a, nullptr);
 }
 

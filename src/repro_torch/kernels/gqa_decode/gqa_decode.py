@@ -8,7 +8,8 @@ parallel (``split_plan``) and the last CTA of each (lane, KV head, head
 block) to finish combines them, so the block size is not an argument.
 That CTA sets its arrival counter back to 0, so a counter buffer is zeroed
 once, when it is made. ``LAUNCHES`` counts calls that launched the kernel
-(one CUDA launch each).
+(one CUDA launch each); ``LAUNCHES_LSE`` counts those of the form that also
+stores the log-sum-exp (a shard of a sequence-sharded cache), apart.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import DTYPE_CODES, cuda_dtype_code, stream_words
 
 LAUNCHES = 0
+LAUNCHES_LSE = 0
 MAX_SPLITS = 64  # the last CTA reads every split's partial
 INFO_FIELDS = ("smem_bytes", "ctas_per_sm", "stages", "tile_rows", "registers", "heads_per_cta")
 
@@ -77,9 +79,10 @@ def plan(dtype: torch.dtype, batch: int, n_kv: int, seq: int, head_dim: int, gro
 
 
 def gqa_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    lengths: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on operands ``ops.gqa_decode`` has checked."""
-    global LAUNCHES
+                    lengths: torch.Tensor, return_lse: bool = False):
+    """Launch the kernel on operands ``ops.gqa_decode`` has checked; with
+    ``return_lse`` also the (B, Hq) fp32 log-sum-exp, as ``(out, lse)``."""
+    global LAUNCHES, LAUNCHES_LSE
     code = cuda_dtype_code(q)
     B, Hq, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -87,6 +90,7 @@ def gqa_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_split, rows, head_blocks = plan(q.dtype, B, Hkv, S, Dh, G, q.device.index or 0)
     out = torch.empty_like(q)
     f32 = dict(dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, Hq), **f32) if return_lse else None
     many = n_split > 1
     part_ml = torch.empty((B, Hkv, n_split, G, 2) if many else (0,), **f32)
     part_acc = torch.empty((B, Hkv, n_split, G, Dh) if many else (0,), **f32)
@@ -96,10 +100,13 @@ def gqa_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     if many else None)
         rc = lib.gqa_decode_launch(
             code, q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part_ml.data_ptr(), part_acc.data_ptr(), None if counters is None else
-            counters.data_ptr(), B, S, Hkv, G, Dh, n_split, rows,
+            None if lse is None else lse.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+            None if counters is None else counters.data_ptr(), B, S, Hkv, G, Dh, n_split, rows,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     build.check(rc, "gqa_decode")
+    if return_lse:
+        LAUNCHES_LSE += 1
+        return out, lse
     LAUNCHES += 1
     return out

@@ -2,7 +2,10 @@
 
 ``gqa_decode(q, k, v, lengths)`` checks its operands, then runs the CUDA
 kernel (``gqa_decode.py``) on CUDA tensors and the plain version
-(``ref.py``) on CPU tensors. JAX's ``block_s`` and ``interpret`` arguments
+(``ref.py``) on CPU tensors. ``return_lse=True`` also returns the
+log-sum-exp of each (lane, query head) and takes lengths of 0: the form a
+shard of a sequence-sharded cache runs, whose partials are combined across
+ranks. JAX's ``block_s`` and ``interpret`` arguments
 are not carried over: the block size chose how the TPU walked the cache and
 changes no value.
 """
@@ -41,11 +44,13 @@ def check_operands(q, k, v, lengths) -> None:
 
 
 def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               lengths: torch.Tensor) -> torch.Tensor:
+               lengths: torch.Tensor, return_lse: bool = False):
     """One-token GQA attention over a KV cache. q: (B, Hq, Dh); k, v:
-    (B, S, Hkv, Dh); lengths: (B,) int32 on q's device, each in [1, S].
-    Returns (B, Hq, Dh) in q's dtype."""
+    (B, S, Hkv, Dh); lengths: (B,) int32 on q's device, each in [1, S] (in
+    [0, S] with ``return_lse``). Returns (B, Hq, Dh) in q's dtype; with
+    ``return_lse`` also the (B, Hq) fp32 log-sum-exp of the scaled scores
+    (``-inf`` and a zero output for a length of 0), as ``(out, lse)``."""
     check_operands(q, k, v, lengths)
     if q.device.type == "cpu":
-        return gqa_decode_ref(q, k, v, lengths)
-    return gqa_decode_cuda(q, k, v, lengths)
+        return gqa_decode_ref(q, k, v, lengths, return_lse)
+    return gqa_decode_cuda(q, k, v, lengths, return_lse)

@@ -241,10 +241,11 @@ def gather(x: torch.Tensor, group: Optional[AxisGroup]) -> torch.Tensor:
     return x if group is None or group.size == 1 else _Gather.apply(x, group)
 
 
-def combine(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+def combine(x: torch.Tensor, group: Optional[AxisGroup]) -> torch.Tensor:
     """The sum of the ranks' partial outputs over the axis; backward, the
-    (replicated) cotangent unchanged."""
-    return x if group.size == 1 else _Combine.apply(x, group)
+    (replicated) cotangent unchanged. No group (one device) is the
+    identity."""
+    return x if group is None or group.size == 1 else _Combine.apply(x, group)
 
 
 class Mesh:

@@ -69,11 +69,25 @@ under the other engines and for the LSTM the gate GEMM on the rank's
 columns, the recurrence on its lanes and a gather of the output
 (``distribution/tensor_parallel.py``). ``embed`` and ``unembed`` hold the
 rank's block of the padded vocab: the lookup and the logits run
-vocab-parallel, and the logits are gathered before the greedy argmax. What
-else JAX shards through GSPMD (norms, attention, MLP and Mamba leaves) is
-held whole on every model rank and computed the same; the startup line
-lists, in ``sharding.describe_replications``'s form, the large dims that
-this rank's layout replicates. Without an initialised process group
+vocab-parallel, and the logits are gathered before the greedy argmax. The
+dense and Mamba LMs and the hybrid (``llama3-8b``, ``smollm-360m``,
+``granite-20b``, ``nemotron-4-340b``, the frontend stubs, ``mamba2-2.7b``,
+``zamba2-7b``, and the MoE LMs' attention) hold their attention, dense MLP
+and Mamba leaves and caches as JAX's ``param_specs`` / ``cache_specs``
+place them and run per rank (``models/attention.py``, ``mamba.py``): the
+rank's q heads, K/V from the gathered ``w_kv`` columns, the ``w_o`` and
+``w_down`` rows summed over the axis, the MLP's and the Mamba mixer's "ff"
+columns, the SSD on the rank's heads (B4), and at decode B5 on the rank's
+KV heads or, where the KV heads do not divide the axis (``granite-20b``'s
+MQA), on its slots of a sequence-sharded cache with the ranks' partials
+combined by log-sum-exp. Where JAX's GSPMD would take the combine and the
+gathers itself, the port writes them out: the ``w_kv`` / ``w_q`` column
+products are gathered whole (``w_kv``'s columns fall on K and V, not on
+heads), and the sequence-sharded cache's partial softmaxes are combined by
+their log-sum-exp. Norms, ``wq_scale`` and the MoE experts outside the
+expert-parallel schedule are held whole on every model rank; the startup
+line lists, in ``sharding.describe_replications``'s form, the large dims
+that this rank's layout replicates. Without an initialised process group
 the command starts its ranks itself (``torch.multiprocessing``, a
 ``file://`` rendezvous in a temporary directory): under NCCL (the default on
 the card) one per card, ``--model-shards`` of them per data group, as JAX
@@ -82,15 +96,15 @@ gloo`` where ranks share a card) ``--model-shards`` ranks. Inside an
 initialised process group, or under ``torchrun`` (its ``env://``
 rendezvous), it joins, and the ranks beyond one model group form the data
 axis. Rank 0 prints the mesh, the backend, the replicated dims, each model
-rank's bytes of gate slabs and of vocab leaves and the ``serve-stats``
-(``continuous-stats``) line. The sharded steps run eagerly (``graphs:
-false``): gloo cannot be captured. ``--mode continuous`` runs the ``Scheduler`` on the mesh (one a
-rank over its lane shards, every decision on rank 0's clock; see
-``serving/engine.py``), the ``--speculative`` draft sliced as the target,
-the telemetry sinks written by rank 0. CUDA graphs of the NCCL steps and
-tensor parallelism of the attention, MLP, Mamba and MoE ``ff`` leaves are
-not ported yet. ``--engine pallas`` is refused under a model axis, with
-JAX's message, as JAX refuses it.
+rank's bytes of gate slabs, of vocab leaves and of attention, MLP and Mamba
+leaves and the ``serve-stats`` (``continuous-stats``) line. The sharded
+steps run eagerly (``graphs: false``): gloo cannot be captured. ``--mode
+continuous`` runs the ``Scheduler`` on the mesh (one a rank over its lane
+shards, every decision on rank 0's clock; see ``serving/engine.py``), the
+``--speculative`` draft sliced as the target, the telemetry sinks written
+by rank 0. CUDA graphs of the NCCL steps and tensor parallelism of the MoE
+experts' ``ff_moe`` fallback are not ported yet. ``--engine pallas`` is
+refused under a model axis, with JAX's message, as JAX refuses it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-large-stacked \
         --reduced --device cpu --model-shards 2 [--ring-overlap]
@@ -100,6 +114,10 @@ JAX's message, as JAX refuses it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-large-stacked \
         --model-shards 2 --dist-backend gloo   # two ranks sharing one card
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --reduced \
+        --device cpu --model-shards 2   # also granite-20b, mamba2-2.7b, zamba2-7b
+
 On the card every step runs as a CUDA graph, as the JAX ``launch/serve.py``
 runs each step as one jitted executable (batch: ``capture_batch_steps``;
 continuous: ``Scheduler.warmup``; the capture's time is ``capture_ms``);
@@ -319,7 +337,7 @@ def run_batch(cfg, params, args, device: torch.device, graphs: bool = True,
     whether the caches kept their storage, and the generated tokens."""
     max_len = args.prompt_len + args.gen_len
     prefill = build_prefill_step(cfg, mesh, batch=args.batch, max_len=max_len, device=device)
-    decode = build_decode_step(cfg, mesh)
+    decode = build_decode_step(cfg, mesh, max_len=max_len)
     inputs = prompt_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
     if mesh is not None:
         inputs = tree_map(lambda x, spec: sharding.local_shard(x, spec, mesh), inputs,
@@ -703,6 +721,7 @@ def config_of(args):
 
 _SLAB = re.compile(r"(^|.*/)cell/(w|w0|w1|wq|w0q|w1q|wx|uh)$")
 _VOCAB = re.compile(r"(^|.*/)embed/(embed|unembed)$")
+_BLOCK = re.compile(r"(^|.*/)(attn|mlp|mamba)/[^/]+$")
 _SHARED_CARD = ("serve: --model-shards {k} needs {k} cards under NCCL, one rank a card, "
                 "and {n} are here: ranks that share a card run over gloo, and only when "
                 "asked for with --dist-backend gloo")
@@ -722,6 +741,12 @@ def slab_bytes(params) -> int:
 def vocab_bytes(params) -> int:
     """Bytes of the vocab leaves (``embed``, ``unembed``) in ``params``."""
     return _bytes(params, _VOCAB)
+
+
+def block_bytes(params) -> int:
+    """Bytes of the attention, dense MLP and Mamba mixer leaves in
+    ``params`` (a hybrid's shared block's included)."""
+    return _bytes(params, _BLOCK)
 
 
 def _backend(args, device: torch.device) -> str:
@@ -816,9 +841,9 @@ def serve_mesh(cfg, args, *, trace=None, draft=None) -> dict:
     (``Request``s) replaces the flags' trace and ``draft`` (a config and its
     whole params on this rank's device) the ``--speculative`` draft, as
     ``run_continuous`` takes them. Rank 0 prints the mesh, the backend, the
-    replicated dims, each model rank's bytes of gate slabs and of vocab
-    leaves and the ``serve-stats`` (``continuous-stats``) line. Returns the
-    stats on every rank."""
+    replicated dims, each model rank's bytes of gate slabs, of vocab leaves
+    and of attention, MLP and Mamba leaves and the ``serve-stats``
+    (``continuous-stats``) line. Returns the stats on every rank."""
     world, k, backend = dist.get_world_size(), args.model_shards, dist.get_backend()
     if world % k:
         raise SystemExit(f"serve: --model-shards {k} must divide the {world} ranks")
@@ -829,13 +854,13 @@ def serve_mesh(cfg, args, *, trace=None, draft=None) -> dict:
     t0 = time.perf_counter()
     params = lm.lm_init(torch.Generator(device=device).manual_seed(args.seed), cfg,
                         device=device, dtype=_dtype(cfg.compute_dtype))
-    whole, vocab_whole = slab_bytes(params), vocab_bytes(params)
+    whole, vocab_whole, block_whole = slab_bytes(params), vocab_bytes(params), block_bytes(params)
     params, replicated = shard_params(cfg, params, mesh)
     _sync(device)
     init_ms = (time.perf_counter() - t0) * 1e3
-    mine = torch.tensor([[slab_bytes(params)], [vocab_bytes(params)]], dtype=torch.int64,
-                        device=device)
-    per_rank, vocab_per_rank = mesh.axis("model").all_gather(mine).tolist()
+    mine = torch.tensor([[slab_bytes(params)], [vocab_bytes(params)], [block_bytes(params)]],
+                        dtype=torch.int64, device=device)
+    per_rank, vocab_per_rank, block_per_rank = mesh.axis("model").all_gather(mine).tolist()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     rank0 = dist.get_rank() == 0
@@ -851,7 +876,8 @@ def serve_mesh(cfg, args, *, trace=None, draft=None) -> dict:
         stats = run_batch(cfg, params, args, device, graphs=False, mesh=mesh)
     stats.update(init_ms=init_ms, mesh=mesh.shape, backend=backend, slab_bytes=per_rank,
                  slab_bytes_whole=whole, vocab_bytes=vocab_per_rank,
-                 vocab_bytes_whole=vocab_whole, replicated=replicated,
+                 vocab_bytes_whole=vocab_whole, block_bytes=block_per_rank,
+                 block_bytes_whole=block_whole, replicated=replicated,
                  peak_mem_gb=(torch.cuda.max_memory_allocated(device) / 1e9
                               if device.type == "cuda" else None))
     if rank0:
@@ -860,6 +886,7 @@ def serve_mesh(cfg, args, *, trace=None, draft=None) -> dict:
         print("replicated on every model rank: " + ("; ".join(replicated) or "nothing"))
         print(f"gate slab bytes per model rank: {per_rank} of {whole}")
         print(f"vocab leaf bytes per model rank: {vocab_per_rank} of {vocab_whole}")
+        print(f"attention/MLP/Mamba leaf bytes per model rank: {block_per_rank} of {block_whole}")
         _print_stats(stats, args)
     return stats
 

@@ -1,5 +1,5 @@
 """GQA attention, from ``repro/models/attention.py``: chunked prefill, cached
-decode, SWA.
+decode, SWA, on one device or on a rank's shards under a model axis.
 
 Prefill runs the JAX package's flash schedule in plain PyTorch: a q-block
 outer loop with an online softmax over KV blocks in fp32, so the (S, S)
@@ -13,23 +13,91 @@ layer, as in JAX; sliding-window attention (SWA) keeps a ring buffer of
 sound). Unlike JAX, prefill and decode write the cache IN PLACE: decode
 writes its one new K/V row into the slot and advances ``pos``; nothing of
 the cache is copied. Slots and lengths are computed on the device from
-``pos``: no host sync per layer or step.
-
-On one device the model axis is 1, so of the JAX package's sharding only the
-head padding (``pad_heads_to``) applies. ``attn_train``, the training
+``pos``: no host sync per layer or step. ``attn_train``, the training
 forward, runs ``chunked_attention`` and is differentiated by autograd; the
 decode kernel is never on the training path (JAX has no VJP for it).
+
+Under a mesh's model axis (the step builders' ``sharding.use_rules``) each
+function runs the rank's shards of what JAX's GSPMD partitions under the
+rules of ``repro/distribution/sharding.py`` (``w_q`` / ``w_o`` over the
+flat heads, ``w_kv`` over its flat columns) and of the cache as its
+``cache_specs`` places it, through ``launch/mesh.py``'s autograd
+collectives, which are the identity with no model axis: one device runs the
+same functions with every leaf and slot its own. Which leaves are sharded is
+read off their shapes: a dim that does not divide the axis is whole (JAX's
+divisibility fallback, ``sharding._resolve``), and a mix of sharded and
+whole leaves works.
+
+  * **Projections.** A column block whose columns do not fall on heads is
+    multiplied and gathered: ``w_kv (d, 2 Hkv Dh)`` is laid out ``(2, Hkv,
+    Dh)``, so on two ranks rank 0's block is all of K; ``w_q`` shards the
+    flat ``He Dh``, which splits a head where ``He`` does not divide. K and
+    V are always the gathered ``x @ w_kv`` (small: ``2 Hkv Dh`` numbers a
+    token), q the rank's heads where ``He`` divides (``[j He/k, (j+1)
+    He/k)``), else gathered. ``w_o`` shards its rows: the rank's rows of
+    the attention output (its own heads, or its slice of the whole output)
+    times its rows of ``w_o``, summed over the axis (``combine``). Padded
+    heads (``pad_heads_to``) stay zero.
+  * **Prefill and training** run :func:`chunked_attention` on the rank's q
+    heads against the KV heads they read (JAX's ``_maybe_repeat_kv``: one
+    KV head per q head where the KV heads do not divide the axis or the
+    heads are padded, else the grouped form).
+  * **Decode, KV heads over the axis** (``Hkv % k == 0``): the rank holds
+    KV heads ``[j Hkv/k, (j+1) Hkv/k)``, writes its new row in place and
+    runs B5 (``gqa_decode``) unchanged on the q heads that read them.
+  * **Decode, sequence over the axis** (the KV heads do not divide, the
+    cache length does): flash decoding across ranks. Rank j holds slots
+    ``[j S/k, (j+1) S/k)`` of every KV head; the prompt's rows and each new
+    row are written only on the rank that holds their slot, B5 runs over the
+    rank's slots with lengths ``clamp(n_valid - j S/k, 0, S/k)`` in its
+    log-sum-exp form (a length of 0 gives a zero output and ``-inf``), and
+    the ranks combine their partials by log-sum-exp weights (one ``max`` and
+    one sum over the axis), where JAX leaves the combine to GSPMD. The
+    cache's whole length is the step builders' ``max_len``
+    (:func:`cache_length`, :func:`needs_cache_length`): a rank's slice does
+    not show it.
+
+Autograd: a tensor every rank holds alike (the normed input, the whole
+K / V) enters a rank's region through :func:`launch.mesh.enter` (backward:
+the ranks' partial cotangents summed), so each whole leaf gets the same full
+gradient on every rank and each sharded leaf its own shard's.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.distribution.sharding import model_group, model_shards
 from repro_torch.kernels.gqa_decode.ops import gqa_decode
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.layers import dense_init, rmsnorm, rmsnorm_init, rope
 
 NEG_INF = -1e30
+_KV_LEN: contextvars.ContextVar[Optional[int]] = contextvars.ContextVar("kv_len", default=None)
+
+
+@contextlib.contextmanager
+def cache_length(max_len: Optional[int]):
+    """The whole length the enclosed steps' KV caches were made for (the
+    step builders' ``max_len``), from which a rank finds whether its cache
+    holds a slice of the sequence."""
+    tok = _KV_LEN.set(max_len)
+    try:
+        yield
+    finally:
+        _KV_LEN.reset(tok)
+
+
+def needs_cache_length(cfg, mesh) -> bool:
+    """True when a rank's KV cache under ``mesh`` may hold a slice of its
+    sequence, which its shape does not tell apart from a whole cache: the
+    config has KV heads and they do not divide the model axis."""
+    k = model_shards(mesh)
+    return k > 1 and cfg.n_kv_heads > 0 and cfg.n_kv_heads % k != 0
 
 
 def _eff_heads(cfg) -> int:
@@ -41,25 +109,6 @@ def _kv_index_for_heads(cfg, device) -> torch.Tensor:
     """KV head feeding each (possibly padded) Q head: grouped GQA mapping."""
     Hq, Hkv, He = cfg.n_heads, cfg.n_kv_heads, _eff_heads(cfg)
     return torch.clamp(torch.arange(He, device=device) * Hkv // Hq, max=Hkv - 1)
-
-
-def _maybe_repeat_kv(cfg, k: torch.Tensor, v: torch.Tensor):
-    """With padded Q heads, gather KV heads up to the padded Q head count
-    (JAX's ``padded`` case; its sharded case needs a model axis > 1)."""
-    Hkv, He = cfg.n_kv_heads, _eff_heads(cfg)
-    if Hkv != He and He != cfg.n_heads:
-        idx = _kv_index_for_heads(cfg, k.device)
-        k, v = k.index_select(2, idx), v.index_select(2, idx)
-    return k, v
-
-
-def _head_mask(cfg, out: torch.Tensor) -> torch.Tensor:
-    """Zero the outputs of padded heads."""
-    He = _eff_heads(cfg)
-    if He == cfg.n_heads:
-        return out
-    mask = (torch.arange(He, device=out.device) < cfg.n_heads).to(out.dtype)
-    return out * mask[None, None, :, None]
 
 
 def attn_init(gen, cfg, dtype, device) -> Dict:
@@ -74,18 +123,6 @@ def attn_init(gen, cfg, dtype, device) -> Dict:
         p["q_norm"] = rmsnorm_init(Dh, dtype, device)
         p["k_norm"] = rmsnorm_init(Dh, dtype, device)
     return p
-
-
-def _project_qkv(params, cfg, x, positions):
-    B, S, _ = x.shape
-    Hq, Hkv, Dh = _eff_heads(cfg), cfg.n_kv_heads, cfg.d_head
-    q = (x @ params["w_q"]).reshape(B, S, Hq, Dh)
-    kv = (x @ params["w_kv"]).reshape(B, S, 2, Hkv, Dh)
-    k, v = kv[:, :, 0], kv[:, :, 1]
-    if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q)
-        k = rmsnorm(params["k_norm"], k)
-    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
 def _block_size(n: int, chunk: int) -> int:
@@ -139,18 +176,127 @@ def chunked_attention(
     return torch.cat(blocks, dim=1).reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Projections and the output, on one device or a rank's shards
+# ---------------------------------------------------------------------------
+
+def _cols(x: torch.Tensor, w: torch.Tensor, width: int, group) -> torch.Tensor:
+    """``x @ w`` whole along the last dim, alike on every rank: ``w`` whole,
+    or the rank's column block, whose products the axis gathers."""
+    if w.shape[-1] == width:
+        return x @ w
+    return mesh_lib.gather(mesh_lib.enter(x, group) @ w, group)
+
+
+def _kv(params, cfg, x: torch.Tensor, positions: torch.Tensor, group):
+    """k (normed, rotated) and v (B, S, Hkv, Dh), whole on every rank."""
+    B, S, _ = x.shape
+    Hkv, Dh = cfg.n_kv_heads, cfg.d_head
+    kv = _cols(x, params["w_kv"], 2 * Hkv * Dh, group).reshape(B, S, 2, Hkv, Dh)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    if cfg.qk_norm:
+        k = rmsnorm(params["k_norm"], k)
+    return rope(k, positions, cfg.rope_theta), v
+
+
+def _own_heads(cfg, params, group) -> Optional[Tuple[int, int]]:
+    """``(h0, n)``: the padded q heads ``w_q``'s columns hold on this rank
+    when they are whole heads of a sharded ``w_q``, else None."""
+    He, Dh = _eff_heads(cfg), cfg.d_head
+    cols = params["w_q"].shape[-1]
+    if cols == He * Dh or He % group.size:
+        return None
+    n = cols // Dh
+    return group.index * n, n
+
+
+def _q(params, cfg, x: torch.Tensor, positions: torch.Tensor, group, local: bool):
+    """q (normed, rotated): ``local`` the rank's own heads (B, S, n, Dh) of
+    :func:`_own_heads`, computed in the rank's region; else all He heads,
+    whole on every rank."""
+    B, S, _ = x.shape
+    He, Dh = _eff_heads(cfg), cfg.d_head
+    q_norm = params.get("q_norm")
+    if local:
+        q = (mesh_lib.enter(x, group) @ params["w_q"]).reshape(B, S, -1, Dh)
+        q_norm = mesh_lib.enter(q_norm, group)
+    else:
+        q = _cols(x, params["w_q"], He * Dh, group).reshape(B, S, He, Dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q_norm, q)
+    return rope(q, positions, cfg.rope_theta)
+
+
+def _rows_sharded(cfg, params) -> bool:
+    """True when ``w_o`` holds the rank's rows: the attention then runs in
+    the rank's region, its output summed over the axis."""
+    return params["w_o"].shape[0] != _eff_heads(cfg) * cfg.d_head
+
+
+def _out_proj(params, cfg, o: torch.Tensor, h0: int, group) -> torch.Tensor:
+    """The block's output from ``o`` (B, S, n Dh): the attention output of
+    padded heads ``[h0, h0 + n)``, the rank's own (its rows of a sharded
+    ``w_o``) or all He of them (its slice of them, or all of a whole
+    ``w_o``)."""
+    Dh = cfg.d_head
+    w = params["w_o"]
+    if not _rows_sharded(cfg, params):
+        return o @ w
+    rows = w.shape[0]
+    lo = group.index * rows
+    if o.shape[-1] != rows or h0 * Dh != lo:
+        o = o[..., lo:lo + rows]
+    return mesh_lib.combine(o @ w, group)
+
+
+def _heads_mask(cfg, o: torch.Tensor, h0: int) -> torch.Tensor:
+    """Zero the outputs of padded heads among ``[h0, h0 + n)``."""
+    n = o.shape[2]
+    if h0 + n <= cfg.n_heads:
+        return o
+    keep = (torch.arange(h0, h0 + n, device=o.device) < cfg.n_heads).to(o.dtype)
+    return o * keep[None, None, :, None]
+
+
+def _kv_for(cfg, k: torch.Tensor, v: torch.Tensor, h0: int, n: int, group):
+    """The KV heads q heads ``[h0, h0 + n)`` read, as JAX's
+    ``_maybe_repeat_kv`` maps them: one a q head (index) where the heads are
+    padded or the KV heads do not divide the model axis, else the groups'
+    own KV heads."""
+    Hkv, He = cfg.n_kv_heads, _eff_heads(cfg)
+    size = 1 if group is None else group.size
+    if Hkv == He or (He == cfg.n_heads and Hkv % size == 0):
+        G = He // Hkv
+        return k[:, :, h0 // G:(h0 + n) // G], v[:, :, h0 // G:(h0 + n) // G]
+    idx = _kv_index_for_heads(cfg, k.device)[h0:h0 + n]
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _prompt_attention(params, cfg, x: torch.Tensor, positions: torch.Tensor, group):
+    """Causal (SWA) attention of a prompt: ``(o, h0, k, v)``, ``o`` (B, S,
+    n Dh) the output of padded heads ``[h0, h0 + n)`` (the rank's own, or
+    all He), k and v whole."""
+    B, S, _ = x.shape
+    He = _eff_heads(cfg)
+    k, v = _kv(params, cfg, x, positions, group)
+    region = group if _rows_sharded(cfg, params) else None  # else all alike, no region
+    own = None if group is None else _own_heads(cfg, params, group)
+    if own is None:
+        q, (h0, n) = mesh_lib.enter(_q(params, cfg, x, positions, group, False), region), (0, He)
+    else:
+        q, (h0, n) = _q(params, cfg, x, positions, group, True), own
+    ka, va = _kv_for(cfg, mesh_lib.enter(k, region), mesh_lib.enter(v, region), h0, n, group)
+    o = chunked_attention(q, ka, va, positions, positions, window=cfg.sliding_window,
+                          chunk_q=cfg.attn_chunk, chunk_k=cfg.attn_chunk)
+    return _heads_mask(cfg, o, h0).reshape(B, S, -1), h0, k, v
+
+
 def attn_train(params, cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d); positions (B, S). Causal (SWA) attention over the
     sequence, no cache."""
-    q, k, v = _project_qkv(params, cfg, x, positions)
-    k, v = _maybe_repeat_kv(cfg, k, v)
-    out = chunked_attention(
-        q, k, v, positions, positions,
-        window=cfg.sliding_window, chunk_q=cfg.attn_chunk, chunk_k=cfg.attn_chunk,
-    )
-    out = _head_mask(cfg, out)
-    B, S = x.shape[:2]
-    return out.reshape(B, S, -1) @ params["w_o"]
+    group = model_group()
+    o, h0, _, _ = _prompt_attention(params, cfg, x, positions, group)
+    return _out_proj(params, cfg, o, h0, group)
 
 
 # ---------------------------------------------------------------------------
@@ -167,50 +313,123 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device) -> Dict:
     }
 
 
+def _cache_layout(cfg, cache: Dict, group) -> Tuple[str, int, int]:
+    """``(kind, lo, size)`` of the rank's KV cache: ``"heads"`` (its KV
+    heads from ``lo``), ``"seq"`` (its slots from ``lo`` of a ``size``-slot
+    cache) or ``"whole"`` (every slot of ``size``)."""
+    Hl, s = cache["k"].shape[2], cache["k"].shape[1]
+    if group is None:
+        return "whole", 0, s
+    if Hl != cfg.n_kv_heads:
+        return "heads", group.index * Hl, s
+    max_len = _KV_LEN.get()
+    if max_len is None:
+        raise ValueError(
+            f"{cfg.name}: {cfg.n_kv_heads} KV heads do not divide the model axis of "
+            f"{group.size}, so the KV cache may hold a slice of its sequence; pass the "
+            "caches' max_len to the step builder (build_decode_step(cfg, mesh, max_len=))")
+    size = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    if s == size:
+        return "whole", 0, size
+    if s * group.size != size:
+        raise ValueError(f"{cfg.name}: a KV cache of {s} slots on a rank is no shard of "
+                         f"{size} over {group.size} ranks")
+    return "seq", group.index * s, size
+
+
+def _store_prompt(cache: Dict, k: torch.Tensor, v: torch.Tensor, lo: int, size: int) -> None:
+    """Write the prompt's K/V rows into the rank's slots ``[lo, lo + s)`` of
+    a ``size``-slot cache, as the whole cache holds them (the last ``size``
+    rows, ring ordered, under SWA)."""
+    S, s = k.shape[1], cache["k"].shape[1]
+    if S >= size:  # keep the last `size` entries (SWA ring; ring origin at pos % size)
+        for key, t in (("k", k), ("v", v)):
+            whole = torch.roll(t[:, S - size:], shifts=S % size, dims=1)
+            cache[key].copy_(whole[:, lo:lo + s])
+        return
+    n = min(max(S - lo, 0), s)
+    if n:
+        cache["k"][:, :n].copy_(k[:, lo:lo + n])
+        cache["v"][:, :n].copy_(v[:, lo:lo + n])
+
+
 def attn_prefill(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """x: (B, S, d). Writes the prompt's K/V (the last ``size`` of them, ring
-    ordered, under SWA) and ``pos = S`` into ``cache`` in place."""
+    ordered, under SWA; under a model axis the rank's KV heads, or its
+    slots) and ``pos = S`` into ``cache`` in place."""
+    group = model_group()
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    q, k, v = _project_qkv(params, cfg, x, positions)
-    k_att, v_att = _maybe_repeat_kv(cfg, k, v)
-    out = chunked_attention(
-        q, k_att, v_att, positions, positions,
-        window=cfg.sliding_window, chunk_q=cfg.attn_chunk, chunk_k=cfg.attn_chunk,
-    )
-    out = _head_mask(cfg, out)
-    size = cache["k"].shape[1]
-    if S >= size:  # keep the last `size` entries (SWA ring; ring origin at pos % size)
-        cache["k"].copy_(torch.roll(k[:, S - size:], shifts=S % size, dims=1))
-        cache["v"].copy_(torch.roll(v[:, S - size:], shifts=S % size, dims=1))
-    else:
-        cache["k"][:, :S].copy_(k)
-        cache["v"][:, :S].copy_(v)
+    o, h0, k, v = _prompt_attention(params, cfg, x, positions, group)
+    kind, lo, size = _cache_layout(cfg, cache, group)
+    if kind == "heads":
+        Hl = cache["k"].shape[2]
+        k, v, lo = k[:, :, lo:lo + Hl], v[:, :, lo:lo + Hl], 0
+    _store_prompt(cache, k.to(cache["k"].dtype), v.to(cache["v"].dtype), lo, size)
     cache["pos"].fill_(S)
-    return out.reshape(B, S, -1) @ params["w_o"], cache
+    return _out_proj(params, cfg, o, h0, group), cache
+
+
+def _lse_combine(o: torch.Tensor, lse: torch.Tensor, group) -> torch.Tensor:
+    """The whole attention output from the ranks' partial ones over their
+    slots, ``o`` (B, Hq, Dh) and its fp32 log-sum-exp (B, Hq): weights
+    ``exp(lse - max lse)``, in fp32."""
+    B, Hq, Dh = o.shape
+    w = torch.exp(lse - group.all_reduce(lse, "max"))  # a rank with no valid slot: 0
+    num = (o.float() * w[..., None]).reshape(B, Hq * Dh)
+    total = group.all_reduce(torch.cat([num, w], dim=-1))
+    return (total[:, :Hq * Dh].reshape(B, Hq, Dh) / total[:, Hq * Dh:, None]).to(o.dtype)
 
 
 def attn_decode(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """x: (B, 1, d). Writes the new K/V row at the slot ``pos % size`` (SWA)
     or ``min(pos, size - 1)`` in place, attends over the ``min(pos + 1,
-    size)`` valid slots through ``gqa_decode``, advances ``pos`` in place."""
+    size)`` valid slots through ``gqa_decode``, advances ``pos`` in place.
+    Under a model axis: B5 on the rank's KV heads, or its log-sum-exp form
+    on the rank's slots, combined across ranks."""
+    group = model_group()
     B = x.shape[0]
-    Hq, Dh = cfg.n_heads, cfg.d_head
-    He = _eff_heads(cfg)
+    Hq, Hkv, Dh, He = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, _eff_heads(cfg)
     pos = cache["pos"]
-    q, k_new, v_new = _project_qkv(params, cfg, x, pos.expand(B, 1))
-    q = q[:, 0, :Hq].contiguous()  # padded heads are masked anyway; skip their compute
-
-    size = cache["k"].shape[1]
+    positions = pos.expand(B, 1)
+    k_new, v_new = _kv(params, cfg, x, positions, group)
+    kind, lo, size = _cache_layout(cfg, cache, group)
+    ck, cv = cache["k"], cache["v"]
+    s = ck.shape[1]
     slot = torch.remainder(pos, size) if cfg.sliding_window else torch.clamp(pos, max=size - 1)
-    slot = slot.reshape(1).long()
-    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
-    lengths = torch.clamp(pos + 1, max=size).expand(B).contiguous()
-
-    out = gqa_decode(q.to(cache["k"].dtype), cache["k"], cache["v"], lengths)
-    out = out.reshape(B, 1, Hq * Dh).to(x.dtype)
-    if He != Hq:  # padded heads contribute zeros through their w_o rows
-        out = torch.nn.functional.pad(out, (0, (He - Hq) * Dh))
+    n_valid = torch.clamp(pos + 1, max=size)
+    h0, n = 0, Hq  # padded heads are masked anyway; skip their compute
+    if kind == "heads":  # the rank's KV heads [lo, lo + Hl) and the q heads that read them
+        Hl = ck.shape[2]
+        k_new, v_new = k_new[:, :, lo:lo + Hl], v_new[:, :, lo:lo + Hl]
+        h0, n = lo * (Hq // Hkv), Hl * (Hq // Hkv)
+    own = None if group is None else _own_heads(cfg, params, group)
+    if own == (h0, n):
+        q = _q(params, cfg, x, positions, group, True)[:, 0]
+    else:
+        q = _q(params, cfg, x, positions, group, False)[:, 0, h0:h0 + n]
+    q = q.to(ck.dtype).contiguous()
+    if kind == "seq":  # the new row lands on the rank that holds its slot
+        mine = (slot >= lo) & (slot < lo + s)
+        at = torch.clamp(slot - lo, 0, s - 1).reshape(1).long()
+        k_new = torch.where(mine, k_new.to(ck.dtype), ck.index_select(1, at))
+        v_new = torch.where(mine, v_new.to(cv.dtype), cv.index_select(1, at))
+        ck.index_copy_(1, at, k_new)
+        cv.index_copy_(1, at, v_new)
+        lengths = torch.clamp(n_valid - lo, 0, s).expand(B).contiguous()
+        o, lse = gqa_decode(q, ck, cv, lengths, return_lse=True)
+        o = _lse_combine(o, lse, group)
+    else:
+        at = slot.reshape(1).long()
+        ck.index_copy_(1, at, k_new.to(ck.dtype))
+        cv.index_copy_(1, at, v_new.to(cv.dtype))
+        o = gqa_decode(q, ck, cv, n_valid.expand(B).contiguous())
+    o = o.reshape(B, 1, n * Dh).to(x.dtype)
     cache["pos"].add_(1)
-    return out @ params["w_o"], cache
+    if own != (h0, n):  # all Hq heads, alike on every rank
+        if n != Hq:
+            o = group.all_gather(o)
+        if He != Hq:  # padded heads contribute zeros through their w_o rows
+            o = F.pad(o, (0, (He - Hq) * Dh))
+        h0 = 0
+    return _out_proj(params, cfg, o, h0, group), cache

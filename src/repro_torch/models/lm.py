@@ -39,7 +39,9 @@ Under a mesh whose model axis divides the padded vocab (the step builders'
 ``sharding.use_rules``) ``embed`` and ``unembed`` are this rank's blocks of
 it: the lookup and the head run vocab-parallel
 (``distribution/tensor_parallel.py``), and the logits come back gathered
-to the whole vocab on every rank.
+to the whole vocab on every rank. The attention and Mamba blocks
+(``models/attention.py``, ``mamba.py``) and the dense MLP (:func:`_mlp`)
+run the rank's shards of their leaves and caches under a model axis.
 """
 from __future__ import annotations
 
@@ -52,7 +54,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.distribution import tensor_parallel
+from repro_torch.distribution.sharding import model_group
 from repro_torch.kernels.fused_rnn import layout
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import attention, mamba, moe, rnn
 from repro_torch.models.layers import (
     _dtype,
@@ -120,12 +124,20 @@ def _attn_block_init(gen, cfg, dtype, device) -> Dict:
     return p
 
 
+def _mlp(params, cfg, x):
+    """``mlp_apply``; under a model axis on the rank's "ff" columns of
+    ``w_gate`` / ``w_up`` (the nonlinearity is elementwise) and rows of
+    ``w_down``, the partial products summed (whole leaves: whole)."""
+    group = None if params["w_down"].shape[0] == cfg.d_ff else model_group()
+    return mesh_lib.combine(mlp_apply(params, mesh_lib.enter(x, group), cfg.mlp_type), group)
+
+
 def _ffn(params, cfg, h):
     """The block's second half: pre-norm MLP or mixture of experts, plus residual."""
     z = rmsnorm(params["ln2"], h)
     if cfg.moe:
         return h + moe.moe_apply(params["moe"], cfg, z)
-    return h + mlp_apply(params["mlp"], z, cfg.mlp_type)
+    return h + _mlp(params["mlp"], cfg, z)
 
 
 def _attn_block_apply(params, cfg, x, positions):

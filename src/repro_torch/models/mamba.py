@@ -1,5 +1,6 @@
 """Mamba-2 block (SSD core), from ``repro/models/mamba.py``: the matrix-state
-consumer of the paper's technique.
+consumer of the paper's technique, on one device or on a rank's shards under
+a model axis.
 
 Projections are separate per component (z, x, B, C, dt) and so are the
 causal depthwise convs, with the JAX package's keys. Prefill and decode run
@@ -14,6 +15,23 @@ return the same dict: the kernel writes the new state into ``ssm`` (at
 decode over the old one), and the conv tails are copied into their
 buffers. As in JAX, prefill starts from a zero state and zero tails and does
 not read the cache it is given.
+
+Under a mesh's model axis (the step builders' ``sharding.use_rules``), where
+``d_inner`` divides it, JAX's rules shard the mixer over "ff": ``in_z``,
+``in_x``, ``conv_x`` and ``gnorm`` hold the rank's ``d_inner`` channels and
+``out_proj`` its rows; ``in_b``, ``in_c``, ``in_dt``, the B/C convs,
+``A_log``, ``D`` and ``dt_bias`` are whole and computed whole. Where the
+heads divide, the channels are whole heads: the SSD runs on the rank's
+``H/k`` heads (B4 unchanged in prefill and decode, ``ssd_chunked`` in
+training) with its heads of the state at rest (``cache_specs``), each head
+reading its own group's B and C; else the channels are gathered and the SSD
+runs whole, as the state is held (JAX's fallback). ``gnorm`` is one RMSNorm
+over all of ``d_inner``: its sum of squares is summed over the axis first.
+Whole ``ff`` leaves (one device, or ``d_inner`` indivisible) run whole. The
+collectives are ``launch/mesh.py``'s autograd ones, the identity with no
+model axis; a tensor every rank holds alike (the normed input, B, C, dt)
+enters the rank's region through ``enter``, so the train step's backward
+comes with the forward.
 """
 from __future__ import annotations
 
@@ -23,8 +41,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.ssd import ssd_chunked
+from repro_torch.distribution.sharding import model_group
 from repro_torch.kernels.ssd.ops import ssd
-from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models.layers import dense_init
+
+_EPS = 1e-6  # layers.rmsnorm's
 
 
 def mamba_init(gen: torch.Generator, cfg, dtype, device) -> Dict:
@@ -84,36 +106,99 @@ def _softplus(v: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(v, torch.zeros_like(v))
 
 
-def _project(params, x: torch.Tensor):
-    """z, x, B, C projections and dt = softplus(x @ in_dt + dt_bias) in fp32."""
+def _group(cfg, params):
+    """The model axis the mixer's "ff" leaves are sharded over, or None:
+    no model axis, or whole leaves (``d_inner`` indivisible), which every
+    rank computes alike."""
+    group = model_group()
+    return None if params["in_x"].shape[-1] == cfg.d_inner else group
+
+
+def _heads(cfg, group) -> Tuple[int, int]:
+    """``(h0, n)``: the heads whose SSD this rank runs: its own ``H/k``
+    where the heads divide the axis, else all ``H`` (its channels split
+    heads; the state is whole)."""
+    H = cfg.ssm_heads
+    if group is None or H % group.size:
+        return 0, H
+    n = H // group.size
+    return group.index * n, n
+
+
+def _whole_parts(params, cfg, x: torch.Tensor, tail_b=None, tail_c=None, impl="shift"):
+    """The mixer's products of its whole leaves, alike on every rank: the
+    convolved B and C (with their new tails), dt = softplus(x @ in_dt +
+    dt_bias) and A, in fp32."""
     dt = _softplus((x @ params["in_dt"]).float() + params["dt_bias"])
-    return (x @ params["in_z"], x @ params["in_x"], x @ params["in_b"], x @ params["in_c"],
-            dt)
+    bi, tail_b = _causal_conv(x @ params["in_b"], params["conv_b"], tail_b, impl=impl)
+    ci, tail_c = _causal_conv(x @ params["in_c"], params["conv_c"], tail_c, impl=impl)
+    return bi, ci, dt, -torch.exp(params["A_log"]), tail_b, tail_c
 
 
-def _gate_out(params, cfg, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def _own_in(params, x: torch.Tensor, group):
+    """z and x on the rank's channels (all of them without a model axis)."""
+    xr = mesh_lib.enter(x, group)
+    return xr @ params["in_z"], xr @ params["in_x"]
+
+
+def _ssd_operands(params, cfg, xi, bi, ci, dt, A, heads, group):
+    """The SSD's operands of heads ``heads`` inside the rank's region: the
+    rank's convolved channels ``xi`` (B, S, d_inner / k) as (B, S, n, P)
+    (or gathered whole), and the heads' slices of dt, A, D and of B, C
+    (entered: every rank holds them whole): their groups where the heads
+    fall on whole groups or inside one, else each head its group's (G = n)."""
+    B, S = xi.shape[:2]
+    G, N, H, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    h0, n = heads
+    if n == H:
+        xi = mesh_lib.enter(mesh_lib.gather(xi, group), group)
+    bi, ci, dt, A, D = (mesh_lib.enter(t, group) for t in (bi, ci, dt, A, params["D"]))
+    bi, ci = bi.reshape(B, S, G, N), ci.reshape(B, S, G, N)
+    per = H // G
+    if n % per == 0 or per % n == 0:
+        g0, g1 = h0 // per, max(h0 // per + 1, (h0 + n) // per)
+        bi, ci = bi[:, :, g0:g1], ci[:, :, g0:g1]
+    else:  # the rank's heads split groups
+        idx = torch.arange(h0, h0 + n, device=bi.device) // per
+        bi, ci = bi.index_select(2, idx), ci.index_select(2, idx)
+    return (xi.reshape(B, S, n, P), dt[..., h0:h0 + n].contiguous(), A[h0:h0 + n].contiguous(),
+            bi, ci, D[h0:h0 + n].contiguous())
+
+
+def _gate_out(params, cfg, y: torch.Tensor, z: torch.Tensor, group) -> torch.Tensor:
+    """``rmsnorm(gnorm, y * silu(z)) @ out_proj`` on the rank's channels:
+    the sum of squares over all of d_inner summed over the axis, the rank's
+    ``gnorm`` channels and ``out_proj`` rows, the products combined. ``y``
+    is the SSD output (the rank's channels taken from it when it is
+    whole)."""
     B, S = y.shape[:2]
-    y = rmsnorm(params["gnorm"], y.reshape(B, S, cfg.d_inner) * F.silu(z))
-    return y @ params["out_proj"]
+    y = y.reshape(B, S, -1)
+    di = z.shape[-1]
+    if y.shape[-1] != di:
+        lo = group.index * di
+        y = y[..., lo:lo + di]
+    u = y * F.silu(z)
+    uf = u.float()
+    ss = mesh_lib.enter(mesh_lib.combine(torch.sum(uf * uf, dim=-1, keepdim=True), group), group)
+    u = (uf * torch.rsqrt(ss / cfg.d_inner + _EPS) * params["gnorm"].float()).to(u.dtype)
+    return mesh_lib.combine(u @ params["out_proj"], group)
 
 
 def mamba_apply(params, cfg, x: torch.Tensor, *, engine: Optional[str] = None) -> torch.Tensor:
     """Train/prefill path without caches (the training forward). x: (B, S, d)."""
-    B, S, _ = x.shape
-    G, N, H, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    z, xi, bi, ci, dt = _project(params, x)
+    group = _group(cfg, params)
+    heads = _heads(cfg, group)
+    S = x.shape[1]
+    bi, ci, dt, A, _, _ = _whole_parts(params, cfg, x, impl=cfg.conv_impl)
+    z, xi = _own_in(params, x, group)
     xi, _ = _causal_conv(xi, params["conv_x"], impl=cfg.conv_impl)
-    bi, _ = _causal_conv(bi, params["conv_b"], impl=cfg.conv_impl)
-    ci, _ = _causal_conv(ci, params["conv_c"], impl=cfg.conv_impl)
-    A = -torch.exp(params["A_log"])
     y = ssd_chunked(
-        xi.reshape(B, S, H, P), dt, A, bi.reshape(B, S, G, N), ci.reshape(B, S, G, N),
-        params["D"],
+        *_ssd_operands(params, cfg, xi, bi, ci, dt, A, heads, group),
         chunk=min(cfg.ssd_chunk, S),
         engine=engine or ("associative" if cfg.scan_engine == "pallas" else cfg.scan_engine),
         intra_dtype=torch.bfloat16 if cfg.ssd_intra_dtype == "bfloat16" else None,
     )
-    return _gate_out(params, cfg, y, z)
+    return _gate_out(params, cfg, y, z, group)
 
 
 def mamba_init_cache(cfg, batch: int, dtype, device) -> Dict:
@@ -130,38 +215,32 @@ def mamba_init_cache(cfg, batch: int, dtype, device) -> Dict:
 
 def mamba_prefill(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """x: (B, S, d). Like ``mamba_apply``, from a zero state and zero conv
-    tails; writes the state after the prompt and the new tails into
-    ``cache`` in place."""
-    B, S, _ = x.shape
-    G, N, H, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    z, xi, bi, ci, dt = _project(params, x)
+    tails; writes the state after the prompt (the rank's heads of it under
+    a model axis) and the new tails into ``cache`` in place."""
+    group = _group(cfg, params)
+    heads = _heads(cfg, group)
+    S = x.shape[1]
+    bi, ci, dt, A, tail_b, tail_c = _whole_parts(params, cfg, x, impl=cfg.conv_impl)
+    z, xi = _own_in(params, x, group)
     xi, tail_x = _causal_conv(xi, params["conv_x"], impl=cfg.conv_impl)
-    bi, tail_b = _causal_conv(bi, params["conv_b"], impl=cfg.conv_impl)
-    ci, tail_c = _causal_conv(ci, params["conv_c"], impl=cfg.conv_impl)
-    A = -torch.exp(params["A_log"])
-    y, _ = ssd(
-        xi.reshape(B, S, H, P), dt, A, bi.reshape(B, S, G, N), ci.reshape(B, S, G, N),
-        params["D"], chunk=min(cfg.ssd_chunk, S), state_out=cache["ssm"],
-    )
+    y, _ = ssd(*_ssd_operands(params, cfg, xi, bi, ci, dt, A, heads, group),
+               chunk=min(cfg.ssd_chunk, S), state_out=cache["ssm"])
     for key, tail in (("conv_x", tail_x), ("conv_b", tail_b), ("conv_c", tail_c)):
         cache[key].copy_(tail)
-    return _gate_out(params, cfg, y, z), cache
+    return _gate_out(params, cfg, y, z, group), cache
 
 
 def mamba_decode(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """x: (B, 1, d). O(1) per-token decode: the conv tails and the SSM state
     of ``cache`` are updated in place."""
-    B = x.shape[0]
-    G, N, H, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    z, xi, bi, ci, dt = _project(params, x)
+    group = _group(cfg, params)
+    heads = _heads(cfg, group)
+    bi, ci, dt, A, tail_b, tail_c = _whole_parts(params, cfg, x, cache["conv_b"],
+                                                 cache["conv_c"])
+    z, xi = _own_in(params, x, group)
     xi, tail_x = _causal_conv(xi, params["conv_x"], cache["conv_x"])
-    bi, tail_b = _causal_conv(bi, params["conv_b"], cache["conv_b"])
-    ci, tail_c = _causal_conv(ci, params["conv_c"], cache["conv_c"])
-    A = -torch.exp(params["A_log"])
-    y, _ = ssd(
-        xi.reshape(B, 1, H, P), dt, A, bi.reshape(B, 1, G, N), ci.reshape(B, 1, G, N),
-        params["D"], initial_state=cache["ssm"], chunk=1, state_out=cache["ssm"],
-    )
+    y, _ = ssd(*_ssd_operands(params, cfg, xi, bi, ci, dt, A, heads, group),
+               initial_state=cache["ssm"], chunk=1, state_out=cache["ssm"])
     for key, tail in (("conv_x", tail_x), ("conv_b", tail_b), ("conv_c", tail_c)):
         cache[key].copy_(tail)
-    return _gate_out(params, cfg, y, z), cache
+    return _gate_out(params, cfg, y, z, group), cache

@@ -40,10 +40,12 @@ from repro_torch.kernels.linear_scan import linear_scan
 from repro_torch.kernels.ssd import ssd
 
 #: (module, attribute) of every kernel wrapper's launch counter; the fused
-#: RNN wrappers count their fp and int8 instances apart.
+#: RNN wrappers count their fp and int8 instances apart, the decode
+#: attention its log-sum-exp form.
 KERNEL_COUNTERS = ((fused_rnn, "LAUNCHES"), (fused_rnn, "LAUNCHES_INT8"),
                    (stacked, "LAUNCHES"), (stacked, "LAUNCHES_INT8"),
-                   (linear_scan, "LAUNCHES"), (gqa_decode, "LAUNCHES"), (ssd, "LAUNCHES"))
+                   (linear_scan, "LAUNCHES"), (gqa_decode, "LAUNCHES"),
+                   (gqa_decode, "LAUNCHES_LSE"), (ssd, "LAUNCHES"))
 
 
 @contextlib.contextmanager

@@ -13,9 +13,12 @@ leaves and MoE experts (:func:`build_train_step`).
 
 Every serving builder takes a ``mesh`` (``launch/mesh.py``), as JAX's do:
 each rank then allocates its shards of the caches
-(``fused_sharded.rank_cache_specs``: the RNN carries (L, B, H) with their
-lanes over "model" where H divides, the batch over "data") and runs the
-step under ``sharding.use_rules``, so the RNN layers and the vocab leaves
+(``fused_sharded.rank_cache_specs``, JAX's ``cache_specs``: the RNN
+carries (L, B, H) with their lanes over "model" where H divides, the KV
+caches over their heads or else their sequence, the SSM state over its
+heads, the batch over "data") and runs the step under
+``sharding.use_rules``, so the RNN layers, the vocab leaves and the
+attention, MLP and Mamba blocks (``models/attention.py``, ``mamba.py``)
 run per rank. The batch path's steps (``build_prefill_step``,
 ``build_decode_step``) take this rank's shards of the inputs. The
 lane-masked steps of continuous batching take the global (B,) lane mask and
@@ -35,7 +38,7 @@ from repro_torch.configs import shapes
 from repro_torch.distribution import fused_sharded
 from repro_torch.distribution import sharding as shd
 from repro_torch.distribution.sharding import local_shape, use_rules
-from repro_torch.models import lm, rnn
+from repro_torch.models import attention, lm, rnn
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, cosine_schedule
 from repro_torch.optim.compression import compress_grads, ef_init
 from repro_torch.tree import tree_leaves, tree_map, unflatten_like
@@ -249,7 +252,10 @@ def build_train_step(
         are reduce-scattered to the shards and AdamW runs on the shard.
       * model: the RNN layers (``distribution/fused_sharded.py`` for the
         fused engines, ``distribution/tensor_parallel.py`` for the others,
-        ``pallas`` on B3 per rank, and the LSTM), the vocab leaves and MoE's
+        ``pallas`` on B3 per rank, and the LSTM), the vocab leaves, the
+        attention, dense MLP and Mamba blocks
+        (``models/attention.py``, ``mamba.py``, ``lm._mlp``: the rank's
+        heads, "ff" columns and rows, ``ssd_chunked`` on its Mamba heads) and MoE's
         expert-parallel layer run per rank through ``launch/mesh.py``'s
         autograd collectives; each model-sharded leaf gets its own shard's
         grad, the leaves held whole on every model rank get equal grads
@@ -338,7 +344,7 @@ def build_prefill_step(cfg, mesh=None, *, batch: int, max_len: int, device="cuda
     global ``batch``), then one MTS prefill over the prompt."""
 
     def prefill_step(params, inputs: Dict):
-        with torch.inference_mode(), _under(mesh):
+        with torch.inference_mode(), _under(mesh), attention.cache_length(max_len):
             caches = _init_caches(cfg, mesh, batch, max_len, device)
             return lm.lm_prefill(params, cfg, inputs, caches)
 
@@ -353,9 +359,13 @@ def _copy_into(dst, src):
             dst[k].copy_(v)
 
 
-def build_decode_step(cfg, mesh=None):
+def build_decode_step(cfg, mesh=None, *, max_len: Optional[int] = None):
     """``decode_step(params, caches, token) -> (logits, caches)`` (under
-    ``mesh``, per rank, as ``build_prefill_step``). The caches
+    ``mesh``, per rank, as ``build_prefill_step``; ``max_len`` is the
+    length the caches were made for, required where the KV heads do not
+    divide the model axis (``attention.needs_cache_length``): a rank's cache
+    may then hold a slice of the sequence, which its shape does not tell
+    apart from a whole cache, and the builder raises without it). The caches
     are updated in place and returned: the port's form of the JAX package's
     ``donate_argnums``, which keeps every cache buffer where it is. Attention
     layers write their new K/V row in place (``models/attention.py``) and
@@ -363,8 +373,14 @@ def build_decode_step(cfg, mesh=None):
     nothing is copied for them; the small RNN caches come back new and are
     copied into the old buffers."""
 
+    if max_len is None and attention.needs_cache_length(cfg, mesh):
+        raise ValueError(
+            f"{cfg.name}: {cfg.n_kv_heads} KV heads do not divide the model axis of "
+            f"{shd.model_shards(mesh)}, so the KV cache may hold a slice of its sequence; "
+            "pass the caches' max_len (build_decode_step(cfg, mesh, max_len=))")
+
     def decode_step(params, caches, token):
-        with torch.inference_mode(), _under(mesh):
+        with torch.inference_mode(), _under(mesh), attention.cache_length(max_len):
             logits, new = lm.lm_decode_step(params, cfg, caches, token)
             if new is not caches:
                 _copy_into(caches, new)

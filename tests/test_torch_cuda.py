@@ -755,6 +755,31 @@ def test_gqa_decode_kernel_matches_plain(device, case, dtype):
     _close((out,), (ref,), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S", [32, 4096])
+def test_gqa_decode_kernel_lse_form_matches_plain(device, S, dtype):
+    """The log-sum-exp form with one split and with many, lanes of length
+    0 among them: the output as the plain version's (0 on an empty lane),
+    the lse within 2e-5 where the length is above 0 and -inf exactly where
+    it is 0; counted apart from B5's other launches."""
+    B, Hkv, G, Dh = 6, 1, 48, 128
+    g = torch.Generator(device=device).manual_seed(S + 7)
+    q = torch.randn((B, Hkv * G, Dh), generator=g, device=device).to(dtype)
+    k, v = (torch.randn((B, S, Hkv, Dh), generator=g, device=device).to(dtype)
+            for _ in range(2))
+    lens = torch.tensor([0, S, 1, 0, S // 2 + 3, 17], dtype=torch.int32, device=device)
+    before, before_lse = gqa_kernel.LAUNCHES, gqa_kernel.LAUNCHES_LSE
+    out, lse = gqa_decode(q, k, v, lens, return_lse=True)
+    assert (gqa_kernel.LAUNCHES, gqa_kernel.LAUNCHES_LSE) == (before, before_lse + 1)
+    ref, ref_lse = gqa_decode_ref(q, k, v, lens, return_lse=True)
+    torch.cuda.synchronize()
+    empty = (lens == 0)[:, None].expand_as(lse)
+    assert torch.equal(torch.isneginf(lse), empty) and torch.equal(torch.isneginf(ref_lse), empty)
+    assert bool((out[lens == 0] == 0).all())
+    _close((out,), (ref,), dtype)
+    assert (lse[~empty] - ref_lse[~empty]).abs().max().item() <= 2e-5
+
+
 def test_gqa_decode_kernel_truncated_prefix(device):
     """Rows past the length do not leak: the result equals attention over
     the prefix alone (``tests/test_kernels.py``'s check), fp32."""
@@ -916,8 +941,8 @@ def test_gqa_decode_launcher_refuses_bad_arguments(device):
 
     def rc(dtype=0, n_g=3, n_dh=128, n_split=1, rows=64):
         return lib.gqa_decode_launch(dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     lens.data_ptr(), out.data_ptr(), None, None, None, 2, 64,
-                                     4, n_g, n_dh, n_split, rows, stream)
+                                     lens.data_ptr(), out.data_ptr(), None, None, None, None, 2,
+                                     64, 4, n_g, n_dh, n_split, rows, stream)
 
     assert rc() == 0
     assert rc(dtype=2) == -2

@@ -740,16 +740,18 @@ def test_train_step_matches_jax_sharded_step(runs, name):
 def test_elastic_restore_onto_another_mesh(runs, arch, tmp_path):
     """A state saved from (2, 1) FSDP shards restores bit for bit onto
     (1, 2) (the vocab leaves then sharded over ``model``, and the SRU
-    stack's cell leaves); the files and manifest are byte-equal to a single-device save of the same
-    state, and JAX's ``CheckpointManager`` restores them."""
+    stack's cell leaves and mamba2's ``ff`` leaves); the files and manifest
+    are byte-equal to a single-device save of the same state, and JAX's
+    ``CheckpointManager`` restores them."""
     import jax
 
     from repro.checkpoint import CheckpointManager as JaxManager
 
     got = runs["ranks"][(1, 2)]["elastic"][arch]
     assert got["equal"] and got["data_state"] == DATA_STATE
-    # embed and unembed (and the SRU's w and b), in the params and both moments
-    assert got["sharded"] == 3 * {"mamba2-2.7b": 2, "sru-paper-large-stacked": 4}[arch]
+    # embed and unembed (and the SRU's w and b, mamba2's in_z, in_x, conv_x,
+    # gnorm and out_proj), in the params and both moments
+    assert got["sharded"] == 3 * {"mamba2-2.7b": 7, "sru-paper-large-stacked": 4}[arch]
     whole = steps.init_train_state(torch.Generator().manual_seed(0), get_config(arch).reduced(),
                                    device="cpu")
     CheckpointManager(str(tmp_path)).save(ELASTIC_STEP, whole, DATA_STATE)

@@ -330,7 +330,14 @@ def test_rank_specs_keep_the_model_axis_only_where_the_port_shards():
     p_moe = shapes.param_shapes(moe)
     r = fs.rank_specs(moe, fs.serving_param_specs(p_moe, mesh), mesh)
     assert r["layers"]["moe"]["e_up"] == (None, "model", None, None)  # 128 experts over 4
-    assert r["layers"]["attn"]["w_q"] == (None, None, None)  # attention: whole
+    assert r["layers"]["attn"]["w_q"] == (None, None, "model")  # He Dh = 8192 over 4
+    assert r["layers"]["attn"]["w_o"] == (None, "model", None)
+    assert r["layers"]["ln1"] == (None, None)
+    llama = get_config("llama3-8b")
+    r_llama = fs.rank_specs(llama, fs.serving_param_specs(shapes.param_shapes(llama), mesh),
+                            mesh)
+    assert r_llama["layers"]["mlp"]["w_down"] == (None, "model", None)
+    assert r_llama["layers"]["attn"]["w_kv"] == (None, None, "model")
     assert fs.rank_specs(moe.with_(moe_impl="sorted"), fs.serving_param_specs(p_moe, mesh),
                          mesh)["layers"]["moe"]["e_up"] == (None, None, None, None)
     one = mesh_lib.Mesh({"data": 2, "model": 1})  # a model axis of one rank shards nothing
@@ -341,6 +348,8 @@ def test_rank_specs_keep_the_model_axis_only_where_the_port_shards():
     assert cs["layers"]["c"] == (None, "data", "model")
     assert fs.rank_cache_specs(xla, caches, mesh)["layers"]["c"] == (None, "data", "model")
     assert fs.rank_cache_specs(cfg, caches, one)["layers"]["c"] == (None, "data", None)
+    kv = fs.rank_cache_specs(llama, lm.lm_init_caches(llama, 8, 64, device="meta"), mesh)
+    assert kv["layers"]["k"] == (None, "data", None, "model", None)  # 8 KV heads over 4
 
 
 PAPER = sorted(n for n in REGISTRY if get_config(n).cell is not None)
