@@ -427,7 +427,9 @@ CKPT_GEN_LEN = 32
 CKPT_DIR = ROOT / "build" / "checkpoint"
 # The sharded phase: serving on a (1, 2) mesh of gloo ranks sharing the one
 # card, fp32 compute, against the single-device serve; (2, 2) for the data
-# axis; MoE's expert-parallel schedule at full width, one layer.
+# axis; MoE's expert-parallel schedule (``shard_map``) at full width, one
+# layer, held to ``sorted`` on one rank (SHARDED_MOE); the MoE LMs' other
+# layouts under the model axis in part (i).
 SHARDED_RUNS = ("sru-paper-large-stacked", "sru-paper-large-stacked-ring",
                 "qrnn-paper-large-fused", "sru-paper-large-int8", "qrnn-paper-large-stacked-int8")
 SHARDED_DATA_RUN = "sru-paper-large-stacked"
@@ -461,17 +463,24 @@ SHARD_CASES = (("sru_identity", 1024, 2, 1, False), ("sru_identity", 1024, 4, 1,
 SHARD_MIXED_CASES = (("sru_identity", 1024, 2, 1), ("qrnn", 1024, 2, 1))
 SHARDED_DIR = ROOT / "build" / "sharded"
 # Sharded training (the sharded phase's last part): (arch, engine, model
-# axis, fsdp) trained SHARDED_TRAIN_STEPS steps by two gloo ranks sharing the
-# card, fp32 compute, TF32 off, TRAIN_BATCH x TRAIN_SEQ tokens a step, against
-# the single-device fp32 run on the card: the SRU stack on (1, 2) (the
-# barrier: B1 a layer and rank forward, B3 in the backward's recompute), the
-# QRNN stack on (2, 1) with FSDP (B2 on each data rank's rows, B3), and the
-# SRU layer under pallas on (1, 2) (part (g): the gate GEMM on the rank's
-# lanes, B3 forward and its one-launch backward per rank, the vocab leaves
-# vocab-parallel).
-SHARDED_TRAIN_RUNS = (("sru-paper-large-stacked", None, 2, False),
-                      ("qrnn-paper-large-stacked", None, 1, True),
-                      ("sru-paper-large", "pallas", 2, False))
+# axis, fsdp, config overrides) trained SHARDED_TRAIN_STEPS steps by two gloo
+# ranks sharing the card, fp32 compute, TF32 off, TRAIN_BATCH x TRAIN_SEQ
+# tokens a step, against the single-device fp32 run on the card: the SRU
+# stack on (1, 2) (the barrier: B1 a layer and rank forward, B3 in the
+# backward's recompute), the QRNN stack on (2, 1) with FSDP (B2 on each data
+# rank's rows, B3; the depth-fused stack gathers its whole stack at its
+# call), the SRU layer under pallas on (1, 2) (part (g): the gate GEMM on the
+# rank's lanes, B3 forward and its one-launch backward per rank, the vocab
+# leaves vocab-parallel), and smollm-360m at full width cut to 8 of its 32
+# layers on (2, 1) with FSDP, gathered a layer at a time inside each block's
+# remat region (no kernel of ours: attention trains through plain PyTorch).
+# Each run reports each rank's peak memory over its steps (the whole state
+# drawn, sharded and freed before) and the largest all_gather over "data", of
+# all leaves and of the layer leaves.
+SHARDED_TRAIN_RUNS = (("sru-paper-large-stacked", None, 2, False, {}),
+                      ("qrnn-paper-large-stacked", None, 1, True, {}),
+                      ("sru-paper-large", "pallas", 2, False, {}),
+                      ("smollm-360m", None, 1, True, {"n_layers": 8}))
 SHARDED_TRAIN_STEPS = 2
 # The CPU tests' limits against JAX's sharded step (tests/test_torch_sharded_
 # train.py): loss 3e-5; grad norm, as a grad, and params after the steps 5e-4.
@@ -521,6 +530,26 @@ SHARDED_TP_GEN = 8
 # launches the expected; a decode step split into the collectives and the rest.
 SHARDED_LM_RUNS = (("llama3-8b", 2), ("granite-20b", 2), ("mamba2-2.7b", 2), ("zamba2-7b", 7))
 SHARDED_LM_BYTES = 0.55
+# (i) The MoE experts under the model axis, on the (1, 2) ranks of (c): each
+# of SHARDED_MOE_LM_RUNS, (name, arch, config overrides), at full width cut to
+# 1 layer, B = 4, prompt 64, SHARDED_TP_GEN tokens, fp32, under the config's
+# own ``sorted`` schedule: mixtral-8x22b (its 8 experts over "model", 4 a
+# rank, run on their rows of the whole dispatch buffer and gathered over the
+# expert dim; B5 on the rank's 4 of 8 KV heads in the 4096-slot SWA ring),
+# and a stand-in for mixtral's production layout (8 experts on a 16-wide
+# axis: JAX's ``ff_moe`` fallback), whose 16 ranks could not share one card
+# (each would draw the whole 11.7 GB layer before slicing): the same config
+# with 3 experts, which do not divide 2, so each rank holds f / 2 = 8192
+# columns of every expert and the partial outputs are summed over the axis.
+# Against the single-device run: tokens equal, SHARDED_LOGIT_STEPS
+# teacher-forced logits at SHARDED_TOL, each rank's expert leaf bytes
+# SHARDED_MOE_SHARE of the whole within SHARDED_MOE_SHARE_TOL, each rank's
+# launches the expected (B5 a decode step); a decode step split into the
+# collectives and the rest.
+SHARDED_MOE_LM_RUNS = (("mixtral-8x22b", "mixtral-8x22b", {}),
+                       ("mixtral-8x22b ff_moe stand-in (n_experts=3)", "mixtral-8x22b",
+                        {"n_experts": 3}))
+SHARDED_MOE_SHARE, SHARDED_MOE_SHARE_TOL = 0.5, 0.01
 SHARDED_CONT_RUNS = {"plain": ("sru-paper-large-stacked", "plain", False),
                      "prefix": ("sru-paper-large-stacked", "prefix", False),
                      "oracle": ("sru-paper-large-stacked", "plain", True),
@@ -3357,17 +3386,28 @@ def _cont_rank(run, model_axis, device, counters, split):
                       if not x.startswith("continuous-stats ")][:4]}
 
 
-def _lm_cfg(arch, k, layers=None):
-    """(g), (h): the serve flags of ``arch`` on ``k`` model ranks and its
-    fp32 config, cut to ``layers`` when given."""
+def _lm_runs(part=None):
+    """(part, result key, name, arch, layers kept, config overrides) of
+    SHARDED_LM_RUNS (part "h") and SHARDED_MOE_LM_RUNS ("i"), or of one
+    part."""
+    runs = ([("h", f"lm {arch}", arch, arch, layers, {}) for arch, layers in SHARDED_LM_RUNS]
+            + [("i", f"lm {name}", name, arch, 1, over) for name, arch, over in
+               SHARDED_MOE_LM_RUNS])
+    return [r for r in runs if part in (None, r[0])]
+
+
+def _lm_cfg(arch, k, layers=None, over=None):
+    """(g), (h), (i): the serve flags of ``arch`` on ``k`` model ranks and
+    its fp32 config, cut to ``layers`` when given, with ``over``'s fields."""
     args = _sharded_args(arch, k, gen=SHARDED_TP_GEN)
-    cfg = _sharded_cfg(args)
+    cfg = _sharded_cfg(args).with_(**(over or {}))
     return args, (cfg if layers is None else cfg.with_(n_layers=layers))
 
 
-def _tp_rank(arch, model_axis, device, counters, layers=None):
-    """(g), (h) One rank of ``arch`` (SHARDED_TP_RUNS on its own engine, or
-    SHARDED_LM_RUNS cut to ``layers``): the serve through
+def _tp_rank(arch, model_axis, device, counters, layers=None, over=None):
+    """(g), (h), (i) One rank of ``arch`` (SHARDED_TP_RUNS on its own engine,
+    or SHARDED_LM_RUNS / SHARDED_MOE_LM_RUNS cut to ``layers``, with
+    ``over``'s fields): the serve through
     ``serve.serve_mesh`` (every count set to 0 just before, read just
     after), then its teacher-forced logits and a decode step split into the
     collectives and the rest."""
@@ -3379,7 +3419,7 @@ def _tp_rank(arch, model_axis, device, counters, layers=None):
     from repro_torch.models import lm
 
     t0 = time.perf_counter()
-    args, cfg = _lm_cfg(arch, model_axis, layers)
+    args, cfg = _lm_cfg(arch, model_axis, layers, over)
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     with contextlib.redirect_stdout(io.StringIO()) as buf:
@@ -3460,65 +3500,80 @@ def _expected_lm_launches(cfg, k: int, decode_steps: int) -> dict:
     return want
 
 
-def _sharded_lm(single, ref_logits, ranks, totals):
-    """(h): each of SHARDED_LM_RUNS on the (1, 2) ranks against the
-    single-device run: the tokens equal, the logits within SHARDED_TOL, the
-    ranks alike, each rank's attention/MLP/Mamba leaf bytes at most
-    SHARDED_LM_BYTES of the whole and half the vocab bytes, each rank's
-    launches the expected. Emits a line each; returns the part's seconds on
-    the ranks."""
+def _sharded_lm(single, ref_logits, ranks, totals, part):
+    """(h), (i): each run of ``part`` (``_lm_runs``) on the (1, 2) ranks
+    against the single-device run: the tokens equal, the logits within
+    SHARDED_TOL, the ranks alike, each rank's attention/MLP/Mamba leaf
+    bytes at most SHARDED_LM_BYTES of the whole, half the vocab bytes and,
+    for an MoE LM, SHARDED_MOE_SHARE of the expert bytes (within
+    SHARDED_MOE_SHARE_TOL), each rank's launches the expected. Emits a line
+    each; returns the part's seconds on the ranks."""
+    from repro_torch.distribution import fused_sharded
+    from repro_torch.launch.mesh import Mesh
+
     gloo = "gloo ranks sharing one card: the times are not multi-GPU speed"
     seconds = 0.0
-    for arch, layers in SHARDED_LM_RUNS:
-        key = f"lm {arch}"
+    for _, key, name, arch, layers, over in _lm_runs(part):
         mine = [r[key] for r in ranks]
         st = mine[0]["stats"]
-        _, cfg = _lm_cfg(arch, 2, layers)
+        _, cfg = _lm_cfg(arch, 2, layers, over)
         want = _expected_lm_launches(cfg, 2, st["decode_steps"])
         diff = (mine[0]["logits"] - ref_logits[key]).abs().max().item()
         seconds += max(m["seconds"] for m in mine)
         split = [m["split"] for m in mine]
-        emit({"phase": "sharded", "lm": arch, "layers": layers, "mesh": st["mesh"],
-              "compute": cfg.compute_dtype, "kv_cache": (
-                  None if not cfg.n_kv_heads else "heads" if cfg.n_kv_heads % 2 == 0
-                  else "sequence"),
-              "tokens_equal": st["tokens"] == single[key]["tokens"],
-              "logits_max_abs_diff": diff, "tol": SHARDED_TOL,
-              "launches_per_rank": [{n: c for n, c in m["launches"].items() if c} for m in mine],
-              "launches_expected": {n: c for n, c in want.items() if c},
-              "block_bytes": st["block_bytes"], "block_bytes_whole": st["block_bytes_whole"],
-              "block_share": [b / st["block_bytes_whole"] for b in st["block_bytes"]],
-              "vocab_bytes": st["vocab_bytes"], "vocab_bytes_whole": st["vocab_bytes_whole"],
-              "replicated": st["replicated"],
-              "prefill_ms": [m["stats"]["prefill_ms"] for m in mine],
-              "decode_ms_per_step": [m["stats"]["decode_ms"] / m["stats"]["decode_steps"]
-                                     for m in mine],
-              "single_prefill_ms": single[key]["prefill_ms"],
-              "single_decode_ms_per_step": (single[key]["decode_ms"]
-                                            / single[key]["decode_steps"]),
-              "split_per_rank": split,
-              "collective_share_per_rank": [sum(x["collective_ms"].values()) / x["timed_step_ms"]
-                                            for x in split],
-              "peak_mem_gb_per_rank": [m["stats"]["peak_mem_gb"] for m in mine],
-              "seconds_per_rank": [m["seconds"] for m in mine], "note": gloo,
-              "lines": mine[0]["lines"]})
+        line = {"phase": "sharded", "part": part, "lm": name, "arch": arch, "overrides": over,
+                "layers": layers, "mesh": st["mesh"], "compute": cfg.compute_dtype,
+                "kv_cache": (None if not cfg.n_kv_heads else "heads" if cfg.n_kv_heads % 2 == 0
+                             else "sequence"),
+                "tokens_equal": st["tokens"] == single[key]["tokens"],
+                "logits_max_abs_diff": diff, "tol": SHARDED_TOL,
+                "launches_per_rank": [{n: c for n, c in m["launches"].items() if c}
+                                      for m in mine],
+                "launches_expected": {n: c for n, c in want.items() if c},
+                "block_bytes": st["block_bytes"], "block_bytes_whole": st["block_bytes_whole"],
+                "block_share": [b / st["block_bytes_whole"] for b in st["block_bytes"]],
+                "vocab_bytes": st["vocab_bytes"], "vocab_bytes_whole": st["vocab_bytes_whole"],
+                "replicated": st["replicated"],
+                "prefill_ms": [m["stats"]["prefill_ms"] for m in mine],
+                "decode_ms_per_step": [m["stats"]["decode_ms"] / m["stats"]["decode_steps"]
+                                       for m in mine],
+                "single_prefill_ms": single[key]["prefill_ms"],
+                "single_decode_ms_per_step": (single[key]["decode_ms"]
+                                              / single[key]["decode_steps"]),
+                "split_per_rank": split,
+                "collective_share_per_rank": [sum(x["collective_ms"].values())
+                                              / x["timed_step_ms"] for x in split],
+                "peak_mem_gb_per_rank": [m["stats"]["peak_mem_gb"] for m in mine],
+                "seconds_per_rank": [m["seconds"] for m in mine], "note": gloo,
+                "lines": mine[0]["lines"]}
+        if cfg.moe:
+            line.update(schedule=cfg.moe_impl, n_experts=cfg.n_experts,
+                        experts_layout=fused_sharded.moe_layout(cfg, Mesh(st["mesh"])),
+                        expert_bytes=st["expert_bytes"],
+                        expert_bytes_whole=st["expert_bytes_whole"],
+                        expert_share=[b / st["expert_bytes_whole"] for b in st["expert_bytes"]])
+        emit(line)
         require(st["tokens"] == single[key]["tokens"],
-                f"sharded lm {arch}: tokens differ from the single-device run's")
+                f"sharded lm {name}: tokens differ from the single-device run's")
         require(all(m["stats"]["tokens"] == st["tokens"] for m in mine),
-                f"sharded lm {arch}: the ranks' tokens differ")
-        require(diff <= SHARDED_TOL, f"sharded lm {arch}: logits differ by {diff}")
+                f"sharded lm {name}: the ranks' tokens differ")
+        require(diff <= SHARDED_TOL, f"sharded lm {name}: logits differ by {diff}")
         require(all(0 < b <= SHARDED_LM_BYTES * st["block_bytes_whole"]
                     for b in st["block_bytes"]),
-                f"sharded lm {arch}: block bytes {st['block_bytes']} of "
+                f"sharded lm {name}: block bytes {st['block_bytes']} of "
                 f"{st['block_bytes_whole']}")
         require(st["vocab_bytes"] == [st["vocab_bytes_whole"] // 2] * 2,
-                f"sharded lm {arch}: vocab bytes {st['vocab_bytes']}")
+                f"sharded lm {name}: vocab bytes {st['vocab_bytes']}")
+        require(not cfg.moe or all(abs(x - SHARDED_MOE_SHARE) <= SHARDED_MOE_SHARE_TOL
+                                   for x in line["expert_share"]),
+                f"sharded lm {name}: expert bytes {st['expert_bytes']} of "
+                f"{st['expert_bytes_whole']}")
         for m in mine:
             require(m["launches"] == want,
-                    f"sharded lm {arch}: launches {m['launches']} != {want}")
+                    f"sharded lm {name}: launches {m['launches']} != {want}")
             for n, c in m["launches"].items():
                 totals[n] += c
-    emit({"phase": "sharded", "lm_seconds": seconds})
+    emit({"phase": "sharded", "part": part, "lm_seconds": seconds})
     return seconds
 
 
@@ -3608,15 +3663,16 @@ def _sharded_worker(rank, world, model_axis, init_file, plan):
         for arch in plan.get("tp", ()):
             results[f"tp {arch}"] = _tp_rank(arch, model_axis, device, counters)
             torch.cuda.empty_cache()
-        for arch, layers in plan.get("lm", ()):
-            results[f"lm {arch}"] = _tp_rank(arch, model_axis, device, counters, layers)
+        for _, key, _, arch, layers, over in plan.get("lm", ()):
+            results[key] = _tp_rank(arch, model_axis, device, counters, layers, over)
             torch.cuda.empty_cache()
         for run in plan.get("continuous", ()):
             results[f"continuous {run}"] = _cont_rank(run, model_axis, device, counters,
                                                       run in SHARDED_CONT_SPLIT)
-        for arch, engine, model_k, fsdp in plan.get("train", ()):
-            results[f"train {arch}"] = _sharded_train_rank(arch, engine, model_k, fsdp, device,
-                                                           counters, keep_params=rank == 0)
+        for arch, engine, model_k, fsdp, over in plan.get("train", ()):
+            results[f"train {arch}"] = _sharded_train_rank(arch, engine, model_k, fsdp, over,
+                                                           device, counters,
+                                                           keep_params=rank == 0)
             torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
@@ -3730,10 +3786,10 @@ def _sharded_continuous(single, m2, d2m2, ref_s, totals):
     return seconds
 
 
-def _sharded_train_cfg(arch, engine=None):
-    """``arch`` (on ``engine``) as ``launch.train`` runs it at TRAIN_BATCH,
-    in fp32 compute."""
-    return _train_cfg(arch, engine, {}).with_(compute_dtype="float32")
+def _sharded_train_cfg(arch, engine=None, over=None):
+    """``arch`` (on ``engine``, with ``over``'s fields) as ``launch.train``
+    runs it at TRAIN_BATCH, in fp32 compute."""
+    return _train_cfg(arch, engine, over or {}).with_(compute_dtype="float32")
 
 
 def _train_steps(cfg, step_fn, state, device, steps):
@@ -3758,12 +3814,43 @@ def _train_steps(cfg, step_fn, state, device, steps):
     return state, losses, gnorms, ms
 
 
-def _sharded_train_rank(arch, engine, model_axis, fsdp, device, counters, keep_params):
+def _data_gathers(mesh, cfg, specs, record):
+    """Record into ``record`` the largest all_gather over "data" by the
+    bytes it puts out: of all (``largest``) and of the layer leaves
+    (``largest_layer``: any but a non-layer leaf's shard under ``specs``);
+    returns the function that stops recording."""
+    from repro_torch.configs import shapes
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.tree import flatten_with_paths, tree_leaves
+
+    data = mesh.axis("data")
+    if data.size == 1:
+        return lambda: None
+    outside = {shd.local_shape(x.shape, spec, mesh) for (path, x), spec in
+               zip(flatten_with_paths(shapes.param_shapes(cfg)), tree_leaves(specs))
+               if not path.startswith("layers/")}
+    inner = data.all_gather
+
+    def spy(x, dim=-1):
+        out = x.numel() * x.element_size() * data.size
+        record["largest"] = max(record.get("largest", 0), out)
+        if tuple(x.shape) not in outside:
+            record["largest_layer"] = max(record.get("largest_layer", 0), out)
+        return inner(x, dim)
+
+    data.all_gather = spy
+    return lambda: delattr(data, "all_gather")
+
+
+def _sharded_train_rank(arch, engine, model_axis, fsdp, over, device, counters, keep_params):
     """One rank's SHARDED_TRAIN_STEPS steps of ``build_train_step(cfg, mesh)``
     on the (2 / model_axis, model_axis) mesh (each rank draws the whole
     state from seed 0 and keeps its shards), every kernel's count set to 0
-    just before and read just after; then one more step inside
-    ``timed_collectives``, split into the collectives and the rest."""
+    just before and read just after, with the peak memory from the run's
+    steps' start (the rank's shards of the state made, the whole state
+    freed) and the largest all_gathers over "data" (``_data_gathers``);
+    then one more step inside ``timed_collectives``, split into the
+    collectives and the rest."""
     import torch
 
     from repro_torch.distribution import sharding as shd
@@ -3771,7 +3858,7 @@ def _sharded_train_rank(arch, engine, model_axis, fsdp, device, counters, keep_p
     from repro_torch.training import steps
     from repro_torch.tree import flatten_with_paths, tree_leaves
 
-    cfg = _sharded_train_cfg(arch, engine)
+    cfg = _sharded_train_cfg(arch, engine, over)
     mesh = make_local_mesh(model_axis, device=device)
     specs = steps.train_param_specs(cfg, mesh, fsdp=fsdp)
     sspecs = steps.train_state_specs(specs)
@@ -3782,7 +3869,12 @@ def _sharded_train_rank(arch, engine, model_axis, fsdp, device, counters, keep_p
                                      total_steps=SHARDED_TRAIN_STEPS, specs=specs)
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
+    gathers = {}
+    stop = _data_gathers(mesh, cfg, specs, gathers)
+    torch.cuda.reset_peak_memory_stats(device)
     state, losses, gnorms, ms = _train_steps(cfg, step_fn, state, device, SHARDED_TRAIN_STEPS)
+    stop()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     params = {}  # every rank takes part in the gathers; one keeps the result
     for (path, x), s in zip(flatten_with_paths(state.params), tree_leaves(specs)):
@@ -3797,7 +3889,7 @@ def _sharded_train_rank(arch, engine, model_axis, fsdp, device, counters, keep_p
             "sharded_over": sorted({a for s in tree_leaves(specs) for a in shd.spec_axes(s)}),
             "split": {"timed_step_ms": timed[0], "collective_ms": coll,
                       "rest_ms": timed[0] - sum(coll.values())},
-            "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+            "peak_mem_gb": peak_gb, "data_all_gather_bytes": gathers}
 
 
 def _expected_sharded_train_launches(cfg, model_axis: int, steps: int) -> dict:
@@ -3910,23 +4002,25 @@ def _sharded_train(totals):
     t_phase = time.perf_counter()
     _sharded_train_kernels()
     single = {}
-    for arch, engine, _, _ in SHARDED_TRAIN_RUNS:
-        cfg = _sharded_train_cfg(arch, engine)
+    for arch, engine, _, _, over in SHARDED_TRAIN_RUNS:
+        cfg = _sharded_train_cfg(arch, engine, over)
         state = steps.init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg,
                                        device="cuda")
         step_fn = steps.build_train_step(cfg, base_lr=3e-4, warmup=20,
                                          total_steps=SHARDED_TRAIN_STEPS)
+        torch.cuda.reset_peak_memory_stats()
         state, losses, gnorms, ms = _train_steps(cfg, step_fn, state, torch.device("cuda"),
                                                  SHARDED_TRAIN_STEPS)
         single[arch] = {"losses": losses, "grad_norms": gnorms, "step_ms": ms,
-                        "params": _flat_cpu(state.params)}
+                        "params": _flat_cpu(state.params),
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         del state, step_fn
         _release()
     ranks = _spawn_ranks("train", 2, 2, {"serve": (), "moe": (), "logits": False, "split": (),
                                          "train": SHARDED_TRAIN_RUNS})
-    for arch, engine, model_k, fsdp in SHARDED_TRAIN_RUNS:
+    for arch, engine, model_k, fsdp, over in SHARDED_TRAIN_RUNS:
         key, ref = f"train {arch}", single[arch]
-        cfg = _sharded_train_cfg(arch, engine)
+        cfg = _sharded_train_cfg(arch, engine, over)
         r0 = ranks[0][key]
         want = _expected_sharded_train_launches(cfg, model_k, SHARDED_TRAIN_STEPS)
         loss_err = max(abs(a - b) for a, b in zip(r0["losses"], ref["losses"]))
@@ -3934,7 +4028,7 @@ def _sharded_train(totals):
         param_err = max((r0["params"][p] - ref["params"][p]).abs().max().item()
                         for p in ref["params"])
         emit({"phase": "sharded", "train": arch, "engine": cfg.scan_engine,
-              "mesh": r0["mesh"], "fsdp": fsdp,
+              "n_layers": cfg.n_layers, "remat": cfg.remat, "mesh": r0["mesh"], "fsdp": fsdp,
               "sharded_over": r0["sharded_over"], "compute": cfg.compute_dtype,
               "steps": SHARDED_TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
               "losses": r0["losses"], "single_losses": ref["losses"],
@@ -3948,7 +4042,10 @@ def _sharded_train(totals):
               "step_ms_per_rank": [r[key]["step_ms"] for r in ranks],
               "single_step_ms": ref["step_ms"],
               "split_per_rank": [r[key]["split"] for r in ranks], "split_note": gloo,
-              "peak_mem_gb_per_rank": [r[key]["peak_mem_gb"] for r in ranks]})
+              "peak_mem_gb_per_rank": [r[key]["peak_mem_gb"] for r in ranks],
+              "single_peak_mem_gb": ref["peak_mem_gb"],
+              "data_all_gather_bytes_per_rank": [r[key]["data_all_gather_bytes"]
+                                                 for r in ranks]})
         require(all(r[key]["losses"] == r0["losses"] for r in ranks),
                 f"sharded train {arch}: the ranks' losses differ")
         require(loss_err <= SHARDED_TRAIN_LOSS_TOL and gn_err <= SHARDED_TRAIN_GRAD_TOL
@@ -3996,8 +4093,13 @@ def phase_sharded():
     those two meshes (``_sharded_continuous``); (g) on the ranks of (c),
     SHARDED_TP_RUNS on their own engine (``_sharded_tp``); (h) on the same
     ranks SHARDED_LM_RUNS, the attention, MLP and Mamba leaves per rank
-    (``_sharded_lm``); (e) training on two ranks (``_sharded_train``), the
-    pallas run of (g) among them. Under fp32 the tokens must
+    (``_sharded_lm``); (i) on the same ranks SHARDED_MOE_LM_RUNS, mixtral's
+    experts over "model" under its ``sorted`` schedule and its 3-expert
+    stand-in for the ``ff_moe`` layout, half the expert bytes a rank
+    (``_sharded_lm`` too); (e) training on two ranks (``_sharded_train``),
+    the pallas run of (g) among them, and smollm-360m's FSDP gathered a
+    layer at a time (each rank's peak memory and largest all_gather over
+    "data"). Under fp32 the tokens must
     equal the single-device run's and the logits be within SHARDED_TOL;
     under bf16 the logits within SHARDED_BF16_TOL (the tokens are
     reported); each rank's launches the expected, each model rank's
@@ -4054,17 +4156,17 @@ def phase_sharded():
                                        _logit_inputs(cfg))
         del params
         _release()
-    for arch, layers in SHARDED_LM_RUNS:
-        args, cfg = _lm_cfg(arch, 1, layers)
+    for _, key, _, arch, layers, over in _lm_runs():
+        args, cfg = _lm_cfg(arch, 1, layers, over)
         params = lm.lm_init(torch.Generator(device="cuda").manual_seed(args.seed), cfg,
                             device="cuda", dtype=torch.float32)
         with contextlib.redirect_stdout(io.StringIO()):
-            tp_single[f"lm {arch}"] = serve.run_batch(cfg, params, args, torch.device("cuda"),
-                                                      graphs=False)
-        tp_logits[f"lm {arch}"] = _step_logits(cfg, params, None, torch.device("cuda"),
-                                               _logit_inputs(cfg))
+            tp_single[key] = serve.run_batch(cfg, params, args, torch.device("cuda"),
+                                             graphs=False)
+        tp_logits[key] = _step_logits(cfg, params, None, torch.device("cuda"),
+                                      _logit_inputs(cfg))
         del params
-        _release()
+        _release()  # (i)'s ranks draw mixtral's whole 11.7 GB layer each: freed first
     t_cont = time.perf_counter()
     cont_single = {run: _cont_single(run) for run in SHARDED_CONT_RUNS}
     _release()
@@ -4079,7 +4181,7 @@ def phase_sharded():
     totals = dict.fromkeys(KERNELS, 0)
     ranks = _spawn_ranks("m2", 2, 2, {"serve": _sharded_runs(), "moe": SHARDED_MOE,
                                       "logits": True, "split": SHARDED_SPLIT_RUNS,
-                                      "tp": SHARDED_TP_RUNS, "lm": SHARDED_LM_RUNS,
+                                      "tp": SHARDED_TP_RUNS, "lm": _lm_runs(),
                                       "continuous": tuple(SHARDED_CONT_RUNS)})
     cont_m2 = ranks
     for arch, compute in _sharded_runs():
@@ -4121,7 +4223,9 @@ def phase_sharded():
     # (g) tensor parallelism of the chunked engine, the LSTM and the vocab
     _sharded_tp(tp_single, tp_logits, ranks, totals)
     # (h) tensor parallelism of the attention, dense MLP and Mamba leaves
-    _sharded_lm(tp_single, tp_logits, ranks, totals)
+    _sharded_lm(tp_single, tp_logits, ranks, totals, "h")
+    # (i) the MoE experts under the model axis, in both layouts
+    _sharded_lm(tp_single, tp_logits, ranks, totals, "i")
     for arch in SHARDED_MOE:
         err = (ranks[0][arch]["y"] - moe_ref[arch]).abs().max().item()
         emit({"phase": "sharded", "moe": arch, "mesh": {"data": 1, "model": 2},

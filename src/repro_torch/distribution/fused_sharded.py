@@ -38,13 +38,15 @@ Params and caches are this rank's shards at rest (:func:`rank_specs`,
 rank): each gate slab, bias and ``w_skip`` holds its lanes ``[j H/k, (j+1)
 H/k)`` of every gate, the (L, B, H) carries their lanes, so no weight
 crosses ranks in a step. The compact int8 scales ``wq_scale`` (3 x
-ceil(H/128) fp32 a layer) are held whole: a shard's lanes may start inside a
-scale block (H = 1000 over 8 ranks), and the kernel takes the shard's blocks
-with its offset into the first (``scale_lane0``). The other engines' cells,
-the LSTM and the vocab leaves are sharded as JAX shards them too, and run
-per rank in ``distribution/tensor_parallel.py``; the attention, dense MLP
-and Mamba leaves and their caches in ``models/attention.py``,
-``lm._mlp`` and ``models/mamba.py``.
+ceil(H/128) fp32 a layer) are the one leaf held otherwise than JAX's specs:
+whole, since a shard's lanes may start inside a scale block (H = 1000 over 8
+ranks), and the kernel takes the shard's blocks with its offset into the
+first (``scale_lane0``). The other engines' cells, the LSTM and the vocab
+leaves are sharded as JAX shards them too, and run per rank in
+``distribution/tensor_parallel.py``; the attention, dense MLP and Mamba
+leaves and their caches in ``models/attention.py``, ``lm._mlp`` and
+``models/mamba.py``; the MoE experts in ``models/moe.py``, by
+:func:`moe_layout`.
 
 Dispatch: ``models/rnn.py`` decides once a call, by :func:`sharding_mesh`
 (the mesh installed by ``sharding.use_rules``, which the step builders
@@ -121,12 +123,9 @@ def serving_param_specs(params, mesh, *, fsdp: bool = False):
     return shd.param_specs(params, mesh, fsdp=fsdp)
 
 
-# The leaves held otherwise than JAX's specs give them: the compact int8
-# scales (whole; ``scale_lane0``), and the experts wherever MoE does not run
-# expert-parallel (the ``ff_moe`` fallback of an expert count that does not
-# divide the model axis, and every schedule but ``shard_map``).
+# The one leaf held otherwise than JAX's specs give it: the compact int8
+# scales (whole; ``scale_lane0``).
 _SCALE_LEAF = re.compile(r"(^|.*/)wq_scale$")
-_EXPERT_LEAF = re.compile(r"(^|.*/)(e_gate|e_up|e_down)$")
 
 
 def _without_model(spec) -> tuple:
@@ -155,32 +154,41 @@ def sharding_mesh(cfg):
     return mesh if _fused_sharded(cfg, mesh) or tp.lane_sharded(cfg, mesh) else None
 
 
-def _experts_sharded(cfg, mesh) -> bool:
-    m = model_shards(mesh)
-    return bool(cfg.moe) and cfg.moe_impl == "shard_map" and m > 1 and cfg.n_experts % m == 0
+def moe_layout(cfg, mesh) -> Optional[str]:
+    """How ``cfg``'s expert leaves lie over ``mesh``'s model axis, read off
+    JAX's spec of ``e_up`` (``sharding.param_specs``: ``experts_opt``, then
+    ``ff_moe``): ``"experts"`` (each rank holds ``E / m`` whole experts:
+    the count divides the axis), ``"ff"`` (each rank holds ``f / m`` of
+    every expert's ff columns, and of ``e_down``'s rows), or None (whole:
+    no MoE, a model axis of one rank, or neither dim divides). The same in
+    every schedule; ``models/moe.py`` computes by it."""
+    if not cfg.moe or model_shards(mesh) <= 1:
+        return None
+    spec = shd.spec_for_path("moe/e_up", (cfg.n_experts, cfg.d_model, cfg.d_ff), mesh,
+                             shd._param_logical(False), stacked=False)
+    if MODEL_AXIS in shd.spec_axes(spec[:1]):
+        return "experts"
+    return "ff" if MODEL_AXIS in shd.spec_axes(spec[2:]) else None
 
 
 def rank_specs(cfg, specs, mesh):
     """The specs the port holds params at rest by: ``specs``
     (:func:`serving_param_specs`, JAX's ``param_specs``) with the model axis
-    kept on every leaf the port computes per rank: the RNN cell leaves of
-    every engine and the LSTM's, ``embed`` / ``unembed`` over the padded
-    vocab, the attention projections (``w_q``, ``w_kv``, ``w_o``), the dense
-    MLP's and the Mamba mixer's ``ff`` leaves
-    (``models/attention.py``, ``mamba.py``) and the experts of MoE's
-    ``shard_map`` schedule when the model axis divides their count. Each
-    already falls back to whole where its dim does not divide, as the
-    per-rank code does. Two kinds are held whole where JAX shards them:
-    ``wq_scale``, and the expert leaves wherever MoE does not run
-    expert-parallel (the ``ff_moe`` fallback and the other schedules). A
-    model axis of one rank is dropped everywhere: it shards nothing."""
+    kept on every leaf, since the port computes every leaf per rank as JAX
+    places it: the RNN cell leaves of every engine and the LSTM's, ``embed``
+    / ``unembed`` over the padded vocab, the attention projections
+    (``w_q``, ``w_kv``, ``w_o``), the dense MLP's and the Mamba mixer's
+    ``ff`` leaves (``models/attention.py``, ``mamba.py``) and the MoE
+    experts in every schedule (over the experts where their count divides
+    the axis, else the ``ff_moe`` columns and rows: :func:`moe_layout`).
+    Each already falls back to whole where its dim does not divide, as the
+    per-rank code does. One leaf is held whole where JAX shards it:
+    ``wq_scale``. A model axis of one rank is dropped everywhere: it
+    shards nothing."""
     split = model_shards(mesh) > 1
-    experts = _experts_sharded(cfg, mesh)
 
     def one(path, spec):
-        whole = (not split or _SCALE_LEAF.match(path)
-                 or (_EXPERT_LEAF.match(path) and not experts))
-        return _without_model(spec) if whole else spec
+        return _without_model(spec) if not split or _SCALE_LEAF.match(path) else spec
 
     return shd.map_with_paths(one, specs)
 

@@ -332,13 +332,13 @@ def replicated_on(spec, axis: str) -> bool:
     return axis not in spec_axes(spec)
 
 
-def gather_shard(x: torch.Tensor, spec, mesh, axes: Optional[Sequence[str]] = None):
+def gather_shard(x: torch.Tensor, spec, mesh):
     """The whole leaf from this rank's shard ``x`` under ``spec`` (the
     inverse of :func:`local_shard`): gathered along each sharded dim over
-    its axes (only those in ``axes``, when given), the innermost first.
-    Every rank of those axes must call it, leaf for leaf in one order."""
+    its axes, the innermost first. Every rank of those axes must call it,
+    leaf for leaf in one order."""
     for dim, entry in enumerate(spec):
         for a in reversed(_axes(entry)):
-            if (axes is None or a in axes) and mesh.shape[a] > 1:
+            if mesh.shape[a] > 1:
                 x = mesh.axis(a).all_gather(x, dim)
     return x

@@ -42,7 +42,9 @@ cotangent over the axis backward (the rank's partial products of the
 replicated input's gradient); :func:`gather` is the tiled ``all_gather``
 forward and takes this rank's lane slice of the (replicated) cotangent
 backward; :func:`combine` (a ``psum`` of partial outputs) passes the
-cotangent through unchanged.
+cotangent through unchanged. FSDP's gather of a data-sharded weight where
+a block uses it (:class:`FsdpPlan`) is the same all_gather over "data",
+whose backward reduce-scatters the cotangent to the shard.
 
 Under the gloo backend a collective that gloo does not run on CUDA tensors
 (``GLOO_STAGED``) goes through pinned host memory: the operand is copied
@@ -57,10 +59,12 @@ import datetime
 import math
 import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.tree import tree_map
 
 # The collectives gloo does not run on CUDA tensors. On the H100 machine
 # (PyTorch 2.11, CUDA 12.8) gloo's all_reduce (sum and max), all_gather,
@@ -205,14 +209,16 @@ class _Enter(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group, ctx.width = group, x.shape[-1]
-        return group.all_gather(x)
+    def forward(ctx, x, group, dim, reduce):
+        ctx.group, ctx.dim, ctx.reduce, ctx.width = group, dim, reduce, x.shape[dim]
+        return group.all_gather(x, dim)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.reduce:
+            return ctx.group.reduce_scatter(g.contiguous(), ctx.dim), None, None, None
         lane0 = ctx.group.index * ctx.width
-        return g[..., lane0:lane0 + ctx.width].contiguous(), None
+        return g.narrow(ctx.dim, lane0, ctx.width).contiguous(), None, None, None
 
 
 class _Combine(torch.autograd.Function):
@@ -233,12 +239,12 @@ def enter(x: Optional[torch.Tensor], group: Optional[AxisGroup]) -> Optional[tor
     return x if x is None or group is None or group.size == 1 else _Enter.apply(x, group)
 
 
-def gather(x: torch.Tensor, group: Optional[AxisGroup]) -> torch.Tensor:
+def gather(x: torch.Tensor, group: Optional[AxisGroup], dim: int = -1) -> torch.Tensor:
     """This rank's lanes of a region's output gathered to full width along
-    the last dim (:meth:`AxisGroup.all_gather`); backward, this rank's lane
-    slice of the cotangent, which every rank holds whole: no collective.
-    No group (one device) is the identity."""
-    return x if group is None or group.size == 1 else _Gather.apply(x, group)
+    ``dim``, default the last (:meth:`AxisGroup.all_gather`); backward,
+    this rank's lane slice of the cotangent, which every rank holds whole:
+    no collective. No group (one device) is the identity."""
+    return x if group is None or group.size == 1 else _Gather.apply(x, group, dim, False)
 
 
 def combine(x: torch.Tensor, group: Optional[AxisGroup]) -> torch.Tensor:
@@ -246,6 +252,32 @@ def combine(x: torch.Tensor, group: Optional[AxisGroup]) -> torch.Tensor:
     (replicated) cotangent unchanged. No group (one device) is the
     identity."""
     return x if group is None or group.size == 1 else _Combine.apply(x, group)
+
+
+class FsdpPlan(NamedTuple):
+    """The train step's FSDP gathers (JAX's per-layer all-gather inside its
+    scanned layers): ``dims``, a tree like the params holding each leaf's
+    dim over "data" (None: the leaf is whole on every data rank); ``group``,
+    the data axis; ``reduce``, whether the data ranks computed different
+    rows of the microbatch. :meth:`gather` makes a subtree whole where it is
+    used. Its backward takes the rank's block of the cotangent along the
+    same dim: with ``reduce`` summed over "data" first (a reduce-scatter:
+    the data-parallel sum of the shard's grad), else as it is (every data
+    rank computed the whole microbatch: ``mb % D``, JAX's divisibility
+    fallback)."""
+    dims: Dict
+    group: AxisGroup
+    reduce: bool
+
+    def gather(self, tree, path: str, layer: bool = False):
+        """``tree``, the params' subtree at ``path`` (``/``-joined keys), or
+        with ``layer`` one layer's slice of the stacked subtree, with each
+        data-sharded leaf gathered whole over "data"."""
+        dims = self.dims
+        for k in path.split("/"):
+            dims = dims[k]
+        return tree_map(lambda x, d: x if d is None else
+                        _Gather.apply(x, self.group, d - layer, self.reduce), tree, dims)
 
 
 class Mesh:

@@ -84,10 +84,15 @@ combined by log-sum-exp. Where JAX's GSPMD would take the combine and the
 gathers itself, the port writes them out: the ``w_kv`` / ``w_q`` column
 products are gathered whole (``w_kv``'s columns fall on K and V, not on
 heads), and the sequence-sharded cache's partial softmaxes are combined by
-their log-sum-exp. Norms, ``wq_scale`` and the MoE experts outside the
-expert-parallel schedule are held whole on every model rank; the startup
-line lists, in ``sharding.describe_replications``'s form, the large dims
-that this rank's layout replicates. Without an initialised process group
+their log-sum-exp. The MoE LMs' experts (``mixtral-8x22b``,
+``qwen3-moe-235b-a22b``) are held as JAX places them in every schedule
+(``models/moe.py``): a rank's ``E / k`` experts where their count divides
+the axis, run on their rows of the dispatch buffer and gathered over the
+expert dim, else (JAX's ``ff_moe`` fallback) the rank's ``f / k`` columns
+of every expert, the partial outputs summed over the axis. Norms and
+``wq_scale`` are held whole on every model rank; the startup line lists, in
+``sharding.describe_replications``'s form, the large dims that this rank's
+layout replicates. Without an initialised process group
 the command starts its ranks itself (``torch.multiprocessing``, a
 ``file://`` rendezvous in a temporary directory): under NCCL (the default on
 the card) one per card, ``--model-shards`` of them per data group, as JAX
@@ -96,14 +101,14 @@ gloo`` where ranks share a card) ``--model-shards`` ranks. Inside an
 initialised process group, or under ``torchrun`` (its ``env://``
 rendezvous), it joins, and the ranks beyond one model group form the data
 axis. Rank 0 prints the mesh, the backend, the replicated dims, each model
-rank's bytes of gate slabs, of vocab leaves and of attention, MLP and Mamba
-leaves and the ``serve-stats`` (``continuous-stats``) line. The sharded
+rank's bytes of gate slabs, of vocab leaves, of attention, MLP and Mamba
+leaves and of MoE experts and the ``serve-stats`` (``continuous-stats``)
+line. The sharded
 steps run eagerly (``graphs: false``): gloo cannot be captured. ``--mode
 continuous`` runs the ``Scheduler`` on the mesh (one a rank over its lane
 shards, every decision on rank 0's clock; see ``serving/engine.py``), the
 ``--speculative`` draft sliced as the target, the telemetry sinks written
-by rank 0. CUDA graphs of the NCCL steps and tensor parallelism of the MoE
-experts' ``ff_moe`` fallback are not ported yet. ``--engine pallas`` is
+by rank 0. CUDA graphs of the NCCL steps are not ported yet. ``--engine pallas`` is
 refused under a model axis, with JAX's message, as JAX refuses it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch sru-paper-large-stacked \
@@ -116,7 +121,8 @@ refused under a model axis, with JAX's message, as JAX refuses it.
         --model-shards 2 --dist-backend gloo   # two ranks sharing one card
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --reduced \
-        --device cpu --model-shards 2   # also granite-20b, mamba2-2.7b, zamba2-7b
+        --device cpu --model-shards 2   # also granite-20b, mamba2-2.7b, zamba2-7b,
+                                        # mixtral-8x22b, qwen3-moe-235b-a22b
 
 On the card every step runs as a CUDA graph, as the JAX ``launch/serve.py``
 runs each step as one jitted executable (batch: ``capture_batch_steps``;
@@ -722,6 +728,7 @@ def config_of(args):
 _SLAB = re.compile(r"(^|.*/)cell/(w|w0|w1|wq|w0q|w1q|wx|uh)$")
 _VOCAB = re.compile(r"(^|.*/)embed/(embed|unembed)$")
 _BLOCK = re.compile(r"(^|.*/)(attn|mlp|mamba)/[^/]+$")
+_EXPERT = re.compile(r"(^|.*/)moe/(e_gate|e_up|e_down)$")
 _SHARED_CARD = ("serve: --model-shards {k} needs {k} cards under NCCL, one rank a card, "
                 "and {n} are here: ranks that share a card run over gloo, and only when "
                 "asked for with --dist-backend gloo")
@@ -747,6 +754,12 @@ def block_bytes(params) -> int:
     """Bytes of the attention, dense MLP and Mamba mixer leaves in
     ``params`` (a hybrid's shared block's included)."""
     return _bytes(params, _BLOCK)
+
+
+def expert_bytes(params) -> int:
+    """Bytes of the MoE expert leaves (``e_gate``, ``e_up``, ``e_down``) in
+    ``params``."""
+    return _bytes(params, _EXPERT)
 
 
 def _backend(args, device: torch.device) -> str:
@@ -841,8 +854,8 @@ def serve_mesh(cfg, args, *, trace=None, draft=None) -> dict:
     (``Request``s) replaces the flags' trace and ``draft`` (a config and its
     whole params on this rank's device) the ``--speculative`` draft, as
     ``run_continuous`` takes them. Rank 0 prints the mesh, the backend, the
-    replicated dims, each model rank's bytes of gate slabs, of vocab leaves
-    and of attention, MLP and Mamba leaves and the ``serve-stats``
+    replicated dims, each model rank's bytes of gate slabs, of vocab leaves,
+    of attention, MLP and Mamba leaves and of MoE experts and the ``serve-stats``
     (``continuous-stats``) line. Returns the stats on every rank."""
     world, k, backend = dist.get_world_size(), args.model_shards, dist.get_backend()
     if world % k:
@@ -854,13 +867,15 @@ def serve_mesh(cfg, args, *, trace=None, draft=None) -> dict:
     t0 = time.perf_counter()
     params = lm.lm_init(torch.Generator(device=device).manual_seed(args.seed), cfg,
                         device=device, dtype=_dtype(cfg.compute_dtype))
-    whole, vocab_whole, block_whole = slab_bytes(params), vocab_bytes(params), block_bytes(params)
+    whole, vocab_whole = slab_bytes(params), vocab_bytes(params)
+    block_whole, expert_whole = block_bytes(params), expert_bytes(params)
     params, replicated = shard_params(cfg, params, mesh)
     _sync(device)
     init_ms = (time.perf_counter() - t0) * 1e3
-    mine = torch.tensor([[slab_bytes(params)], [vocab_bytes(params)], [block_bytes(params)]],
-                        dtype=torch.int64, device=device)
-    per_rank, vocab_per_rank, block_per_rank = mesh.axis("model").all_gather(mine).tolist()
+    mine = torch.tensor([[slab_bytes(params)], [vocab_bytes(params)], [block_bytes(params)],
+                         [expert_bytes(params)]], dtype=torch.int64, device=device)
+    per_rank, vocab_per_rank, block_per_rank, expert_per_rank = (
+        mesh.axis("model").all_gather(mine).tolist())
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     rank0 = dist.get_rank() == 0
@@ -877,7 +892,8 @@ def serve_mesh(cfg, args, *, trace=None, draft=None) -> dict:
     stats.update(init_ms=init_ms, mesh=mesh.shape, backend=backend, slab_bytes=per_rank,
                  slab_bytes_whole=whole, vocab_bytes=vocab_per_rank,
                  vocab_bytes_whole=vocab_whole, block_bytes=block_per_rank,
-                 block_bytes_whole=block_whole, replicated=replicated,
+                 block_bytes_whole=block_whole, expert_bytes=expert_per_rank,
+                 expert_bytes_whole=expert_whole, replicated=replicated,
                  peak_mem_gb=(torch.cuda.max_memory_allocated(device) / 1e9
                               if device.type == "cuda" else None))
     if rank0:
@@ -887,6 +903,7 @@ def serve_mesh(cfg, args, *, trace=None, draft=None) -> dict:
         print(f"gate slab bytes per model rank: {per_rank} of {whole}")
         print(f"vocab leaf bytes per model rank: {vocab_per_rank} of {vocab_whole}")
         print(f"attention/MLP/Mamba leaf bytes per model rank: {block_per_rank} of {block_whole}")
+        print(f"expert leaf bytes per model rank: {expert_per_rank} of {expert_whole}")
         _print_stats(stats, args)
     return stats
 

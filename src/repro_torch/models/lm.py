@@ -269,15 +269,30 @@ def lm_init_caches(cfg, batch: int, max_len: int, device="cuda"):
     return caches
 
 
-def _embed_in(params, cfg, batch, compute) -> torch.Tensor:
+def _whole(fsdp, tree, path: str, layer: bool = False):
+    """``tree`` (the params' subtree at ``path``, or with ``layer`` one
+    layer's slice of it) gathered whole over "data" by the train step's FSDP
+    plan (``launch/mesh.py::FsdpPlan``); ``tree`` itself without one."""
+    return tree if fsdp is None else fsdp.gather(tree, path, layer)
+
+
+def _head_params(params, fsdp=None) -> Dict:
+    """The head's leaf: ``unembed``, or tied the ``embed`` table."""
+    key = "unembed" if "unembed" in params["embed"] else "embed"
+    return {key: _whole(fsdp, params["embed"][key], f"embed/{key}")}
+
+
+def _embed_in(params, cfg, batch, compute, fsdp=None) -> torch.Tensor:
     """The first hidden states in the compute dtype: ``batch["inputs"]``
     (B, S) token ids through the embedding table (vocab-parallel under a
     sharding mesh), or with a frontend stub ``batch["inputs_embeds"]`` (B,
     S, d) through its adapter matrix."""
     if cfg.frontend:
-        return batch["inputs_embeds"].to(compute) @ params["frontend"]["adapter"].to(compute)
-    group = tensor_parallel.vocab_group(cfg)
-    return tensor_parallel.embed(params["embed"], batch["inputs"], group).to(compute)
+        adapter = _whole(fsdp, params["frontend"]["adapter"], "frontend/adapter")
+        return batch["inputs_embeds"].to(compute) @ adapter.to(compute)
+    table = {"embed": _whole(fsdp, params["embed"]["embed"], "embed/embed")}
+    return tensor_parallel.embed(table, batch["inputs"], tensor_parallel.vocab_group(cfg)
+                                 ).to(compute)
 
 
 def _check_hybrid(cfg) -> None:
@@ -290,14 +305,26 @@ def _check_hybrid(cfg) -> None:
 # Train forward / loss
 # ---------------------------------------------------------------------------
 
-def lm_hidden(params, cfg, batch) -> torch.Tensor:
+def lm_hidden(params, cfg, batch, fsdp=None) -> torch.Tensor:
     """Embed -> blocks (a hybrid's shared block after every ``attn_every``
     of them) -> final norm. ``batch["inputs"]``: (B, S) token ids, or
     ``batch["inputs_embeds"]`` (B, S, d) with a frontend. Returns (B, S, d)
-    in the compute dtype."""
+    in the compute dtype.
+
+    ``fsdp``: the train step's plan (``launch/mesh.py::FsdpPlan``) when
+    ``params`` are this rank's data shards. Each block then gathers its own
+    layer inside its remat region, as JAX's scanned layers do, so under
+    ``remat="block"`` a rank holds one layer gathered at a time and the
+    backward gathers it again; with ``cast_params_once`` the shard is cast
+    and the gather moves the compute dtype. The depth-fused RNN stack
+    gathers its whole stack at its one call, the hybrid's shared block
+    gathers at each application, the vocab leaves where they are used.
+    Under ``"none"`` or ``"dots"`` autograd keeps the gathered weights its
+    products save, so the peak does not fall (JAX's scan residuals keep
+    them too). Without a plan the params are used as they are."""
     _check_hybrid(cfg)
     compute = _dtype(cfg.compute_dtype)
-    h = _embed_in(params, cfg, batch, compute)
+    h = _embed_in(params, cfg, batch, compute, fsdp)
     B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
     layers = params["layers"]
@@ -306,11 +333,13 @@ def lm_hidden(params, cfg, batch) -> torch.Tensor:
 
     if block_kind(cfg) == "rnn" and cfg.fuse_depth:
         def stack_apply(lp, x):
+            lp = _whole(fsdp, lp, "layers")
             return rnn.rnn_stack_apply(layout.cast_params(lp, compute), cfg, x)
 
         h = maybe_remat(stack_apply, cfg.remat)(layers, h)
     else:
         def apply_block(lp, x):
+            lp = _whole(fsdp, lp, "layers", layer=True)
             return _block_apply(layout.cast_params(lp, compute), cfg, x, positions)
 
         apply_block = maybe_remat(apply_block, cfg.remat)
@@ -319,7 +348,7 @@ def lm_hidden(params, cfg, batch) -> torch.Tensor:
             shared = layout.cast_params(params["shared_attn"], compute)  # once a call
 
             def shared_apply(x):
-                return _attn_block_apply(shared, cfg, x, positions)
+                return _attn_block_apply(_whole(fsdp, shared, "shared_attn"), cfg, x, positions)
 
             if cfg.remat == "block":  # as JAX checkpoints it (only under "block")
                 shared_apply = maybe_remat(shared_apply, "block")
@@ -327,12 +356,12 @@ def lm_hidden(params, cfg, batch) -> torch.Tensor:
             h = apply_block(rnn.layer_slice(layers, l), h)
             if shared_apply is not None and (l + 1) % cfg.attn_every == 0:
                 h = shared_apply(h)
-    return rmsnorm(params["final_norm"].to(compute), h)
+    return rmsnorm(_whole(fsdp, params["final_norm"], "final_norm").to(compute), h)
 
 
-def lm_forward(params, cfg, batch) -> torch.Tensor:
-    h = lm_hidden(params, cfg, batch)
-    return tensor_parallel.logits(layout.cast_params(params["embed"], h.dtype), h,
+def lm_forward(params, cfg, batch, fsdp=None) -> torch.Tensor:
+    h = lm_hidden(params, cfg, batch, fsdp)
+    return tensor_parallel.logits(layout.cast_params(_head_params(params, fsdp), h.dtype), h,
                                   tensor_parallel.vocab_group(cfg))
 
 
@@ -347,14 +376,15 @@ def _ce_terms(cfg, logits, targets):
     return logz, ll
 
 
-def lm_loss(params, cfg, batch, denom=None):
+def lm_loss(params, cfg, batch, denom=None, fsdp=None):
     """Cross-entropy over targets. ``batch``: inputs, targets, mask.
     Returns ``(loss, {"loss", "tokens"})``. With ``cfg.loss_chunk > 0`` the
     (tokens, V) logits are never materialized: the final hidden states go
     through the head ``loss_chunk`` tokens at a time, each chunk under
     checkpoint. ``denom``: the token count the NLL sum is divided by
     (default the batch's own, at least 1); a data-parallel rank passes the
-    whole microbatch's, so the ranks' losses add up to its loss."""
+    whole microbatch's, so the ranks' losses add up to its loss. ``fsdp``:
+    the train step's FSDP plan (:func:`lm_hidden`)."""
     targets = batch["targets"]
     mask = batch.get("mask")
     if mask is None:
@@ -363,15 +393,15 @@ def lm_loss(params, cfg, batch, denom=None):
         denom = torch.clamp(torch.sum(mask), min=1.0)
 
     if not cfg.loss_chunk:
-        logz, ll = _ce_terms(cfg, lm_forward(params, cfg, batch), targets)
+        logz, ll = _ce_terms(cfg, lm_forward(params, cfg, batch, fsdp), targets)
         loss = torch.sum((logz - ll) * mask) / denom
         return loss, {"loss": loss, "tokens": torch.sum(mask)}
 
-    h = lm_hidden(params, cfg, batch)
+    h = lm_hidden(params, cfg, batch, fsdp)
     B, S, d = h.shape
     n = max(S // cfg.loss_chunk, 1)
     C = S // n
-    embed_c = layout.cast_params(params["embed"], h.dtype)
+    embed_c = layout.cast_params(_head_params(params, fsdp), h.dtype)
     group = tensor_parallel.vocab_group(cfg)  # read here: the recompute runs outside the context
     hc, tc, mc = h.reshape(B, n, C, d), targets.reshape(B, n, C), mask.reshape(B, n, C)
 
@@ -430,7 +460,7 @@ def _run_layers(params, cfg, h, caches, decode: bool):
 def _head(params, cfg, h):
     compute = h.dtype
     h = rmsnorm(params["final_norm"].to(compute), h)
-    return tensor_parallel.logits(layout.cast_params(params["embed"], compute), h,
+    return tensor_parallel.logits(layout.cast_params(_head_params(params), compute), h,
                                   tensor_parallel.vocab_group(cfg))
 
 

@@ -16,6 +16,13 @@ schedules (``cfg.moe_impl``):
                     axis of 1 or an indivisible E it runs ``sorted``, as
                     JAX's does.
 
+Under a model axis (the step builders' ``sharding.use_rules``) every
+schedule runs on the rank's expert leaves as JAX's ``param_specs`` place
+them (``fused_sharded.moe_layout``): the dispatch, capacity and combine run
+on whole routing, and only :func:`_expert_ffn` is per rank, so no schedule
+has a mesh branch of its own (``shard_map`` keeps its own region, in which
+the expert GEMMs see no model axis).
+
 Capacity C = round_up_4(S * k * capacity_factor / E), at least 4, tokens per
 expert per sequence; overflow assignments are dropped, in JAX's order. The
 expert GEMMs are one batched product over the experts, ``(E, N, d) @ (E, d,
@@ -30,7 +37,9 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distribution.sharding import activation_rules, suppress_hints
+from repro_torch.distribution import fused_sharded
+from repro_torch.distribution.sharding import (activation_rules, active_mesh, model_group,
+                                               suppress_hints)
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.layers import dense_init
 
@@ -66,19 +75,51 @@ def _route(params, cfg, x):
     return w, ids, probs
 
 
-def _expert_ffn(params, cfg, xs):
-    """xs: (..., E, C, d) -> (..., E, C, d): the rows of every expert in one
-    batched product over E."""
-    *lead, E, C, d = xs.shape
-    rows = xs.movedim(-3, 0).reshape(E, -1, d)
+def _ffn_rows(params, cfg, rows):
+    """rows: (E, N, d) -> (E, N, d) through each expert's MLP: batched
+    products over E; the nonlinearity is elementwise per ff column."""
     if cfg.mlp_type == "swiglu":
         h = F.silu(torch.bmm(rows, params["e_gate"])) * torch.bmm(rows, params["e_up"])
     elif cfg.mlp_type == "squared_relu":
         h = torch.square(torch.relu(torch.bmm(rows, params["e_up"])))
     else:
         h = F.gelu(torch.bmm(rows, params["e_up"]), approximate="tanh")
-    ys = torch.bmm(h, params["e_down"])
-    return ys.reshape(E, *lead, C, d).movedim(0, -3)
+    return torch.bmm(h, params["e_down"])
+
+
+def _expert_ffn(params, cfg, xs):
+    """xs: (..., E, C, d) -> (..., E, C, d): the rows of every expert in one
+    batched product over E. Under a model axis (``sharding.model_group()``)
+    the leaves are the rank's, as ``fused_sharded.moe_layout`` places them:
+    ``"experts"``, the rank's ``E / m`` experts run on their rows of the
+    buffer and the outputs are gathered over the expert dim (rank order:
+    JAX's block layout); ``"ff"``, every expert on the rank's ``f / m``
+    columns of ``e_gate`` / ``e_up`` and rows of ``e_down``, the partial
+    outputs summed over the axis (GSPMD's partition of JAX's
+    ``("batch", "experts", None, "ff")`` hint). ``xs``, whole on every rank,
+    enters through ``launch/mesh.py::enter``. A leaf whose shape is not the
+    layout's raises."""
+    *lead, E, C, d = xs.shape
+    group = model_group()
+    layout = None if group is None else fused_sharded.moe_layout(cfg, active_mesh())
+    m = 1 if layout is None else group.size
+    E_l = E // m if layout == "experts" else E
+    f_l = cfg.d_ff // m if layout == "ff" else cfg.d_ff
+    if params["e_up"].shape != (E_l, d, f_l) or params["e_down"].shape != (E_l, f_l, d):
+        raise ValueError(
+            f"{cfg.name}: expert leaves {tuple(params['e_up'].shape)} / "
+            f"{tuple(params['e_down'].shape)} are not a rank's under the {layout or 'whole'} "
+            f"layout on {m} model ranks (want {(E_l, d, f_l)}); shard them by "
+            "fused_sharded.rank_specs")
+    if layout is not None:
+        xs = mesh_lib.enter(xs, group)
+    if layout == "experts":
+        xs = xs.narrow(-3, group.index * E_l, E_l)
+    rows = xs.movedim(-3, 0).reshape(E_l, -1, d)
+    ys = _ffn_rows(params, cfg, rows).reshape(E_l, *lead, C, d).movedim(0, -3)
+    if layout == "experts":
+        return mesh_lib.gather(ys, group, dim=-3)
+    return mesh_lib.combine(ys, group) if layout == "ff" else ys
 
 
 def moe_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:

@@ -8,8 +8,9 @@ Each builder closes over the config and returns a plain function. The
 serving steps run under ``torch.inference_mode()``; the train step runs
 eagerly with autograd (capturing it as a CUDA graph is later work).
 ``build_train_step`` and ``build_eval_step`` take a ``mesh`` too, as JAX's:
-data parallelism, FSDP and the model axis's per-rank RNN layers, vocab
-leaves and MoE experts (:func:`build_train_step`).
+data parallelism, FSDP gathered a layer at a time, and the model axis's
+per-rank RNN layers, vocab leaves, attention, MLP and Mamba blocks and MoE
+experts in every schedule (:func:`build_train_step`).
 
 Every serving builder takes a ``mesh`` (``launch/mesh.py``), as JAX's do:
 each rank then allocates its shards of the caches
@@ -38,6 +39,7 @@ from repro_torch.configs import shapes
 from repro_torch.distribution import fused_sharded
 from repro_torch.distribution import sharding as shd
 from repro_torch.distribution.sharding import local_shape, use_rules
+from repro_torch.launch.mesh import FsdpPlan
 from repro_torch.models import attention, lm, rnn
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, cosine_schedule
 from repro_torch.optim.compression import compress_grads, ef_init
@@ -76,10 +78,10 @@ def _split_microbatch(batch: Dict, n_mb: int, i: int) -> Dict:
 
 def train_param_specs(cfg, mesh, *, fsdp: bool = False):
     """The specs a train state's params are held under on ``mesh``: JAX's
-    ``param_specs`` (``fsdp``: the ``fsdp_opt`` dims over ``data``) with
-    the model axis kept only where the port computes per rank
-    (``fused_sharded.rank_specs``: the RNN cells, the vocab leaves, MoE's
-    experts); every other leaf is whole on each model rank. A leaf's grad
+    ``param_specs`` (``fsdp``: the ``fsdp_opt`` dims over ``data``) as
+    ``fused_sharded.rank_specs`` keeps them: every leaf as JAX places it
+    but ``wq_scale`` (int8 configs do not train), the MoE experts over
+    "model" or on their ``ff_moe`` columns in every schedule. A leaf's grad
     is then this rank's shard of it, and the clip norm and int8
     compression's absmax reduce over the axes its spec names
     (``sharding.spec_axes``)."""
@@ -133,23 +135,26 @@ def _rank_rows(mesh, mb: int):
     return r * mb // D, (r + 1) * mb // D
 
 
+def fsdp_plan(mesh, specs, reduce: bool) -> Optional[FsdpPlan]:
+    """The FSDP gathers of a step on ``mesh`` under the param ``specs``
+    (``launch/mesh.py::FsdpPlan``; ``reduce``: the data ranks compute
+    different rows), or None: no data axis, or no leaf sharded over it."""
+    if mesh is None or mesh.shape.get("data", 1) == 1:
+        return None
+    dims = shd.map_with_paths(lambda path, spec: _data_dim(spec), specs)
+    return FsdpPlan(dims, mesh.axis("data"), reduce) if tree_leaves(dims) else None
+
+
 def _reduce_over_data(g_sum, spec_list, mesh, split: bool):
-    """The microbatch-summed grads of the whole params -> this rank's
-    shards of the data-parallel sum: replicated leaves all-reduced in one
-    flat buffer, data-sharded (FSDP) leaves reduce-scattered to the shard;
-    without a split only the FSDP leaves are sliced to the shard."""
+    """The microbatch-summed grads of this rank's shards -> the
+    data-parallel sum: where the data ranks computed different rows
+    (``split``), the leaves held whole over "data" are all-reduced in one
+    flat buffer. The FSDP leaves' grads are already their shard's sum: the
+    backward of their gathers reduce-scattered them (``FsdpPlan``)."""
     out = list(g_sum)
-    dims = [_data_dim(s) for s in spec_list]
-    if mesh.shape.get("data", 1) == 1:
-        return out
-    data = mesh.axis("data")
-    for i, dim in enumerate(dims):
-        if dim is not None:
-            out[i] = (data.reduce_scatter(out[i], dim) if split else
-                      shd.local_shard(out[i], (None,) * dim + ("data",), mesh))
-    whole = [i for i, dim in enumerate(dims) if dim is None]
-    if split and whole:
-        flat = data.all_reduce(torch.cat([out[i].reshape(-1) for i in whole]))
+    whole = [i for i, s in enumerate(spec_list) if _data_dim(s) is None]
+    if split and whole and mesh.shape.get("data", 1) > 1:
+        flat = mesh.axis("data").all_reduce(torch.cat([out[i].reshape(-1) for i in whole]))
         for i, piece in zip(whole, torch.split(flat, [out[i].numel() for i in whole])):
             out[i] = piece.view_as(out[i])
     return out
@@ -171,21 +176,20 @@ def step_grads(cfg, params, batch: Dict, mesh=None, specs=None):
 def _step_grads(cfg, params, batch: Dict, mesh, specs):
     n_mb = cfg.microbatches
     spec_list = None if mesh is None else tree_leaves(specs)
-    whole = tree_leaves(params)
-    if mesh is not None:  # FSDP: the whole params, freed after the backward
-        whole = [shd.gather_shard(p, s, mesh, axes=("data",)) for p, s in zip(whole, spec_list)]
-    leaves = [p.detach().requires_grad_() for p in whole]
-    del whole
+    # The rank's shards: an FSDP leaf is gathered where its block uses it
+    # (lm.lm_hidden), and its grad comes back shard-size.
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     tree = unflatten_like(params, leaves)
     mb_rows = next(iter(batch.values())).shape[0] // n_mb
     rows = _rank_rows(mesh, mb_rows)
+    fsdp = fsdp_plan(mesh, specs, rows is not None)
 
     def grads_of(mb):
         denom = None
         if rows is not None:
             denom = torch.clamp(_token_count(mb), min=1.0)
             mb = {k: v[rows[0]:rows[1]] for k, v in mb.items()}
-        loss, _ = lm.lm_loss(tree, cfg, mb, denom=denom)
+        loss, _ = lm.lm_loss(tree, cfg, mb, denom=denom, fsdp=fsdp)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p, dtype=torch.float32) if g is None
                                else g.float() for p, g in zip(leaves, grads)]
@@ -194,7 +198,7 @@ def _step_grads(cfg, params, batch: Dict, mesh, specs):
         loss, g_sum = grads_of(batch)
     else:
         # Summed in place, each microbatch's grads dropped before the
-        # next's exist: one fp32 copy of the params' size beside the sum.
+        # next's exist: one fp32 copy of the shards' size beside the sum.
         g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         for i in range(n_mb):
@@ -246,17 +250,23 @@ def build_train_step(
         mask too. Where ``mb`` does not divide by D every data rank computes
         the whole microbatch and nothing is summed.
       * FSDP (specs with ``data`` on a dim, ``train_param_specs(fsdp=True)``):
-        the params and moments are data shards at rest. This is the simple
-        form: the step gathers the whole params at once before the forward
-        (not layer by layer) and frees them after the backward; the grads
-        are reduce-scattered to the shards and AdamW runs on the shard.
+        the params and moments are data shards at rest. Each block gathers
+        its own layer over "data" where it runs, inside its remat region
+        (``lm.lm_hidden``, :func:`fsdp_plan`), as JAX's scanned layers do:
+        under ``remat="block"`` a rank holds one layer gathered at a time,
+        and the backward gathers it again. The gather's backward
+        reduce-scatters each microbatch's cotangent to the shard (where
+        ``mb`` does not divide by D: takes the rank's block, no sum), so the
+        grads are shard-size and summed over microbatches as such; AdamW
+        runs on the shard.
       * model: the RNN layers (``distribution/fused_sharded.py`` for the
         fused engines, ``distribution/tensor_parallel.py`` for the others,
         ``pallas`` on B3 per rank, and the LSTM), the vocab leaves, the
-        attention, dense MLP and Mamba blocks
-        (``models/attention.py``, ``mamba.py``, ``lm._mlp``: the rank's
-        heads, "ff" columns and rows, ``ssd_chunked`` on its Mamba heads) and MoE's
-        expert-parallel layer run per rank through ``launch/mesh.py``'s
+        attention, dense MLP and Mamba blocks (``models/attention.py``,
+        ``mamba.py``, ``lm._mlp``: the rank's heads, "ff" columns and rows,
+        ``ssd_chunked`` on its Mamba heads) and the MoE experts
+        (``models/moe.py``: the rank's experts, or their ``ff_moe``
+        columns, in every schedule) run per rank through ``launch/mesh.py``'s
         autograd collectives; each model-sharded leaf gets its own shard's
         grad, the leaves held whole on every model rank get equal grads
         there, and nothing is reduced over ``model``.
@@ -291,9 +301,10 @@ def build_train_step(
 def build_eval_step(cfg, mesh=None, *, specs=None):
     """``eval_step(params, batch) -> metrics`` (``loss``, ``tokens``), no
     grads. Under ``mesh``, as :func:`build_train_step`: the params this
-    rank's shards under ``specs`` (gathered whole over ``data`` for the
-    call), ``batch`` the global batch, each data rank its rows when they
-    divide, the loss summed over ``data``."""
+    rank's shards under ``specs`` (FSDP leaves gathered over ``data`` a
+    layer at a time, as the train step's forward gathers them), ``batch``
+    the global batch, each data rank its rows when they divide, the loss
+    summed over ``data``."""
     if mesh is not None and specs is None:
         specs = train_param_specs(cfg, mesh)
 
@@ -302,14 +313,13 @@ def build_eval_step(cfg, mesh=None, *, specs=None):
             if mesh is None:
                 _, metrics = lm.lm_loss(params, cfg, batch)
                 return metrics
-            params = tree_map(lambda p, s: shd.gather_shard(p, s, mesh, axes=("data",)),
-                              params, specs)
             tokens = _token_count(batch)
             rows = _rank_rows(mesh, batch["targets"].shape[0])
+            fsdp = fsdp_plan(mesh, specs, rows is not None)
             if rows is None:
-                return lm.lm_loss(params, cfg, batch)[1]
+                return lm.lm_loss(params, cfg, batch, fsdp=fsdp)[1]
             loss, _ = lm.lm_loss(params, cfg, {k: v[rows[0]:rows[1]] for k, v in batch.items()},
-                                 denom=torch.clamp(tokens, min=1.0))
+                                 denom=torch.clamp(tokens, min=1.0), fsdp=fsdp)
             loss = mesh.axis("data").all_reduce(loss)
             return {"loss": loss, "tokens": tokens}
 

@@ -339,7 +339,7 @@ def test_rank_specs_keep_the_model_axis_only_where_the_port_shards():
     assert r_llama["layers"]["mlp"]["w_down"] == (None, "model", None)
     assert r_llama["layers"]["attn"]["w_kv"] == (None, None, "model")
     assert fs.rank_specs(moe.with_(moe_impl="sorted"), fs.serving_param_specs(p_moe, mesh),
-                         mesh)["layers"]["moe"]["e_up"] == (None, None, None, None)
+                         mesh)["layers"]["moe"]["e_up"] == (None, "model", None, None)
     one = mesh_lib.Mesh({"data": 2, "model": 1})  # a model axis of one rank shards nothing
     assert fs.rank_specs(cfg, fs.serving_param_specs(params, one), one)["embed"]["embed"] == (
         None, None)

@@ -93,7 +93,6 @@ JOINED_ARGV = ["--arch", "llama3-8b", "--reduced", "--device", "cpu", "--batch",
 REST_MESHES = {"1x2": {"data": 1, "model": 2}, "2x4": {"data": 2, "model": 4},
                "prod": {"data": 16, "model": 16}}
 NON_PAPER = sorted(n for n in REGISTRY if get_config(n).cell is None)
-EXPERTS = ("e_gate", "e_up", "e_down")
 
 
 def _mesh_id(shape):
@@ -487,11 +486,11 @@ def _full_shapes(name: str):
 @pytest.mark.parametrize("name", NON_PAPER)
 def test_non_paper_configs_rest_as_jax_places_them(runs, name, mname):
     """Every non-paper config's at-rest specs at full shape (meta tensors)
-    are JAX's ``param_specs`` leaf for leaf and JAX's ``cache_specs``, but
-    for the expert leaves wherever MoE does not run expert-parallel (the
-    ``ff_moe`` fallback, and mixtral's ``sorted`` schedule), held whole;
-    the startup's replicated dims are then JAX's ``describe_replications``
-    but for those experts."""
+    are JAX's ``param_specs`` leaf for leaf, the MoE experts included in
+    every schedule (over "model" where the expert count divides it, else
+    the ``ff_moe`` columns: mixtral's 8 experts on the 16-wide ``prod``
+    axis), and JAX's ``cache_specs``; the startup's replicated dims are
+    JAX's ``describe_replications``."""
     want = runs["ref"][f"rest/{name}/{mname}"]
     cfg = get_config(name)
     mesh = mesh_lib.Mesh(REST_MESHES[mname])
@@ -500,16 +499,15 @@ def test_non_paper_configs_rest_as_jax_places_them(runs, name, mname):
     rank = _flat(rank_tree)
     assert _flat(fs.rank_cache_specs(cfg, caches, mesh)) == want["cache"]
     assert sorted(rank) == sorted(want["param"])
-    expert_parallel = cfg.moe and cfg.moe_impl == "shard_map" and (
-        cfg.n_experts % REST_MESHES[mname]["model"] == 0)
     for path, spec in want["param"].items():
-        if path.rsplit("/", 1)[-1] in EXPERTS and not expert_parallel:
-            assert "model" not in json.dumps(rank[path]), path
-        else:
-            assert rank[path] == spec, path
-    lines = shd.describe_replications(params, rank_tree)
-    assert [x for x in lines if not any(f"/{e}[" in x for e in EXPERTS)] == [
-        x for x in want["repl"] if not any(f"/{e}[" in x for e in EXPERTS)]
+        assert rank[path] == spec, path
+    assert shd.describe_replications(params, rank_tree) == want["repl"]
+    if cfg.moe:
+        layout = fs.moe_layout(cfg, mesh)
+        e_up = rank["layers/moe/e_up"]
+        assert layout == ("experts" if cfg.n_experts % REST_MESHES[mname]["model"] == 0
+                          else "ff")
+        assert e_up[1 if layout == "experts" else 3] == "model"
 
 
 # ---------------------------------------------------------------------------
