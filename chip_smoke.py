@@ -144,9 +144,10 @@ Phases, each printing one JSON line per step:
            storage (written in place);
   parity   the stacked SRU and QRNN LMs, the base SRU and QRNN LMs under
            pallas, the LSTM LM, two int8 LMs (stacked SRU, fused QRNN),
-           smollm-360m (full depth), llama3-8b, mamba2-2.7b, granite-20b,
-           internvl2-2b and musicgen-large (each cut to 2 layers so the CPU
-           side fits in time and host memory), zamba2-7b (cut to 7: a
+           smollm-360m (cut to 8 of its 32 layers), llama3-8b, mamba2-2.7b,
+           granite-20b, internvl2-2b and musicgen-large (each cut to 2
+           layers so the CPU side fits in time and host memory), zamba2-7b
+           (cut to 7: a
            group of 6 with its shared block, and a tail layer), and
            mixtral-8x22b, qwen3-moe-235b-a22b and nemotron-4-340b cut to 1
            (their prefill logits held at 3e-5) at full width
@@ -163,11 +164,12 @@ Phases, each printing one JSON line per step:
            ``qwen3-moe-235b-a22b`` (bf16 moments) cut to 1 through the same
            loop over ``build_train_step``
            (``launch/train.py`` has no engine or depth flag, as in JAX):
-           per config but ``mixtral-8x22b`` the fp32 step 0
-           on the card against the CPU's (same params and batch: loss and
-           grad norm), then the run in the config's dtypes with every
-           kernel's count set to 0 just before and read just after
-           (launches equal to the expected), finite losses, ms per step,
+           per config the fp32 step 0 on the card against the CPU's (same
+           params and batch: loss and grad norm; cut to TRAIN_PARITY_DEPTH
+           layers and the batch's first TRAIN_PARITY_ROWS rows), then the
+           run in the config's dtypes with every kernel's count set to 0
+           just before and read just after (launches equal to the
+           expected), finite losses, ms per step,
            tokens/s, peak memory and the B1/B2 backward's recompute time;
            then a run saved half way and resumed against the uninterrupted
            one (max |param difference|);
@@ -246,13 +248,26 @@ Phases, each printing one JSON line per step:
            collectives and the rest; ``launch.train`` under
            ``torch.distributed.run`` on two gloo ranks to step 2, resumed
            with ``--resume auto`` on one rank to step 4, its params within
-           5e-4 of the uninterrupted single-rank run's.
+           5e-4 of the uninterrupted single-rank run's;
+  dryrun   ``launch/dryrun.py``'s rank on the card (DRYRUN_CELLS:
+           ``llama3-8b`` ``decode_32k`` and ``mamba2-2.7b`` ``long_500k``,
+           rank (0, 0) of the (16, 16) pod, full depth): the meta run of the
+           rank's step, then the same step on the card at the same local
+           shapes under the same virtual rank (its collectives return the
+           rank's operand tiled or copied: one rank, no communication), on
+           random shards, eager, after a warm-up step: the inputs' shapes,
+           the collectives (op, count, bytes) and each kernel's launches
+           (B5's lse form on llama3's sequence-sharded cache, B4 on mamba2's
+           5 heads) equal to the meta run's, finite logits, the peak memory
+           beyond the inputs within DRYRUN_TEMP_RTOL plus
+           DRYRUN_TEMP_ALLOWANCE of the meta run's temp bytes, and ms a step
+           (host clock, synchronised).
 
 Then one ``{"phase_seconds": {...}}`` line (each phase's wall time, the
 serve phase's warm-ups included), one ``{"kernels": [...]}`` line (launches
-from the serve, continuous, speculative, telemetry, train, checkpoint and
-sharded phases, eager and captured runs and the sharded phase's ranks
-summed), the
+from the serve, continuous, speculative, telemetry, train, checkpoint,
+sharded and dryrun phases, eager and captured runs and the sharded phase's
+ranks summed), the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the last
 line. Without a CUDA device, or without the repository beside this file, it
@@ -277,7 +292,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("build", "kernels", "serve", "continuous", "speculative", "telemetry", "profile",
-          "parity", "train", "checkpoint", "sharded")
+          "parity", "train", "checkpoint", "sharded", "dryrun")
 # (arch, --engine override, --prompt-len): the runs of the serve phase.
 SERVE_RUNS = (
     ("sru-paper-large-stacked", None, 64), ("qrnn-paper-large-stacked", None, 64),
@@ -364,7 +379,7 @@ PARITY_RUNS = (
     ("sru-paper-large", "pallas", {}), ("qrnn-paper-large", "pallas", {}),
     ("lstm-paper-large", None, {}),
     ("sru-paper-large-stacked-int8", None, {}), ("qrnn-paper-large-int8", None, {}),
-    ("smollm-360m", None, {}), ("llama3-8b", None, {"n_layers": 2}),
+    ("smollm-360m", None, {"n_layers": 8}), ("llama3-8b", None, {"n_layers": 2}),
     ("mamba2-2.7b", None, {"n_layers": 2}),
     ("granite-20b", None, {"n_layers": 2}), ("internvl2-2b", None, {"n_layers": 2}),
     ("musicgen-large", None, {"n_layers": 2}),
@@ -404,8 +419,11 @@ TRAIN_PARITY_DEPTH = {"internvl2-2b": 2, "smollm-360m": 8}
 # The fp32 step-0 check of these runs takes only the first rows of the batch
 # on both sides (and as many microbatches at most), for the script's time:
 # at all 8 rows each MoE check took about two minutes of the host's fp32
-# forward and backward at full width.
-TRAIN_PARITY_ROWS = {"mixtral-8x22b": 2, "qwen3-moe-235b-a22b": 2}
+# forward and backward at full width, at 2 rows 39-46 s on a slow host
+# (zamba2-7b's 7 layers at 8 rows 59 s, internvl2-2b's 20 s), which put the
+# script at 1165 s of phases there.
+TRAIN_PARITY_ROWS = {"mixtral-8x22b": 1, "qwen3-moe-235b-a22b": 1, "zamba2-7b": 2,
+                     "internvl2-2b": 2}
 # A run saved at step TRAIN_STEPS // 2 and resumed ends with the
 # uninterrupted run's params: equal but for the last-ulp effect of atomics
 # in the embedding gradient on fp32 masters of magnitude < 1 (~6e-8); a lost
@@ -558,6 +576,27 @@ SHARDED_CONT_DATA_RUNS = ("plain", "prefix")
 SHARDED_CONT_REQUESTS, SHARDED_CONT_GEN = 16, 32
 # Served once more inside timed_collectives: ms a tick in the collectives.
 SHARDED_CONT_SPLIT = ("plain",)
+# The dryrun phase's cells, (arch, shape, mesh): one rank of each, rank
+# (0, 0) of the (16, 16) pod, run on meta by ``launch/dryrun.py`` and then
+# on the card at the same local shapes under the same virtual rank (no
+# collective runs: each returns the rank's operand tiled or copied), on
+# random shards from DRYRUN_SEED, eager. llama3-8b decode_32k: 8 lanes, its
+# FSDP-sharded weights gathered a layer at a time, its 8 KV heads' cache
+# sequence-sharded (2048 of the 32768 slots, every one valid: the cache
+# position is the last), so B5's lse form runs; mamba2-2.7b long_500k: one
+# lane, whole, B4 on 5 of the 80 heads.
+DRYRUN_CELLS = (("llama3-8b", "decode_32k", "pod"), ("mamba2-2.7b", "long_500k", "pod"))
+DRYRUN_SEED = 35
+DRYRUN_STEPS = 5  # timed steps a cell, after the warm-up and the measured one
+# The card's peak over the measured step, less what was allocated before
+# it, against the meta run's temp_bytes with each storage rounded to the
+# caching allocator's 512-byte blocks (both after a warm-up step, so the
+# cuBLAS workspaces and B5's launch words are allocated before): within
+# DRYRUN_TEMP_RTOL of the prediction plus DRYRUN_TEMP_ALLOWANCE, named for
+# cuBLAS/cuBLASLt workspace a GEMM may still take in the step and for the
+# meta branch's per-call launch words (4 KB a B5 call) the card keeps.
+DRYRUN_TEMP_RTOL = 0.05
+DRYRUN_TEMP_ALLOWANCE = 8 << 20
 # Autograd Functions of B1/B2 (kernels phase): their gradients against
 # autograd through the plain version on the card. The Functions' backward
 # recomputes the plain version with its recurrence through the linear scan
@@ -4258,6 +4297,130 @@ def phase_sharded():
     return totals
 
 
+# ---------------------------------------------------------------------------
+# dryrun
+# ---------------------------------------------------------------------------
+
+def _dryrun_fill(cfg, shape, gen):
+    """The card's filler of a rank's inputs (``dryrun.meta_fill``'s
+    contract): params and caches small normals from ``gen``, the KV cache's
+    position at the last slot, token ids in the vocab."""
+    import torch
+
+    def fill(like, role):
+        if role.endswith("/pos"):
+            return torch.full(like.shape, shape.seq_len - 1, dtype=like.dtype, device="cuda")
+        if role in ("inputs/t", "inputs/inputs", "inputs/targets"):
+            return torch.randint(0, cfg.vocab, like.shape, generator=gen, device="cuda",
+                                 dtype=like.dtype)
+        scale = 0.1 if role.startswith("cache/") else 0.02
+        return (torch.randn(like.shape, generator=gen, device="cuda") * scale).to(like.dtype)
+
+    return fill
+
+
+def _dryrun_cell(arch, shape_name, mesh_kind, counters):
+    """One cell: its meta run (the prediction), then the same rank's step on
+    the card (shapes, collectives, launches, finite logits, peak memory
+    against the prediction, ms a step). Returns the line and the launches
+    of the measured step."""
+    import torch
+
+    from repro_torch.configs import shapes
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import recorded_collectives, virtual_mesh
+    from repro_torch.tree import flatten_with_paths
+
+    cfg, shape = get_config(arch), shapes.SHAPES[shape_name]
+    classes = dryrun.rank_classes(cfg, shape, dryrun.MESHES[mesh_kind])
+    require(len(classes) == 1, f"dryrun {arch}: {len(classes)} classes of ranks")
+    mesh = virtual_mesh(dryrun.MESHES[mesh_kind], classes[0][0])
+    what = f"dryrun {arch} {shape_name} {mesh_kind}"
+    t0 = time.perf_counter()
+    meta_step = dryrun.STEPS[shape.kind](cfg, shape, mesh)
+    meta = dryrun.measure(meta_step.fn, meta_step.args, mesh, arg_bytes=meta_step.arg_bytes,
+                          output_bytes=meta_step.output_bytes, block=512)
+    meta_s = time.perf_counter() - t0
+
+    gen = torch.Generator(device="cuda").manual_seed(DRYRUN_SEED)
+    step = dryrun.STEPS[shape.kind](cfg, shape, mesh, fill=_dryrun_fill(cfg, shape, gen))
+    got = [(p, tuple(x.shape), x.dtype) for p, x in flatten_with_paths(dict(enumerate(step.args)))]
+    want = [(p, tuple(x.shape), x.dtype)
+            for p, x in flatten_with_paths(dict(enumerate(meta_step.args)))]
+    require(got == want, f"{what}: the card's inputs are not the meta run's local shapes")
+    args_bytes = sum(math.prod(s) * torch.empty((), dtype=d).element_size() for _, s, d in got)
+    step.fn(*step.args)  # warm-up: cuBLAS workspaces, B5's launch words
+    torch.cuda.synchronize()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_collectives(mesh) as log:
+        out = step.fn(*step.args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    logits = out[0]
+    require(bool(torch.isfinite(logits.float()).all().item()), f"{what}: logits not finite")
+    coll = {"total": dryrun._coll(log, False), "entry": dryrun._coll(log, True)}
+    for k in ("total", "entry"):
+        require(coll[k] == meta[f"collectives_{k}"],
+                f"{what}: collectives {k} {coll[k]} != the meta run's "
+                f"{meta[f'collectives_{k}']}")
+    want_launches = {k: v["launches"] for k, v in meta["kernels"].items()}
+    require({k: n for k, n in launches.items() if n} == want_launches,
+            f"{what}: launches {launches} != the meta run's calls {want_launches}")
+    temp = meta["memory"]["temp_bytes"]
+    tol = DRYRUN_TEMP_RTOL * temp + DRYRUN_TEMP_ALLOWANCE
+    require(abs(peak - temp) <= tol,
+            f"{what}: peak {peak} B beyond the arguments, predicted {temp} B (tolerance {tol})")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(DRYRUN_STEPS):
+        step.fn(*step.args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) / DRYRUN_STEPS * 1e3
+    line = {"phase": "dryrun", "cell": f"{arch} {shape_name} {mesh_kind}",
+            "rank": classes[0][0], "ranks_checked": classes[0][1],
+            "note": "one rank, no communication: the virtual rank's collectives return its "
+                    "own operand tiled or copied (shape-true, not the mesh's values)",
+            "ms_per_step": ms, "meta_s": meta_s, "args_bytes": args_bytes,
+            "argument_bytes": meta["memory"]["argument_bytes"],
+            "peak_bytes_beyond_args": peak, "predicted_temp_bytes": temp,
+            "temp_tolerance_bytes": tol, "launches": want_launches,
+            "collectives": coll["total"]["counts"],
+            "collective_bytes": {k: v for k, v in coll["total"].items()
+                                 if k not in ("count", "counts") and v},
+            "flops": meta["cost"]["flops"]}
+    del step, out, logits
+    _release()
+    return line, launches
+
+
+def phase_dryrun():
+    """``launch/dryrun.py``'s rank held on the card: for each of
+    DRYRUN_CELLS the meta run of rank (0, 0) (the only class of local
+    shapes, checked from the specs), then the same rank's step on the card
+    at the same local shapes under the same virtual rank, on random shards,
+    eager: the inputs' shapes and dtypes equal, the collectives (op, count,
+    bytes, total and entry) and each kernel's launches equal to the meta
+    run's, finite logits, the peak memory beyond the arguments within
+    DRYRUN_TEMP_RTOL plus DRYRUN_TEMP_ALLOWANCE of the meta run's temp
+    bytes, and ms a step on the host clock (one rank, no communication).
+    Every kernel's count is set to 0 just before the measured step and read
+    just after. Returns the launches."""
+    counters = _launch_counters()
+    totals = dict.fromkeys(KERNELS, 0)
+    for cell in DRYRUN_CELLS:
+        line, launches = _dryrun_cell(*cell, counters)
+        emit(line)
+        for k, n in launches.items():
+            totals[k] += n
+    emit({"phase": "dryrun", "launches": totals})
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4301,11 +4464,12 @@ def main(argv=None) -> int:
             train = results.get("train") or {}
             checkpoint = results.get("checkpoint") or {}
             sharded = results.get("sharded") or {}
+            dry = results.get("dryrun") or {}
             for name, s in summaries.items():
                 s["launches"] = (launches[name] + continuous.get(name, 0)
                                  + speculative.get(name, 0) + telemetry.get(name, 0)
                                  + train.get(name, 0) + checkpoint.get(name, 0)
-                                 + sharded.get(name, 0))
+                                 + sharded.get(name, 0) + dry.get(name, 0))
                 require(s["launches"] > 0, f"{name}: no launch on the main path")
             emit({"kernels": list(summaries.values())})
         smi = subprocess.run(

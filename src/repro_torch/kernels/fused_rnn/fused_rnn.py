@@ -34,8 +34,10 @@ int8 or bf16 slabs (:func:`slab_dtype`; the biases, carry, skip and output
 stay fp32).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version (``ref.py``). ``LAUNCHES`` counts launches of the fp instances,
-``LAUNCHES_INT8`` those of the int8 ones.
+version (``ref.py``); a meta tensor takes the meta branch (``kernels/
+common.py``: the checks and outputs, no launch, the call recorded).
+``LAUNCHES`` counts launches of the fp instances, ``LAUNCHES_INT8`` those
+of the int8 ones.
 """
 from __future__ import annotations
 
@@ -47,7 +49,8 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import DTYPE_CODES, check_operand, cuda_dtype_code
+from repro_torch.kernels.common import (DTYPE_CODES, check_operand, cuda_dtype_code, dtype_code,
+                                        nbytes, record_call)
 from repro_torch.kernels.fused_rnn import layout
 from repro_torch.kernels.fused_rnn.ref import fused_rnn_ref, fused_rnn_ref_q, _scan
 
@@ -214,10 +217,11 @@ def instance_info(T: int, B: int, d: int, H: int, *, int8: bool = False, ng: int
 
 
 def kernel_dtype(u: torch.Tensor, batch: int) -> int:
-    """The kernel's dtype code for ``u``; raises on what the kernel does not take."""
+    """The kernel's dtype code for ``u`` (on the card, or on meta for the
+    meta branch); raises on what the kernel does not take."""
     if batch > MAX_BATCH:
         raise ValueError(f"the CUDA kernel takes batch <= {MAX_BATCH}, got {batch}")
-    return cuda_dtype_code(u)
+    return dtype_code(u) if u.device.type == "meta" else cuda_dtype_code(u)
 
 
 def weight_dtype(scale, io_code: int) -> int:
@@ -304,13 +308,21 @@ def fused_rnn_layer(
         tail = torch.zeros((1, B, d), dtype=u.dtype, device=u.device) if tail is None else tail
         check_operand(tail, "tail", (1, B, d), u)
 
+    meta = u.device.type == "meta"
     cluster = k_tile = 0  # read by the bf16 instances only
-    if u.dtype == torch.bfloat16:
+    if u.dtype == torch.bfloat16 and not meta:
         p = _plan_on(u.device, T, B, d, H, int8=scale is not None,
                      ng=4 if mode == "sru_proj" else 3, taps=len(taps), block_t=block_t)
         cluster, k_tile = p.cluster, p.k_tile
     h = torch.empty((T, B, H), dtype=u.dtype, device=u.device)
     c_last = torch.empty((B, H), dtype=u.dtype, device=u.device)
+    if meta:  # the meta branch (kernels/common.py): the bound's formula, no launch
+        ops = 2.0 * T * B * d * len(taps) * 3 * H + (2.0 * T * B * d * H
+                                                      if mode == "sru_proj" else 0.0)
+        rw = nbytes(u, *taps, b3, c0, tail if mode == "qrnn" else None, wskip, scale, h, c_last)
+        record_call("fused_rnn_layer" if scale is None else "fused_rnn_layer_int8", 1, ops, rw,
+                    u.dtype)
+        return h, c_last
     lib = build.library("fused_rnn_layer" if scale is None else "fused_rnn_layer_int8")
     with torch.cuda.device(u.device):
         rc = lib.fused_rnn_layer_launch(

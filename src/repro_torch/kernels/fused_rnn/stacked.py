@@ -23,7 +23,9 @@ Int8 gate slabs (``sL`` given): the taps are int8 ``(L, H, 3, H)`` and
 ``fused_rnn.py`` describes.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version (``ref.py::fused_rnn_stack_ref`` / ``fused_rnn_stack_ref_q``).
+version (``ref.py::fused_rnn_stack_ref`` / ``fused_rnn_stack_ref_q``); a
+meta tensor takes the meta branch (``kernels/common.py``: the same buffers,
+L launches recorded, none made).
 
 Differentiable, as JAX's ``_stack_core`` / ``_stack_core_q`` are through
 ``jax.custom_vjp``: ``_StackCore`` runs the L launches forward and saves
@@ -44,7 +46,8 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_operand, largest_divisor_leq, recompute_grads
+from repro_torch.kernels.common import (check_operand, largest_divisor_leq, nbytes, record_call,
+                                        recompute_grads)
 from repro_torch.kernels.fused_rnn import layout
 from repro_torch.kernels.fused_rnn.fused_rnn import _plan_on, kernel_dtype, weight_dtype
 from repro_torch.kernels.fused_rnn.ops import linear_scan_recurrence
@@ -101,8 +104,9 @@ def fused_rnn_stack(
     if qrnn:
         check_operand(tailsL, "tailsL", (L, B, H), x)
 
+    meta = x.device.type == "meta"
     cluster = k_tile = 0  # read by the bf16 instances only
-    if x.dtype == torch.bfloat16:
+    if x.dtype == torch.bfloat16 and not meta:
         p = _plan_on(x.device, T, B, H, H, int8=sL is not None, stack=True, taps=len(taps),
                      block_t=block_t)
         cluster, k_tile = p.cluster, p.k_tile
@@ -110,6 +114,12 @@ def fused_rnn_stack(
     xb = torch.empty_like(xa)
     c_last = torch.empty((L, B, H), dtype=x.dtype, device=x.device)
     tails_last = torch.empty((L, B, H), dtype=x.dtype, device=x.device) if qrnn else None
+    if meta:  # the meta branch (kernels/common.py): the bound's formula, no launch
+        ops = 2.0 * L * T * B * len(taps) * H * 3 * H
+        rw = nbytes(x, *taps, b3L, lnL, c0L, tailsL, sL) + nbytes(x, c_last, tails_last)
+        record_call("fused_rnn_stack" if sL is None else "fused_rnn_stack_int8", L, ops, rw,
+                    x.dtype)
+        return xa.to(x.dtype), c_last, tails_last
     lib = build.library("fused_rnn_layer" if sL is None else "fused_rnn_layer_int8")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):

@@ -1,8 +1,9 @@
 """Public entry of decode-shape GQA attention (``repro/kernels/gqa_decode/ops.py``).
 
 ``gqa_decode(q, k, v, lengths)`` checks its operands, then runs the CUDA
-kernel (``gqa_decode.py``) on CUDA tensors and the plain version
-(``ref.py``) on CPU tensors. ``return_lse=True`` also returns the
+kernel (``gqa_decode.py``) on CUDA tensors, the plain version (``ref.py``)
+on CPU tensors and the wrapper's meta branch on meta tensors
+(``kernels/common.py``); any other device raises. ``return_lse=True`` also returns the
 log-sum-exp of each (lane, query head) and takes lengths of 0: the form a
 shard of a sequence-sharded cache runs, whose partials are combined across
 ranks. JAX's ``block_s`` and ``interpret`` arguments
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import DTYPE_CODES, check_operand
-from repro_torch.kernels.gqa_decode.gqa_decode import gqa_decode_cuda
+from repro_torch.kernels.gqa_decode.gqa_decode import gqa_decode_cuda, gqa_decode_meta
 from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref
 
 HEAD_DIM_STEP = 8   # a head dim is a whole number of 16-byte bf16 row pieces
@@ -53,4 +54,6 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_operands(q, k, v, lengths)
     if q.device.type == "cpu":
         return gqa_decode_ref(q, k, v, lengths, return_lse)
+    if q.device.type == "meta":
+        return gqa_decode_meta(q, k, v, lengths, return_lse)
     return gqa_decode_cuda(q, k, v, lengths, return_lse)

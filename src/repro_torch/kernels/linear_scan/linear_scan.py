@@ -12,8 +12,10 @@ aggregates in a fixed order (``ref.py`` says the arithmetic), so neither
 is an argument here.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version (``ref.py``, with the kernel's chunk length). ``LAUNCHES`` counts
-kernel launches, forward and backward alike.
+version (``ref.py``, with the kernel's chunk length); a meta tensor takes
+the wrapper's meta branch (``kernels/common.py``: the same checks, output
+and scratch, no launch, the call recorded). ``LAUNCHES`` counts kernel
+launches, forward and backward alike.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_operand, cuda_dtype_code, stream_words
+from repro_torch.kernels.common import (check_operand, cuda_dtype_code, dtype_code, nbytes,
+                                        record_call, stream_words)
 from repro_torch.kernels.linear_scan.ref import chunk_len, linear_scan_bwd_ref, linear_scan_ref
 
 LAUNCHES = 0
@@ -67,7 +70,11 @@ def _scratch(T: int, F: int, device: torch.device):
     if n_chunks == 1:
         return chunk, None, None
     n_tiles = -(-F // THREADS)
-    sync = stream_words(_SYNC, device, 2 + n_chunks * n_tiles, 2 + 4096)
+    if device.type == "meta":  # the card keeps one such block a stream
+        sync = torch.zeros(max(2 + n_chunks * n_tiles, 2 + 4096), dtype=torch.int32,
+                           device=device)
+    else:
+        sync = stream_words(_SYNC, device, 2 + n_chunks * n_tiles, 2 + 4096)
     agg = torch.empty((n_chunks - 1) * n_tiles * THREADS * AGG_BYTES // 4,
                       dtype=torch.float32, device=device)
     return chunk, sync, agg
@@ -77,13 +84,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _meta(name, a, tensors, outs, ops):
+    """Record a meta call that reads ``tensors`` and writes ``outs``."""
+    record_call(name, 1, ops, nbytes(*tensors) + nbytes(*outs), a.dtype)
+
+
 def linear_scan_kernel(a: torch.Tensor, b: torch.Tensor, c0: torch.Tensor) -> torch.Tensor:
     """a, b: (T, F); c0: (F,); all of one dtype (fp32 or bf16) and
     contiguous. Returns c: (T, F) in b's dtype."""
     if a.device.type == "cpu":
         return linear_scan_ref(a, b, c0, chunk=chunk_len(a.shape[0]))
     global LAUNCHES
-    code = cuda_dtype_code(a)
+    meta = a.device.type == "meta"
+    code = dtype_code(a) if meta else cuda_dtype_code(a)
     if a.dim() != 2:
         raise ValueError(f"a: expected (T, F), got shape {tuple(a.shape)}")
     T, F = a.shape
@@ -91,6 +104,10 @@ def linear_scan_kernel(a: torch.Tensor, b: torch.Tensor, c0: torch.Tensor) -> to
     check_operand(b, "b", (T, F), a)
     check_operand(c0, "c0", (F,), a)
     out = torch.empty_like(b)
+    if meta:
+        _scratch(T, F, a.device)  # made and dropped, as the launch's
+        _meta("linear_scan", a, (a, b, c0), (out,), 2.0 * T * F)
+        return out
     lib = build.library("linear_scan")
     with torch.cuda.device(a.device):
         chunk, sync, agg = _scratch(T, F, a.device)
@@ -110,7 +127,8 @@ def linear_scan_bwd(a: torch.Tensor, c: torch.Tensor, c0: torch.Tensor, g: torch
     if a.device.type == "cpu":
         return linear_scan_bwd_ref(a, c, c0, g, chunk=chunk_len(a.shape[0]))
     global LAUNCHES
-    code = cuda_dtype_code(a)
+    meta = a.device.type == "meta"
+    code = dtype_code(a) if meta else cuda_dtype_code(a)
     if a.dim() != 2:
         raise ValueError(f"a: expected (T, F), got shape {tuple(a.shape)}")
     T, F = a.shape
@@ -118,6 +136,10 @@ def linear_scan_bwd(a: torch.Tensor, c: torch.Tensor, c0: torch.Tensor, g: torch
         check_operand(t, name, (T, F), a)
     check_operand(c0, "c0", (F,), a)
     da, db, dc0 = torch.empty_like(a), torch.empty_like(a), torch.empty_like(c0)
+    if meta:
+        _scratch(T, F, a.device)  # made and dropped, as the launch's
+        _meta("linear_scan", a, (a, c, c0, g), (da, db, dc0), 3.0 * T * F)
+        return da, db, dc0
     lib = build.library("linear_scan")
     with torch.cuda.device(a.device):
         chunk, sync, agg = _scratch(T, F, a.device)

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.kernels.common import DTYPE_CODES
 from repro_torch.kernels.ssd.ref import ssd_ref
-from repro_torch.kernels.ssd.ssd import ssd_cuda
+from repro_torch.kernels.ssd.ssd import ssd_cuda, ssd_meta
 
 MAX_STATE = 128     # N the kernel takes (its shared memory)
 MAX_HEAD_DIM = 256  # P the kernel takes (its one-step form: a thread per column)
@@ -107,6 +107,7 @@ def ssd(
     if state_out is None:
         state_out = torch.empty((Bsz, H, B_.shape[3], P), dtype=f32, device=x.device)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    ssd_cuda(x, dt.to(f32), A.to(f32).contiguous(), B_, C_,
-             None if D is None else D.to(f32).contiguous(), s0, y, state_out)
+    launch = ssd_meta if x.device.type == "meta" else ssd_cuda
+    launch(x, dt.to(f32), A.to(f32).contiguous(), B_, C_,
+           None if D is None else D.to(f32).contiguous(), s0, y, state_out)
     return y, state_out

@@ -9,6 +9,8 @@ its one-step form (S == 1, decode). With bf16 x, B and C the chunk kernel
 runs on the tensor cores, each CTA on a block of heads of one group that
 ``chunk_plan`` sizes; the other dtypes run the fp32 chunk kernel, one head a
 CTA. ``LAUNCHES`` counts calls that launched it (one CUDA launch each).
+:func:`ssd_meta` stands for :func:`ssd_cuda` on meta operands: it checks
+them, launches nothing and records the call (``kernels/common.py``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import DTYPE_CODES, cuda_dtype_code
+from repro_torch.kernels.common import (DTYPE_CODES, cuda_dtype_code, dtype_code, nbytes,
+                                        record_call)
 
 LAUNCHES = 0
 CHUNK = 64  # the kernel's chunk: its tiling, which changes no value
@@ -77,6 +80,37 @@ def plan(batch: int, heads: int, groups: int, head_dim: int, state_size: int,
     info = instance_info(torch.bfloat16, torch.bfloat16, state_size)
     return chunk_plan(batch, heads, groups, head_dim, _sm_count(device_index),
                       info["ctas_per_sm"], info["max_heads_per_cta"], info["p_slice"])
+
+
+def work(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
+         C_: torch.Tensor, D: Optional[torch.Tensor], s0: Optional[torch.Tensor]):
+    """``(bytes, operations)`` of a call (the bound's formula): every operand
+    read once, y and the fp32 state written once; the chunked algorithm at
+    the kernel's ``CHUNK``-step chunks, the lower triangles of C B^T and of
+    the scores times xdt, C S and B^T xdt (a multiply-add counts 2), or
+    ``4 N P`` a head for one step."""
+    Bsz, S, H, P = x.shape
+    N = B_.shape[3]
+    ops = 0.0
+    for t0 in range(0, S, CHUNK):
+        L = min(CHUNK, S - t0)
+        tri = L * (L + 1) / 2
+        ops += 2.0 * (tri * N + tri * P + 2 * L * N * P) if S > 1 else 4.0 * N * P
+    rw = nbytes(x, dt, A, B_, C_, D, s0) + nbytes(x) + Bsz * H * N * P * 4
+    return rw, ops * Bsz * H
+
+
+def ssd_meta(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
+             C_: torch.Tensor, D: Optional[torch.Tensor], s0: Optional[torch.Tensor],
+             y: torch.Tensor, state: torch.Tensor) -> None:
+    """:func:`ssd_cuda` on meta operands: their dtype checks, no launch; the
+    call is recorded."""
+    if x.device.type != "meta":
+        raise ValueError(f"the meta branch takes meta tensors, got {x.device}")
+    dtype_code(x)
+    dtype_code(B_)
+    rw, ops = work(x, dt, A, B_, C_, D, s0)
+    record_call("ssd", 1, ops, rw, x.dtype)
 
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,

@@ -46,6 +46,30 @@ cotangent through unchanged. FSDP's gather of a data-sharded weight where
 a block uses it (:class:`FsdpPlan`) is the same all_gather over "data",
 whose backward reduce-scatters the cotangent to the shard.
 
+The data-parallel axes are ("pod", "data"), JAX's batch axes
+(:func:`dp_axes`): :meth:`Mesh.dp_group` is the group of the ranks that
+share this rank's model coordinate, over both, and the train step splits
+its rows and sums its grads over it; FSDP gathers over "data" alone, as
+JAX's ``fsdp`` rule shards over it. A mesh of live ranks has no "pod", and
+its data-parallel group is its "data" group.
+
+A virtual rank (:func:`virtual_mesh`) stands for one rank of a mesh of any
+size, the production (16, 16) and (2, 16, 16) ones included, in one
+process: its groups have JAX's ranks and this rank's ``index`` and run no
+collective (:class:`VirtualAxisGroup`). Each returns a tensor of the shape
+and dtype the live method returns, on the operand's device, filled from the
+rank's own operand (the local piece tiled, or copied), so a step run on it
+is shape-true and finite but its values are not the mesh's. The dry run
+(``launch/dryrun.py``) runs a rank's step on it on meta tensors.
+
+Inside :func:`recorded_collectives` every collective of live or virtual
+groups is logged as ``(op, result bytes, entry)`` under the names of JAX's
+HLO (``all-gather``, ``all-reduce``, ``reduce-scatter``,
+``collective-permute`` for ``shift``; ``broadcast`` apart, JAX has no such
+op); ``entry`` is False for a collective inside :func:`loop_body`, the
+port's per-layer and per-microbatch loops, which JAX scans (the backward
+of an autograd collective keeps the flag of its forward).
+
 Under the gloo backend a collective that gloo does not run on CUDA tensors
 (``GLOO_STAGED``) goes through pinned host memory: the operand is copied
 out, the collective runs on the copy, and the result is copied back to the
@@ -55,6 +79,7 @@ which collectives are staged. NCCL and CPU tensors are never staged.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import datetime
 import math
 import os
@@ -77,6 +102,28 @@ GLOO_STAGED = ("shift",)
 # after it.
 GROUP_TIMEOUT = datetime.timedelta(seconds=300)
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+# JAX's HLO names of the collectives, by method (``broadcast`` has none).
+HLO_OPS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+           "reduce_scatter": "reduce-scatter", "shift": "collective-permute",
+           "broadcast": "broadcast"}
+# Depth of the enclosing per-layer / per-microbatch loops (:func:`loop_body`).
+_LOOP: contextvars.ContextVar[int] = contextvars.ContextVar("collective_loop", default=0)
+
+
+@contextlib.contextmanager
+def _at_loop_depth(depth: int):
+    tok = _LOOP.set(depth)
+    try:
+        yield
+    finally:
+        _LOOP.reset(tok)
+
+
+def loop_body():
+    """Mark the enclosed collectives as inside a loop body (a layer of the
+    stack, a microbatch): JAX scans these, so its entry computation holds
+    only the collectives outside them."""
+    return _at_loop_depth(_LOOP.get() + 1)
 
 
 class AxisGroup:
@@ -90,6 +137,13 @@ class AxisGroup:
         self.group = group
         self.staged = frozenset(staged)
         self.clock = None  # op -> seconds, inside timed_collectives
+        self.log = None    # (op, result bytes, entry) list, inside recorded_collectives
+
+    def _record(self, op: str, out: torch.Tensor) -> torch.Tensor:
+        """Log ``out``, the result of ``op``, when recording; returns it."""
+        if self.log is not None:
+            self.log.append((HLO_OPS[op], out.numel() * out.element_size(), _LOOP.get() == 0))
+        return out
 
     @contextlib.contextmanager
     def _timed(self, op: str, x: torch.Tensor):
@@ -128,7 +182,7 @@ class AxisGroup:
             src = self._stage("all_gather", x)
             parts = [torch.empty_like(src) for _ in self.ranks]
             dist.all_gather(parts, src, group=self.group)
-            return torch.cat(parts, dim=dim).to(x.device)
+            return self._record("all_gather", torch.cat(parts, dim=dim).to(x.device))
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """The sum (``op="max"``: the maximum) of ``x`` over the axis (JAX's
@@ -139,7 +193,7 @@ class AxisGroup:
             buf = self._stage("all_reduce", x)
             buf = buf.clone() if buf is x else buf
             dist.all_reduce(buf, op=_OPS[op], group=self.group)
-            return buf.to(x.device)
+            return self._record("all_reduce", buf.to(x.device))
 
     def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The sum of ``x`` over the axis, of which this rank keeps its block
@@ -152,7 +206,7 @@ class AxisGroup:
             out = torch.empty((src.shape[0] // self.size,) + src.shape[1:], dtype=src.dtype,
                               device=src.device, pin_memory=src.is_pinned())
             dist.reduce_scatter_tensor(out, src, group=self.group)
-            return out.to(x.device).movedim(0, dim).contiguous()
+            return self._record("reduce_scatter", out.to(x.device).movedim(0, dim).contiguous())
 
     def broadcast(self, x: Optional[torch.Tensor], src: int, like: torch.Tensor = None
                   ) -> torch.Tensor:
@@ -168,7 +222,7 @@ class AxisGroup:
             buf = (self._stage("broadcast", x).clone() if self.index == src else
                    self._stage("broadcast", torch.empty_like(like)))
             dist.broadcast(buf, src=self.ranks[src], group=self.group)
-            return buf.to(ref.device)
+            return self._record("broadcast", buf.to(ref.device))
 
     def shift(self, x: torch.Tensor):
         """Send ``x`` to the next rank on the ring and receive the previous
@@ -178,6 +232,7 @@ class AxisGroup:
         if self.size == 1:
             return lambda: x
         with self._timed("shift", x):
+            self._record("shift", x)
             src = self._stage("shift", x)
             dst = torch.empty_like(src)
             k = self.size
@@ -196,27 +251,71 @@ class AxisGroup:
         return wait
 
 
+class VirtualAxisGroup(AxisGroup):
+    """One axis of a virtual rank (:func:`virtual_mesh`): JAX's ranks on the
+    axis and this rank's ``index``, no process group. Each collective runs
+    no communication and returns what the live one would in shape, dtype
+    and device, made from this rank's operand: ``all_gather`` the operand
+    tiled along ``dim``, ``all_reduce`` and ``broadcast`` a copy of the
+    operand (of ``like`` on a rank that is not the source), ``reduce_scatter``
+    a copy of the rank's block of it, ``shift`` a copy. An axis of one rank
+    is the identity, as a live one is."""
+
+    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        if self.size == 1:
+            return x
+        return self._record("all_gather", torch.cat([x] * self.size, dim=dim))
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        if self.size == 1:
+            return x
+        return self._record("all_reduce", x.clone(memory_format=torch.contiguous_format))
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        if self.size == 1:
+            return x
+        n = x.shape[dim] // self.size
+        block = x.narrow(dim, self.index * n, n)
+        return self._record("reduce_scatter", block.clone(memory_format=torch.contiguous_format))
+
+    def broadcast(self, x: Optional[torch.Tensor], src: int, like: torch.Tensor = None
+                  ) -> torch.Tensor:
+        if self.size == 1:
+            return x
+        ref = x if self.index == src else like
+        return self._record("broadcast", ref.clone(memory_format=torch.contiguous_format))
+
+    def shift(self, x: torch.Tensor):
+        if self.size == 1:
+            return lambda: x
+        out = self._record("shift", x.clone(memory_format=torch.contiguous_format))
+        return lambda: out
+
+
 class _Enter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
+        ctx.group, ctx.loop = group, _LOOP.get()
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.group.all_reduce(g.contiguous()), None
+        with _at_loop_depth(ctx.loop):
+            return ctx.group.all_reduce(g.contiguous()), None
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim, reduce):
         ctx.group, ctx.dim, ctx.reduce, ctx.width = group, dim, reduce, x.shape[dim]
+        ctx.loop = _LOOP.get()
         return group.all_gather(x, dim)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.reduce:
-            return ctx.group.reduce_scatter(g.contiguous(), ctx.dim), None, None, None
+            with _at_loop_depth(ctx.loop):
+                return ctx.group.reduce_scatter(g.contiguous(), ctx.dim), None, None, None
         lane0 = ctx.group.index * ctx.width
         return g.narrow(ctx.dim, lane0, ctx.width).contiguous(), None, None, None
 
@@ -288,12 +387,18 @@ class Mesh:
 
     def __init__(self, shape: Dict[str, int], coords: Optional[Dict[str, int]] = None,
                  groups: Optional[Dict[str, AxisGroup]] = None, backend: Optional[str] = None,
-                 host_group=None):
+                 host_group=None, dp: Optional[AxisGroup] = None):
         self.shape = dict(shape)
         self.coords = coords
         self.groups = groups or {}
         self.backend = backend
         self.host_group = host_group  # gloo group of every rank (None: the world's)
+        self.dp = dp  # the group over ("pod", "data") where both are axes
+
+    @property
+    def virtual(self) -> bool:
+        """True for a virtual rank (:func:`virtual_mesh`)."""
+        return self.backend == "virtual"
 
     @property
     def axis_names(self) -> tuple:
@@ -308,11 +413,18 @@ class Mesh:
             raise ValueError(f"mesh {self.shape} has no live axis {name!r}")
         return self.groups[name]
 
+    def dp_group(self) -> AxisGroup:
+        """The data-parallel group of this rank: the ranks that share its
+        model coordinate, over ("pod", "data") in JAX's order (pod major),
+        or the "data" group where the mesh has no "pod"."""
+        return self.dp if self.dp is not None else self.axis("data")
+
     def host_all_reduce(self, value: float, op: str = "sum") -> float:
         """A host number (a flag, a count) reduced over every rank of the
         mesh, as a CPU tensor through gloo: the world group under gloo, a
-        gloo group of the same ranks under NCCL. No card work is waited for."""
-        if self.size == 1:
+        gloo group of the same ranks under NCCL. No card work is waited for.
+        A virtual rank returns its own reading."""
+        if self.size == 1 or self.virtual:
             return value
         t = torch.tensor([value], dtype=torch.float64)
         dist.all_reduce(t, op=_OPS[op], group=self.host_group)
@@ -322,7 +434,7 @@ class Mesh:
         """Rank ``src``'s host number on every rank of the mesh (through
         gloo on the host, as :meth:`host_all_reduce`): what lets the ranks'
         engines take every decision on one clock reading."""
-        if self.size == 1:
+        if self.size == 1 or self.virtual:
             return value
         t = torch.tensor([value], dtype=torch.float64)
         dist.broadcast(t, src=src, group=self.host_group)
@@ -331,6 +443,10 @@ class Mesh:
     def describe(self) -> str:
         """The startup line of a live mesh: backend, ranks and the
         collectives staged through host memory."""
+        if self.virtual:
+            return (f"dist: virtual rank {self.coords} of mesh {self.shape}: no collective "
+                    "runs; each returns the rank's own operand tiled or copied (shape-true, "
+                    "not the mesh's values)")
         staged = sorted(set().union(*(g.staged for g in self.groups.values())))
         return (f"dist: backend {self.backend}, {self.size} ranks on mesh {self.shape}"
                 + (f"; CUDA tensors staged through pinned host memory for: {', '.join(staged)}"
@@ -354,6 +470,62 @@ def timed_collectives(mesh: Mesh):
     finally:
         for g in mesh.groups.values():
             g.clock = None
+
+
+@contextlib.contextmanager
+def recorded_collectives(mesh: Mesh):
+    """Log every collective of ``mesh``'s groups while inside: the list this
+    yields gets ``(op, result bytes, entry)`` per call, in call order (the
+    module docstring)."""
+    log: list = []
+    groups = list(mesh.groups.values()) + ([mesh.dp] if mesh.dp is not None else [])
+    for g in groups:
+        g.log = log
+    try:
+        yield log
+    finally:
+        for g in groups:
+            g.log = None
+
+
+def _ranks_along(shape: Dict[str, int], coords: Dict[str, int], axes: Sequence[str]) -> list:
+    """The global ranks (row-major over ``shape``'s axes) that share every
+    coordinate of ``coords`` but those on ``axes``, in the order of those
+    axes' coordinates (the first axis major)."""
+    names = list(shape)
+    out = []
+    for flat in range(math.prod(shape[a] for a in axes)):
+        c = dict(coords)
+        for a in reversed(axes):
+            c[a], flat = flat % shape[a], flat // shape[a]
+        rank = 0
+        for a in names:
+            rank = rank * shape[a] + c[a]
+        out.append(rank)
+    return out
+
+
+def virtual_mesh(shape: Dict[str, int], coords: Optional[Dict[str, int]] = None) -> Mesh:
+    """One rank of a mesh of ``shape`` (axis name -> size, in mesh order) at
+    ``coords`` (default every coordinate 0), in this process: a
+    :class:`VirtualAxisGroup` per axis with JAX's ranks (row-major, as
+    ``make_mesh`` lays them) and this rank's index, and the data-parallel
+    group over ("pod", "data") where the mesh has both. No process group is
+    made and no collective runs (the module docstring)."""
+    coords = {a: 0 for a in shape} if coords is None else dict(coords)
+    if set(coords) != set(shape) or any(not 0 <= coords[a] < n for a, n in shape.items()):
+        raise ValueError(f"coords {coords} are no rank of mesh {shape}")
+
+    def group(axes):
+        ranks = _ranks_along(shape, coords, axes)
+        index = 0
+        for a in axes:
+            index = index * shape[a] + coords[a]
+        return VirtualAxisGroup(ranks, index, None)
+
+    groups = {a: group((a,)) for a in shape}
+    dp = group(dp_axes(Mesh(shape))) if len(dp_axes(Mesh(shape))) > 1 else None
+    return Mesh(shape, coords, groups, "virtual", dp=dp)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

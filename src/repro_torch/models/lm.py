@@ -6,9 +6,9 @@ Entry points:
   * ``lm_forward(params, cfg, batch)``                train logits (B, S, V_padded)
   * ``lm_loss(params, cfg, batch)``                   scalar CE loss (+ metrics)
   * ``lm_init_caches(cfg, batch, max_len, device)``   stacked decode caches
-  * ``lm_prefill(params, cfg, batch, caches)``        logits of last pos + caches
+  * ``lm_prefill(params, cfg, batch, caches, fsdp)``  logits of last pos + caches
   * ``lm_verify(params, cfg, batch, caches)``         every position's logits + caches
-  * ``lm_decode_step(params, cfg, caches, tok)``      one-token serve step
+  * ``lm_decode_step(params, cfg, caches, tok, fsdp)`` one-token serve step
                                                       (an embedding row with a frontend)
 
 The params tree has the JAX package's keys and layout (``bridge.py``
@@ -353,9 +353,10 @@ def lm_hidden(params, cfg, batch, fsdp=None) -> torch.Tensor:
             if cfg.remat == "block":  # as JAX checkpoints it (only under "block")
                 shared_apply = maybe_remat(shared_apply, "block")
         for l in range(cfg.n_layers):
-            h = apply_block(rnn.layer_slice(layers, l), h)
-            if shared_apply is not None and (l + 1) % cfg.attn_every == 0:
-                h = shared_apply(h)
+            with mesh_lib.loop_body():
+                h = apply_block(rnn.layer_slice(layers, l), h)
+                if shared_apply is not None and (l + 1) % cfg.attn_every == 0:
+                    h = shared_apply(h)
     return rmsnorm(_whole(fsdp, params["final_norm"], "final_norm").to(compute), h)
 
 
@@ -376,33 +377,20 @@ def _ce_terms(cfg, logits, targets):
     return logz, ll
 
 
-def lm_loss(params, cfg, batch, denom=None, fsdp=None):
-    """Cross-entropy over targets. ``batch``: inputs, targets, mask.
-    Returns ``(loss, {"loss", "tokens"})``. With ``cfg.loss_chunk > 0`` the
-    (tokens, V) logits are never materialized: the final hidden states go
-    through the head ``loss_chunk`` tokens at a time, each chunk under
-    checkpoint. ``denom``: the token count the NLL sum is divided by
-    (default the batch's own, at least 1); a data-parallel rank passes the
-    whole microbatch's, so the ranks' losses add up to its loss. ``fsdp``:
-    the train step's FSDP plan (:func:`lm_hidden`)."""
-    targets = batch["targets"]
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
-    if denom is None:
-        denom = torch.clamp(torch.sum(mask), min=1.0)
-
+def head_nll(params, cfg, h, targets, mask, fsdp=None) -> torch.Tensor:
+    """The masked sum of the NLL of ``targets`` (B, S) under the head's
+    logits of the final hidden states ``h`` (B, S, d), in fp32: the logits
+    whole, or with ``cfg.loss_chunk > 0`` ``loss_chunk`` tokens at a time,
+    each chunk under checkpoint, so the (tokens, V) logits never exist.
+    ``fsdp``: the train step's plan (:func:`lm_hidden`)."""
+    embed_c = layout.cast_params(_head_params(params, fsdp), h.dtype)
+    group = tensor_parallel.vocab_group(cfg)  # read here: the recompute runs outside the context
     if not cfg.loss_chunk:
-        logz, ll = _ce_terms(cfg, lm_forward(params, cfg, batch, fsdp), targets)
-        loss = torch.sum((logz - ll) * mask) / denom
-        return loss, {"loss": loss, "tokens": torch.sum(mask)}
-
-    h = lm_hidden(params, cfg, batch, fsdp)
+        logz, ll = _ce_terms(cfg, tensor_parallel.logits(embed_c, h, group), targets)
+        return torch.sum((logz - ll) * mask)
     B, S, d = h.shape
     n = max(S // cfg.loss_chunk, 1)
     C = S // n
-    embed_c = layout.cast_params(_head_params(params, fsdp), h.dtype)
-    group = tensor_parallel.vocab_group(cfg)  # read here: the recompute runs outside the context
     hc, tc, mc = h.reshape(B, n, C, d), targets.reshape(B, n, C), mask.reshape(B, n, C)
 
     def chunk_nll(hx, tx, mx):
@@ -413,7 +401,23 @@ def lm_loss(params, cfg, batch, denom=None, fsdp=None):
     for i in range(n):
         total = total + checkpoint(chunk_nll, hc[:, i], tc[:, i], mc[:, i],
                                    use_reentrant=False, preserve_rng_state=False)
-    loss = total / denom
+    return total
+
+
+def lm_loss(params, cfg, batch, denom=None, fsdp=None):
+    """Cross-entropy over targets. ``batch``: inputs, targets, mask.
+    Returns ``(loss, {"loss", "tokens"})``: :func:`head_nll` of
+    :func:`lm_hidden`'s states over ``denom``, the token count the NLL sum
+    is divided by (default the batch's own, at least 1); a data-parallel
+    rank passes the whole microbatch's, so the ranks' losses add up to its
+    loss. ``fsdp``: the train step's FSDP plan (:func:`lm_hidden`)."""
+    targets = batch["targets"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
+    if denom is None:
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+    loss = head_nll(params, cfg, lm_hidden(params, cfg, batch, fsdp), targets, mask, fsdp) / denom
     return loss, {"loss": loss, "tokens": torch.sum(mask)}
 
 
@@ -421,14 +425,20 @@ def lm_loss(params, cfg, batch, denom=None, fsdp=None):
 # Serving: prefill + decode
 # ---------------------------------------------------------------------------
 
-def _run_layers(params, cfg, h, caches, decode: bool):
+def _run_layers(params, cfg, h, caches, decode: bool, fsdp=None):
     """All layers, threading the stacked caches. Attention and Mamba layers
     write their slice of the stacked cache in place and the same ``caches``
     is returned; so does a hybrid's shared block, into its application's
     slice of ``caches["shared_attn"]``. RNN layers run
     ``rnn_block_prefill``/``rnn_block_decode`` per layer (``scan_layers``),
     or with ``cfg.fuse_depth`` the stack-level API (the depth-fused stack
-    under ``scan_engine="fused_stack"``), and return new caches."""
+    under ``scan_engine="fused_stack"``), and return new caches.
+
+    ``fsdp``: the serving step's plan (``launch/mesh.py::FsdpPlan``, forward
+    only) when ``params`` are this rank's data shards: each attention or
+    Mamba layer is gathered over "data" where it runs, the hybrid's shared
+    block at each application, an RNN stack whole at its one call, as
+    :func:`lm_hidden` gathers them for training."""
     _check_hybrid(cfg)
     layers = layout.cast_params(params["layers"], h.dtype)
     kind = block_kind(cfg)
@@ -441,40 +451,45 @@ def _run_layers(params, cfg, h, caches, decode: bool):
             shared = layout.cast_params(params["shared_attn"], h.dtype)
             shared_fn = (_attn_block_prefill, _attn_block_decode)[decode]
         for l in range(cfg.n_layers):
-            h, _ = fn(rnn.layer_slice(layers, l), cfg, h, rnn.layer_slice(caches["layers"], l))
-            if g and (l + 1) % g == 0:
-                h, _ = shared_fn(shared, cfg, h,
-                                 rnn.layer_slice(caches["shared_attn"], (l + 1) // g - 1))
+            with mesh_lib.loop_body():
+                lp = _whole(fsdp, rnn.layer_slice(layers, l), "layers", layer=True)
+                h, _ = fn(lp, cfg, h, rnn.layer_slice(caches["layers"], l))
+                if g and (l + 1) % g == 0:
+                    h, _ = shared_fn(_whole(fsdp, shared, "shared_attn"), cfg, h,
+                                     rnn.layer_slice(caches["shared_attn"], (l + 1) // g - 1))
         return h, caches
     if cfg.attn_every:  # JAX groups them too; no config has an RNN hybrid
         raise NotImplementedError(f"{cfg.name}: the port serves Mamba-2 hybrids only")
+    layers = _whole(fsdp, layers, "layers")
     if cfg.fuse_depth:
         stack_fn = rnn.rnn_stack_decode if decode else rnn.rnn_stack_prefill
         h, new = stack_fn(layers, cfg, h, caches["layers"])
     else:
         fn = rnn.rnn_block_decode if decode else rnn.rnn_block_prefill
-        h, new = rnn.scan_layers(fn, layers, cfg, h, caches["layers"])
+        with mesh_lib.loop_body():
+            h, new = rnn.scan_layers(fn, layers, cfg, h, caches["layers"])
     return h, {"layers": new}
 
 
-def _head(params, cfg, h):
+def _head(params, cfg, h, fsdp=None):
     compute = h.dtype
-    h = rmsnorm(params["final_norm"].to(compute), h)
-    return tensor_parallel.logits(layout.cast_params(_head_params(params), compute), h,
+    h = rmsnorm(_whole(fsdp, params["final_norm"], "final_norm").to(compute), h)
+    return tensor_parallel.logits(layout.cast_params(_head_params(params, fsdp), compute), h,
                                   tensor_parallel.vocab_group(cfg))
 
 
-def _prefill_layers(params, cfg, batch, caches):
-    h = _embed_in(params, cfg, batch, _dtype(cfg.compute_dtype))
-    return _run_layers(params, cfg, h, caches, decode=False)
+def _prefill_layers(params, cfg, batch, caches, fsdp=None):
+    h = _embed_in(params, cfg, batch, _dtype(cfg.compute_dtype), fsdp)
+    return _run_layers(params, cfg, h, caches, decode=False, fsdp=fsdp)
 
 
-def lm_prefill(params, cfg, batch, caches):
+def lm_prefill(params, cfg, batch, caches, fsdp=None):
     """``batch["inputs"]``: (B, T) token ids, or ``batch["inputs_embeds"]``
     (B, T, d) with a frontend. Returns the last position's logits (B, 1,
-    V_padded) and the new caches."""
-    h, caches = _prefill_layers(params, cfg, batch, caches)
-    return _head(params, cfg, h[:, -1:]), caches
+    V_padded) and the new caches. ``fsdp``: the serving step's FSDP plan
+    (:func:`_run_layers`)."""
+    h, caches = _prefill_layers(params, cfg, batch, caches, fsdp)
+    return _head(params, cfg, h[:, -1:], fsdp), caches
 
 
 def lm_verify(params, cfg, batch, caches):
@@ -486,10 +501,11 @@ def lm_verify(params, cfg, batch, caches):
     return _head(params, cfg, h), caches
 
 
-def lm_decode_step(params, cfg, caches, token_or_embed):
+def lm_decode_step(params, cfg, caches, token_or_embed, fsdp=None):
     """One serve step: a token (B, 1) of ids, or with a frontend an
-    embedding (B, 1, d). Returns (logits, caches)."""
+    embedding (B, 1, d). Returns (logits, caches). ``fsdp``: the serving
+    step's FSDP plan (:func:`_run_layers`)."""
     key = "inputs_embeds" if cfg.frontend else "inputs"
-    h = _embed_in(params, cfg, {key: token_or_embed}, _dtype(cfg.compute_dtype))
-    h, caches = _run_layers(params, cfg, h, caches, decode=True)
-    return _head(params, cfg, h), caches
+    h = _embed_in(params, cfg, {key: token_or_embed}, _dtype(cfg.compute_dtype), fsdp)
+    h, caches = _run_layers(params, cfg, h, caches, decode=True, fsdp=fsdp)
+    return _head(params, cfg, h, fsdp), caches

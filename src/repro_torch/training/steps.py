@@ -39,7 +39,7 @@ from repro_torch.configs import shapes
 from repro_torch.distribution import fused_sharded
 from repro_torch.distribution import sharding as shd
 from repro_torch.distribution.sharding import local_shape, use_rules
-from repro_torch.launch.mesh import FsdpPlan
+from repro_torch.launch.mesh import FsdpPlan, loop_body
 from repro_torch.models import attention, lm, rnn
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, cosine_schedule
 from repro_torch.optim.compression import compress_grads, ef_init
@@ -124,39 +124,58 @@ def _token_count(batch) -> torch.Tensor:
     return torch.sum(mask)
 
 
+def _dp_size(mesh) -> int:
+    """The ranks of ``mesh``'s data-parallel axes, ("pod", "data")."""
+    return 1 if mesh is None else mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
+
+
 def _rank_rows(mesh, mb: int):
     """This rank's rows ``[lo, hi)`` of each microbatch of ``mb`` rows, or
-    None when every data rank computes the whole microbatch (no data axis,
-    or ``mb`` does not divide by it: JAX's divisibility fallback)."""
-    D = 1 if mesh is None else mesh.shape.get("data", 1)
+    None when every data-parallel rank computes the whole microbatch (no
+    data axis, or ``mb`` does not divide by the ranks of ("pod", "data"):
+    JAX's divisibility fallback)."""
+    D = _dp_size(mesh)
     if D == 1 or mb % D:
         return None
-    r = mesh.coords["data"]
+    r = mesh.dp_group().index
     return r * mb // D, (r + 1) * mb // D
 
 
 def fsdp_plan(mesh, specs, reduce: bool) -> Optional[FsdpPlan]:
     """The FSDP gathers of a step on ``mesh`` under the param ``specs``
-    (``launch/mesh.py::FsdpPlan``; ``reduce``: the data ranks compute
-    different rows), or None: no data axis, or no leaf sharded over it."""
-    if mesh is None or mesh.shape.get("data", 1) == 1:
+    (``launch/mesh.py::FsdpPlan``, over "data" alone, as JAX's ``fsdp``
+    rule shards; ``reduce``: the data ranks compute different rows), or
+    None: no mesh or data axis, or no leaf sharded over it."""
+    if mesh is None or specs is None or mesh.shape.get("data", 1) == 1:
         return None
     dims = shd.map_with_paths(lambda path, spec: _data_dim(spec), specs)
     return FsdpPlan(dims, mesh.axis("data"), reduce) if tree_leaves(dims) else None
 
 
+def _all_reduce_flat(group, out, idx) -> None:
+    """``out[i]`` for ``i`` in ``idx`` summed over ``group`` in one flat
+    buffer, in place of the list's entries."""
+    flat = group.all_reduce(torch.cat([out[i].reshape(-1) for i in idx]))
+    for i, piece in zip(idx, torch.split(flat, [out[i].numel() for i in idx])):
+        out[i] = piece.view_as(out[i])
+
+
 def _reduce_over_data(g_sum, spec_list, mesh, split: bool):
     """The microbatch-summed grads of this rank's shards -> the
-    data-parallel sum: where the data ranks computed different rows
-    (``split``), the leaves held whole over "data" are all-reduced in one
-    flat buffer. The FSDP leaves' grads are already their shard's sum: the
-    backward of their gathers reduce-scattered them (``FsdpPlan``)."""
+    data-parallel sum: where the data-parallel ranks computed different
+    rows (``split``), the leaves held whole over "data" are all-reduced
+    over ("pod", "data") in one flat buffer. The FSDP leaves' grads are
+    already their shard's sum over "data": the backward of their gathers
+    reduce-scattered them (``FsdpPlan``); a "pod" axis sums them over it."""
     out = list(g_sum)
+    if not split or _dp_size(mesh) == 1:
+        return out
     whole = [i for i, s in enumerate(spec_list) if _data_dim(s) is None]
-    if split and whole and mesh.shape.get("data", 1) > 1:
-        flat = mesh.axis("data").all_reduce(torch.cat([out[i].reshape(-1) for i in whole]))
-        for i, piece in zip(whole, torch.split(flat, [out[i].numel() for i in whole])):
-            out[i] = piece.view_as(out[i])
+    if whole:
+        _all_reduce_flat(mesh.dp_group(), out, whole)
+    sharded = [i for i, s in enumerate(spec_list) if _data_dim(s) is not None]
+    if sharded and mesh.shape.get("pod", 1) > 1:
+        _all_reduce_flat(mesh.axis("pod"), out, sharded)
     return out
 
 
@@ -202,7 +221,8 @@ def _step_grads(cfg, params, batch: Dict, mesh, specs):
         g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         for i in range(n_mb):
-            loss_i, g_i = grads_of(_split_microbatch(batch, n_mb, i))
+            with loop_body():
+                loss_i, g_i = grads_of(_split_microbatch(batch, n_mb, i))
             for a, g in zip(g_sum, g_i):
                 a.add_(g)
             del g_i
@@ -214,7 +234,7 @@ def _step_grads(cfg, params, batch: Dict, mesh, specs):
     if mesh is not None:
         g_sum = _reduce_over_data(g_sum, spec_list, mesh, rows is not None)
         if rows is not None:
-            loss = mesh.axis("data").all_reduce(loss)
+            loss = mesh.dp_group().all_reduce(loss)
     return loss, unflatten_like(params, g_sum)
 
 
@@ -244,9 +264,10 @@ def build_train_step(
     is JAX's:
 
       * data: microbatch i is the global rows ``[i mb, (i+1) mb)``, of which
-        data rank r computes its ``mb / D``; it divides its rows' NLL sum by
+        data-parallel rank r (over ("pod", "data"), ``Mesh.dp_group``: D
+        ranks) computes its ``mb / D``; it divides its rows' NLL sum by
         the whole microbatch's token count (every rank holds the global
-        mask), so the grads summed over ``data`` are JAX's under a ragged
+        mask), so the grads summed over those ranks are JAX's under a ragged
         mask too. Where ``mb`` does not divide by D every data rank computes
         the whole microbatch and nothing is summed.
       * FSDP (specs with ``data`` on a dim, ``train_param_specs(fsdp=True)``):
@@ -320,7 +341,7 @@ def build_eval_step(cfg, mesh=None, *, specs=None):
                 return lm.lm_loss(params, cfg, batch, fsdp=fsdp)[1]
             loss, _ = lm.lm_loss(params, cfg, {k: v[rows[0]:rows[1]] for k, v in batch.items()},
                                  denom=torch.clamp(tokens, min=1.0), fsdp=fsdp)
-            loss = mesh.axis("data").all_reduce(loss)
+            loss = mesh.dp_group().all_reduce(loss)
             return {"loss": loss, "tokens": tokens}
 
     return eval_step
@@ -348,15 +369,23 @@ def _under(mesh, sp: bool = False):
     return contextlib.nullcontext() if mesh is None else use_rules(mesh, sp=sp)
 
 
-def build_prefill_step(cfg, mesh=None, *, batch: int, max_len: int, device="cuda"):
+def build_prefill_step(cfg, mesh=None, *, batch: int, max_len: int, device="cuda", specs=None):
     """``prefill_step(params, inputs) -> (logits, caches)``: fresh zero caches
     on ``device`` (under ``mesh``, this rank's shards of them, for the
-    global ``batch``), then one MTS prefill over the prompt."""
+    global ``batch``), then one MTS prefill over the prompt.
+
+    ``specs``: the param specs ``params`` are this rank's shards under
+    (JAX's ``param_specs(params, mesh, fsdp=cfg.fsdp)``, as its dry run
+    serves the ``fsdp`` configs); a leaf sharded over "data" is gathered
+    where it is used, a layer at a time (``lm.lm_prefill``'s ``fsdp``,
+    :func:`fsdp_plan`). Without them, or with no leaf over "data", the
+    params are used as they are."""
+    fsdp = fsdp_plan(mesh, specs, False)
 
     def prefill_step(params, inputs: Dict):
         with torch.inference_mode(), _under(mesh), attention.cache_length(max_len):
             caches = _init_caches(cfg, mesh, batch, max_len, device)
-            return lm.lm_prefill(params, cfg, inputs, caches)
+            return lm.lm_prefill(params, cfg, inputs, caches, fsdp)
 
     return prefill_step
 
@@ -369,7 +398,7 @@ def _copy_into(dst, src):
             dst[k].copy_(v)
 
 
-def build_decode_step(cfg, mesh=None, *, max_len: Optional[int] = None):
+def build_decode_step(cfg, mesh=None, *, max_len: Optional[int] = None, specs=None):
     """``decode_step(params, caches, token) -> (logits, caches)`` (under
     ``mesh``, per rank, as ``build_prefill_step``; ``max_len`` is the
     length the caches were made for, required where the KV heads do not
@@ -381,7 +410,8 @@ def build_decode_step(cfg, mesh=None, *, max_len: Optional[int] = None):
     layers write their new K/V row in place (``models/attention.py``) and
     Mamba layers their conv tails and SSM state (``models/mamba.py``), so
     nothing is copied for them; the small RNN caches come back new and are
-    copied into the old buffers."""
+    copied into the old buffers. ``specs``: as :func:`build_prefill_step`'s
+    (FSDP-sharded weights gathered a layer at a time)."""
 
     if max_len is None and attention.needs_cache_length(cfg, mesh):
         raise ValueError(
@@ -389,9 +419,11 @@ def build_decode_step(cfg, mesh=None, *, max_len: Optional[int] = None):
             f"{shd.model_shards(mesh)}, so the KV cache may hold a slice of its sequence; "
             "pass the caches' max_len (build_decode_step(cfg, mesh, max_len=))")
 
+    fsdp = fsdp_plan(mesh, specs, False)
+
     def decode_step(params, caches, token):
         with torch.inference_mode(), _under(mesh), attention.cache_length(max_len):
-            logits, new = lm.lm_decode_step(params, cfg, caches, token)
+            logits, new = lm.lm_decode_step(params, cfg, caches, token, fsdp)
             if new is not caches:
                 _copy_into(caches, new)
             return logits, caches

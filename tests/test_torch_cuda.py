@@ -1887,3 +1887,110 @@ def test_fused_layer_shard_operands(device, case, dtype):
     out = fused_rnn.fused_rnn_layer(u, taps, b3, c0, **kw)
     torch.cuda.synchronize()
     _close(out, ref, dtype)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' meta branches against the CUDA wrappers (the dry run's
+# stand-ins for B4 and B5, launch/dryrun.py), at the local shapes of
+# chip_smoke's dryrun cells: llama3-8b decode_32k, rank (0, 0) of the
+# (16, 16) pod (8 lanes, 32 query heads on 8 KV heads of 128, its 2048 slots
+# of the sequence-sharded cache: B5's lse form; and B5 on the same operands),
+# and mamba2-2.7b long_500k (one lane, 5 of the 80 heads, P = 64, N = 128: a
+# decode step in place, and a 64-step chunk). The meta branch must make what
+# the wrapper makes: the outputs' shapes and dtypes, and, with each storage
+# rounded to the caching allocator's 512-byte blocks, the call's peak and
+# what stays allocated after it.
+# ---------------------------------------------------------------------------
+
+DRYRUN_B5 = {"llama3 rank": (8, 32, 8, 128, 2048)}
+DRYRUN_B4 = {"mamba2 rank step": (1, 1, 5, 64, 128), "mamba2 rank chunk": (1, 64, 5, 64, 128)}
+
+
+def _alloc_of(call, args, device):
+    """(outputs, the call's peak allocated bytes beyond what was allocated
+    before it, the bytes still allocated after it) on the card."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = call(*args)
+    torch.cuda.synchronize()
+    return (out, torch.cuda.max_memory_allocated(device) - before,
+            torch.cuda.memory_allocated(device) - before)
+
+
+def _meta_alloc_of(call, args):
+    """The same on meta, from the dry run's storage tracker at 512 bytes a
+    block (the meta branch's launch words are made for the call, where the
+    card keeps one block a stream: the caller clears it first)."""
+    from repro_torch.launch.dryrun import _LiveBytes
+
+    live = _LiveBytes(args, block=512)
+    with live:
+        out = call(*args)
+        held = live.live
+    return out, live.peak, held
+
+
+def _same_outputs(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.device.type == "meta" and g.shape == w.shape and g.dtype == w.dtype
+
+
+@pytest.mark.parametrize("lse", [False, True], ids=["out", "lse"])
+@pytest.mark.parametrize("case", sorted(DRYRUN_B5))
+def test_gqa_decode_meta_branch_allocates_as_the_wrapper(device, case, lse):
+    B, Hq, Hkv, Dh, S = DRYRUN_B5[case]
+    g = torch.Generator(device=device).manual_seed(41)
+    q = torch.randn((B, Hq, Dh), generator=g, device=device).to(torch.bfloat16)
+    k, v = (torch.randn((B, S, Hkv, Dh), generator=g, device=device).to(torch.bfloat16)
+            for _ in range(2))
+    lens = torch.full((B,), S, dtype=torch.int32, device=device)
+    call = lambda *a: gqa_decode(*a, return_lse=lse)
+    plan = gqa_kernel.plan(torch.bfloat16, B, Hkv, S, Dh, Hq // Hkv, device.index or 0)
+    assert plan == gqa_kernel.plan(torch.bfloat16, B, Hkv, S, Dh, Hq // Hkv, meta=True)
+    gqa_kernel._COUNTERS.clear()  # the first call on the stream makes its launch words
+    out, peak, held = _alloc_of(call, (q, k, v, lens), device)
+    words = -(-max(B * Hkv * plan[2], 1024) * 4 // 512) * 512 if plan[0] > 1 else 0
+    m_out, m_peak, m_held = _meta_alloc_of(call, tuple(t.to("meta") for t in (q, k, v, lens)))
+    _same_outputs(m_out, out)
+    assert peak == m_peak
+    assert held == m_held + words  # the card keeps the words for the stream's next call
+
+
+@pytest.mark.parametrize("case", sorted(DRYRUN_B4))
+def test_ssd_meta_branch_allocates_as_the_wrapper(device, case):
+    Bsz, S, H, P, N = DRYRUN_B4[case]
+    g = torch.Generator(device=device).manual_seed(42)
+    bf = torch.bfloat16
+    x = torch.randn((Bsz, S, H, P), generator=g, device=device).to(bf)
+    dt = torch.nn.functional.softplus(torch.randn((Bsz, S, H), generator=g, device=device)
+                                      - 4.6).to(bf)
+    A = -torch.linspace(1.0, 16.0, H, device=device)
+    Bm, Cm = ((torch.randn((Bsz, S, 1, N), generator=g, device=device) * 0.3).to(bf)
+              for _ in range(2))
+    D = torch.ones(H, device=device).to(bf)
+    state = torch.randn((Bsz, H, N, P), generator=g, device=device) * 0.1
+
+    def call(x, dt, A, Bm, Cm, D, state):
+        return ssd(x, dt, A, Bm, Cm, D, initial_state=state, state_out=state, chunk=S)
+
+    args = (x, dt, A, Bm, Cm, D, state)
+    out, peak, held = _alloc_of(call, args, device)
+    m_out, m_peak, m_held = _meta_alloc_of(call, tuple(t.to("meta") for t in args))
+    _same_outputs(m_out, out)
+    assert peak == m_peak and held == m_held
+
+
+def test_meta_instance_model_is_the_cards(device):
+    """B5's H100 model (``gqa_decode.meta_instance_info``) gives what the
+    card reports for every instance family the port serves: the resources
+    and so the split plans the meta branch makes partials for."""
+    for dtype, dh, grp in [(torch.bfloat16, d, g) for d in (64, 112, 128, 192, 256)
+                           for g in (1, 4, 16, 17, 32, 48)] + \
+            [(torch.float32, d, g) for d in (32, 64, 128, 256) for g in (1, 4, 8, 32)]:
+        want = dict(gqa_kernel.instance_info(dtype, dh, grp))
+        got = gqa_kernel.meta_instance_info(dtype, dh, grp)
+        assert got == want, (dtype, dh, grp)

@@ -111,15 +111,33 @@ def test_fused_layer_streaming_equals_one_shot(cell):
 
 @pytest.mark.parametrize("batch,match", [(1, "CUDA tensors"), (129, "batch <= 128")])
 def test_wrapper_refuses_what_the_kernel_does_not_take(batch, match):
-    """Off the CPU the wrapper launches the CUDA kernel or raises; it never
-    falls back to the plain version."""
+    """Off the CPU the wrapper launches the CUDA kernel, takes its meta
+    branch on meta tensors (meta outputs, the call recorded, no launch) or
+    raises; it never falls back to the plain version. A batch above the
+    kernel's is refused on meta too; the CUDA path's operand check refuses
+    any tensor off the card."""
+    from repro_torch.kernels.common import recorded_kernel_calls
+
     u = torch.zeros((2, batch, 8), device="meta")
     w = torch.zeros((8, 3, 8), device="meta")
-    with pytest.raises(ValueError, match=match):
-        fused_rnn.fused_rnn_layer(
+
+    def call():
+        return fused_rnn.fused_rnn_layer(
             u, (w,), torch.zeros((3, 8), device="meta"), torch.zeros((batch, 8), device="meta"),
             mode="sru_identity",
         )
+
+    if batch > fused_rnn.MAX_BATCH:
+        with pytest.raises(ValueError, match=match):
+            call()
+        return
+    before = fused_rnn.LAUNCHES
+    with recorded_kernel_calls() as calls:
+        h, c_last = call()
+    assert h.device.type == c_last.device.type == "meta"
+    assert [k["name"] for k in calls] == ["fused_rnn_layer"] and fused_rnn.LAUNCHES == before
+    with pytest.raises(ValueError, match=match):
+        fused_rnn.kernel_dtype(torch.zeros((2, batch, 8)), batch)
 
 
 def test_layout_cell_kind_matches_jax():

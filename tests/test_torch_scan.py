@@ -104,13 +104,21 @@ def test_block_size_changes_no_value():
 
 
 def test_wrapper_launches_or_raises_off_the_cpu():
-    """Off the CPU the wrapper launches the CUDA kernel or raises; it never
-    falls back to the plain version."""
+    """Off the CPU the wrapper launches the CUDA kernel, takes its meta
+    branch on meta tensors (a meta output, the call recorded, no launch) or
+    raises; it never falls back to the plain version. The CUDA path's
+    operand check refuses any tensor off the card."""
+    from repro_torch.kernels.common import cuda_dtype_code, recorded_kernel_calls
+
     a = torch.zeros((4, 8), device="meta")
     before = ls_kernel.LAUNCHES
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        ls_kernel.linear_scan_kernel(a, a, torch.zeros((8,), device="meta"))
+    with recorded_kernel_calls() as calls:
+        c = ls_kernel.linear_scan_kernel(a, a, torch.zeros((8,), device="meta"))
+    assert c.device.type == "meta" and [k["name"] for k in calls] == ["linear_scan"]
     assert ls_kernel.LAUNCHES == before
+    for t in (a, torch.zeros(4, 8)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            cuda_dtype_code(t)
 
 
 @pytest.mark.parametrize("engine", ENGINES)
