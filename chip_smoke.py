@@ -56,6 +56,18 @@ Phases, each printing one JSON line per step:
            gradient of every floating operand against autograd through the
            plain version, the launches of a forward and backward, and
            their times;
+  contracts ``repro_torch/analysis``'s contract ledger on the card:
+           ``check_contracts`` of ``CONTRACTS_TORCH.json`` (the 17 paper-RNN
+           configs' six serving steps derived on meta) gives no violation;
+           every kernel instance the ledger lists (B1, B2 and their int8
+           forms, B3 on the ring configs' model shards), and B4's and B5's
+           at CONTRACT_SSD and CONTRACT_GQA, has the registers, dynamic
+           shared memory and CTAs per SM of its H100 model, as the
+           wrapper's ``instance_info`` reads them, and fits 232,448 B a
+           CTA; one speculative ``Scheduler`` of CONTRACT_SCHEDULER at the
+           ledger's batch 8 and chunk 32 captures exactly the ledger's six
+           signatures (its draft pool's five alike, and the draft block)
+           and nothing after warm-up over CONTRACT_REQUESTS requests;
   serve    ``repro_torch.launch.serve.main`` in batch mode at full width
            (``--batch 4 --prompt-len 64 --gen-len 32``) for the stacked and
            fused configs, the base SRU/QRNN configs under ``--engine pallas``,
@@ -250,8 +262,9 @@ Phases, each printing one JSON line per step:
            with ``--resume auto`` on one rank to step 4, its params within
            5e-4 of the uninterrupted single-rank run's;
   dryrun   ``launch/dryrun.py``'s rank on the card (DRYRUN_CELLS:
-           ``llama3-8b`` ``decode_32k`` and ``mamba2-2.7b`` ``long_500k``,
-           rank (0, 0) of the (16, 16) pod, full depth): the meta run of the
+           ``llama3-8b`` ``decode_32k`` and ``mamba2-2.7b`` ``long_500k`` at
+           full depth, ``llama3-8b`` ``prefill_32k`` cut to 2 layers, rank
+           (0, 0) of the (16, 16) pod): the meta run of the
            rank's step, then the same step on the card at the same local
            shapes under the same virtual rank (its collectives return the
            rank's operand tiled or copied: one rank, no communication), on
@@ -291,8 +304,8 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("build", "kernels", "serve", "continuous", "speculative", "telemetry", "profile",
-          "parity", "train", "checkpoint", "sharded", "dryrun")
+PHASES = ("build", "kernels", "contracts", "serve", "continuous", "speculative", "telemetry",
+          "profile", "parity", "train", "checkpoint", "sharded", "dryrun")
 # (arch, --engine override, --prompt-len): the runs of the serve phase.
 SERVE_RUNS = (
     ("sru-paper-large-stacked", None, 64), ("qrnn-paper-large-stacked", None, 64),
@@ -580,12 +593,15 @@ SHARDED_CONT_SPLIT = ("plain",)
 # (0, 0) of the (16, 16) pod, run on meta by ``launch/dryrun.py`` and then
 # on the card at the same local shapes under the same virtual rank (no
 # collective runs: each returns the rank's operand tiled or copied), on
-# random shards from DRYRUN_SEED, eager. llama3-8b decode_32k: 8 lanes, its
-# FSDP-sharded weights gathered a layer at a time, its 8 KV heads' cache
-# sequence-sharded (2048 of the 32768 slots, every one valid: the cache
-# position is the last), so B5's lse form runs; mamba2-2.7b long_500k: one
-# lane, whole, B4 on 5 of the 80 heads.
-DRYRUN_CELLS = (("llama3-8b", "decode_32k", "pod"), ("mamba2-2.7b", "long_500k", "pod"))
+# random shards from DRYRUN_SEED, eager; (arch, shape, mesh, layers kept,
+# None for all). llama3-8b decode_32k: 8 lanes, its FSDP-sharded weights
+# gathered a layer at a time, its 8 KV heads' cache sequence-sharded (2048
+# of the 32768 slots, every one valid: the cache position is the last), so
+# B5's lse form runs; mamba2-2.7b long_500k: one lane, whole, B4 on 5 of the
+# 80 heads; llama3-8b prefill_32k cut to 2 layers: 2 lanes of 32768 tokens,
+# the rank's shards of the caches made in the step (no global cache).
+DRYRUN_CELLS = (("llama3-8b", "decode_32k", "pod", None), ("mamba2-2.7b", "long_500k", "pod", None),
+                ("llama3-8b", "prefill_32k", "pod", 2))
 DRYRUN_SEED = 35
 DRYRUN_STEPS = 5  # timed steps a cell, after the warm-up and the measured one
 # The card's peak over the measured step, less what was allocated before
@@ -597,6 +613,27 @@ DRYRUN_STEPS = 5  # timed steps a cell, after the warm-up and the measured one
 # meta branch's per-call launch words (4 KB a B5 call) the card keeps.
 DRYRUN_TEMP_RTOL = 0.05
 DRYRUN_TEMP_ALLOWANCE = 8 << 20
+# The contracts phase: the live Scheduler that must capture exactly the
+# ledger's trace set (CONTRACTS_TORCH.json), at the ledger's batch and
+# chunk, speculative (so verify is captured too) with a random draft, and
+# its requests; and the instances no ledger config runs: B4's at the
+# served head shapes, ssd (x, B/C dtype, N) of mamba2-2.7b and zamba2-7b,
+# each as a chunk and as a one-step kernel (P = 64, the 16-byte state form;
+# CONTRACT_SSD_STEP4 P = 6, the 4-byte one), B5's gqa_decode (dtype, Dh, G)
+# of llama3-8b, granite-20b and nemotron-4-340b, and B1/B2's CUDA-core body
+# (fp32 IO) at the kernels phase's fp32 cases, (T, B, d, H, slab dtype,
+# gates, stack layer, taps).
+CONTRACT_SCHEDULER = "sru-paper-large-stacked"
+CONTRACT_REQUESTS, CONTRACT_PROMPT, CONTRACT_GEN = 12, 40, 6
+CONTRACT_SSD = (("bfloat16", "bfloat16", 128), ("bfloat16", "bfloat16", 64),
+                ("float32", "float32", 16))
+CONTRACT_GQA = (("bfloat16", 128, 4), ("bfloat16", 128, 48), ("bfloat16", 192, 12),
+                ("float32", 128, 32))
+CONTRACT_SSD_STEP4 = ("float32", "float32", 16)
+CONTRACT_SIMT = ((64, 4, 1024, 1024, "float32", 3, False, 1), (13, 3, 1000, 1000, "float32", 3, False, 2),
+                 (64, 4, 1024, 1024, "float32", 3, True, 1), (13, 3, 996, 996, "int8", 3, False, 2),
+                 (64, 4, 1024, 512, "bfloat16", 3, False, 1),
+                 (64, 4, 512, 1024, "float32", 4, False, 1))
 # Autograd Functions of B1/B2 (kernels phase): their gradients against
 # autograd through the plain version on the card. The Functions' backward
 # recomputes the plain version with its recurrence through the linear scan
@@ -4319,7 +4356,7 @@ def _dryrun_fill(cfg, shape, gen):
     return fill
 
 
-def _dryrun_cell(arch, shape_name, mesh_kind, counters):
+def _dryrun_cell(arch, shape_name, mesh_kind, layers, counters):
     """One cell: its meta run (the prediction), then the same rank's step on
     the card (shapes, collectives, launches, finite logits, peak memory
     against the prediction, ms a step). Returns the line and the launches
@@ -4333,6 +4370,8 @@ def _dryrun_cell(arch, shape_name, mesh_kind, counters):
     from repro_torch.tree import flatten_with_paths
 
     cfg, shape = get_config(arch), shapes.SHAPES[shape_name]
+    if layers is not None:
+        cfg = cfg.with_(n_layers=layers)
     classes = dryrun.rank_classes(cfg, shape, dryrun.MESHES[mesh_kind])
     require(len(classes) == 1, f"dryrun {arch}: {len(classes)} classes of ranks")
     mesh = virtual_mesh(dryrun.MESHES[mesh_kind], classes[0][0])
@@ -4381,7 +4420,7 @@ def _dryrun_cell(arch, shape_name, mesh_kind, counters):
         step.fn(*step.args)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t1) / DRYRUN_STEPS * 1e3
-    line = {"phase": "dryrun", "cell": f"{arch} {shape_name} {mesh_kind}",
+    line = {"phase": "dryrun", "cell": f"{arch} {shape_name} {mesh_kind}", "layers": cfg.n_layers,
             "rank": classes[0][0], "ranks_checked": classes[0][1],
             "note": "one rank, no communication: the virtual rank's collectives return its "
                     "own operand tiled or copied (shape-true, not the mesh's values)",
@@ -4396,6 +4435,130 @@ def _dryrun_cell(arch, shape_name, mesh_kind, counters):
     del step, out, logits
     _release()
     return line, launches
+
+
+# ---------------------------------------------------------------------------
+# contracts
+# ---------------------------------------------------------------------------
+
+def _ledger_instances(ledger):
+    """The ledger's distinct kernel instances, each with where it first
+    appears (config/step)."""
+    seen = {}
+    for arch, entry in sorted(ledger["archs"].items()):
+        for step, rec in entry["steps"].items():
+            for inst in rec["instances"]:
+                seen.setdefault(json.dumps(inst, sort_keys=True), f"{arch}/{step}")
+    return [(json.loads(k), where) for k, where in seen.items()]
+
+
+def _contract_scheduler(ledger):
+    """One live Scheduler of CONTRACT_SCHEDULER on the card with CUDA
+    graphs, at the ledger's batch and chunk, speculative at its SPEC_K:
+    the signatures of every capture (``graphs.capture`` wrapped) in warm-up
+    and over CONTRACT_REQUESTS requests. Returns the line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import contracts
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import Request, Scheduler
+    from repro_torch.training import graphs
+
+    entry = ledger["archs"][CONTRACT_SCHEDULER]
+    cfg, draft_cfg = get_config(CONTRACT_SCHEDULER), get_config("sru-paper-draft")
+    params = lm.lm_init(torch.Generator(device="cuda").manual_seed(36), cfg)
+    draft = lm.lm_init(torch.Generator(device="cuda").manual_seed(37), draft_cfg)
+    captured, capture = [], graphs.capture
+
+    def recording(step, *args, **kw):
+        name = contracts.step_of(step)
+        captured.append(contracts.step_signature(name, args) if name else
+                        getattr(step, "__name__", "?"))
+        return capture(step, *args, **kw)
+
+    graphs.capture = recording
+    try:
+        eng = Scheduler(cfg, params, batch=entry["batch"], chunk=entry["chunk"],
+                        draft_cfg=draft_cfg, draft_params=draft, spec_k=contracts.SPEC_K,
+                        async_depth=2, device="cuda", graphs=True)
+        eng.warmup()
+        at_warmup = list(captured)
+        rng = np.random.default_rng(36)
+        trace = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=CONTRACT_PROMPT - i,
+                                                    dtype=np.int32),
+                         max_new_tokens=CONTRACT_GEN) for i in range(CONTRACT_REQUESTS)]
+        done = eng.run(trace, max_ticks=2000)
+    finally:
+        graphs.capture = capture
+    sigs = sorted(set(c for c in at_warmup if "(" in c))
+    require(sorted(r.rid for r in done) == list(range(CONTRACT_REQUESTS)),
+            "contracts: the live Scheduler did not finish its requests")
+    require(sigs == sorted(entry["trace_set"]),
+            f"contracts: the Scheduler captured {sigs}, the ledger's trace set is "
+            f"{entry['trace_set']}")
+    require(captured == at_warmup, f"contracts: captures after warm-up: {captured[len(at_warmup):]}")
+    require(eng.metrics.verify_steps > 0, "contracts: no verify step ran")
+    line = {"phase": "contracts", "scheduler": CONTRACT_SCHEDULER, "batch": entry["batch"],
+            "chunk": entry["chunk"], "spec_k": contracts.SPEC_K, "captures": len(at_warmup),
+            "signatures": sigs, "other_captures": sorted(set(at_warmup) - set(sigs)),
+            "captures_after_warmup": len(captured) - len(at_warmup),
+            "verify_steps": eng.metrics.verify_steps, "requests": len(done)}
+    del eng, params, draft
+    _release()
+    return line
+
+
+def phase_contracts():
+    """``analysis/contracts.py``'s ledger held on the card: ``check_contracts``
+    of CONTRACTS_TORCH.json (derived on meta) gives no violation; every
+    kernel instance the ledger lists, and those at CONTRACT_SSD,
+    CONTRACT_SSD_STEP4, CONTRACT_GQA and CONTRACT_SIMT, has the card's
+    registers, dynamic shared memory, CTAs per SM and, where the card
+    reports it, static shared memory (``smem.card_instance``) that its H100
+    model gives; one live
+    Scheduler captures exactly the ledger's trace set and nothing after
+    warm-up. Launches no kernel of the main path's count."""
+    import torch
+
+    from repro_torch.analysis import contracts, smem
+    from repro_torch.kernels.fused_rnn import fused_rnn
+    from repro_torch.kernels.gqa_decode import gqa_decode as gqa_kernel
+    from repro_torch.kernels.ssd import ssd as ssd_kernel
+
+    t0 = time.perf_counter()
+    ledger = json.loads((ROOT / "CONTRACTS_TORCH.json").read_text())
+    violations = contracts.check_contracts(ledger)
+    require(not violations, "contracts: " + "; ".join(v.format() for v in violations))
+    emit({"phase": "contracts", "archs": len(ledger["archs"]), "violations": 0,
+          "check_s": time.perf_counter() - t0})
+    insts = _ledger_instances(ledger)
+    insts += [(ssd_kernel.meta_instance(getattr(torch, x), getattr(torch, b), 4, 64, 80, 1, 64, n),
+               f"ssd {x}/{b} N={n}") for x, b, n in CONTRACT_SSD]
+    insts += [(ssd_kernel.meta_instance(getattr(torch, x), getattr(torch, b), 4, 1, 80, 1, 64, n),
+               f"ssd step {x}/{b} N={n}") for x, b, n in CONTRACT_SSD]
+    x, b, n = CONTRACT_SSD_STEP4
+    insts.append((ssd_kernel.meta_instance(getattr(torch, x), getattr(torch, b), 4, 1, 8, 4, 6, n),
+                  f"ssd step {x}/{b} N={n} P=6"))
+    insts += [(gqa_kernel.meta_instance(getattr(torch, d), dh, g, (1, 1, 1)),
+               f"gqa_decode {d} Dh={dh} G={g}") for d, dh, g in CONTRACT_GQA]
+    insts += [(fused_rnn.meta_instance(T, B, d, H, io_dtype=torch.float32,
+                                       w_dtype=getattr(torch, w), ng=ng, stack=stack, taps=taps),
+               f"fused_rnn fp32 T={T} B={B} d={d} H={H} {w} ng={ng} stack={stack} taps={taps}")
+              for T, B, d, H, w, ng, stack, taps in CONTRACT_SIMT]
+    for inst, where in insts:
+        card = smem.card_instance(inst)
+        model = {k: inst[k] for k in card}
+        require(card == model, f"contracts: {inst['kernel']} at {where}: the card reports "
+                               f"{card}, the H100 model {model}")
+        require(smem.fits(inst), f"contracts: {inst['kernel']} at {where} does not fit")
+        emit({"phase": "contracts", "instance": inst["kernel"], "at": where, **model,
+              "smem_static": inst["smem_static"], "threads": inst["threads"],
+              "grid": inst["grid"], "cluster": inst["cluster"],
+              "smem_ceiling": smem.SMEM_CEILING})
+    emit(_contract_scheduler(ledger))
+    return None
 
 
 def phase_dryrun():

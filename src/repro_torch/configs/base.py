@@ -79,9 +79,10 @@ class ArchConfig:
                                       # params stay fp). Requires the fused
                                       # engines — core/mts.py rejects int8
                                       # params on the non-fused scan engines.
-    pallas_interpret: Optional[bool] = None  # None = auto (REPRO_PALLAS_INTERPRET
-                                      # env, else interpret off-TPU); pin True/False
-                                      # to force interpret/compiled kernels
+    # JAX's Pallas interpret switch. The port has no interpret mode and reads
+    # it nowhere; the field stays so the configs compare with JAX's field by
+    # field.
+    pallas_interpret: Optional[bool] = None  # repro-lint: disable=RPL301
     ssd_chunk: int = 128
     ssd_intra_dtype: str = "float32"  # bfloat16 = §Perf C1 (intra-chunk operands)
     conv_impl: str = "shift"          # conv = single depthwise conv op (§Perf C5)

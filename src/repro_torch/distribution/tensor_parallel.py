@@ -34,7 +34,9 @@ comes with the forward:
     others and sums over the axis (:func:`launch.mesh.combine`: one row is
     nonzero, so the sum is the row bit for bit); the logits are the rank's
     columns (tied: ``h @ embed.T``) gathered along the vocab, so every rank
-    takes the same greedy token and loss from the same logits.
+    takes the same greedy token from the same logits. The loss never
+    gathers them (:func:`ce_terms`): as XLA partitions it over the vocab
+    shards, each rank reduces its own columns and the axis sums the terms.
 
 Without a model axis, or where the width does not divide it (JAX's
 divisibility fallback, ``sharding._resolve``), the leaves are whole: the
@@ -111,6 +113,38 @@ def logits(params, h: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return logits_apply(params, h)
     return mesh_lib.gather(logits_apply(params, mesh_lib.enter(h, group)), group)
+
+
+def ce_terms(params, h: torch.Tensor, targets: torch.Tensor, group,
+             vocab: int) -> tuple:
+    """``(logz, ll)`` per token in fp32: the log-sum-exp of the head's logits
+    of ``h`` and the logit of ``targets``, the padded vocab's columns (from
+    ``vocab`` on) excluded. With ``group``, each rank takes only its block
+    of columns, and the (tokens, V) logits never exist: the maximum over the
+    axis (a shift, so no gradient flows through it), then the sum of the
+    shifted exponentials and the target's logit (its owner's, 0 on the other
+    ranks) each summed over the axis (:func:`launch.mesh.combine`)."""
+    if group is None:
+        z = _valid(logits_apply(params, h).float(), 0, vocab)
+        return torch.logsumexp(z, dim=-1), torch.gather(z, -1, targets.long()[..., None])[..., 0]
+    z = logits_apply(params, mesh_lib.enter(h, group)).float()
+    cols = z.shape[-1]
+    z = _valid(z, group.index * cols, vocab)
+    m = group.all_reduce(z.detach().amax(dim=-1), op="max")
+    logz = torch.log(mesh_lib.combine(torch.sum(torch.exp(z - m[..., None]), dim=-1), group)) + m
+    local = targets.long() - group.index * cols
+    inside = (local >= 0) & (local < cols)
+    picked = torch.gather(z, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+    return logz, mesh_lib.combine(torch.where(inside, picked, 0.0), group)
+
+
+def _valid(z: torch.Tensor, col0: int, vocab: int) -> torch.Tensor:
+    """``z``, whose last axis holds the vocab columns from ``col0`` on, with
+    the padded vocab's columns (from ``vocab`` on) set to -1e30."""
+    if col0 + z.shape[-1] <= vocab:
+        return z
+    col = col0 + torch.arange(z.shape[-1], device=z.device)
+    return torch.where(col < vocab, z, -1e30)
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,8 @@ SOURCES: Dict[str, tuple] = {
     "linear_scan": (
         _PKG / "linear_scan" / "csrc" / "linear_scan.cu",
         {"linear_scan_launch": [_I] + [_P] * 4 + [_I] * 3 + [_P] * 3,
-         "linear_scan_bwd_launch": [_I] + [_P] * 7 + [_I] * 3 + [_P] * 3},
+         "linear_scan_bwd_launch": [_I] + [_P] * 7 + [_I] * 3 + [_P] * 3,
+         "linear_scan_info": [_I] * 6 + [_P]},
         (),
     ),
     "gqa_decode": (
@@ -56,7 +57,8 @@ SOURCES: Dict[str, tuple] = {
     "ssd": (
         _PKG / "ssd" / "csrc" / "ssd.cu",
         {"ssd_launch": [_I, _I] + [_P] * 9 + [_I] * 7 + [_P, _P],
-         "ssd_info": [_I] * 3 + [_P]},
+         "ssd_info": [_I] * 3 + [_P],
+         "ssd_step_info": [_I] * 3 + [_P]},
         (),
     ),
 }

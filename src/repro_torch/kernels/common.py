@@ -13,10 +13,14 @@ outputs and its workspace, not the plain version's temporaries) and
 launches nothing. Inside :func:`recorded_kernel_calls` each meta call is
 logged with its launches, operations and bytes by the formula of the
 kernel's bound (``chip_smoke.py``'s bound column): the dry run's FLOPs
-count a kernel's work whatever implements it. Any other device raises, as
-before. A meta branch that needs what the card reports (B5's split plan)
-reads the H100 model below, which ``tests/test_torch_cuda.py`` holds to
-the card.
+count a kernel's work whatever implements it. Each call also carries its
+instance (:func:`instance`: threads, grid, cluster, dynamic and static
+shared memory, registers, resident CTAs per SM) from the kernel's model of
+the H100 below, whose card-side counterpart is each wrapper's
+``instance_info``; the contract ledger (``analysis/contracts.py``) records
+them, and ``chip_smoke.py``'s ``contracts`` phase and
+``tests/test_torch_cuda.py`` hold the model to the card. Any other device
+raises, as before.
 """
 from __future__ import annotations
 
@@ -45,10 +49,12 @@ def check_operand(t: torch.Tensor, name: str, shape, like: torch.Tensor, dtype=N
 
 
 #: The H100 SXM (sm_90, 132 SMs) as the occupancy calculator sees it: the
-#: meta branches' model of the card.
+#: meta branches' model of the card. ``cluster_slots``: the clusters of 1,
+#: 2, 4 and 8 CTAs the card holds at once at one CTA per SM, as
+#: ``fused_rnn.cluster_slots`` reads them (the GPCs' SM counts set them).
 H100 = {"sm_count": 132, "smem_per_sm": 233472, "smem_reserved_per_cta": 1024,
         "regs_per_sm": 65536, "reg_unit_per_warp": 256, "max_ctas_per_sm": 32,
-        "max_threads_per_sm": 2048}
+        "max_threads_per_sm": 2048, "smem_unit": 128, "cluster_slots": (132, 66, 30, 15)}
 
 _CALLS: contextvars.ContextVar[Optional[list]] = contextvars.ContextVar("kernel_calls",
                                                                        default=None)
@@ -67,14 +73,37 @@ def recorded_kernel_calls():
         _CALLS.reset(tok)
 
 
-def record_call(name: str, launches: int, ops: float, rw_bytes: int, dtype: torch.dtype) -> None:
+def record_call(name: str, launches: int, ops: float, rw_bytes: int, dtype: torch.dtype,
+                instance: dict) -> None:
     """Log one meta call of kernel ``name`` (its ``launches`` CUDA launches,
-    ``ops`` operations and ``rw_bytes`` bytes moved, by its bound's formula)
-    when recording."""
+    ``ops`` operations and ``rw_bytes`` bytes moved, by its bound's formula,
+    and the ``instance`` each launch runs) when recording."""
     calls = _CALLS.get()
     if calls is not None:
         calls.append({"name": name, "launches": launches, "ops": float(ops),
-                      "bytes": int(rw_bytes), "dtype": str(dtype).replace("torch.", "")})
+                      "bytes": int(rw_bytes), "dtype": str(dtype).replace("torch.", ""),
+                      "instance": instance})
+
+
+def instance(kernel: str, threads: int, grid, cluster: int, smem_dynamic: int,
+             smem_static: int, registers: int, args: dict) -> dict:
+    """One launch's instance on the H100 model: the CUDA kernel (its template
+    instance), ``threads`` a CTA, ``grid`` (CTAs by dimension), CTAs a
+    ``cluster``, dynamic and static shared memory a CTA in bytes,
+    ``registers`` a thread, the resident CTAs an SM holds (:func:`ctas_per_sm`
+    of both shared memories), and ``args``: the arguments with which the
+    wrapper's ``instance_info`` reports this instance from the card
+    (``analysis/smem.py::card_instance``)."""
+    return {"kernel": kernel, "threads": threads, "grid": [int(g) for g in grid],
+            "cluster": cluster, "smem_dynamic": int(smem_dynamic),
+            "smem_static": int(smem_static), "registers": registers,
+            "ctas_per_sm": ctas_per_sm(threads, registers, smem_dynamic + smem_static),
+            "args": args}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.bfloat16`` -> "bfloat16" (an instance's ``args``)."""
+    return str(dtype).replace("torch.", "")
 
 
 def nbytes(*tensors) -> int:
@@ -86,13 +115,14 @@ def ctas_per_sm(threads: int, regs: int, smem: int, card: dict = H100) -> int:
     """Resident CTAs per SM of an instance with ``threads`` threads,
     ``regs`` registers per thread and ``smem`` bytes of shared memory a CTA
     (dynamic and static), as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
-    counts them on ``card``."""
+    counts them on ``card`` (shared memory taken in ``smem_unit`` blocks)."""
     warps = -(-threads // 32)
     unit = card["reg_unit_per_warp"]
     regs_cta = warps * -(-regs * 32 // unit) * unit
+    smem_cta = -(-smem // card["smem_unit"]) * card["smem_unit"]
     return min(card["max_ctas_per_sm"], card["max_threads_per_sm"] // (warps * 32),
                card["regs_per_sm"] // regs_cta,
-               card["smem_per_sm"] // (smem + card["smem_reserved_per_cta"]))
+               card["smem_per_sm"] // (smem_cta + card["smem_reserved_per_cta"]))
 
 
 def dtype_code(t: torch.Tensor) -> int:

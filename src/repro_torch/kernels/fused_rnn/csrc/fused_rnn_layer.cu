@@ -569,22 +569,39 @@ size_t smem_bytes(const Args& a) {
   return floats * sizeof(float);
 }
 
+// With info, the instance is described (fused_rnn_info's fields) instead of
+// launched.
 template <typename TIO, typename TW, int NG>
-int launch(Args a, cudaStream_t stream) {
+int launch(Args a, cudaStream_t stream, int* info) {
   plan(a);
   const size_t bytes = smem_bytes(a);
-  cudaError_t err = cudaFuncSetAttribute(fused_rnn_layer_kernel<TIO, TW, NG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kern = fused_rnn_layer_kernel<TIO, TW, NG>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.H + kLanes - 1) / kLanes);
+  if (info != nullptr) {
+    cudaFuncAttributes fattr{};
+    err = cudaFuncGetAttributes(&fattr, kern);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    info[0] = static_cast<int>(bytes);
+    info[2] = fattr.numRegs;
+    info[3] = kLanes;
+    info[4] = 1;
+    info[5] = static_cast<int>(grid.x);
+    info[6] = 0;
+    info[7] = a.bt * a.B;
+    info[8] = a.bk;
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], kern, kThreads, bytes));
+  }
   fused_rnn_layer_kernel<TIO, TW, NG><<<grid, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TIO, typename TW>
-int launch_ng(const Args& a, cudaStream_t s) {
-  return a.ng == 4 ? launch<TIO, TW, 4>(a, s) : launch<TIO, TW, 3>(a, s);
+int launch_ng(const Args& a, cudaStream_t s, int* info) {
+  return a.ng == 4 ? launch<TIO, TW, 4>(a, s, info) : launch<TIO, TW, 3>(a, s, info);
 }
 
 // ---------------------------------------------------------------------------
@@ -1430,8 +1447,8 @@ int launch_bf16(const Args& a, cudaStream_t s, int* info) {
 // float32 runs the CUDA-core body, bfloat16 the tensor-core one. The source
 // is built twice (kernels/build.py), so that the two nvcc runs go in
 // parallel: plain for the fp weight instances, with -DFUSED_RNN_INT8 for the
-// int8 ones. Each library refuses the other's pairs with -2. With info, a
-// tensor-core instance is described instead of launched (fused_rnn_info).
+// int8 ones. Each library refuses the other's pairs with -2. With info, the
+// instance is described instead of launched (fused_rnn_info).
 int dispatch(int dtype, int wdtype, Args a, void* stream, int* info) {
   if (a.B < 1 || a.B > kMaxRows || a.T < 1 || a.H < 1 || a.d < 1) return -1;
   auto s = static_cast<cudaStream_t>(stream);
@@ -1439,12 +1456,12 @@ int dispatch(int dtype, int wdtype, Args a, void* stream, int* info) {
   if (wdtype == 2) {
     if (a.wscale == nullptr && info == nullptr) return -1;
     a.nb = (a.scale_lane0 + a.H + kScaleBlock - 1) / kScaleBlock;
-    if (dtype == 0 && info == nullptr) return launch_ng<float, int8_t>(a, s);
+    if (dtype == 0) return launch_ng<float, int8_t>(a, s, info);
     if (dtype == 1) return launch_bf16<int8_t>(a, s, info);
   }
 #else
-  if (dtype == 0 && wdtype == 0 && info == nullptr) return launch_ng<float, float>(a, s);
-  if (dtype == 0 && wdtype == 1 && info == nullptr) return launch_ng<float, bf16>(a, s);
+  if (dtype == 0 && wdtype == 0) return launch_ng<float, float>(a, s, info);
+  if (dtype == 0 && wdtype == 1) return launch_ng<float, bf16>(a, s, info);
   if (dtype == 1 && wdtype == 1) return launch_bf16<bf16>(a, s, info);
 #endif
   return -2;
@@ -1533,12 +1550,14 @@ int fused_rnn_stack_layer_launch(int dtype, int wdtype, const float* x, const vo
   return dispatch(dtype, wdtype, a, stream, nullptr);
 }
 
-// The tensor-core instance (dtype 1) that a call of this shape and plan
-// runs: info[0] dynamic shared memory per CTA (bytes), [1] resident CTAs per
-// SM, [2] registers per thread, [3] lanes per CTA, [4] CTAs per cluster,
-// [5] grid (CTAs), [6] clusters the card can hold at once, [7] rows per
-// chunk, [8] input-tile columns. stack: the stack layer (d == H, ng 3);
-// taps: 2 for QRNN; ng: 4 with sru_proj's skip projection.
+// The instance that a call of this shape and plan runs, the tensor-core
+// body's (dtype 1) or the CUDA-core body's (dtype 0; cluster and k_tile
+// unread): info[0] dynamic shared memory per CTA (bytes), [1] resident CTAs
+// per SM, [2] registers per thread, [3] lanes per CTA, [4] CTAs per cluster,
+// [5] grid (CTAs), [6] clusters the card can hold at once (0 for the
+// CUDA-core body, which runs no cluster), [7] rows per chunk, [8] input-tile
+// columns. stack: the stack layer (d == H, ng 3); taps: 2 for QRNN; ng: 4
+// with sru_proj's skip projection.
 int fused_rnn_info(int dtype, int wdtype, int ng, int stack, int taps, int T, int B, int d,
                    int H, int block_t, int cluster, int k_tile, int* info) {
   if (info == nullptr || (stack && (d != H || ng != 3)) || taps < 1 || taps > 2) return -1;

@@ -49,8 +49,8 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (DTYPE_CODES, check_operand, cuda_dtype_code, dtype_code,
-                                        nbytes, record_call)
+from repro_torch.kernels.common import (DTYPE_CODES, H100, check_operand, cuda_dtype_code,
+                                        dtype_code, dtype_name, instance, nbytes, record_call)
 from repro_torch.kernels.fused_rnn import layout
 from repro_torch.kernels.fused_rnn.ref import fused_rnn_ref, fused_rnn_ref_q, _scan
 
@@ -216,6 +216,80 @@ def instance_info(T: int, B: int, d: int, H: int, *, int8: bool = False, ng: int
     return types.MappingProxyType(dict(zip(INFO_FIELDS, info)))
 
 
+def simt_instance_info(T: int, B: int, d: int, H: int, *, w_dtype: torch.dtype, ng: int = 3,
+                       stack: bool = False, taps: int = 1,
+                       block_t: int = 128) -> types.MappingProxyType:
+    """The CUDA-core instance (fp32 IO, ``w_dtype`` slabs) a call of this
+    shape runs, as the card reports it: ``INFO_FIELDS`` as
+    :func:`instance_info`'s, its cluster 1 and its cluster count 0."""
+    info = (ctypes.c_int * len(INFO_FIELDS))()
+    lib = build.library("fused_rnn_layer_int8" if w_dtype == torch.int8 else "fused_rnn_layer")
+    wcode = INT8_CODE if w_dtype == torch.int8 else DTYPE_CODES[w_dtype]
+    rc = lib.fused_rnn_info(DTYPE_CODES[torch.float32], wcode, ng, int(stack), taps, T, B, d, H,
+                            block_t, 1, 16, info)
+    build.check(rc, "fused_rnn_info")
+    return types.MappingProxyType(dict(zip(INFO_FIELDS, info)))
+
+
+# Registers per thread of each instance, as ptxas reported them for sm_90a
+# (the card's CUDA 12.9 build): the tensor-core body by (int8 slabs, gates,
+# stack layer), the CUDA-core body by (slab dtype, gates). No instance
+# declares static shared memory.
+_MMA_REGS = {(False, 3, False): 134, (False, 4, False): 139, (False, 3, True): 180,
+             (True, 3, False): 137, (True, 4, False): 168, (True, 3, True): 188}
+_SIMT_REGS = {(torch.float32, 3): 118, (torch.float32, 4): 124, (torch.bfloat16, 3): 117,
+              (torch.bfloat16, 4): 128, (torch.int8, 3): 117, (torch.int8, 4): 124}
+_SLAB_TYPES = {torch.float32: "float", torch.bfloat16: "bf16", torch.int8: "int8_t"}
+# The CUDA-core body's tiling (``csrc/fused_rnn_layer.cu``: ``plan``,
+# ``smem_bytes``): 8 lanes a CTA, 4 (time, batch) rows a GEMM thread, a
+# weight tile of 4 gates a lane and 4 floats of padding per k.
+SIMT_LANES = 8
+_SIMT_ROWS = 4
+_SIMT_WSTRIDE = SIMT_LANES * 4 + 4
+
+
+def _simt_smem_bytes(T: int, B: int, d: int, ng: int, taps: int, block_t: int) -> int:
+    """The CUDA-core body's dynamic shared memory a CTA (its ``plan`` and
+    ``smem_bytes``): the input and weight tiles, the K-split partial sums,
+    the epilogue, the carry and the pre-norm row."""
+    bt = min(max(block_t, 1), T)
+    if bt * B > MAX_BATCH:
+        bt = MAX_BATCH // B
+    rows = bt * B
+    rg = 1
+    while rg < -(-rows // _SIMT_ROWS) and rg < 32:
+        rg *= 2
+    ks, rows_p = 32 // rg, rg * _SIMT_ROWS
+    bk = min(max(24576 // (rows_p + 4 + _SIMT_WSTRIDE) // 32 * 32, 32), 512, _up(taps * d, 32))
+    floats = (bk * (rows_p + 4) + bk * _SIMT_WSTRIDE + ks * rows_p * ng * SIMT_LANES
+              + 5 * rows * SIMT_LANES + (bt + 1) * B + B * SIMT_LANES + d)
+    return 4 * floats
+
+
+def meta_instance(T: int, B: int, d: int, H: int, *, io_dtype: torch.dtype,
+                  w_dtype: torch.dtype, ng: int = 3, stack: bool = False, taps: int = 1,
+                  block_t: int = 128) -> dict:
+    """The instance a launch of this shape runs on the H100 model
+    (``common.instance``): bf16 IO the tensor-core body as :func:`plan` sizes
+    it, fp32 IO the CUDA-core body, 8 lanes a CTA; the registers ptxas
+    reported. :func:`instance_info` and :func:`simt_instance_info` are the
+    card's side."""
+    if io_dtype == torch.bfloat16:
+        int8 = w_dtype == torch.int8
+        p = plan(T, B, d, H, int8=int8, ng=ng, stack=stack, taps=taps, block_t=block_t,
+                 n_sm=H100["sm_count"], slots=H100["cluster_slots"])
+        return instance(f"fused_rnn_mma_kernel<{_SLAB_TYPES[w_dtype]},{ng},{str(stack).lower()}>",
+                        THREADS, (p.grid,), p.cluster, p.smem_bytes, 0,
+                        _MMA_REGS[int8, ng, stack],
+                        {"T": T, "B": B, "d": d, "H": H, "int8": int8, "ng": ng, "stack": stack,
+                         "taps": taps, "block_t": block_t})
+    return instance(f"fused_rnn_layer_kernel<float,{_SLAB_TYPES[w_dtype]},{ng}>", THREADS,
+                    (-(-H // SIMT_LANES),), 1, _simt_smem_bytes(T, B, d, ng, taps, block_t), 0,
+                    _SIMT_REGS[w_dtype, ng],
+                    {"T": T, "B": B, "d": d, "H": H, "w_dtype": dtype_name(w_dtype), "ng": ng,
+                     "stack": stack, "taps": taps, "block_t": block_t})
+
+
 def kernel_dtype(u: torch.Tensor, batch: int) -> int:
     """The kernel's dtype code for ``u`` (on the card, or on meta for the
     meta branch); raises on what the kernel does not take."""
@@ -321,7 +395,9 @@ def fused_rnn_layer(
                                                       if mode == "sru_proj" else 0.0)
         rw = nbytes(u, *taps, b3, c0, tail if mode == "qrnn" else None, wskip, scale, h, c_last)
         record_call("fused_rnn_layer" if scale is None else "fused_rnn_layer_int8", 1, ops, rw,
-                    u.dtype)
+                    u.dtype, meta_instance(T, B, d, H, io_dtype=u.dtype, w_dtype=w_dtype,
+                                           ng=4 if mode == "sru_proj" else 3, taps=len(taps),
+                                           block_t=block_t))
         return h, c_last
     lib = build.library("fused_rnn_layer" if scale is None else "fused_rnn_layer_int8")
     with torch.cuda.device(u.device):

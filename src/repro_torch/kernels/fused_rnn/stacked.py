@@ -49,7 +49,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import (check_operand, largest_divisor_leq, nbytes, record_call,
                                         recompute_grads)
 from repro_torch.kernels.fused_rnn import layout
-from repro_torch.kernels.fused_rnn.fused_rnn import _plan_on, kernel_dtype, weight_dtype
+from repro_torch.kernels.fused_rnn.fused_rnn import _plan_on, kernel_dtype, meta_instance, weight_dtype
 from repro_torch.kernels.fused_rnn.ops import linear_scan_recurrence
 from repro_torch.kernels.fused_rnn.ref import fused_rnn_stack_ref, fused_rnn_stack_ref_q, _scan
 
@@ -118,7 +118,8 @@ def fused_rnn_stack(
         ops = 2.0 * L * T * B * len(taps) * H * 3 * H
         rw = nbytes(x, *taps, b3L, lnL, c0L, tailsL, sL) + nbytes(x, c_last, tails_last)
         record_call("fused_rnn_stack" if sL is None else "fused_rnn_stack_int8", L, ops, rw,
-                    x.dtype)
+                    x.dtype, meta_instance(T, B, H, H, io_dtype=x.dtype, w_dtype=w_dtype,
+                                           stack=True, taps=len(taps), block_t=block_t))
         return xa.to(x.dtype), c_last, tails_last
     lib = build.library("fused_rnn_layer" if sL is None else "fused_rnn_layer_int8")
     stream = torch.cuda.current_stream(x.device).cuda_stream

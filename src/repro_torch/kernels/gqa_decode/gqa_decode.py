@@ -28,7 +28,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODES, H100, ctas_per_sm, cuda_dtype_code,
-                                        dtype_code, nbytes, record_call, stream_words)
+                                        dtype_code, dtype_name, instance, nbytes, record_call,
+                                        stream_words)
 
 LAUNCHES = 0
 LAUNCHES_LSE = 0
@@ -110,6 +111,22 @@ def meta_instance_info(dtype: torch.dtype, head_dim: int, group: int) -> dict:
             "stages": stages, "tile_rows": tile, "registers": regs, "heads_per_cta": heads}
 
 
+def meta_instance(dtype: torch.dtype, head_dim: int, group: int, grid) -> dict:
+    """The instance of a call on ``grid`` (splits, KV heads x head blocks,
+    lanes) on the H100 model (``common.instance``), from
+    :func:`meta_instance_info`."""
+    info = meta_instance_info(dtype, head_dim, group)
+    if dtype == torch.bfloat16:
+        kdh = 64 if head_dim <= 64 else 128 if head_dim <= 128 else 256
+        kernel = f"gqa_decode_mma_kernel<{kdh},{info['heads_per_cta'] // 16}>"
+        static = _MMA_STATIC_SMEM[info["heads_per_cta"] // 16]
+    else:
+        kdh = 32 if head_dim <= 32 else 64 if head_dim <= 64 else 128 if head_dim <= 128 else 256
+        kernel, static = f"gqa_decode_split_kernel<{kdh},{info['heads_per_cta']}>", _SIMT_STATIC_SMEM
+    return instance(kernel, _THREADS, grid, 1, info["smem_bytes"], static, info["registers"],
+                    {"dtype": dtype_name(dtype), "head_dim": head_dim, "group": group})
+
+
 def plan(dtype: torch.dtype, batch: int, n_kv: int, seq: int, head_dim: int, group: int,
          device_index: int = 0, meta: bool = False):
     """``(n_split, rows_per_split, head_blocks)`` of one call: on the card
@@ -165,7 +182,8 @@ def gqa_decode_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     words = (torch.zeros(max(B * Hkv * head_blocks, 1024), dtype=torch.int32, device=q.device)
              if n_split > 1 else None)
     rw, ops = work(q, k, B * S)
-    record_call("gqa_decode_lse" if return_lse else "gqa_decode", 1, ops, rw, q.dtype)
+    record_call("gqa_decode_lse" if return_lse else "gqa_decode", 1, ops, rw, q.dtype,
+                meta_instance(q.dtype, Dh, Hq // Hkv, (n_split, Hkv * head_blocks, B)))
     del part_ml, part_acc, words
     return (out, lse) if return_lse else out
 

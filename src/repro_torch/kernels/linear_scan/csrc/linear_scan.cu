@@ -48,9 +48,9 @@
 // path; the fold adds one step per earlier chunk (measurements in PERF.md).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// (see repro_torch/kernels/build.py). The entry points return
+// (see repro_torch/kernels/build.py). The launch entry points return
 // cudaGetLastError() after the launch, or a negative code for arguments they
-// refuse.
+// refuse; linear_scan_info reports an instance's resources.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -364,24 +364,52 @@ struct Grid {
   bool pair;
 };
 
-bool make_grid(int esize, int n_t, int n_f, int chunk, int operands, const void* const* ptrs,
-               int n_ptrs, const void* sync, const void* agg, Grid* grid) {
+// The grid and shared memory of a call whose threads walk a bf16 pair each
+// (`pair`) or one element, or false for shapes the kernels do not take.
+bool grid_of(int esize, int n_t, int n_f, int chunk, int operands, bool pair, Grid* grid) {
   if (n_t < 1 || n_f < 1 || chunk < 1 || chunk > kMaxChunk) return false;
-  bool pair = esize == 2 && n_f % 2 == 0;
-  for (int i = 0; i < n_ptrs; ++i) pair = pair && aligned(ptrs[i], 4);
   const int elems = pair ? 2 : 1;
   const int64_t n_chunks = (static_cast<int64_t>(n_t) + chunk - 1) / chunk;
   const int64_t n_tiles = (static_cast<int64_t>(n_f) + kThreads * elems - 1) / (kThreads * elems);
   const int64_t ctas = n_chunks * n_tiles;
   if (ctas > static_cast<int64_t>(kCountMask)) return false;
-  if (n_chunks > 1 && (sync == nullptr || agg == nullptr || !aligned(sync, 8) || !aligned(agg, 16)))
-    return false;
   const int rows = chunk < n_t ? chunk : n_t;
   int smem = operands * rows * kThreads * esize * elems;
   if (n_chunks > 1) smem += (n_chunks - 1 < kAggBatch ? n_chunks - 1 : kAggBatch) * kThreads * 16;
   *grid = {static_cast<int>(n_chunks), static_cast<int>(n_tiles), static_cast<int>(ctas), smem,
            pair};
   return true;
+}
+
+bool make_grid(int esize, int n_t, int n_f, int chunk, int operands, const void* const* ptrs,
+               int n_ptrs, const void* sync, const void* agg, Grid* grid) {
+  bool pair = esize == 2 && n_f % 2 == 0;
+  for (int i = 0; i < n_ptrs; ++i) pair = pair && aligned(ptrs[i], 4);
+  if (!grid_of(esize, n_t, n_f, chunk, operands, pair, grid)) return false;
+  return grid->n_chunks == 1 ||
+         (sync != nullptr && agg != nullptr && aligned(sync, 8) && aligned(agg, 16));
+}
+
+// What linear_scan_info reports of an instance, in this order.
+enum Info { kSmem, kCtasPerSm, kRegs, kStaticSmem, kCtas };
+
+template <typename K>
+int describe(K kernel, const Grid& gr, int* info) {
+  cudaFuncAttributes attr{};
+  const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  info[kSmem] = gr.smem;
+  info[kRegs] = attr.numRegs;
+  info[kStaticSmem] = static_cast<int>(attr.sharedSizeBytes);
+  info[kCtas] = gr.ctas;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[kCtasPerSm], kernel, kThreads, gr.smem));
+}
+
+template <typename T, int kE>
+int describe_dir(bool backward, const Grid& gr, int* info) {
+  return backward ? describe(linear_scan_bwd_kernel<T, kE>, gr, info)
+                  : describe(linear_scan_kernel<T, kE>, gr, info);
 }
 
 template <typename T, int kE>
@@ -451,6 +479,24 @@ int linear_scan_bwd_launch(int dtype, const void* a, const void* c, const void* 
   }
   return launch_bwd<__nv_bfloat16, 1>(a, c, c0, g, da, db, dc0, n_t, n_f, chunk, gr, sync, agg,
                                       s);
+}
+
+// The instance a call of these operands runs, described instead of
+// launched: info[0] dynamic shared memory per CTA (bytes), [1] resident CTAs
+// per SM, [2] registers per thread, [3] static shared memory (bytes), [4]
+// grid (CTAs). backward: the VJP's kernel; pair: every operand 4-byte
+// aligned (a bf16 pair a thread where F is even). -1: shapes the kernels
+// do not take; -2: an unknown dtype.
+int linear_scan_info(int dtype, int n_t, int n_f, int chunk, int backward, int pair, int* info) {
+  if (dtype != 0 && dtype != 1) return -2;
+  const int esize = dtype == 0 ? 4 : 2;
+  Grid gr;
+  if (info == nullptr ||
+      !grid_of(esize, n_t, n_f, chunk, backward ? 3 : 2, esize == 2 && pair && n_f % 2 == 0, &gr))
+    return -1;
+  if (dtype == 0) return describe_dir<float, 1>(backward, gr, info);
+  if (gr.pair) return describe_dir<__nv_bfloat16, 2>(backward, gr, info);
+  return describe_dir<__nv_bfloat16, 1>(backward, gr, info);
 }
 
 }  // extern "C"

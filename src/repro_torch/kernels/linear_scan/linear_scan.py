@@ -19,13 +19,16 @@ launches, forward and backward alike.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import types
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (check_operand, cuda_dtype_code, dtype_code, nbytes,
-                                        record_call, stream_words)
+from repro_torch.kernels.common import (DTYPE_CODES, check_operand, cuda_dtype_code, dtype_code,
+                                        dtype_name, instance, nbytes, record_call, stream_words)
 from repro_torch.kernels.linear_scan.ref import chunk_len, linear_scan_bwd_ref, linear_scan_ref
 
 LAUNCHES = 0
@@ -61,6 +64,60 @@ def plan(T: int, F: int, dtype: torch.dtype, aligned4: bool = True) -> Plan:
     return Plan(chunk, n_chunks, vec, n_tiles, n_chunks * n_tiles)
 
 
+INFO_FIELDS = ("smem_bytes", "ctas_per_sm", "registers", "static_smem_bytes", "grid")
+
+
+@functools.lru_cache(maxsize=None)
+def instance_info(T: int, F: int, dtype: torch.dtype, backward: bool = False,
+                  aligned4: bool = True) -> types.MappingProxyType:
+    """The instance a call of these operands runs (``aligned4``: every
+    operand 4-byte aligned), as the card reports it: ``INFO_FIELDS``
+    (dynamic shared memory per CTA in bytes, resident CTAs per SM,
+    registers per thread, static shared memory in bytes, CTAs)."""
+    info = (ctypes.c_int * len(INFO_FIELDS))()
+    build.check(build.library("linear_scan").linear_scan_info(
+        DTYPE_CODES[dtype], T, F, chunk_len(T), int(backward), int(aligned4), info),
+        "linear_scan_info")
+    return types.MappingProxyType(dict(zip(INFO_FIELDS, info)))  # cached: read-only
+
+
+# Registers per thread of each instance, as ptxas reported them for sm_90a
+# (the card's CUDA 12.9 build), by (dtype, bytes a thread walks, backward);
+# every instance declares 16 bytes of static shared memory (the work ticket).
+_REGS = {(torch.float32, 4, False): 52, (torch.float32, 4, True): 60,
+         (torch.bfloat16, 4, False): 50, (torch.bfloat16, 4, True): 52,
+         (torch.bfloat16, 2, False): 51, (torch.bfloat16, 2, True): 61}
+_STATIC_SMEM = 16
+_AGG_BATCH = 32  # predecessor records a CTA stages at a time
+
+
+def meta_instance(T: int, F: int, dtype: torch.dtype, backward: bool = False,
+                  aligned4: bool = True) -> dict:
+    """The instance a call of these operands runs on the H100 model
+    (``common.instance``): :func:`plan`'s CTAs, the shared memory the C
+    entry sizes (each staged row of the chunk, 2 operands forward and 3
+    backward, and a batch of predecessor records), the registers ptxas
+    reported. :func:`instance_info` is the card's side."""
+    p = plan(T, F, dtype, aligned4)
+    esize = torch.finfo(dtype).bits // 8
+    elems = p.vec_bytes // esize
+    smem = (3 if backward else 2) * min(p.chunk, T) * THREADS * esize * elems
+    if p.n_chunks > 1:
+        smem += min(p.n_chunks - 1, _AGG_BATCH) * THREADS * AGG_BYTES
+    name = "linear_scan_bwd_kernel" if backward else "linear_scan_kernel"
+    kind = "float" if dtype == torch.float32 else "bf16"
+    return instance(f"{name}<{kind},{elems}>", THREADS, (p.ctas,), 1, smem, _STATIC_SMEM,
+                    _REGS[dtype, p.vec_bytes, backward],
+                    {"T": T, "F": F, "dtype": dtype_name(dtype), "backward": backward,
+                     "aligned4": aligned4})
+
+
+def _aligned4(*tensors) -> bool:
+    """Every operand's first element 4-byte aligned in its storage (the C
+    entry's test of a pair a thread, on meta)."""
+    return all(t.storage_offset() * t.element_size() % 4 == 0 for t in tensors)
+
+
 def _scratch(T: int, F: int, device: torch.device):
     """(chunk, sync buffer, aggregate records) for a call; no scratch for
     one chunk. Sized for a column a thread, the most tiles the C entry can
@@ -84,9 +141,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _meta(name, a, tensors, outs, ops):
+def _meta(name, a, tensors, outs, ops, backward: bool = False):
     """Record a meta call that reads ``tensors`` and writes ``outs``."""
-    record_call(name, 1, ops, nbytes(*tensors) + nbytes(*outs), a.dtype)
+    T, F = a.shape
+    record_call(name, 1, ops, nbytes(*tensors) + nbytes(*outs), a.dtype,
+                meta_instance(T, F, a.dtype, backward, _aligned4(*tensors, *outs)))
 
 
 def linear_scan_kernel(a: torch.Tensor, b: torch.Tensor, c0: torch.Tensor) -> torch.Tensor:
@@ -138,7 +197,7 @@ def linear_scan_bwd(a: torch.Tensor, c: torch.Tensor, c0: torch.Tensor, g: torch
     da, db, dc0 = torch.empty_like(a), torch.empty_like(a), torch.empty_like(c0)
     if meta:
         _scratch(T, F, a.device)  # made and dropped, as the launch's
-        _meta("linear_scan", a, (a, c, c0, g), (da, db, dc0), 3.0 * T * F)
+        _meta("linear_scan", a, (a, c, c0, g), (da, db, dc0), 3.0 * T * F, backward=True)
         return da, db, dc0
     lib = build.library("linear_scan")
     with torch.cuda.device(a.device):

@@ -1037,6 +1037,23 @@ int launch(const Args& a, int* info) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The one-step kernel's instance (vec: its 16-byte state form): info[0]
+// dynamic shared memory per CTA (0: it declares its own), [1] resident CTAs
+// per SM, [2] registers per thread, [3] static shared memory per CTA.
+template <typename TX, typename TB>
+int step_info(int vec, int* info) {
+  const void* step = vec ? reinterpret_cast<const void*>(ssd_step_vec_kernel<TX, TB>)
+                         : reinterpret_cast<const void*>(ssd_step_kernel<TX, TB>);
+  cudaFuncAttributes attr{};
+  const cudaError_t err = cudaFuncGetAttributes(&attr, step);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = 0;
+  info[2] = attr.numRegs;
+  info[3] = static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], step, kThreads, 0));
+}
+
 // dtype codes: 0 = float32, 1 = bfloat16.
 int dispatch(int x_dtype, int bc_dtype, const Args& a, int* info) {
   if (x_dtype == 0 && bc_dtype == 0) return launch<float, float>(a, info);
@@ -1105,6 +1122,18 @@ int ssd_info(int x_dtype, int bc_dtype, int n_n, int* info) {
   Args a{};
   a.n_n = n_n;
   return dispatch(x_dtype, bc_dtype, a, info);
+}
+
+// The one-step kernel instance (S == 1) of these dtypes, ``vec`` its
+// 16-byte state form: step_info's fields.
+int ssd_step_info(int x_dtype, int bc_dtype, int vec, int* info) {
+  if (info == nullptr) return -1;
+  using bf16 = __nv_bfloat16;
+  if (x_dtype == 0 && bc_dtype == 0) return step_info<float, float>(vec, info);
+  if (x_dtype == 1 && bc_dtype == 1) return step_info<bf16, bf16>(vec, info);
+  if (x_dtype == 1 && bc_dtype == 0) return step_info<bf16, float>(vec, info);
+  if (x_dtype == 0 && bc_dtype == 1) return step_info<float, bf16>(vec, info);
+  return -2;
 }
 
 }  // extern "C"

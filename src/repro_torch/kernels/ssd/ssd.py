@@ -23,8 +23,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (DTYPE_CODES, cuda_dtype_code, dtype_code, nbytes,
-                                        record_call)
+from repro_torch.kernels.common import (DTYPE_CODES, H100, ctas_per_sm, cuda_dtype_code,
+                                        dtype_code, dtype_name, instance, nbytes, record_call)
 
 LAUNCHES = 0
 CHUNK = 64  # the kernel's chunk: its tiling, which changes no value
@@ -74,6 +74,75 @@ def instance_info(x_dtype: torch.dtype, bc_dtype: torch.dtype,
     return types.MappingProxyType(dict(zip(INFO_FIELDS, info)))  # cached: read-only
 
 
+#: The one-step kernels' card report (``ssd_step_info``).
+STEP_INFO_FIELDS = ("smem_bytes", "ctas_per_sm", "registers", "static_smem_bytes")
+
+
+@functools.lru_cache(maxsize=None)
+def step_instance_info(x_dtype: torch.dtype, bc_dtype: torch.dtype,
+                       vec: bool) -> types.MappingProxyType:
+    """The one-step kernel's instance (S == 1; ``vec`` its 16-byte state
+    form), as the card reports it: ``STEP_INFO_FIELDS`` (dynamic shared
+    memory per CTA, 0; resident CTAs per SM; registers per thread; static
+    shared memory per CTA)."""
+    info = (ctypes.c_int * len(STEP_INFO_FIELDS))()
+    build.check(build.library("ssd").ssd_step_info(
+        DTYPE_CODES[x_dtype], DTYPE_CODES[bc_dtype], int(vec), info), "ssd_step_info")
+    return types.MappingProxyType(dict(zip(STEP_INFO_FIELDS, info)))  # cached: read-only
+
+
+# The H100 model of the instances (``csrc/ssd.cu``): registers per thread as
+# ptxas reported them for sm_90a (the card's CUDA 12.9 build), by (x dtype,
+# B/C dtype) for the fp32 chunk kernel and the one-step kernels, and the
+# static shared memory of the one-step kernels; the mma chunk kernel's
+# shared memory is its ``MmaSmem``.
+_F32, _BF16 = torch.float32, torch.bfloat16
+_CHUNK_REGS = {(_F32, _F32): 96, (_F32, _BF16): 91, (_BF16, _F32): 120}
+_STEP_VEC_REGS = {(_F32, _F32): 80, (_F32, _BF16): 87, (_BF16, _F32): 90, (_BF16, _BF16): 87}
+_STEP_REGS, _STEP_STATIC, _STEP_VEC_STATIC = 40, 2048, 5120
+_MMA_REGS, _MMA_SMEM, _MMA_THREADS, _MMA_MAX_HEADS, _MMA_P = 124, 176416, 512, 5, 32
+_THREADS, _P_SLICE, _RS = 256, 64, 68  # the fp32 chunk kernel: its state columns, row stride
+_TYPES = {_F32: "float", _BF16: "bf16"}
+
+
+def _chunk_smem_bytes(bc_dtype: torch.dtype, N: int) -> int:
+    """The fp32 chunk kernel's dynamic shared memory (``chunk_smem_bytes``):
+    the B and C tiles, the xdt and state tiles, the score tile, the decays."""
+    n4 = -(-N // 4) * 4
+    esize = torch.finfo(bc_dtype).bits // 8
+    return esize * 2 * CHUNK * (n4 + 4) + 4 * (CHUNK * _RS + n4 * _RS + CHUNK * _RS
+                                               + 3 * CHUNK + 4)
+
+
+def meta_instance(x_dtype: torch.dtype, bc_dtype: torch.dtype, batch: int, S: int,
+                  heads: int, groups: int, head_dim: int, state_size: int,
+                  vec: bool = True) -> dict:
+    """The instance a call runs on the H100 model (``common.instance``): S
+    == 1 the one-step kernel (``vec``: its 16-byte state form, P a multiple
+    of 4 and the state aligned), bf16 x and B/C the mma chunk kernel on
+    :func:`chunk_plan`'s head blocks, else the fp32 chunk kernel.
+    :func:`instance_info` is the card's side of the chunk kernels,
+    :func:`step_instance_info` of the one-step ones."""
+    key, types = (x_dtype, bc_dtype), f"{_TYPES[x_dtype]},{_TYPES[bc_dtype]}"
+    card = {"x_dtype": dtype_name(x_dtype), "bc_dtype": dtype_name(bc_dtype),
+            "state_size": state_size}
+    if S == 1:
+        vec = vec and head_dim % 4 == 0
+        return instance(f"ssd_step{'_vec' if vec else ''}_kernel<{types}>", _THREADS,
+                        (heads, batch), 1, 0, _STEP_VEC_STATIC if vec else _STEP_STATIC,
+                        _STEP_VEC_REGS[key] if vec else _STEP_REGS,
+                        {"x_dtype": card["x_dtype"], "bc_dtype": card["bc_dtype"], "vec": vec})
+    if key == (_BF16, _BF16):
+        per_sm = ctas_per_sm(_MMA_THREADS, _MMA_REGS, _MMA_SMEM)
+        _, grid = chunk_plan(batch, heads, groups, head_dim, H100["sm_count"], per_sm,
+                             _MMA_MAX_HEADS, _MMA_P)
+        return instance("ssd_chunk_mma_kernel", _MMA_THREADS, grid, 1, _MMA_SMEM, 0, _MMA_REGS,
+                        card)
+    return instance(f"ssd_chunk_kernel<{types}>", _THREADS,
+                    (-(-head_dim // _P_SLICE), heads, batch), 1,
+                    _chunk_smem_bytes(bc_dtype, state_size), 0, _CHUNK_REGS[key], card)
+
+
 def plan(batch: int, heads: int, groups: int, head_dim: int, state_size: int,
          device_index: int = 0):
     """``chunk_plan`` of one bf16 call on this card."""
@@ -110,7 +179,9 @@ def ssd_meta(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tenso
     dtype_code(x)
     dtype_code(B_)
     rw, ops = work(x, dt, A, B_, C_, D, s0)
-    record_call("ssd", 1, ops, rw, x.dtype)
+    Bsz, S, H, P = x.shape
+    record_call("ssd", 1, ops, rw, x.dtype,
+                meta_instance(x.dtype, B_.dtype, Bsz, S, H, B_.shape[2], P, B_.shape[3]))
 
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,

@@ -30,7 +30,9 @@ Per cell the record (``--out``, one JSON file a cell) has JAX's keys:
     and logits replicated, the state and caches as the rank's shards),
     ``temp_bytes`` (the peak of the live meta bytes made during the step,
     beyond the arguments, tracked storage by storage), ``alias_bytes`` (the
-    outputs that are arguments updated in place, JAX's donated buffers);
+    outputs that are arguments updated in place, JAX's donated buffers),
+    ``peak_tensors`` (the ``PEAK_TENSORS`` largest storages live at the
+    peak: bytes, the op that made each, its shape and dtype);
     ``cost``: ``flops`` (``torch.utils.flop_counter``'s matmul FLOPs plus
     the kernels' operations by their bounds' formula, ``matmul_flops`` and
     ``kernel_flops`` apart), ``bytes_accessed`` (every op's tensor operands
@@ -93,6 +95,7 @@ COLLECTIVE_OPS = (
 _CELL_ERRORS = (
     ValueError, TypeError, KeyError, NotImplementedError, RuntimeError,
 )
+PEAK_TENSORS = 8  # the largest storages live at a step's peak that a record names
 MESHES = {"pod": {"data": 16, "model": 16}, "multipod": {"pod": 2, "data": 16, "model": 16}}
 
 
@@ -106,7 +109,9 @@ class _LiveBytes(TorchDispatchMode):
     and result bytes (views excepted), and which storages of ``args`` some
     op read. Storages of ``args`` and those made before entering are not
     counted as made. ``block``: each storage counts its bytes rounded up to
-    a multiple of it (1; the CUDA caching allocator's blocks are 512)."""
+    a multiple of it (1; the CUDA caching allocator's blocks are 512).
+    ``at_peak``: the storages live at the peak, as ``(bytes, op, shape,
+    dtype)`` of the op result that made each."""
 
     def __init__(self, args, block: int = 1):
         super().__init__()
@@ -116,8 +121,10 @@ class _LiveBytes(TorchDispatchMode):
         self.read = set()  # the storages of ``args`` some op read
         self.live = self.peak = self.accessed = 0
         self.shapes = {}  # (op, operands' metadata) -> its results' (``_call``)
+        self.made = {}  # storage -> (bytes, op, shape, dtype) of the storages made, while live
+        self.at_peak = []
 
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, func) -> None:
         st = t.untyped_storage()
         key = st._cdata
         if key in self.known:
@@ -125,12 +132,21 @@ class _LiveBytes(TorchDispatchMode):
         self.known.add(key)
         n = -(-st.nbytes() // self.block) * self.block
         self.live += n
-        self.peak = max(self.peak, self.live)
+        self.made[key] = (n, str(func.overloadpacket), tuple(t.shape), str(t.dtype))
+        if self.live > self.peak:
+            self.peak = self.live
+            self.at_peak = list(self.made.values())
         weakref.finalize(st, self._forget, key, n)
 
     def _forget(self, key: int, n: int) -> None:
         self.known.discard(key)
+        self.made.pop(key, None)
         self.live -= n
+
+    def peak_tensors(self, top: int) -> list:
+        """The ``top`` largest storages live at the peak."""
+        return [{"bytes": n, "op": op, "shape": list(shape), "dtype": dtype}
+                for n, op, shape, dtype in sorted(self.at_peak, reverse=True)[:top]]
 
     def _call(self, func, args, kwargs, operands):
         """``func(*args, **kwargs)`` on meta tensors, its results' shapes
@@ -162,7 +178,7 @@ class _LiveBytes(TorchDispatchMode):
         if not func.is_view:
             self.accessed += sum(_nbytes(t) for t in operands + results)
         for t in results:
-            self._track(t)
+            self._track(t, func)
         return out
 
 
@@ -278,6 +294,7 @@ def measure(fn: Callable, args: tuple, mesh: Mesh, *, arg_bytes: Optional[Dict] 
                              else output_bytes(out)),
             "temp_bytes": live.peak,
             "alias_bytes": alias,
+            "peak_tensors": live.peak_tensors(PEAK_TENSORS),
         },
         "cost": {"flops": mm + kflops, "matmul_flops": mm, "kernel_flops": kflops,
                  "bytes_accessed": float(live.accessed + sum(k["bytes"]

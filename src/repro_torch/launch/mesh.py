@@ -63,7 +63,8 @@ is shape-true and finite but its values are not the mesh's. The dry run
 (``launch/dryrun.py``) runs a rank's step on it on meta tensors.
 
 Inside :func:`recorded_collectives` every collective of live or virtual
-groups is logged as ``(op, result bytes, entry)`` under the names of JAX's
+groups is logged as a :class:`Collective`, ``(op, result bytes, entry)``
+with the result's element count as ``elems``, under the names of JAX's
 HLO (``all-gather``, ``all-reduce``, ``reduce-scatter``,
 ``collective-permute`` for ``shift``; ``broadcast`` apart, JAX has no such
 op); ``entry`` is False for a collective inside :func:`loop_body`, the
@@ -106,6 +107,22 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 HLO_OPS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
            "reduce_scatter": "reduce-scatter", "shift": "collective-permute",
            "broadcast": "broadcast"}
+
+
+class Collective(tuple):
+    """One logged collective: ``(op, result bytes, entry)``, and the result's
+    element count as ``elems`` (the contract ledger's size classes count
+    elements, as JAX's HLO fingerprints do)."""
+
+    def __new__(cls, op: str, nbytes: int, entry: bool, elems: int):
+        self = super().__new__(cls, (op, nbytes, entry))
+        self.elems = elems
+        return self
+
+    def __getnewargs__(self):
+        return (*self, self.elems)
+
+
 # Depth of the enclosing per-layer / per-microbatch loops (:func:`loop_body`).
 _LOOP: contextvars.ContextVar[int] = contextvars.ContextVar("collective_loop", default=0)
 
@@ -137,12 +154,13 @@ class AxisGroup:
         self.group = group
         self.staged = frozenset(staged)
         self.clock = None  # op -> seconds, inside timed_collectives
-        self.log = None    # (op, result bytes, entry) list, inside recorded_collectives
+        self.log = None    # Collective list, inside recorded_collectives
 
     def _record(self, op: str, out: torch.Tensor) -> torch.Tensor:
         """Log ``out``, the result of ``op``, when recording; returns it."""
         if self.log is not None:
-            self.log.append((HLO_OPS[op], out.numel() * out.element_size(), _LOOP.get() == 0))
+            self.log.append(Collective(HLO_OPS[op], out.numel() * out.element_size(),
+                                       _LOOP.get() == 0, out.numel()))
         return out
 
     @contextlib.contextmanager
@@ -475,8 +493,8 @@ def timed_collectives(mesh: Mesh):
 @contextlib.contextmanager
 def recorded_collectives(mesh: Mesh):
     """Log every collective of ``mesh``'s groups while inside: the list this
-    yields gets ``(op, result bytes, entry)`` per call, in call order (the
-    module docstring)."""
+    yields gets a :class:`Collective` per call, in call order (the module
+    docstring)."""
     log: list = []
     groups = list(mesh.groups.values()) + ([mesh.dp] if mesh.dp is not None else [])
     for g in groups:

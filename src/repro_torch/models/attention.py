@@ -150,16 +150,17 @@ def chunked_attention(
     G = Hq // Hkv
     cq, ck = _block_size(Sq, chunk_q), _block_size(Sk, chunk_k)
     scale = Dh ** -0.5
-    qg = q.reshape(B, Sq, Hkv, G, Dh).float()
-    kf, vf = k.float(), v.float()
+    qg = q.reshape(B, Sq, Hkv, G, Dh)
     blocks = []
+    # Each block is widened to fp32 where it is used, as JAX's kv_step does:
+    # never the whole q, K or V at once.
     for i in range(0, Sq, cq):
-        qs, qp = qg[:, i:i + cq], q_pos[:, i:i + cq]
+        qs, qp = qg[:, i:i + cq].float(), q_pos[:, i:i + cq]
         m = torch.full((B, Hkv, G, cq), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((B, Hkv, G, cq), dtype=torch.float32, device=q.device)
         acc = torch.zeros((B, Hkv, G, cq, Dh), dtype=torch.float32, device=q.device)
         for j in range(0, Sk, ck):
-            ks, vs, kp = kf[:, j:j + ck], vf[:, j:j + ck], k_pos[:, j:j + ck]
+            ks, vs, kp = k[:, j:j + ck].float(), v[:, j:j + ck].float(), k_pos[:, j:j + ck]
             s = torch.einsum("bqhgd,bkhd->bhgqk", qs, ks) * scale
             mask = kp[:, None, None, None, :] <= qp[:, None, None, :, None]
             if window is not None:
@@ -172,8 +173,8 @@ def chunked_attention(
             acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vs)
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]
-        blocks.append(out.permute(0, 3, 1, 2, 4))  # (B, cq, Hkv, G, Dh)
-    return torch.cat(blocks, dim=1).reshape(B, Sq, Hq, Dh).to(q.dtype)
+        blocks.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))  # (B, cq, Hkv, G, Dh)
+    return torch.cat(blocks, dim=1).reshape(B, Sq, Hq, Dh)
 
 
 # ---------------------------------------------------------------------------
@@ -303,14 +304,17 @@ def attn_train(params, cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.T
 # KV cache (uniform scalar length; SWA uses a ring buffer of size window)
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, max_len: int, dtype, device) -> Dict:
+def cache_shapes(cfg, batch: int, max_len: int, dtype) -> Dict:
+    """``{leaf: (shape, dtype)}`` of :func:`init_cache`, no tensor made."""
     size = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     shape = (batch, size, cfg.n_kv_heads, cfg.d_head)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.zeros((), dtype=torch.int32, device=device),  # absolute next position
-    }
+    return {"k": (shape, dtype), "v": (shape, dtype),
+            "pos": ((), torch.int32)}  # absolute next position
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype, device) -> Dict:
+    return {k: torch.zeros(s, dtype=dt, device=device)
+            for k, (s, dt) in cache_shapes(cfg, batch, max_len, dtype).items()}
 
 
 def _cache_layout(cfg, cache: Dict, group) -> Tuple[str, int, int]:

@@ -39,7 +39,8 @@ Under a mesh whose model axis divides the padded vocab (the step builders'
 ``sharding.use_rules``) ``embed`` and ``unembed`` are this rank's blocks of
 it: the lookup and the head run vocab-parallel
 (``distribution/tensor_parallel.py``), and the logits come back gathered
-to the whole vocab on every rank. The attention and Mamba blocks
+to the whole vocab on every rank; the train loss reduces each rank's own
+columns and gathers none. The attention and Mamba blocks
 (``models/attention.py``, ``mamba.py``) and the dense MLP (:func:`_mlp`)
 run the rank's shards of their leaves and caches under a model axis.
 """
@@ -47,7 +48,7 @@ from __future__ import annotations
 
 import contextvars
 
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -188,13 +189,13 @@ def _block_init(gen, cfg, dtype, device) -> Dict:
     return rnn.rnn_block_init(gen, cfg, dtype, device)
 
 
-def _block_cache(cfg, batch: int, max_len: int, dtype, device) -> Dict:
+def _block_cache_shapes(cfg, batch: int, max_len: int, dtype) -> Dict:
     kind = block_kind(cfg)
     if kind == "attn":
-        return attention.init_cache(cfg, batch, max_len, dtype, device)
+        return attention.cache_shapes(cfg, batch, max_len, dtype)
     if kind == "mamba":
-        return mamba.mamba_init_cache(cfg, batch, dtype, device)
-    return rnn.rnn_init_cache(cfg, batch, dtype, device)
+        return mamba.mamba_cache_shapes(cfg, batch, dtype)
+    return rnn.rnn_cache_shapes(cfg, batch, dtype)
 
 
 def _stacked_init(make, n: int):
@@ -246,8 +247,28 @@ def _split_groups(cfg):
     return n_groups, g, cfg.n_layers - n_groups * g
 
 
-def _stack_zeros(one: Dict, n: int) -> Dict:
-    return {k: v.new_zeros((n, *v.shape)) for k, v in one.items()}
+class CacheLeaf(NamedTuple):
+    """A cache leaf's shape and dtype, without the tensor."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+def _stacked(one: Dict, n: int) -> Dict:
+    return {k: CacheLeaf((n, *shape), dtype) for k, (shape, dtype) in one.items()}
+
+
+def lm_cache_shapes(cfg, batch: int, max_len: int) -> Dict:
+    """The leaves of :func:`lm_init_caches` as :class:`CacheLeaf` (shape and
+    dtype), no tensor made: what a rank reads to size its shards of caches
+    it never holds whole (``training/steps.py::_init_caches``)."""
+    dtype = _dtype(cfg.compute_dtype)
+    caches = {"layers": _stacked(_block_cache_shapes(cfg, batch, max_len, dtype), cfg.n_layers)}
+    if cfg.attn_every:
+        n_groups, _, _ = _split_groups(cfg)
+        caches["shared_attn"] = _stacked(attention.cache_shapes(cfg, batch, max_len, dtype),
+                                         n_groups)
+    return caches
 
 
 def lm_init_caches(cfg, batch: int, max_len: int, device="cuda"):
@@ -259,14 +280,8 @@ def lm_init_caches(cfg, batch: int, max_len: int, device="cuda"):
     ``ssm`` (L, B, H, N, P). A hybrid adds ``"shared_attn"``: an attention
     cache stacked over its ``n_layers // attn_every`` applications."""
     device = resolve_device(device)
-    dtype = _dtype(cfg.compute_dtype)
-    caches = {"layers": _stack_zeros(_block_cache(cfg, batch, max_len, dtype, device),
-                                     cfg.n_layers)}
-    if cfg.attn_every:
-        n_groups, _, _ = _split_groups(cfg)
-        caches["shared_attn"] = _stack_zeros(
-            attention.init_cache(cfg, batch, max_len, dtype, device), n_groups)
-    return caches
+    return rnn.tree_map(lambda leaf: torch.zeros(leaf.shape, dtype=leaf.dtype, device=device),
+                        lm_cache_shapes(cfg, batch, max_len))
 
 
 def _whole(fsdp, tree, path: str, layer: bool = False):
@@ -366,27 +381,18 @@ def lm_forward(params, cfg, batch, fsdp=None) -> torch.Tensor:
                                   tensor_parallel.vocab_group(cfg))
 
 
-def _ce_terms(cfg, logits, targets):
-    """(logz, ll) per token in fp32; the padded vocab's columns excluded."""
-    logits = logits.float()
-    if cfg.padded_vocab != cfg.vocab:
-        pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
-        logits = torch.where(pad_mask, logits, -1e30)
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return logz, ll
-
-
 def head_nll(params, cfg, h, targets, mask, fsdp=None) -> torch.Tensor:
     """The masked sum of the NLL of ``targets`` (B, S) under the head's
     logits of the final hidden states ``h`` (B, S, d), in fp32: the logits
     whole, or with ``cfg.loss_chunk > 0`` ``loss_chunk`` tokens at a time,
     each chunk under checkpoint, so the (tokens, V) logits never exist.
-    ``fsdp``: the train step's plan (:func:`lm_hidden`)."""
+    Under a model axis that shards the vocab each rank holds its columns
+    only (:func:`tensor_parallel.ce_terms`). ``fsdp``: the train step's plan
+    (:func:`lm_hidden`)."""
     embed_c = layout.cast_params(_head_params(params, fsdp), h.dtype)
     group = tensor_parallel.vocab_group(cfg)  # read here: the recompute runs outside the context
     if not cfg.loss_chunk:
-        logz, ll = _ce_terms(cfg, tensor_parallel.logits(embed_c, h, group), targets)
+        logz, ll = tensor_parallel.ce_terms(embed_c, h, targets, group, cfg.vocab)
         return torch.sum((logz - ll) * mask)
     B, S, d = h.shape
     n = max(S // cfg.loss_chunk, 1)
@@ -394,7 +400,7 @@ def head_nll(params, cfg, h, targets, mask, fsdp=None) -> torch.Tensor:
     hc, tc, mc = h.reshape(B, n, C, d), targets.reshape(B, n, C), mask.reshape(B, n, C)
 
     def chunk_nll(hx, tx, mx):
-        logz, ll = _ce_terms(cfg, tensor_parallel.logits(embed_c, hx, group), tx)
+        logz, ll = tensor_parallel.ce_terms(embed_c, hx, tx, group, cfg.vocab)
         return torch.sum((logz - ll) * mx)
 
     total = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -201,16 +201,22 @@ def mamba_apply(params, cfg, x: torch.Tensor, *, engine: Optional[str] = None) -
     return _gate_out(params, cfg, y, z, group)
 
 
-def mamba_init_cache(cfg, batch: int, dtype, device) -> Dict:
+def mamba_cache_shapes(cfg, batch: int, dtype) -> Dict:
+    """``{leaf: (shape, dtype)}`` of :func:`mamba_init_cache`, no tensor made."""
     G, N, H, P, W = (
         cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_conv,
     )
     return {
-        "conv_x": torch.zeros((batch, W - 1, cfg.d_inner), dtype=dtype, device=device),
-        "conv_b": torch.zeros((batch, W - 1, G * N), dtype=dtype, device=device),
-        "conv_c": torch.zeros((batch, W - 1, G * N), dtype=dtype, device=device),
-        "ssm": torch.zeros((batch, H, N, P), dtype=torch.float32, device=device),
+        "conv_x": ((batch, W - 1, cfg.d_inner), dtype),
+        "conv_b": ((batch, W - 1, G * N), dtype),
+        "conv_c": ((batch, W - 1, G * N), dtype),
+        "ssm": ((batch, H, N, P), torch.float32),
     }
+
+
+def mamba_init_cache(cfg, batch: int, dtype, device) -> Dict:
+    return {k: torch.zeros(s, dtype=dt, device=device)
+            for k, (s, dt) in mamba_cache_shapes(cfg, batch, dtype).items()}
 
 
 def mamba_prefill(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:

@@ -65,14 +65,20 @@ def rnn_block_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
     return x + out
 
 
-def rnn_init_cache(cfg, batch: int, dtype, device) -> Dict:
+def rnn_cache_shapes(cfg, batch: int, dtype) -> Dict:
+    """``{leaf: (shape, dtype)}`` of :func:`rnn_init_cache`, no tensor made."""
     h = cfg.rnn_hidden
-    cache = {"c": torch.zeros((batch, h), dtype=dtype, device=device)}
+    shapes = {"c": ((batch, h), dtype)}
     if cfg.cell == "qrnn":
-        cache["x_tail"] = torch.zeros((batch, 1, cfg.d_model), dtype=dtype, device=device)
+        shapes["x_tail"] = ((batch, 1, cfg.d_model), dtype)
     if cfg.cell == "lstm":
-        cache["h"] = torch.zeros((batch, h), dtype=dtype, device=device)
-    return cache
+        shapes["h"] = ((batch, h), dtype)
+    return shapes
+
+
+def rnn_init_cache(cfg, batch: int, dtype, device) -> Dict:
+    return {k: torch.zeros(s, dtype=dt, device=device)
+            for k, (s, dt) in rnn_cache_shapes(cfg, batch, dtype).items()}
 
 
 def rnn_block_prefill(params, cfg, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:

@@ -354,10 +354,12 @@ def build_eval_step(cfg, mesh=None, *, specs=None):
 
 def _init_caches(cfg, mesh, batch: int, max_len: int, device):
     """Zero caches on ``device``: whole, or under ``mesh`` this rank's
-    shards of them (``fused_sharded.rank_cache_specs``)."""
+    shards of them (``fused_sharded.rank_cache_specs``), sized from the
+    whole caches' shapes alone (``lm.lm_cache_shapes``): no tensor of the
+    global caches is made, on any device."""
     if mesh is None:
         return lm.lm_init_caches(cfg, batch, max_len, device=device)
-    whole = lm.lm_init_caches(cfg, batch, max_len, device="meta")
+    whole = lm.lm_cache_shapes(cfg, batch, max_len)
     specs = fused_sharded.rank_cache_specs(cfg, whole, mesh)
     return tree_map(lambda leaf, spec: torch.zeros(local_shape(leaf.shape, spec, mesh),
                                                    dtype=leaf.dtype, device=device),

@@ -28,6 +28,7 @@ length, the port's meta run walks every attention block of it.
 from __future__ import annotations
 
 import json
+import math
 import os
 import pickle
 import subprocess
@@ -53,6 +54,7 @@ from repro_torch.kernels.ssd import ssd as ssd_kernel
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import lm
 from repro_torch.training import steps
 from repro_torch.tree import flatten_with_paths
 
@@ -83,6 +85,32 @@ FLOP_RATIO = {"train/block_cost": (1.0, 1.45), "train/block_mem": (1.0, 1.45),
               "train/attn_block_cost": (1.0, 1.45), "train/head": (0.97, 1.4),
               "decode/block": (0.55, 1.01), "decode/head": (0.6, 1.01),
               "prefill/block": (0.55, 1.06)}
+# A rank's temp bytes, the port's (the peak of the storages its step makes)
+# over JAX's memory_analysis, each case's as measured on these cells; the
+# test holds each within TEMP_ROOM of its own, so that a step that grows
+# by a third fails (a count of the whole global cache is 16x-256x).
+# Prefill 0.59-0.95: the port's one-device blocks of attention (each K/V
+# block widened to fp32 where it is used, as JAX's kv_step does) and its
+# caches made at the rank's shard size hold less than XLA's buffers.
+# Decode 0.0007-0.65: the port writes the caches in place, and XLA's temp
+# holds whole-cache copies of the sharded attention (the recurrent and
+# hybrid caches' the most). Train 0.49-0.80: the loss reduces each rank's
+# vocab columns as XLA partitions it; MoE dispatch buffers are the larger
+# in XLA (mixtral, qwen3 0.49-0.51).
+TEMP_RATIO = {
+    "smollm-360m/train/pod": 0.7766, "smollm-360m/prefill/pod": 0.9478,
+    "smollm-360m/decode/pod": 0.01151, "llama3-8b/train/pod": 0.5162,
+    "llama3-8b/prefill/pod": 0.7724, "llama3-8b/decode/pod": 0.3226,
+    "mixtral-8x22b/train/pod": 0.4911, "mixtral-8x22b/prefill/pod": 0.648,
+    "mixtral-8x22b/decode/pod": 0.6526, "qwen3-moe-235b-a22b/train/pod": 0.5063,
+    "qwen3-moe-235b-a22b/prefill/pod": 0.7951, "qwen3-moe-235b-a22b/decode/pod": 0.4946,
+    "mamba2-2.7b/train/pod": 0.7278, "mamba2-2.7b/prefill/pod": 0.8659,
+    "mamba2-2.7b/decode/pod": 0.004596, "zamba2-7b/train/pod": 0.799,
+    "zamba2-7b/prefill/pod": 0.591, "zamba2-7b/decode/pod": 0.0007198,
+    "internvl2-2b/train/pod": 0.6264, "internvl2-2b/prefill/pod": 0.6256,
+    "internvl2-2b/decode/pod": 0.004172, "llama3-8b/decode/multipod": 0.3462,
+    "llama3-8b/train/multipod": 0.5011}
+TEMP_ROOM = (0.8, 1.25)
 # The gloo cells on (2, 2): reduced configs, FSDP on.
 LIVE = {"decode": ("granite-20b", "decode", (16, 4)), "train": ("llama3-8b", "train", (16, 8))}
 SERVE_GEN, SERVE_TOL = 4, 3e-5
@@ -371,6 +399,43 @@ def test_argument_and_output_bytes_are_jaxs(runs, case):
     assert got["temp_bytes"] > 0 and got["held_batch_bytes"] >= 0
 
 
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "/".join(c))
+def test_temp_bytes_against_jax(runs, case):
+    """The rank's ``temp_bytes`` (the peak of the storages its step makes)
+    over JAX's ``memory_analysis`` ``temp_size_in_bytes`` on the same mesh
+    within ``TEMP_ROOM`` of the case's ratio in ``TEMP_RATIO`` (its comment
+    gives the ratios and their causes)."""
+    key = "/".join(case)
+    got = runs["port"][key]["record"]["full_step"]["memory"]["temp_bytes"]
+    want = runs["ref"][key]["memory"]["temp_bytes"]
+    ratio = TEMP_RATIO[key]
+    assert got > 0 and want > 0
+    assert TEMP_ROOM[0] * ratio <= got / want <= TEMP_ROOM[1] * ratio, (got, want, got / want)
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "nemotron-4-340b"])
+def test_init_caches_counts_only_the_local_cache(arch):
+    """``steps._init_caches`` at rank (0, 0) of the pod, for the 32-lane
+    32768-token caches of ``prefill_32k``, makes the rank's shards and
+    nothing else: the storage tracker counts exactly the bytes of the
+    caches it returns (0.537 GB for llama3-8b, 2.416 GB for nemotron-4-340b;
+    the whole caches would be 137.4 and 618.5 GB)."""
+    cfg = dryrun.serving_cfg(get_config(arch))
+    mesh = mesh_lib.virtual_mesh(dryrun.MESHES["pod"])
+    live = dryrun._LiveBytes((), 1)
+    with live:
+        caches = steps._init_caches(cfg, mesh, 32, 32768, "meta")
+    local = sum(dryrun._nbytes(t) for t in dryrun._tensors(caches))
+    assert live.peak == local
+    whole = sum(math.prod(leaf.shape) * leaf.dtype.itemsize
+                for leaf in _leaves(lm.lm_cache_shapes(cfg, 32, 32768)))
+    assert local * 16 <= whole
+
+
+def _leaves(tree):
+    return [v for x in tree.values() for v in (_leaves(x) if isinstance(x, dict) else [x])]
+
+
 @pytest.mark.parametrize("case", [c for c in CASES if c[2] == "pod"], ids=lambda c: "/".join(c))
 def test_probe_flops_against_jax_cost_analysis(runs, case):
     """Each probe's FLOPs against XLA's ``cost_analysis`` of JAX's probe,
@@ -583,10 +648,14 @@ def test_gqa_decode_meta_branch(dtype, lse):
         got = gqa_decode(*(t.to("meta") for t in (q, k, v, lens)), return_lse=lse)
     _same_layout(plain, got)
     e = torch.finfo(dtype).bits // 8
+    n_split, _, blocks = gqa_kernel.plan(dtype, B, Hkv, S, Dh, Hq // Hkv, meta=True)
+    inst = gqa_kernel.meta_instance(dtype, Dh, Hq // Hkv, (n_split, Hkv * blocks, B))
+    assert inst["kernel"].startswith("gqa_decode_mma" if dtype == torch.bfloat16 else
+                                     "gqa_decode_split")
     assert calls == [{"name": "gqa_decode_lse" if lse else "gqa_decode", "launches": 1,
                       "ops": 2 * 2 * (B * S) * Hq * Dh,
                       "bytes": 2 * (B * S) * Hkv * Dh * e + 2 * B * Hq * Dh * e + 4 * B,
-                      "dtype": str(dtype)[6:]}]
+                      "dtype": str(dtype)[6:], "instance": inst}]
 
 
 def test_gqa_decode_meta_allocates_the_wrappers_partials():
@@ -634,8 +703,11 @@ def test_ssd_meta_branch(S):
         ops = Bsz * H * sum(2.0 * (t * N + t * P + 2 * L * N * P) for t, L in zip(tri, (64, 36)))
     rw = (2 * Bsz * S * H * P * 2 + Bsz * S * H * 4 + 2 * H * 4 + 2 * Bsz * S * G * N * 2
           + 2 * Bsz * H * N * P * 4)
+    inst = ssd_kernel.meta_instance(torch.bfloat16, torch.bfloat16, Bsz, S, H, G, P, N)
+    assert inst["kernel"] == ("ssd_step_vec_kernel<bf16,bf16>" if S == 1 else
+                              "ssd_chunk_mma_kernel")
     assert calls == [{"name": "ssd", "launches": 1, "ops": ops, "bytes": rw,
-                      "dtype": "bfloat16"}]
+                      "dtype": "bfloat16", "instance": inst}]
 
 
 @pytest.mark.parametrize("T", [1, 200], ids=["one_chunk", "chunks"])
@@ -653,9 +725,10 @@ def test_linear_scan_meta_branches(T):
     _same_layout(ls_kernel.linear_scan_bwd(cpu[0], c, cpu[2], cpu[1]), grads)
     assert calls == [
         {"name": "linear_scan", "launches": 1, "ops": 2.0 * T * F, "bytes": (3 * T * F + F) * 4,
-         "dtype": "float32"},
+         "dtype": "float32", "instance": ls_kernel.meta_instance(T, F, torch.float32)},
         {"name": "linear_scan", "launches": 1, "ops": 3.0 * T * F,
-         "bytes": (3 * T * F + F) * 4 + (2 * T * F + F) * 4, "dtype": "float32"}]
+         "bytes": (3 * T * F + F) * 4 + (2 * T * F + F) * 4, "dtype": "float32",
+         "instance": ls_kernel.meta_instance(T, F, torch.float32, backward=True)}]
 
 
 @pytest.mark.parametrize("mode", ["sru_identity", "qrnn", "sru_proj"])
@@ -680,8 +753,11 @@ def test_fused_rnn_layer_meta_branch(mode):
     ops = 2.0 * T * B * d * n * 3 * H + (2.0 * T * B * d * H if mode == "sru_proj" else 0)
     rw = 4 * (T * B * d + n * d * 3 * H + 3 * H + B * H + (B * d if mode == "qrnn" else 0)
               + (d * H if mode == "sru_proj" else 0) + T * B * H + B * H)
+    inst = fused_rnn.meta_instance(T, B, d, H, io_dtype=torch.float32, w_dtype=torch.float32,
+                                   ng=4 if mode == "sru_proj" else 3, taps=n)
+    assert inst["kernel"] == f"fused_rnn_layer_kernel<float,float,{4 if mode == 'sru_proj' else 3}>"
     assert calls == [{"name": "fused_rnn_layer", "launches": 1, "ops": ops, "bytes": rw,
-                      "dtype": "float32"}]
+                      "dtype": "float32", "instance": inst}]
 
 
 @pytest.mark.parametrize("cell", ["sru", "qrnn"])
@@ -699,8 +775,11 @@ def test_fused_rnn_stack_meta_branch(cell):
     tails = L * B * H if cell == "qrnn" else 0
     rw = 4 * (T * B * H + n * L * H * 3 * H + L * 3 * H + L * H + L * B * H + tails
               + T * B * H + L * B * H + tails)
+    inst = fused_rnn.meta_instance(T, B, H, H, io_dtype=torch.float32, w_dtype=torch.float32,
+                                   stack=True, taps=n)
     assert calls == [{"name": "fused_rnn_stack", "launches": L,
-                      "ops": 2.0 * L * T * B * n * H * 3 * H, "bytes": rw, "dtype": "float32"}]
+                      "ops": 2.0 * L * T * B * n * H * 3 * H, "bytes": rw, "dtype": "float32",
+                      "instance": inst}]
 
 
 def test_cuda_wrappers_still_refuse_other_devices():

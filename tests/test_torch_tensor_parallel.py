@@ -262,6 +262,29 @@ def _capture(argv) -> str:
     return out.getvalue()
 
 
+def _vocab_loss(mesh) -> dict:
+    """``tp.ce_terms`` on the rank's block of a tied head (16 padded rows of
+    a 13-token vocab, d = 8; the pad in the last block, targets in every
+    block) against the whole head on the same rank: the terms, and the
+    gradients of the states and of the rank's rows."""
+    gen = torch.Generator().manual_seed(9)
+    embed = torch.randn(16, 8, generator=gen)
+    h = torch.randn(2, 5, 8, generator=gen)
+    targets = torch.tensor([[0, 3, 4, 7, 8], [11, 12, 5, 1, 10]])
+    group = mesh.axis(shd.MODEL_AXIS)
+    rows = 16 // group.size
+    out = {}
+    for name, grp, table in (("whole", None, embed),
+                             ("shard", group, embed[group.index * rows:][:rows])):
+        hh, tt = h.clone().requires_grad_(True), table.clone().requires_grad_(True)
+        logz, ll = tp.ce_terms({"embed": tt}, hh, targets, grp, 13)
+        torch.sum(logz - ll).backward()
+        out[name] = {"logz": logz.detach().numpy(), "ll": ll.detach().numpy(),
+                     "dh": hh.grad.numpy(), "dembed": tt.grad.numpy()}
+    out["rows"] = (group.index * rows, rows)
+    return out
+
+
 def _worker(rank, world, model_axis, init_file, cases_path, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
@@ -291,6 +314,7 @@ def _worker(rank, world, model_axis, init_file, cases_path, out_dir):
             elif kind == "layer":
                 res[key] = _layer_case(c, mesh)
         res["frontend"] = _frontend_rows(mesh)
+        res["vocab_loss"] = _vocab_loss(mesh)
         if shape == (1, 2):
             res["elastic"] = _elastic_save(mesh, cases["elastic"], Path(out_dir) / "elastic")
             res["joined"] = _capture(JOINED_ARGV)
@@ -506,6 +530,23 @@ def test_elastic_restore_of_a_chunked_state_saved_from_two_ranks(runs):
 # ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", MESHES, ids=_mesh_id)
+def test_vocab_parallel_loss_matches_the_whole_logits(runs, shape):
+    """The loss over the vocab shards (``tp.ce_terms`` with a group: no rank
+    holds the (tokens, V) logits) gives every rank the log-sum-exp and the
+    target logit of the whole head within fp32 rounding (1e-5), the padded
+    rows excluded, and the gradients of the states and of the rank's own
+    rows."""
+    for r in runs["ranks"][shape]:
+        got, want = r["vocab_loss"]["shard"], r["vocab_loss"]["whole"]
+        row0, rows = r["vocab_loss"]["rows"]
+        for k in ("logz", "ll", "dh"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5, err_msg=k)
+        np.testing.assert_allclose(got["dembed"], want["dembed"][row0:row0 + rows],
+                                   rtol=1e-5, atol=1e-5)
+    assert np.all(want["dembed"][13:] == 0)
+
 
 def test_predicates_follow_the_divisibility_fallback():
     """``lane_sharded`` / ``vocab_sharded`` hold exactly where JAX's specs
