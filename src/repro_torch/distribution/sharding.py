@@ -17,9 +17,11 @@ and absmax over exactly those (a leaf replicated on an axis counts once).
 
 Activation hints: ``use_rules`` installs the mesh for the enclosed region,
 as in JAX, and the sharded dispatch (:func:`active_mesh`, MoE's
-``_moe_shard_map``) reads it. Without GSPMD there is no sharding constraint
-to place, so :func:`shard_hint` returns its input and
-:func:`suppress_hints` only clears the rules.
+``_moe_shard_map``) reads it; under ``sp=True`` :func:`seq_group` names the
+axis the train forward's residual stream is sliced over along its sequence
+(``models/lm.py``), where JAX hints ``("batch", "seq", None)``. Without
+GSPMD there is no sharding constraint to place, so :func:`shard_hint`
+returns its input and :func:`suppress_hints` only clears the rules.
 """
 from __future__ import annotations
 
@@ -87,6 +89,19 @@ def model_group():
     or None: no mesh, or a model axis of one rank."""
     mesh = active_mesh()
     return mesh.axis(MODEL_AXIS) if model_shards(mesh) > 1 else None
+
+
+def seq_group(seq_len: int):
+    """The model-axis group the residual stream's sequence is sliced over
+    under the active rules (``use_rules(..., sp=True)``: "seq" resolves to
+    "model"), or None: no rules, "seq" replicated, a model axis of one rank,
+    or ``seq_len`` not divisible by it (JAX's :func:`_resolve` fallback)."""
+    rules = _rules_var.get()
+    if rules is None or model_shards(rules["mesh"]) == 1:
+        return None
+    if _resolve(rules["mesh"], rules["logical"], ("seq",), (seq_len,)) != (MODEL_AXIS,):
+        return None
+    return rules["mesh"].axis(MODEL_AXIS)
 
 
 @contextlib.contextmanager

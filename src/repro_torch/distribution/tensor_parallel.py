@@ -93,17 +93,21 @@ def vocab_group(cfg, mesh=None):
 # Vocab leaves
 # ---------------------------------------------------------------------------
 
-def embed(params, ids: torch.Tensor, group) -> torch.Tensor:
+def embed(params, ids: torch.Tensor, group, seq=None) -> torch.Tensor:
     """The embedding rows of ``ids``: ``params["embed"]`` whole (``group``
-    None) or this rank's block of rows, looked up vocab-parallel."""
+    None) or this rank's block of rows, looked up vocab-parallel. ``seq``:
+    the sequence-parallel axis; the rows are then the rank's sequence slice
+    (vocab-parallel: the ranks' partial rows reduce-scattered)."""
     if group is None:
-        return embed_apply(params, ids)
+        return mesh_lib.seq_slice(embed_apply(params, ids), seq)
     table = params["embed"]
     rows = table.shape[0]
     local = ids - group.index * rows
     inside = (local >= 0) & (local < rows)
     picked = table[torch.where(inside, local, torch.zeros_like(local))]
     picked = torch.where(inside[..., None], picked, torch.zeros_like(picked))
+    if seq is not None:
+        return mesh_lib.seq_scatter(picked, seq)
     return mesh_lib.combine(picked, group)
 
 

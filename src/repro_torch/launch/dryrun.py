@@ -501,13 +501,17 @@ def _train_probes(cfg, shape, mesh) -> Dict:
 
 def _train_probe_inputs(cfg, shape, mesh):
     """(the train specs, the rows a rank computes of a microbatch, the FSDP
-    plan, its hidden states) of a train probe."""
+    plan, its hidden states) of a train probe. Under sequence parallelism
+    the hidden states are the rank's sequence slice (local, S / k, d), as
+    JAX's probes shard them ``P(dp, "model", None)``."""
     specs = steps.train_param_specs(cfg, mesh, fsdp=cfg.fsdp)
     rows = shape.global_batch // cfg.microbatches
     local = _probe_rows(mesh, rows)
     fsdp = steps.fsdp_plan(mesh, specs, local < rows)
-    h = torch.empty((local, shape.seq_len, cfg.d_model), dtype=_dtype(cfg.compute_dtype),
-                    device="meta")
+    with steps._under(mesh, cfg.sequence_parallel):
+        seq = shd.seq_group(shape.seq_len)
+    S = shape.seq_len if seq is None else shape.seq_len // seq.size
+    h = torch.empty((local, S, cfg.d_model), dtype=_dtype(cfg.compute_dtype), device="meta")
     return specs, local, fsdp, h
 
 

@@ -46,6 +46,18 @@ cotangent through unchanged. FSDP's gather of a data-sharded weight where
 a block uses it (:class:`FsdpPlan`) is the same all_gather over "data",
 whose backward reduce-scatters the cotangent to the shard.
 
+Sequence parallelism (Megatron-SP; the train step under ``use_rules(mesh,
+sp=True)``) slices the residual stream (rows, S, d) along its sequence over
+the model axis between blocks. Two autograd pairs move it:
+:func:`seq_gather` (all_gather forward, reduce_scatter backward) and
+:func:`seq_scatter` (reduce_scatter forward, all_gather backward), at the
+edges of a region run under :func:`partial_cotangents`, where each rank's
+cotangent of a replicated tensor is its own part (:func:`enter` is then
+the identity and :func:`gather`'s backward reduce-scatters). A block that
+runs on the whole sequence takes the gathered slices (:func:`gather` along
+dim 1) and keeps its slice of the output (:func:`seq_slice`: all_gather
+backward).
+
 The data-parallel axes are ("pod", "data"), JAX's batch axes
 (:func:`dp_axes`): :meth:`Mesh.dp_group` is the group of the ranks that
 share this rank's model coordinate, over both, and the train step splits
@@ -310,6 +322,33 @@ class VirtualAxisGroup(AxisGroup):
         return lambda: out
 
 
+# Whether the enclosed region's replicated tensors carry partial cotangents
+# (:func:`partial_cotangents`): read by :func:`enter` and :func:`gather` in
+# the forward, so the backward needs no context.
+_PARTIAL: contextvars.ContextVar[bool] = contextvars.ContextVar("partial_cotangents",
+                                                                default=False)
+
+
+@contextlib.contextmanager
+def partial_cotangents(on: bool = True):
+    """Inside a Megatron sequence-parallel region (between :func:`seq_gather`
+    and :func:`seq_scatter`) each model rank's cotangent of a replicated
+    tensor is its own part only, and their sum over the axis is the whole:
+    :func:`enter` is then the identity both ways (the sum waits for the
+    region's :func:`seq_gather`, a reduce-scatter), and :func:`gather`'s
+    backward reduce-scatters the parts. A leaf held whole over the axis and
+    used in the region gets its rank's part of the gradient, which the train
+    step sums over "model". ``on`` False leaves the mode as it is."""
+    if not on:
+        yield
+        return
+    tok = _PARTIAL.set(True)
+    try:
+        yield
+    finally:
+        _PARTIAL.reset(tok)
+
+
 class _Enter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -352,16 +391,21 @@ def enter(x: Optional[torch.Tensor], group: Optional[AxisGroup]) -> Optional[tor
     """``x``, replicated over ``group``'s axis, as read inside a per-rank
     region: the identity forward, the cotangent summed over the axis
     backward (each rank's is its own partial product). None passes; no
-    group (one device) is the identity."""
-    return x if x is None or group is None or group.size == 1 else _Enter.apply(x, group)
+    group (one device) and :func:`partial_cotangents` are the identity."""
+    if x is None or group is None or group.size == 1 or _PARTIAL.get():
+        return x
+    return _Enter.apply(x, group)
 
 
 def gather(x: torch.Tensor, group: Optional[AxisGroup], dim: int = -1) -> torch.Tensor:
     """This rank's lanes of a region's output gathered to full width along
     ``dim``, default the last (:meth:`AxisGroup.all_gather`); backward,
     this rank's lane slice of the cotangent, which every rank holds whole:
-    no collective. No group (one device) is the identity."""
-    return x if group is None or group.size == 1 else _Gather.apply(x, group, dim, False)
+    no collective (under :func:`partial_cotangents` the parts
+    reduce-scattered). No group (one device) is the identity."""
+    if group is None or group.size == 1:
+        return x
+    return _Gather.apply(x, group, dim, _PARTIAL.get())
 
 
 def combine(x: torch.Tensor, group: Optional[AxisGroup]) -> torch.Tensor:
@@ -369,6 +413,65 @@ def combine(x: torch.Tensor, group: Optional[AxisGroup]) -> torch.Tensor:
     (replicated) cotangent unchanged. No group (one device) is the
     identity."""
     return x if group is None or group.size == 1 else _Combine.apply(x, group)
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.loop = group, _LOOP.get()
+        return group.reduce_scatter(x, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _at_loop_depth(ctx.loop):
+            return ctx.group.all_gather(g.contiguous(), 1), None
+
+
+class _SeqSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.loop = group, _LOOP.get()
+        n = x.shape[1] // group.size
+        return x.narrow(1, group.index * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        with _at_loop_depth(ctx.loop):
+            return ctx.group.all_gather(g.contiguous(), 1), None
+
+
+# Sequence parallelism (Megatron-SP): between blocks the residual stream
+# (rows, S, d) is the rank's slice (rows, S / k, d) along the sequence.
+
+def seq_gather(x: torch.Tensor, group: Optional[AxisGroup]) -> torch.Tensor:
+    """The ranks' sequence slices of ``x`` (rows, S / k, ...) whole along dim
+    1 (an all-gather), entering a :func:`partial_cotangents` region; backward,
+    the ranks' parts of the cotangent summed and this rank's slice kept (a
+    reduce-scatter). No group is the identity."""
+    return x if group is None or group.size == 1 else _Gather.apply(x, group, 1, True)
+
+
+def seq_scatter(x: torch.Tensor, group: Optional[AxisGroup]) -> torch.Tensor:
+    """The sum over the axis of the ranks' partial outputs (rows, S, ...),
+    of which this rank keeps its sequence slice (a reduce-scatter along dim
+    1): the row-parallel product's exit under sequence parallelism, in place
+    of :func:`combine`'s all-reduce; backward, the slices' cotangents
+    gathered whole (an all-gather). No group is the identity."""
+    return x if group is None or group.size == 1 else _SeqScatter.apply(x, group)
+
+
+def seq_slice(x: torch.Tensor, group: Optional[AxisGroup]) -> torch.Tensor:
+    """This rank's sequence slice of ``x`` (rows, S, ...), replicated over the
+    axis: backward, the slices' cotangents gathered whole (an all-gather),
+    so the region before it computed on whole cotangents; under
+    :func:`partial_cotangents` the slice's cotangent alone, zero elsewhere:
+    no collective. No group is the identity."""
+    if group is None or group.size == 1:
+        return x
+    if _PARTIAL.get():
+        n = x.shape[1] // group.size
+        return x.narrow(1, group.index * n, n).contiguous()
+    return _SeqSlice.apply(x, group)
 
 
 class FsdpPlan(NamedTuple):

@@ -234,19 +234,23 @@ def _rows_sharded(cfg, params) -> bool:
     return params["w_o"].shape[0] != _eff_heads(cfg) * cfg.d_head
 
 
-def _out_proj(params, cfg, o: torch.Tensor, h0: int, group) -> torch.Tensor:
+def _out_proj(params, cfg, o: torch.Tensor, h0: int, group, seq=None) -> torch.Tensor:
     """The block's output from ``o`` (B, S, n Dh): the attention output of
     padded heads ``[h0, h0 + n)``, the rank's own (its rows of a sharded
     ``w_o``) or all He of them (its slice of them, or all of a whole
-    ``w_o``)."""
+    ``w_o``). ``seq``: the sequence-parallel axis (:func:`attn_train`); the
+    output is then the rank's sequence slice, reduce-scattered from the
+    partial products, or sliced from a whole ``w_o``'s."""
     Dh = cfg.d_head
     w = params["w_o"]
     if not _rows_sharded(cfg, params):
-        return o @ w
+        return mesh_lib.seq_slice(o @ w, seq)
     rows = w.shape[0]
     lo = group.index * rows
     if o.shape[-1] != rows or h0 * Dh != lo:
         o = o[..., lo:lo + rows]
+    if seq is not None:
+        return mesh_lib.seq_scatter(o @ w, seq)
     return mesh_lib.combine(o @ w, group)
 
 
@@ -292,12 +296,20 @@ def _prompt_attention(params, cfg, x: torch.Tensor, positions: torch.Tensor, gro
     return _heads_mask(cfg, o, h0).reshape(B, S, -1), h0, k, v
 
 
-def attn_train(params, cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def attn_train(params, cfg, x: torch.Tensor, positions: torch.Tensor, seq=None
+               ) -> torch.Tensor:
     """x: (B, S, d); positions (B, S). Causal (SWA) attention over the
-    sequence, no cache."""
+    sequence, no cache. ``seq``: the model axis the sequence is sliced over
+    (sequence parallelism, ``sharding.seq_group``): ``x`` is then the
+    rank's slice (B, S / k, d), gathered whole where the projections read
+    it, and the output is the rank's slice (Megatron-SP: an all-gather in,
+    a reduce-scatter out, the region between on partial cotangents);
+    ``positions`` stay whole."""
     group = model_group()
-    o, h0, _, _ = _prompt_attention(params, cfg, x, positions, group)
-    return _out_proj(params, cfg, o, h0, group)
+    x = mesh_lib.seq_gather(x, seq)
+    with mesh_lib.partial_cotangents(seq is not None):
+        o, h0, _, _ = _prompt_attention(params, cfg, x, positions, group)
+        return _out_proj(params, cfg, o, h0, group, seq)
 
 
 # ---------------------------------------------------------------------------

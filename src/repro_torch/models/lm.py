@@ -55,7 +55,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.distribution import tensor_parallel
-from repro_torch.distribution.sharding import model_group
+from repro_torch.distribution.sharding import model_group, seq_group
 from repro_torch.kernels.fused_rnn import layout
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import attention, mamba, moe, rnn
@@ -125,25 +125,74 @@ def _attn_block_init(gen, cfg, dtype, device) -> Dict:
     return p
 
 
-def _mlp(params, cfg, x):
+def _mlp(params, cfg, x, seq=None):
     """``mlp_apply``; under a model axis on the rank's "ff" columns of
     ``w_gate`` / ``w_up`` (the nonlinearity is elementwise) and rows of
-    ``w_down``, the partial products summed (whole leaves: whole)."""
+    ``w_down``, the partial products summed (whole leaves: whole). ``seq``:
+    the sequence-parallel axis; ``x`` is then the rank's sequence slice,
+    gathered whole in, and the output the rank's slice, reduce-scattered
+    from the partial products (whole leaves: sliced), as
+    ``attention.attn_train``."""
     group = None if params["w_down"].shape[0] == cfg.d_ff else model_group()
-    return mesh_lib.combine(mlp_apply(params, mesh_lib.enter(x, group), cfg.mlp_type), group)
+    x = mesh_lib.seq_gather(x, seq)
+    with mesh_lib.partial_cotangents(seq is not None):
+        y = mlp_apply(params, mesh_lib.enter(x, group), cfg.mlp_type)
+        if seq is None:
+            return mesh_lib.combine(y, group)
+        return mesh_lib.seq_scatter(y, seq) if group is not None else mesh_lib.seq_slice(y, seq)
 
 
-def _ffn(params, cfg, h):
-    """The block's second half: pre-norm MLP or mixture of experts, plus residual."""
+def _ffn(params, cfg, h, seq=None):
+    """The block's second half: pre-norm MLP or mixture of experts, plus
+    residual (``seq``: the dense MLP's sequence-parallel axis)."""
     z = rmsnorm(params["ln2"], h)
     if cfg.moe:
         return h + moe.moe_apply(params["moe"], cfg, z)
-    return h + _mlp(params["mlp"], cfg, z)
+    return h + _mlp(params["mlp"], cfg, z, seq)
 
 
 def _attn_block_apply(params, cfg, x, positions):
+    """The train forward's attention block. Under sequence parallelism
+    (``sharding.seq_group`` of the whole ``positions``' length) ``x`` and
+    the output are the rank's sequence slices: the norms and residual adds
+    run on the slice, attention and the dense MLP gather it whole and
+    reduce-scatter their outputs (Megatron-SP); with MoE the block runs on
+    the whole sequence (:func:`_on_whole_sequence`)."""
+    seq = seq_group(positions.shape[1])
+    if seq is not None and cfg.moe:
+        return _on_whole_sequence(lambda xw: _attn_block_whole(params, cfg, xw, positions),
+                                  x, seq)
+    h = x + attention.attn_train(params["attn"], cfg, rmsnorm(params["ln1"], x), positions, seq)
+    return _ffn(params, cfg, h, seq)
+
+
+def _attn_block_whole(params, cfg, x, positions):
     h = x + attention.attn_train(params["attn"], cfg, rmsnorm(params["ln1"], x), positions)
     return _ffn(params, cfg, h)
+
+
+def _on_whole_sequence(fn, x, seq):
+    """``fn`` (a block on the whole stream) on the rank's sequence slice
+    ``x``: the slices gathered whole at entry (backward: the rank's slice of
+    the whole cotangent), ``fn`` run as without sequence parallelism, the
+    rank's slice of its output kept (backward: the slices' cotangents
+    gathered whole). JAX's hints around the Mamba, RNN and MoE blocks, in
+    the simple form. ``seq`` None: ``fn(x)``."""
+    return mesh_lib.seq_slice(fn(mesh_lib.gather(x, seq, dim=1)), seq)
+
+
+def sequence_partial_keys(cfg) -> tuple:
+    """The top-level params keys whose leaves held whole over "model" get
+    only the rank's part of their gradient under sequence parallelism (used
+    on a sequence slice, or inside a Megatron-SP region): the final norm,
+    and the attention blocks that run Megatron-SP (dense MLP, no MoE). The
+    train step sums these leaves' grads over "model"."""
+    keys = ["final_norm"]
+    if not cfg.moe and block_kind(cfg) == "attn":
+        keys.append("layers")
+    if not cfg.moe and cfg.attn_every:
+        keys.append("shared_attn")
+    return tuple(keys)
 
 
 def _attn_block_prefill(params, cfg, x, cache):
@@ -171,12 +220,19 @@ def _mamba_block_decode(params, cfg, x, cache):
 
 
 def _block_apply(params, cfg, x, positions):
+    """One block of the train forward; under sequence parallelism ``x`` and
+    the output are the rank's sequence slices (:func:`_attn_block_apply`;
+    the other kinds :func:`_on_whole_sequence`)."""
     kind = block_kind(cfg)
     if kind == "attn":
         return _attn_block_apply(params, cfg, x, positions)
     if kind == "mamba":
-        return x + mamba.mamba_apply(params["mamba"], cfg, rmsnorm(params["ln1"], x))
-    return rnn.rnn_block_apply(params, cfg, x)
+        def fn(xw):
+            return xw + mamba.mamba_apply(params["mamba"], cfg, rmsnorm(params["ln1"], xw))
+    else:
+        def fn(xw):
+            return rnn.rnn_block_apply(params, cfg, xw)
+    return _on_whole_sequence(fn, x, seq_group(positions.shape[1]))
 
 
 def _block_init(gen, cfg, dtype, device) -> Dict:
@@ -297,17 +353,18 @@ def _head_params(params, fsdp=None) -> Dict:
     return {key: _whole(fsdp, params["embed"][key], f"embed/{key}")}
 
 
-def _embed_in(params, cfg, batch, compute, fsdp=None) -> torch.Tensor:
+def _embed_in(params, cfg, batch, compute, fsdp=None, seq=None) -> torch.Tensor:
     """The first hidden states in the compute dtype: ``batch["inputs"]``
     (B, S) token ids through the embedding table (vocab-parallel under a
     sharding mesh), or with a frontend stub ``batch["inputs_embeds"]`` (B,
-    S, d) through its adapter matrix."""
+    S, d) through its adapter matrix. ``seq``: the sequence-parallel axis;
+    the states are then the rank's sequence slice."""
     if cfg.frontend:
         adapter = _whole(fsdp, params["frontend"]["adapter"], "frontend/adapter")
-        return batch["inputs_embeds"].to(compute) @ adapter.to(compute)
+        return mesh_lib.seq_slice(batch["inputs_embeds"].to(compute) @ adapter.to(compute), seq)
     table = {"embed": _whole(fsdp, params["embed"]["embed"], "embed/embed")}
-    return tensor_parallel.embed(table, batch["inputs"], tensor_parallel.vocab_group(cfg)
-                                 ).to(compute)
+    return tensor_parallel.embed(table, batch["inputs"], tensor_parallel.vocab_group(cfg),
+                                 seq).to(compute)
 
 
 def _check_hybrid(cfg) -> None:
@@ -336,11 +393,19 @@ def lm_hidden(params, cfg, batch, fsdp=None) -> torch.Tensor:
     gathers at each application, the vocab leaves where they are used.
     Under ``"none"`` or ``"dots"`` autograd keeps the gathered weights its
     products save, so the peak does not fall (JAX's scan residuals keep
-    them too). Without a plan the params are used as they are."""
+    them too). Without a plan the params are used as they are.
+
+    Under sequence parallelism (``use_rules(mesh, sp=True)`` with a model
+    axis of k > 1 ranks that divides S: ``sharding.seq_group``) the stream
+    is the rank's slice (B, S / k, d) after the embedding, between blocks
+    (so a block's remat input is the slice) and into the final norm, where
+    JAX hints it ``("batch", "seq", None)``, and the slice is returned:
+    :func:`head_nll` gathers it."""
     _check_hybrid(cfg)
     compute = _dtype(cfg.compute_dtype)
-    h = _embed_in(params, cfg, batch, compute, fsdp)
-    B, S = h.shape[:2]
+    B, S = batch["inputs_embeds" if cfg.frontend else "inputs"].shape[:2]
+    seq = seq_group(S)
+    h = _embed_in(params, cfg, batch, compute, fsdp, seq)
     positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
     layers = params["layers"]
     if cfg.cast_params_once:  # one cast of the whole stack; fp32 masters get grads through it
@@ -349,7 +414,11 @@ def lm_hidden(params, cfg, batch, fsdp=None) -> torch.Tensor:
     if block_kind(cfg) == "rnn" and cfg.fuse_depth:
         def stack_apply(lp, x):
             lp = _whole(fsdp, lp, "layers")
-            return rnn.rnn_stack_apply(layout.cast_params(lp, compute), cfg, x)
+
+            def fn(xw):
+                return rnn.rnn_stack_apply(layout.cast_params(lp, compute), cfg, xw)
+
+            return _on_whole_sequence(fn, x, seq)
 
         h = maybe_remat(stack_apply, cfg.remat)(layers, h)
     else:
@@ -377,6 +446,8 @@ def lm_hidden(params, cfg, batch, fsdp=None) -> torch.Tensor:
 
 def lm_forward(params, cfg, batch, fsdp=None) -> torch.Tensor:
     h = lm_hidden(params, cfg, batch, fsdp)
+    seq = seq_group(batch["inputs_embeds" if cfg.frontend else "inputs"].shape[1])
+    h = mesh_lib.gather(h, seq, dim=1)
     return tensor_parallel.logits(layout.cast_params(_head_params(params, fsdp), h.dtype), h,
                                   tensor_parallel.vocab_group(cfg))
 
@@ -388,11 +459,20 @@ def head_nll(params, cfg, h, targets, mask, fsdp=None) -> torch.Tensor:
     each chunk under checkpoint, so the (tokens, V) logits never exist.
     Under a model axis that shards the vocab each rank holds its columns
     only (:func:`tensor_parallel.ce_terms`). ``fsdp``: the train step's plan
-    (:func:`lm_hidden`)."""
+    (:func:`lm_hidden`).
+
+    Under sequence parallelism ``h`` is the rank's slice (B, S / k, d) of
+    the (B, S) ``targets``' sequence, gathered whole here: with vocab
+    columns on the rank, on partial cotangents (a reduce-scatter back), as
+    Megatron-SP's blocks; else its slice of the whole cotangent."""
     embed_c = layout.cast_params(_head_params(params, fsdp), h.dtype)
-    group = tensor_parallel.vocab_group(cfg)  # read here: the recompute runs outside the context
+    group = tensor_parallel.vocab_group(cfg)
+    seq = seq_group(targets.shape[1])
+    partial = seq is not None and group is not None
+    h = mesh_lib.seq_gather(h, seq) if partial else mesh_lib.gather(h, seq, dim=1)
     if not cfg.loss_chunk:
-        logz, ll = tensor_parallel.ce_terms(embed_c, h, targets, group, cfg.vocab)
+        with mesh_lib.partial_cotangents(partial):
+            logz, ll = tensor_parallel.ce_terms(embed_c, h, targets, group, cfg.vocab)
         return torch.sum((logz - ll) * mask)
     B, S, d = h.shape
     n = max(S // cfg.loss_chunk, 1)
@@ -403,10 +483,13 @@ def head_nll(params, cfg, h, targets, mask, fsdp=None) -> torch.Tensor:
         logz, ll = tensor_parallel.ce_terms(embed_c, hx, tx, group, cfg.vocab)
         return torch.sum((logz - ll) * mx)
 
+    # Each chunk recomputes in a copy of the forward's context (maybe_remat):
+    # the partial mode, and the loop depth its collectives are logged at.
+    chunk_nll = maybe_remat(chunk_nll, "block")
     total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(n):
-        total = total + checkpoint(chunk_nll, hc[:, i], tc[:, i], mc[:, i],
-                                   use_reentrant=False, preserve_rng_state=False)
+    with mesh_lib.partial_cotangents(partial):
+        for i in range(n):
+            total = total + chunk_nll(hc[:, i], tc[:, i], mc[:, i])
     return total
 
 

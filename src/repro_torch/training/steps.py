@@ -43,7 +43,7 @@ from repro_torch.launch.mesh import FsdpPlan, loop_body
 from repro_torch.models import attention, lm, rnn
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, cosine_schedule
 from repro_torch.optim.compression import compress_grads, ef_init
-from repro_torch.tree import tree_leaves, tree_map, unflatten_like
+from repro_torch.tree import flatten_with_paths, tree_leaves, tree_map, unflatten_like
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +179,25 @@ def _reduce_over_data(g_sum, spec_list, mesh, split: bool):
     return out
 
 
+def _reduce_over_model(cfg, g_sum, params, spec_list, seq_len: int):
+    """Under sequence parallelism (``sharding.seq_group`` of ``seq_len``)
+    the grads of the leaves held whole over "model" that the rank used on
+    its sequence slice or in a Megatron-SP region
+    (``lm.sequence_partial_keys``: the norms, a q/k norm, a leaf the axis
+    does not divide) are the rank's part: summed over "model" in one flat
+    buffer. The leaves sharded over "model" already hold their whole
+    grad."""
+    seq = shd.seq_group(seq_len)
+    if seq is None:
+        return g_sum
+    keys = lm.sequence_partial_keys(cfg)
+    idx = [i for i, ((path, _), s) in enumerate(zip(flatten_with_paths(params), spec_list))
+           if path.split("/")[0] in keys and shd.replicated_on(s, shd.MODEL_AXIS)]
+    if idx:
+        _all_reduce_flat(seq, g_sum, idx)
+    return g_sum
+
+
 def step_grads(cfg, params, batch: Dict, mesh=None, specs=None):
     """The train step's loss and grads: ``(loss, grads)``, the
     microbatches' mean loss and mean fp32 grads (a tree like ``params``),
@@ -233,6 +252,7 @@ def _step_grads(cfg, params, batch: Dict, mesh, specs):
     del tree, leaves
     if mesh is not None:
         g_sum = _reduce_over_data(g_sum, spec_list, mesh, rows is not None)
+        g_sum = _reduce_over_model(cfg, g_sum, params, spec_list, batch["targets"].shape[1])
         if rows is not None:
             loss = mesh.dp_group().all_reduce(loss)
     return loss, unflatten_like(params, g_sum)
@@ -291,6 +311,12 @@ def build_train_step(
         autograd collectives; each model-sharded leaf gets its own shard's
         grad, the leaves held whole on every model rank get equal grads
         there, and nothing is reduced over ``model``.
+      * sequence parallelism (``cfg.sequence_parallel``, a model axis that
+        divides the sequence): the residual stream between blocks is the
+        rank's sequence slice (``lm.lm_hidden``: Megatron-SP around the
+        attention and dense MLP, the other blocks on the gathered
+        sequence), and the grads of the leaves held whole over "model" that
+        ran on the slice are summed over it (:func:`_reduce_over_model`).
 
     The clip norm and int8 compression's absmax are taken over whole leaves
     (``optim/``).

@@ -23,7 +23,9 @@ axis does not divide), ``zamba2-7b`` (6 layers: one shared block) and
 prefill and decode
 on (16, 16); ``llama3-8b`` decode and train on (2, 16, 16). The shapes are
 cut in length and batch (``SHAPES``): JAX compiles in seconds whatever the
-length, the port's meta run walks every attention block of it.
+length, the port's meta run walks every attention block of it. Sequence
+parallelism: ``nemotron-4-340b`` (``sequence_parallel=True``) train at the
+``train_4k`` shape on (16, 16), at 2 and 6 layers (``SP_LAYERS``).
 """
 from __future__ import annotations
 
@@ -111,6 +113,18 @@ TEMP_RATIO = {
     "internvl2-2b/decode/pod": 0.004172, "llama3-8b/decode/multipod": 0.3462,
     "llama3-8b/train/multipod": 0.5011}
 TEMP_ROOM = (0.8, 1.25)
+# Sequence parallelism: nemotron-4-340b's train step at the train_4k shape
+# (4096 tokens, 4 microbatches of 4 rows a data rank) on (16, 16) at two
+# depths. At the 256-token SHAPES["train"] the embedding's fp32 gradient
+# sets the step's peak and hides the stream; at 4096 the peak falls in the
+# blocks' backward, where each layer's saved input adds to it. Each residual
+# stream slice is (4, 256, 18432) bf16, 37.7 MB a layer, as JAX's (without
+# sequence parallelism the whole (4, 4096, 18432), 604 MB). The ratios of
+# the port's temp bytes over JAX's, as measured: at 2 layers, and of the
+# growth per added layer (the port's 167.2 MB a layer, JAX's 219.0; 3.23
+# without sequence parallelism).
+SP_ARCH, SP_LAYERS, SP_SHAPE = "nemotron-4-340b", (2, 6), "train_4k"
+SP_TEMP_RATIO = {"2_layers": 0.5370, "per_layer": 0.7636}
 # The gloo cells on (2, 2): reduced configs, FSDP on.
 LIVE = {"decode": ("granite-20b", "decode", (16, 4)), "train": ("llama3-8b", "train", (16, 8))}
 SERVE_GEN, SERVE_TOL = 4, 3e-5
@@ -150,7 +164,20 @@ def shards(tree, shardings):
 
 cells = json.loads(sys.argv[1])
 out = {"meshes": {}}
+def sp_cell(key, c):  # the sequence-parallel cells: the step's memory, the block probe's collectives
+    m = mesh(c["mesh"])
+    cfg = get_config(c["arch"]).with_(n_layers=c["layers"])
+    shape = shp.SHAPES[c["name"]]
+    res = D.run_train_cell(cfg, shape, m, False)
+    coll = {}
+    if c["block_probe"]:
+        cost = cfg.with_(attn_chunk=max(cfg.attn_chunk, shape.seq_len))
+        coll = D._train_block_probe(cost, shape, m)["collectives_total"]
+    out[key] = {"memory": res["full_step"]["memory"], "block_collectives": coll}
 for key, c in cells.items():
+    if key.startswith("sp/"):
+        sp_cell(key, c)
+        continue
     m = mesh(c["mesh"])
     out["meshes"][str(c["mesh"])] = np.asarray([d.id for d in m.devices.flat]).reshape(
         m.devices.shape).tolist()
@@ -211,6 +238,27 @@ def _cells(cases):
 _TRAIN = tuple(c for c in CASES if c[1] == "train")
 _SERVE = tuple(c for c in CASES if c[1] != "train")
 JAX_GROUPS = (_TRAIN[0::3], _TRAIN[1::3] + _SERVE[:3], _TRAIN[2::3] + _SERVE[3:5], _SERVE[5:])
+
+
+def _sp_cells():
+    """JAX's sequence-parallel cells (with the last group: about 15 s)."""
+    return {f"sp/{L}": {"arch": SP_ARCH, "mesh": [16, 16], "layers": L, "name": SP_SHAPE,
+                        "block_probe": L == SP_LAYERS[0]} for L in SP_LAYERS}
+
+
+def _sp_cfg(layers):
+    return get_config(SP_ARCH).with_(n_layers=layers)
+
+
+def _port_sp():
+    """The port's sequence-parallel cells on the virtual rank (0, 0): each
+    depth's full step, and the 2-layer block probe (attention in one block)."""
+    mesh = mesh_lib.virtual_mesh(dryrun.MESHES["pod"])
+    shape = shp.SHAPES[SP_SHAPE]
+    out = {L: dryrun.run_step(_sp_cfg(L), shape, mesh) for L in SP_LAYERS}
+    cost = _sp_cfg(SP_LAYERS[0]).with_(attn_chunk=shape.seq_len)
+    out["block"] = dryrun._train_block_probe(cost, shape, mesh, "layers")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -343,8 +391,9 @@ def runs(tmp_path_factory):
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO / "src"))
     procs = []
     for i, group in enumerate(JAX_GROUPS):
+        cells = _cells(group) if i < len(JAX_GROUPS) - 1 else {**_cells(group), **_sp_cells()}
         procs.append(subprocess.Popen(
-            [sys.executable, str(tmp / "ref.py"), json.dumps(_cells(group)),
+            [sys.executable, str(tmp / "ref.py"), json.dumps(cells),
              str(tmp / f"j{i}.json")],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     live_dir = tmp / "live"
@@ -352,6 +401,7 @@ def runs(tmp_path_factory):
     ctx = mp.start_processes(_worker, args=(4, str(live_dir / "rdv"), str(live_dir)), nprocs=4,
                              join=False, start_method="spawn")
     port = {f"{a}/{k}/{m}": _port_cell(a, k, m) for a, k, m in CASES}
+    port["sp"] = _port_sp()
     virtual = {}
     for name in LIVE:
         for rank in range(4):
@@ -411,6 +461,55 @@ def test_temp_bytes_against_jax(runs, case):
     ratio = TEMP_RATIO[key]
     assert got > 0 and want > 0
     assert TEMP_ROOM[0] * ratio <= got / want <= TEMP_ROOM[1] * ratio, (got, want, got / want)
+
+
+def test_sequence_parallel_temp_per_layer_against_jax(runs):
+    """nemotron-4-340b's train rank under sequence parallelism: its temp
+    bytes over JAX's at 2 layers, and its growth per added layer (2 to 6)
+    over JAX's, each within ``TEMP_ROOM`` of ``SP_TEMP_RATIO``: the
+    residual stream between blocks is the rank's sequence slice, as JAX's
+    (a whole stream a layer makes the growth 3.2x JAX's, 4.2x the ratio)."""
+    temp = {L: runs["port"]["sp"][L]["memory"]["temp_bytes"] for L in SP_LAYERS}
+    jax = {L: runs["ref"][f"sp/{L}"]["memory"]["temp_bytes"] for L in SP_LAYERS}
+    lo, hi = SP_LAYERS
+    ratios = {"2_layers": temp[lo] / jax[lo],
+              "per_layer": (temp[hi] - temp[lo]) / (jax[hi] - jax[lo])}
+    for name, ratio in ratios.items():
+        want = SP_TEMP_RATIO[name]
+        assert TEMP_ROOM[0] * want <= ratio <= TEMP_ROOM[1] * want, (name, temp, jax, ratio)
+    for L in SP_LAYERS:  # the inputs JAX's: the same rank
+        mem = runs["port"]["sp"][L]["memory"]
+        assert mem["argument_bytes"] == runs["ref"][f"sp/{L}"]["memory"]["argument_bytes"]
+
+
+def test_sequence_parallel_peak_holds_no_stream(runs):
+    """At the step's peak no storage of the whole (rows, S, d) residual
+    stream is live (the embedding's, a residual add's, a norm's or a
+    cast's): each storage of that shape is an all-gather's output, the
+    sequence gathered whole inside the block being differentiated, and as
+    many at 6 layers as at 2. The slices (rows, S / 16, d) cross the
+    blocks."""
+    cfg, shape = _sp_cfg(2), shp.SHAPES[SP_SHAPE]
+    stream = [shape.global_batch // cfg.microbatches // 16, shape.seq_len, cfg.d_model]
+    whole = {}
+    for L in SP_LAYERS:
+        peak = runs["port"]["sp"][L]["memory"]["peak_tensors"]
+        whole[L] = [t["op"] for t in peak if t["shape"] == stream]
+        assert set(whole[L]) <= {"aten.cat"}, (L, peak)
+    assert len(whole[SP_LAYERS[0]]) == len(whole[SP_LAYERS[1]])
+
+
+def test_sequence_parallel_block_collectives_beside_jax(runs):
+    """The 2-layer rank's block probe (one block forward and backward under
+    remat) moves the stream by all-gathers in and reduce-scatters out, and
+    no all-reduce; in all it moves no more bytes than JAX's partitioning of
+    the same probe (which all-reduces)."""
+    got = runs["port"]["sp"]["block"]["collectives_total"]
+    want = runs["ref"][f"sp/{SP_LAYERS[0]}"]["block_collectives"]
+    assert got["counts"].get("all-reduce", 0) == 0
+    assert got["counts"]["reduce-scatter"] > 0 and got["counts"]["all-gather"] > 0
+    ops = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
+    assert 0 < sum(got[op] for op in ops) <= sum(want[op] for op in ops), (got, want)
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "nemotron-4-340b"])

@@ -28,6 +28,13 @@ The serving cases: ``llama3-8b`` (KV heads over the axis), ``granite-20b``
 ``tests/test_distributed.py`` runs it (its 2 KV heads over a 4-wide axis:
 the sequence path). Tolerances are the reference's: logits 3e-5 with greedy
 tokens equal under fp32, grads 5e-4.
+
+Sequence parallelism (``SP_CASES``): reduced ``nemotron-4-340b`` with
+``sequence_parallel=True`` on (1, 2) and with FSDP on (2, 2) (a third spawn),
+a sequence the axis does not divide, and ``mamba2-2.7b`` under the flag: the
+train step's grads against ``jax.grad`` of ``lm_loss`` under ``use_rules(mesh,
+sp=True)``, the stream each block takes, and the collectives inside the
+layers.
 """
 from __future__ import annotations
 
@@ -67,7 +74,6 @@ MAX_LEN = S0 + GEN
 # (arch, (data, model)): the serving cases.
 SERVE_CASES = (("llama3-8b", (1, 2)), ("granite-20b", (1, 2)), ("mamba2-2.7b", (1, 2)),
                ("zamba2-7b", (2, 4)))
-MESHES = tuple(sorted({m for _, m in SERVE_CASES}))
 GRAD_ARCHS = ("llama3-8b", "mamba2-2.7b")  # on (1, 2)
 # Variants of the reduced configs on (1, 2), served and differentiated
 # against the single-device port: name -> (arch, config overrides, max_len).
@@ -85,8 +91,16 @@ VARIANTS = {"gathered_q_whole_cache": ("llama3-8b", {"n_heads": 3, "n_kv_heads":
             "mamba_heads_split_groups": ("mamba2-2.7b", {"ssm_expand": 3, "ssm_headdim": 32,
                                                          "ssm_ngroups": 3}, MAX_LEN)}
 LOGIT_TOL, GRAD_TOL = 3e-5, 5e-4
-BF16_TOL = 2 * 4 * 2.0 ** -8  # two bf16 roundings of a value below 4
 BATCH_ROWS, BATCH_SEQ = 4, 16
+# Sequence parallelism in the train step: name -> (arch, mesh, FSDP, the
+# batch's sequence length). 15 tokens do not divide over the 2-wide model
+# axis: the stream stays whole (JAX's divisibility fallback).
+SP_CASES = {"nemotron": ("nemotron-4-340b", (1, 2), False, BATCH_SEQ),
+            "nemotron_fsdp": ("nemotron-4-340b", (2, 2), True, BATCH_SEQ),
+            "nemotron_odd_seq": ("nemotron-4-340b", (1, 2), False, BATCH_SEQ - 1),
+            "mamba2": ("mamba2-2.7b", (1, 2), False, BATCH_SEQ)}
+MESHES = tuple(sorted({m for _, m in SERVE_CASES} | {c[1] for c in SP_CASES.values()}))
+BF16_TOL = 2 * 4 * 2.0 ** -8  # two bf16 roundings of a value below 4
 JOINED_ARGV = ["--arch", "llama3-8b", "--reduced", "--device", "cpu", "--batch", "4",
                "--prompt-len", "12", "--gen-len", "6", "--model-shards", "2"]
 # Every non-paper config's at-rest specs on these mesh shapes.
@@ -103,12 +117,17 @@ def _cfg(arch, over=None):
     return get_config(arch).reduced().with_(**(over or {}))
 
 
-def _batch(rng, cfg) -> dict:
-    mask = np.ones((BATCH_ROWS, BATCH_SEQ), np.float32)
+def _batch(rng, cfg, seq=BATCH_SEQ) -> dict:
+    mask = np.ones((BATCH_ROWS, seq), np.float32)
     mask[1, 9:] = 0  # a ragged row
-    return {"inputs": rng.integers(0, cfg.vocab, (BATCH_ROWS, BATCH_SEQ)).astype(np.int32),
-            "targets": rng.integers(0, cfg.vocab, (BATCH_ROWS, BATCH_SEQ)).astype(np.int32),
+    return {"inputs": rng.integers(0, cfg.vocab, (BATCH_ROWS, seq)).astype(np.int32),
+            "targets": rng.integers(0, cfg.vocab, (BATCH_ROWS, seq)).astype(np.int32),
             "mask": mask}
+
+
+def _sp_cfg(name):
+    arch, _, fsdp, _ = SP_CASES[name]
+    return _cfg(arch, {"sequence_parallel": True, "fsdp": fsdp})
 
 
 def _make_inputs() -> dict:
@@ -136,6 +155,13 @@ def _make_inputs() -> dict:
                                                         device="cpu")),
             "tokens": rng.integers(0, cfg.vocab, (B, S0)).astype(np.int32),
             "batch": _batch(rng, cfg)}
+    for name, (arch, shape, fsdp, seq) in SP_CASES.items():
+        cfg = _sp_cfg(name)
+        cases[f"sp/{name}"] = {
+            "mesh": shape, "arch": arch, "over": {"sequence_parallel": True, "fsdp": fsdp},
+            "params": bridge.params_to_numpy(lm.lm_init(torch.Generator().manual_seed(3), cfg,
+                                                        device="cpu")),
+            "batch": _batch(rng, cfg, seq)}
     return cases
 
 
@@ -165,7 +191,9 @@ for key, c in cases.items():
     kind, arch = key.split("/")
     if kind == "variant":  # held to the single-device port in the test process
         continue
-    cfg = get_config(arch).reduced()
+    if kind == "sp":
+        arch = c["arch"]
+    cfg = get_config(arch).reduced().with_(**c.get("over", {}))
     m = mesh(c["mesh"])
     psh = placed(tree(c["params"]), m)
     if kind == "serve":
@@ -182,7 +210,7 @@ for key, c in cases.items():
             logits.append(np.asarray(lg))
         out[key] = {"logits": np.stack(logits), "tokens": np.concatenate(greedy, axis=1)}
     else:
-        with use_rules(m):
+        with use_rules(m, sp=cfg.sequence_parallel):
             loss, g = jax.jit(jax.value_and_grad(lambda p, b: lm_loss(p, cfg, b)[0]))(
                 psh, tree(c["batch"]))
         out[key] = {"loss": float(loss),
@@ -236,16 +264,30 @@ def _greedy_run(cfg, params, toks, mesh, max_len=MAX_LEN):
 
 def _grads_case(cfg, c, mesh):
     """The train step's loss and grads (``steps.step_grads``) on this rank's
-    shards, each grad made whole over the mesh."""
-    specs = steps.train_param_specs(cfg, mesh)
+    shards, each grad made whole over the mesh; the shape of the stream
+    each block took (``lm._block_apply``) and the step's collectives."""
+    specs = steps.train_param_specs(cfg, mesh, fsdp=cfg.fsdp)
     whole = _whole(c["params"])
     params = shd.map_with_paths(lambda p, x: shd.local_shard(x, shd._at(specs, p), mesh), whole)
     batch = {k: torch.tensor(v) for k, v in c["batch"].items()}
-    loss, grads = steps.step_grads(cfg, params, batch, mesh, specs)
-    return {"loss": float(loss),
+    streams, block = [], lm._block_apply
+
+    def seen(params, cfg, x, positions):
+        streams.append(tuple(x.shape))
+        return block(params, cfg, x, positions)
+
+    lm._block_apply = seen
+    try:
+        with mesh_lib.recorded_collectives(mesh) as log:
+            loss, grads = steps.step_grads(cfg, params, batch, mesh, specs)
+    finally:
+        lm._block_apply = block
+    eval_loss = steps.build_eval_step(cfg, mesh, specs=specs)(params, batch)["loss"]
+    return {"loss": float(loss), "eval_loss": float(eval_loss),
             "grads": {path: shd.gather_shard(g, s, mesh).numpy() for (path, g), s in
                       zip(flatten_with_paths(grads), tree_leaves(specs))},
-            "held": {path: tuple(x.shape) for path, x in flatten_with_paths(params)}}
+            "held": {path: tuple(x.shape) for path, x in flatten_with_paths(params)},
+            "streams": streams, "collectives": [tuple(e) for e in log]}
 
 
 def _refusal(mesh) -> str:
@@ -280,15 +322,17 @@ def _worker(rank, world, model_axis, init_file, cases_path, out_dir):
                 toks = shd.local_shard(toks, (fs._batch_spec(mesh, B), None), mesh)
                 res[key] = _greedy_run(cfg, params, toks, mesh, c.get("max_len", MAX_LEN))
                 res[key]["block_bytes"] = serve.block_bytes(params)
-            if kind in ("grads", "variant"):
+            if kind in ("grads", "variant", "sp"):
                 res[key + "/grads"] = _grads_case(cfg, c, mesh)
         if shape == (1, 2):
             res["refusal"] = _refusal(mesh)
             with contextlib.redirect_stdout(io.StringIO()) as out:
                 assert serve.main(JOINED_ARGV) == 0
             res["joined"] = out.getvalue()
-        if rank:  # the grads are rank 0's alone
-            res = {k: v for k, v in res.items() if not k.endswith("/grads")}
+        if rank:  # the grads are rank 0's alone; every rank's streams and collectives
+            res = {k: {f: v[f] for f in ("streams", "collectives")} if k.startswith("sp/")
+                   else v for k, v in res.items()
+                   if k.startswith("sp/") or not k.endswith("/grads")}
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -462,6 +506,59 @@ def test_sharded_train_grads_match_jax(runs, arch):
     else:
         assert held["layers/attn/w_q"][-1] * 2 == cfg.n_heads * cfg.d_head
         assert held["layers/mlp/w_down"][1] * 2 == cfg.d_ff
+
+
+@pytest.mark.parametrize("name", sorted(SP_CASES))
+def test_sequence_parallel_grads_match_jax(runs, name):
+    """Under ``sequence_parallel=True`` ``steps.step_grads`` on the rank's
+    shards (FSDP on (2, 2)) against ``jax.grad`` of ``lm_loss`` under
+    ``use_rules(mesh, sp=True)``: the loss within 3e-5, every grad within
+    5e-4, ``ln1``, ``ln2`` and ``final_norm`` included (each model rank
+    computes them on its sequence slice; the step sums them over "model").
+    The eval step, on the same forward, gives the loss too."""
+    key = f"sp/{name}"
+    got = runs["ranks"][SP_CASES[name][1]][0][key + "/grads"]
+    ref = runs["ref"][key]
+    assert abs(got["loss"] - ref["loss"]) <= LOGIT_TOL
+    assert abs(got["eval_loss"] - ref["loss"]) <= LOGIT_TOL
+    assert sorted(got["grads"]) == sorted(ref["grads"])
+    assert {"final_norm", "layers/ln1"} <= set(got["grads"])
+    for path, g in ref["grads"].items():
+        np.testing.assert_allclose(got["grads"][path], g, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=path)
+
+
+@pytest.mark.parametrize("name", sorted(SP_CASES))
+def test_sequence_parallel_stream_is_the_rank_slice(runs, name):
+    """Every block of every rank takes the rank's rows and its slice of the
+    sequence, (rows, S / 2, d), in the forward and in its remat's recompute;
+    where S does not divide over the axis, the whole sequence (rows, S,
+    d)."""
+    arch, shape, _, seq = SP_CASES[name]
+    cfg = _sp_cfg(name)
+    want = (BATCH_ROWS // shape[0], seq // shape[1] if seq % shape[1] == 0 else seq,
+            cfg.d_model)
+    for r in runs["ranks"][shape]:
+        streams = r[f"sp/{name}/grads"]["streams"]
+        assert set(streams) == {want} and len(streams) >= cfg.n_layers
+
+
+@pytest.mark.parametrize("name", ["nemotron", "nemotron_fsdp"])
+def test_sequence_parallel_blocks_gather_and_scatter_the_stream(runs, name):
+    """Inside the layers (Megatron-SP around the attention and the MLP) the
+    stream moves by all-gathers of the whole sequence and reduce-scatters to
+    the slice, and no collective all-reduces a tensor of the slice's size or
+    more (the sums over "model" of the norms' grads and the loss lie
+    outside the layers, and are smaller)."""
+    _, shape, _, seq = SP_CASES[name]
+    cfg = _sp_cfg(name)
+    rows = BATCH_ROWS // shape[0]
+    whole, piece = rows * seq * cfg.d_model * 4, rows * seq // shape[1] * cfg.d_model * 4
+    for r in runs["ranks"][shape]:
+        log = r[f"sp/{name}/grads"]["collectives"]
+        inside = [(op, n) for op, n, entry in log if not entry]
+        assert ("all-gather", whole) in inside and ("reduce-scatter", piece) in inside
+        assert all(n < piece for op, n, _ in log if op == "all-reduce"), log
 
 
 # ---------------------------------------------------------------------------
